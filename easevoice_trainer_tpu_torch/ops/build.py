@@ -1,0 +1,107 @@
+"""Build the hand-written Hopper kernels and bind them with ctypes.
+
+The CUDA sources under ``easevoice_trainer_tpu_torch/csrc/`` have a plain C
+interface.  At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+one shared library under ``build/torch_kernels/<hash>/`` at the repository
+root (git-ignored); the hash covers the sources and the flags, so an edited
+source rebuilds and an unchanged one loads the library already built.
+
+Every entry point takes ``c_void_p`` pointers (tensor ``data_ptr()``) and the
+current CUDA stream, launches, and returns ``cudaGetLastError()``;
+:func:`check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+SIGNATURES = {
+    "ev_prefill_attention_f32": [_P, _P, _P, _P] + [_LL] * 8
+    + [_P, _P, _I, _I, _I, _I, _F, _P],
+    "ev_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P],
+    "ev_mrf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: str, seconds: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = seconds
+        self.build_log = log
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+_loaded: Optional[KernelLibrary] = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def build() -> KernelLibrary:
+    """Compile (or reuse) the kernel library and load it."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
+    so = os.path.join(out_dir, "libeasevoice_kernels.so")
+    t0 = time.perf_counter()
+    log = "reused " + so
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    _loaded = KernelLibrary(ctypes.CDLL(so), so, time.perf_counter() - t0,
+                            log)
+    return _loaded
+
+
+def check(code: int, name: str) -> None:
+    """Raise when a kernel entry point returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
