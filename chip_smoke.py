@@ -7,17 +7,27 @@ Phases, one summary line each; any failure exits non-zero:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 off for
    matmul and cuDNN (every comparison below is full fp32);
-2. build: compile the hand-written kernels (``csrc/*.cu``, nvcc, sm_90a);
+2. build: compile the hand-written kernels (``csrc/*.cu``, one nvcc per
+   source, sm_90a);
 3. kernels: each kernel against its plain PyTorch twin on the same seeded
-   inputs at the main path's shapes, max |diff| against the stated
-   tolerance, and both times (CUDA events);
+   inputs at the main paths' shapes (K1-K3 at serving's, K4 at the s2
+   step's), max |diff| against the stated tolerance, and both times (CUDA
+   events);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
    sentences; the wav must be finite and non-silent, every weight on the
-   card, and each kernel launched during this phase;
+   card, and K1, K2 and K3 launched during this phase;
 5. reference: the same models on the card and on the CPU (where the plain
-   twins run) agree on a small input.
+   twins run) agree on a small input;
+6. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
+   full MPD from seeded random pretrained .pth files, 8 synthetic clips of
+   256 frames, batch 8, 12 steps): finite losses, every tensor on the card,
+   K3 and both K4 entry points launched, every ResBlock ``weight_v`` and
+   upsample tensor changed, and the export loads ``strict=True`` into the
+   inference build and decodes a finite, non-silent wav;
+7. reference train step: one step at a small width on the card and on the
+   CPU agrees (losses and the ResBlock gradients).
 
 The line before the last holds one JSON object with each kernel's launches,
 error and times; the last line is the run's verdict
@@ -27,6 +37,7 @@ repository beside this file, it exits non-zero and prints no verdict.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -63,7 +74,18 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu_torch/csrc/mrf_conv.cu",
         "easevoice_trainer_tpu/ops/fused_mrf.py:125 "
         "(_fwd_kernel, git 42ecfe8)"),
+    "mrf_conv_bwd_data": (
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_bwd.cu",
+        "easevoice_trainer_tpu/ops/fused_mrf.py:168 "
+        "(_bwd_kernel, dx, git 42ecfe8)"),
+    "mrf_conv_bwd_weight": (
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_bwd.cu",
+        "easevoice_trainer_tpu/ops/fused_mrf.py:168 "
+        "(_bwd_kernel, dW and db, git 42ecfe8)"),
 }
+
+# the s2 step's Generator stages for one 32-frame segment: (C, T)
+S2_STAGES = ((256, 320), (128, 2560), (64, 5120), (32, 10240), (16, 20480))
 
 
 def log(msg: str) -> None:
@@ -220,6 +242,94 @@ def check_kernels(torch, results):
                                plain_ms=total_plain)
 
 
+def check_k4(torch, results):
+    """K4's two entry points against their twins at the s2 step's shapes:
+    B=8, every Generator stage of one 32-frame segment, k in {3, 7, 11},
+    d in {1, 3, 5}.  dx is a sum of Cout*k products, like K3's output, and
+    takes K3's tolerance, 1e-4 x max(1, max|twin|).  dW and db are sums of
+    B*T (up to 163,840) products, taken in 512-sample chunks and then across
+    chunks, in another order than cuDNN's: 1e-3 x max(1, max|twin|).  A
+    wrong tap or index gives errors of order 1."""
+    from easevoice_trainer_tpu_torch.ops import mrf
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    b = 8
+    tol_dx, tol_dw = 1e-4, 1e-3
+    worst = {"mrf_conv_bwd_data": 0.0, "mrf_conv_bwd_weight": 0.0}
+    worst_rel = dict(worst)
+    times = {name: [0.0, 0.0] for name in worst}
+    for ch, t_len in S2_STAGES:
+        x = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        dy = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        for kk in (3, 7, 11):
+            w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
+                / math.sqrt(ch * kk)
+            for d in (1, 3, 5):
+                got = mrf.mrf_conv_bwd_data(dy, x, w, d)
+                want = mrf.mrf_conv_bwd_data_reference(dy, x, w, d)
+                err_x = max_err(torch, got, want)
+                rel_x = err_x / max(1.0, float(want.abs().max()))
+                gw, gb = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
+                ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, w.shape, d)
+                err_w = max(max_err(torch, gw, ww), max_err(torch, gb, wb))
+                rel_w = err_w / max(1.0, float(ww.abs().max()),
+                                    float(wb.abs().max()))
+                # a second launch must repeat the first bit for bit
+                gw2, gb2 = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
+                assert torch.equal(gw, gw2) and torch.equal(gb, gb2), \
+                    "mrf_conv_bwd_weight does not repeat"
+                ms_x = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_data(
+                    dy, x, w, d), 3)
+                pl_x = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_data_reference(
+                    dy, x, w, d), 3)
+                ms_w = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_weight(
+                    dy, x, w.shape, d), 3)
+                pl_w = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_weight_reference(
+                    dy, x, w.shape, d), 3)
+                for name, e, r, ms, pl in (
+                        ("mrf_conv_bwd_data", err_x, rel_x, ms_x, pl_x),
+                        ("mrf_conv_bwd_weight", err_w, rel_w, ms_w, pl_w)):
+                    worst[name] = max(worst[name], e)
+                    worst_rel[name] = max(worst_rel[name], r)
+                    times[name][0] += ms
+                    times[name][1] += pl
+                log(f"[kernels] K4 B={b} C={ch} T={t_len} k={kk} d={d}: dx "
+                    f"max|d|={err_x:.3g} rel {rel_x:.3g}, kernel "
+                    f"{ms_x:.4f} ms, plain {pl_x:.4f} ms; dW/db max|d|="
+                    f"{err_w:.3g} rel {rel_w:.3g}, kernel {ms_w:.4f} ms, "
+                    f"plain {pl_w:.4f} ms")
+    # the card against the CPU twin on two shapes
+    for ch, t_len, kk, d in ((256, 320, 11, 5), (16, 20480, 3, 1)):
+        x = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        dy = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
+            / math.sqrt(ch * kk)
+        got = mrf.mrf_conv_bwd_data(dy, x, w, d).cpu()
+        want = mrf.mrf_conv_bwd_data_reference(dy.cpu(), x.cpu(), w.cpu(), d)
+        rel_x = max_err(torch, got, want) / max(1.0, float(want.abs().max()))
+        gw, gb = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
+        ww, wb = mrf.mrf_conv_bwd_weight_reference(dy.cpu(), x.cpu(),
+                                                   w.shape, d)
+        rel_w = max(max_err(torch, gw.cpu(), ww), max_err(
+            torch, gb.cpu(), wb)) / max(1.0, float(ww.abs().max()))
+        worst_rel["mrf_conv_bwd_data"] = max(worst_rel["mrf_conv_bwd_data"],
+                                             rel_x)
+        worst_rel["mrf_conv_bwd_weight"] = max(
+            worst_rel["mrf_conv_bwd_weight"], rel_w)
+        log(f"[kernels] K4 C={ch} T={t_len} k={kk} d={d} against the CPU "
+            f"twin: dx relative {rel_x:.3g}, dW/db relative {rel_w:.3g}")
+    for name, tol in (("mrf_conv_bwd_data", tol_dx),
+                      ("mrf_conv_bwd_weight", tol_dw)):
+        log(f"[kernels] K4 {name} 45 shapes: max|d|={worst[name]:.3g}, "
+            f"relative {worst_rel[name]:.3g} (tol {tol} x max(1, "
+            f"max|twin|)); kernel {times[name][0]:.3f} ms, plain "
+            f"{times[name][1]:.3f} ms summed over shapes")
+        assert worst_rel[name] <= tol, f"{name} disagrees: {worst_rel[name]}"
+        results[name] = dict(max_abs_err=worst[name], ms=times[name][0],
+                             plain_ms=times[name][1])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
@@ -247,15 +357,17 @@ def read_wav(path: str):
     return data.astype(np.float32) / 32768.0, sr
 
 
-def random_weights(torch, module, gen, path: str, wrap: bool = True) -> None:
+def random_weights(torch, module, gen, path: str, wrap: bool = True):
     """Seeded random weights saved as a checkpoint file: wrapped like an
-    exported .pth/.ckpt, or a raw state dict like HF's pytorch_model.bin."""
+    exported .pth/.ckpt, or a raw state dict like HF's pytorch_model.bin.
+    Returns the state dict (on the CPU)."""
     from easevoice_trainer_tpu_torch import convert
 
     state = {k: v.cpu() for k, v in
              convert.random_state_dict(module, gen).items()}
     torch.save({"weight": state, "config": {}, "info": "random"}
                if wrap else state, path)
+    return state
 
 
 class _Sessions:
@@ -316,7 +428,7 @@ def serve(torch, tmp: str, results):
     result = service.clone("chip-smoke", params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    launches = ops.launch_counts()
 
     assert result.ok, result
     wav, sr = read_wav(result.data["output_path"])
@@ -330,9 +442,10 @@ def serve(torch, tmp: str, results):
         for pname, p in list(model.named_parameters()) + list(
                 model.named_buffers()):
             assert p.device.type == "cuda", f"{name}.{pname} on {p.device}"
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the serving path"
-        results[name]["launches"] = n
+    for name in ("prefill_attention", "decode_attention", "mrf_conv"):
+        assert launches[name] > 0, \
+            f"{name} was never launched on the serving path"
+        results[name]["launches"] = launches[name]
 
     phases = tts.last_phases
     audio_s = wav.size / sr
@@ -399,6 +512,212 @@ def reference_check(torch, tts):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the s2 fine-tune at full width
+# ---------------------------------------------------------------------------
+
+PHONES = "HH AH0 L OW1 W ER1 L D SP K AE1 T S .".split()
+
+
+def write_normalize_dir(root: str, clips: int, frames: int, seed: int):
+    """A synthetic normalize output: 2-name2text.txt, 4-cnhubert/*.npy
+    (frames x 768) and 5-wav32k/*.wav (frames x 640 samples)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "4-cnhubert"))
+    os.makedirs(os.path.join(root, "5-wav32k"))
+    lines = []
+    for i in range(clips):
+        name = f"clip{i}.wav"
+        write_reference_wav(os.path.join(root, "5-wav32k", name),
+                            frames * 640 / 32000, seed + i)
+        np.save(os.path.join(root, "4-cnhubert", name + ".npy"),
+                rng.normal(size=(frames, 768)).astype(np.float32))
+        lines.append(f"{name}\t{' '.join(PHONES * 3)}\t1\ttext")
+    with open(os.path.join(root, "2-name2text.txt"), "w",
+              encoding="utf8") as f:
+        f.write("\n".join(lines))
+
+
+def train(torch, tmp: str, results):
+    """SovitsTrain.train() at full width: SovitsConfig() and the full MPD
+    from seeded random pretrained .pth files, 8 clips of 256 frames
+    replicated to 96 items, batch 8, one epoch = 12 steps."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.models.sovits import \
+        MultiPeriodDiscriminator, SovitsConfig, SynthesizerTrn
+    from easevoice_trainer_tpu_torch.train.sovits import SovitsTrain, \
+        SovitsTrainParams
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    s2g = os.path.join(tmp, "s2G_random.pth")
+    s2d = os.path.join(tmp, "s2D_random.pth")
+    pre_g = random_weights(torch, SynthesizerTrn(with_enc_q=True), gen, s2g)
+    random_weights(torch, MultiPeriodDiscriminator(), gen, s2d)
+    norm = os.path.join(tmp, "norm")
+    write_normalize_dir(norm, clips=8, frames=256, seed=3)
+    project = os.path.join(tmp, "project")
+    trainer = SovitsTrain(SovitsTrainParams(
+        batch_size=8, total_epochs=1, save_every_epoch=1,
+        pretrained_s2G=s2g, pretrained_s2D=s2d, train_input_dir=norm,
+        output_model_name="chip_smoke", project_dir=project))
+    assert trainer.device.type == "cuda"
+    log(f"[training] random s2G/s2D .pth and a normalize dir of 8 clips "
+        f"written in {time.perf_counter() - t0:.1f} s")
+
+    history = []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    resp = trainer.train(on_step=lambda step, m: history.append(
+        {k: float(v) for k, v in m.items()}))
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert resp.ok, resp.message
+
+    secs = trainer.step_seconds
+    assert len(history) == len(secs) == 12, (len(history), len(secs))
+    for i, m in enumerate(history):
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        assert not bad, f"step {i + 1}: non-finite {bad}"
+    step_fn = trainer.step_fn
+    for name, net in (("G", step_fn.net_g), ("D", step_fn.net_d)):
+        for pname, p in list(net.named_parameters()) + list(
+                net.named_buffers()):
+            assert p.device.type == "cuda", f"{name}.{pname} on {p.device}"
+    for opt in (step_fn.optim_g, step_fn.optim_d):
+        for st in opt.state.values():
+            assert all(t.device.type == "cuda" for t in st.values())
+    for name in ("mrf_conv", "mrf_conv_bwd_data", "mrf_conv_bwd_weight"):
+        assert launches[name] > 0, f"{name} was never launched in training"
+        results[name]["launches"] = results[name].get("launches", 0) \
+            + launches[name]
+
+    # the Generator's ResBlocks and upsamples moved (gradients reached them
+    # through K4)
+    trained = torch.load(os.path.join(trainer.train_logs_dir,
+                                      "G_latest.pth"), map_location="cpu",
+                         weights_only=False)["model"]
+    checked = [k for k in pre_g if (k.startswith("dec.resblocks.")
+                                    and k.endswith("weight_v"))
+               or k.startswith("dec.ups.")]
+    same = [k for k in checked if torch.equal(trained[k], pre_g[k])]
+    assert checked and not same, f"unchanged after training: {same[:5]}"
+
+    # the export loads strictly into the inference build and decodes
+    obj = torch.load(resp.data["model_path"], map_location="cpu",
+                     weights_only=False)
+    assert set(obj) >= {"weight", "config", "info"}
+    assert not any(k.startswith("enc_q.") for k in obj["weight"])
+    model = SynthesizerTrn(SovitsConfig())
+    model.load_state_dict({k: v.float() for k, v in obj["weight"].items()},
+                          strict=True)
+    model = model.cuda().eval()
+    g2 = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        wav = model.decode(
+            torch.randint(0, 1024, (1, 40), generator=g2, device="cuda"),
+            torch.randint(1, 700, (1, 12), generator=g2, device="cuda"),
+            torch.tensor([12], device="cuda"),
+            torch.rand((1, 150, 1025), generator=g2, device="cuda"),
+            torch.tensor([150], device="cuda"))
+    assert wav.shape == (1, 40 * 2 * 640, 1)
+    assert torch.isfinite(wav).all() and float(wav.abs().max()) > 0
+
+    steady = float(np.median(secs[2:12]))
+    first, last = history[0], history[-1]
+    log(f"[training] SovitsTrain.train(): 12 steps of B=8 x 20480 samples "
+        f"in {wall:.2f} s wall (data, models and pretrained load "
+        f"included); first step {secs[0]:.3f} s, median s/step over steps "
+        f"3-12 {steady:.4f} s (min {min(secs[2:]):.4f}, max "
+        f"{max(secs[2:]):.4f}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(f"[training] step 1 losses " + ", ".join(
+        f"{k} {v:.4f}" for k, v in first.items()))
+    log(f"[training] step 12 losses " + ", ".join(
+        f"{k} {v:.4f}" for k, v in last.items()))
+    log(f"[training] {len(checked)} dec.resblocks.*.weight_v / dec.ups.* "
+        f"tensors all changed; export {os.path.basename(resp.data['model_path'])} "
+        f"loads strict=True and decodes a finite wav (|wav| max "
+        f"{float(wav.abs().max()):.3f}); launches {launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one train step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TINY_SOVITS = dict(
+    spec_channels=1025, segment_size=2560, inter_channels=32,
+    hidden_channels=32, filter_channels=64, n_heads=2, n_layers=2,
+    upsample_initial_channel=32, gin_channels=32, ssl_dim=64,
+    n_symbols=732, p_dropout=0.0)
+
+
+def reference_train_step(torch):
+    """One S2TrainStep at a small Generator width (the full MPD) on the card
+    and on the CPU (plain twins) from the same weights and batch, with the
+    slice starts and posterior noise given and dropout off.  Losses within
+    1e-4 x max(1, |CPU|); every dec.resblocks.* gradient within 1e-3 x its
+    largest CPU magnitude + 1e-6 x the largest Generator gradient (the
+    rounding floor of gradients that are zero in exact arithmetic)."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.models.sovits import \
+        MultiPeriodDiscriminator, SovitsConfig, SynthesizerTrn
+    from easevoice_trainer_tpu_torch.ops.stft import MelConfig, spectrogram
+    from easevoice_trainer_tpu_torch.train.sovits_step import S2TrainHP, \
+        S2TrainStep
+
+    cfg = SovitsConfig(**TINY_SOVITS)
+    gen = torch.Generator().manual_seed(11)
+    b, frames = 2, 16
+    wav = torch.rand((b, frames * 640), generator=gen) - 0.5
+    batch = {"ssl": torch.randn((b, frames, 64), generator=gen),
+             "spec": spectrogram(wav), "spec_lengths": torch.tensor([16, 13]),
+             "wav": wav,
+             "text": torch.randint(1, 700, (b, 8), generator=gen),
+             "text_lengths": torch.tensor([8, 5])}
+    ids = torch.tensor([5, 2])
+    eps = torch.randn((b, frames, 32), generator=gen)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        net_g = SynthesizerTrn(cfg, with_enc_q=True)
+        net_d = MultiPeriodDiscriminator()
+        for net, seed in ((net_g, 1), (net_d, 2)):
+            net.load_state_dict(convert.random_state_dict(
+                net, torch.Generator().manual_seed(seed)))
+            net.to(dev)
+        step = S2TrainStep(net_g, net_d, S2TrainHP(segment_size=2560,
+                                                   learning_rate=2e-4),
+                           MelConfig(), steps_per_epoch=1)
+        metrics = step({k: v.to(dev) for k, v in batch.items()},
+                       ids_slice=ids.to(dev), eps=eps.to(dev))
+        grads = {k: p.grad.cpu() for k, p in net_g.named_parameters()
+                 if p.grad is not None}
+        runs[dev] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    worst_loss = max(abs(m_gpu[k] - v) / max(1.0, abs(v))
+                     for k, v in m_cpu.items() if k.startswith("loss/"))
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
+    worst_grad, names = 0.0, 0
+    for k, want in g_cpu.items():
+        if not k.startswith("dec.resblocks."):
+            continue
+        err = float((g_gpu[k] - want).abs().max())
+        worst_grad = max(worst_grad, err / (float(want.abs().max()) + floor))
+        names += 1
+    log(f"[reference] S2TrainStep card vs CPU (G at width 32, full MPD, B=2, "
+        f"2560 samples): losses relative max|d|={worst_loss:.3g} (tol "
+        f"1e-4); {names} dec.resblocks.* gradients max|d| / (max|CPU| + "
+        f"floor)={worst_grad:.3g} (tol 1e-3); loss/g/total "
+        f"{m_gpu['loss/g/total']:.4f} vs {m_cpu['loss/g/total']:.4f}")
+    assert worst_loss <= 1e-4 and worst_grad <= 1e-3 and names == 15 * 6 * 3
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -438,10 +757,18 @@ def main() -> int:
 
         phase = "kernels"
         check_kernels(torch, results)
+        check_k4(torch, results)
         phase = "serving"
         tts = serve(torch, tmp, results)
         phase = "reference"
         reference_check(torch, tts)
+        del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "training"
+        train(torch, tmp, results)
+        phase = "reference train step"
+        reference_train_step(torch)
         assert "jax" not in sys.modules and "flax" not in sys.modules
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()

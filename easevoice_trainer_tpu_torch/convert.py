@@ -1,20 +1,23 @@
 """JAX parameter trees (as numpy) -> state dicts of the port's modules.
 
-SoVITS and GPT go through the checkpoint name rules the JAX package already
-keeps for torch export (``train/ckpt.py`` ``flax_to_torch`` with
-``sovits_generator_rules`` / ``gpt_rules``), so the names are the reference
-torch names.  HuBERT goes through a numpy inverse of the JAX package's
+SoVITS, its discriminators and GPT go through the checkpoint name rules the
+JAX package already keeps for torch export (``train/ckpt.py``
+``flax_to_torch`` with ``sovits_generator_rules`` /
+``sovits_discriminator_rules`` / ``gpt_rules``), so the names are the
+reference torch names.  HuBERT goes through a numpy inverse of the JAX package's
 ``convert_hf_hubert``, giving HF ``HubertModel`` names.  Each result loads
 with ``load_state_dict(strict=True)``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from easevoice_trainer_tpu.train import ckpt
+
+from .nn.layers import weight_norm_key
 
 
 @torch.no_grad()
@@ -64,16 +67,45 @@ def random_state_dict(module: torch.nn.Module, generator: torch.Generator
     return out
 
 
+def load_torch_state_dict(path: str, drop_prefix: Optional[str] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Read a .pth/.ckpt as the port's state-dict names: wrapper dicts
+    unwrapped, ``model.``/``module.`` prefixes and the parametrized
+    weight-norm spelling normalized, ``drop_prefix`` entries removed."""
+    out = {}
+    for key, value in ckpt.load_torch_state(path).items():
+        for p in ("model.", "module."):
+            if key.startswith(p):
+                key = key[len(p):]
+        key = weight_norm_key(key)
+        if drop_prefix and key.startswith(drop_prefix):
+            continue
+        out[key] = torch.from_numpy(value)
+    return out
+
+
 def _to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in flat.items()}
 
 
-def sovits_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def sovits_state_dict(params: Dict[str, Any], keep_enc_q: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """SynthesizerTrn params -> the port's SynthesizerTrn state dict.  The
-    posterior encoder ``enc_q`` is training-only and is dropped."""
-    params = {k: v for k, v in params.items() if k != "enc_q"}
+    posterior encoder ``enc_q`` is training-only: it is dropped for the
+    inference build and kept (``keep_enc_q``) for ``with_enc_q=True``."""
+    if not keep_enc_q:
+        params = {k: v for k, v in params.items() if k != "enc_q"}
     return _to_torch(ckpt.flax_to_torch(params, ckpt.sovits_generator_rules()))
+
+
+def discriminator_state_dict(params: Dict[str, Any],
+                             periods=(2, 3, 5, 7, 11)
+                             ) -> Dict[str, torch.Tensor]:
+    """MultiPeriodDiscriminator params -> the port's state dict (reference
+    names ``discriminators.{i}.convs.{j}``)."""
+    return _to_torch(ckpt.flax_to_torch(
+        params, ckpt.sovits_discriminator_rules(periods)))
 
 
 def gpt_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

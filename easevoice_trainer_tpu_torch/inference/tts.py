@@ -29,16 +29,15 @@ import numpy as np
 import torch
 
 from easevoice_trainer_tpu.inference.preprocessor import TextPreprocessor
-from easevoice_trainer_tpu.train import ckpt as ckpt_io
 from easevoice_trainer_tpu.train.data import spectrogram_np
 from easevoice_trainer_tpu.utils import audio_io, paths
 from easevoice_trainer_tpu.utils.logger import logger
 
+from .. import convert
 from ..models.cnhubert import feat_output_lengths, load_cnhubert
 from ..models.gpt import DecodeParams, T2SConfig, Text2SemanticDecoder, \
     decode_ar
 from ..models.sovits import SovitsConfig, SynthesizerTrn
-from ..nn.layers import weight_norm_key
 
 
 @dataclasses.dataclass
@@ -143,23 +142,6 @@ class NoReferenceAudioError(ValueError):
     pass
 
 
-def _torch_state(path: str, drop_prefix: Optional[str] = None
-                 ) -> Dict[str, torch.Tensor]:
-    """Read a .pth/.ckpt as the port's state-dict names: wrapper dicts
-    unwrapped, ``model.``/``module.`` prefixes and the parametrized
-    weight-norm spelling normalized, ``drop_prefix`` entries removed."""
-    out = {}
-    for key, value in ckpt_io.load_torch_state(path).items():
-        for p in ("model.", "module."):
-            if key.startswith(p):
-                key = key[len(p):]
-        key = weight_norm_key(key)
-        if drop_prefix and key.startswith(drop_prefix):
-            continue
-        out[key] = torch.from_numpy(value)
-    return out
-
-
 class TTS:
     def __init__(self, config: TTSConfig,
                  models: Optional[Dict[str, Any]] = None):
@@ -200,7 +182,7 @@ class TTS:
 
     def init_vits_weights(self, path: str) -> None:
         # the posterior encoder is training-only (reference exports drop it)
-        state = _torch_state(path, drop_prefix="enc_q.")
+        state = convert.load_torch_state_dict(path, drop_prefix="enc_q.")
         model = SynthesizerTrn(self.vits_cfg)
         model.load_state_dict(state, strict=True)
         self.vits = model.to(self.device).eval()
@@ -210,7 +192,8 @@ class TTS:
 
     def init_t2s_weights(self, path: str) -> None:
         model = Text2SemanticDecoder(self.t2s_cfg)
-        model.load_state_dict(_torch_state(path), strict=True)
+        model.load_state_dict(convert.load_torch_state_dict(path),
+                              strict=True)
         self.t2s = model.to(self.device).eval()
         self.cfg.t2s_weights_path = path
         self.cfg.save_configs()

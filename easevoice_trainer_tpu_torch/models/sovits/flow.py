@@ -22,6 +22,9 @@ class ResidualCouplingLayer(nn.Module):
         self.enc = WaveNet(hidden_channels, kernel_size, dilation_rate,
                            n_layers, gin_channels=gin_channels)
         self.post = nn.Conv1d(hidden_channels, self.half, 1)
+        # zero-initialized as in the reference: identity coupling at init
+        nn.init.zeros_(self.post.weight)
+        nn.init.zeros_(self.post.bias)
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
         x0, x1 = x[:, :self.half], x[:, self.half:]

@@ -1,6 +1,10 @@
-"""Residual vector quantizer, encode/decode only (JAX:
-models/sovits/quantize.py).  Module names follow the reference state dict:
-``vq.layers.{i}._codebook.embed`` of shape (bins, dim)."""
+"""Residual vector quantizer (JAX: models/sovits/quantize.py).  Module names
+follow the reference state dict: ``vq.layers.{i}._codebook.embed`` of shape
+(bins, dim).
+
+The codebook is a buffer, as in the reference: the s2 fine-tune freezes the
+quantizer (``freeze_quantizer``), so it never receives a gradient and the
+EMA update of from-scratch training is not ported."""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,6 +46,24 @@ class ResidualVectorQuantizer(nn.Module):
 
     def codebook(self, q: int) -> torch.Tensor:
         return self.vq.layers[q]._codebook.embed
+
+    def forward(self, x: torch.Tensor, n_layers: Optional[int] = None):
+        """Training forward (JAX quantize.py:62-83).  x: (B, T, D) ->
+        (quantized (B, T, D) through the straight-through estimator, codes
+        (n_layers, B, T) int64, commit loss)."""
+        residual = x
+        quantized = torch.zeros_like(x)
+        codes = []
+        commit = x.new_zeros(())
+        for q in range(n_layers or self.n_q):
+            cb = self.codebook(q)
+            idx = nearest_code(residual.detach(), cb)
+            quant = cb[idx].detach()
+            codes.append(idx)
+            commit = commit + ((residual - quant).float() ** 2).mean()
+            quantized = quantized + residual + (quant - residual).detach()
+            residual = residual - quant
+        return quantized, torch.stack(codes, dim=0), commit
 
     def encode(self, x: torch.Tensor,
                n_layers: Optional[int] = None) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""s2 SoVITS synthesizer, inference half (JAX: models/sovits/synthesizer.py).
+"""s2 SoVITS synthesizer (JAX: models/sovits/synthesizer.py).
 
-Only what synthesis runs is ported: the style encoder, ``decode`` (semantic
-codes -> waveform) and ``extract_latent`` (SSL features -> codes).  The
-posterior encoder ``enc_q`` belongs to training and is absent, so a
-checkpoint's ``enc_q.*`` entries are dropped before loading (see
-``inference/tts.py``).  Public layouts are the JAX package's: codes
-(B, Tc), spectrograms (R, Tr, F), waveforms (B, samples, 1).
+``decode`` (semantic codes -> waveform) and ``extract_latent`` (SSL features
+-> codes) serve synthesis; ``forward`` is the training forward.  The
+posterior encoder ``enc_q`` belongs to training: it is built only with
+``with_enc_q=True``, so the inference build's state dict is that of a
+deployable export (no ``enc_q.*``, see ``inference/tts.py``).  Public
+layouts are the JAX package's: codes (B, Tc), SSL features (B, T, D),
+spectrograms (B, frames, bins), waveforms (B, samples, 1), latents
+(B, frames, C).
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
-from ...nn.layers import sequence_mask
+from ...nn.layers import rand_slice_starts, sequence_mask, slice_segments
 from .flow import ResidualCouplingBlock
 from .generator import Generator
 from .mel_style import MelStyleEncoder
+from .posterior import PosteriorEncoder
 from .quantize import ResidualVectorQuantizer
 from .text_encoder import TextEncoder
 
@@ -81,12 +84,13 @@ class SovitsConfig:
 
 
 class SynthesizerTrn(nn.Module):
-    def __init__(self, cfg: SovitsConfig = SovitsConfig()):
+    def __init__(self, cfg: SovitsConfig = SovitsConfig(),
+                 with_enc_q: bool = False):
         super().__init__()
         c = self.cfg = cfg
         self.enc_p = TextEncoder(
             c.inter_channels, c.hidden_channels, c.filter_channels, c.n_heads,
-            c.n_layers, c.kernel_size, n_symbols=c.n_symbols,
+            c.n_layers, c.kernel_size, c.p_dropout, n_symbols=c.n_symbols,
             ssl_dim=c.ssl_dim, gin_channels=c.gin_channels)
         self.dec = Generator(
             c.inter_channels, c.resblock, tuple(c.resblock_kernel_sizes),
@@ -103,11 +107,69 @@ class SynthesizerTrn(nn.Module):
             self.ssl_proj = nn.Conv1d(c.ssl_dim, c.ssl_dim, 1)
         self.quantizer = ResidualVectorQuantizer(dim=c.ssl_dim, n_q=1,
                                                  bins=1024)
+        if with_enc_q:
+            self.enc_q = PosteriorEncoder(
+                c.spec_channels, c.inter_channels, c.hidden_channels, 5, 1,
+                16, gin_channels=c.gin_channels)
+        if c.freeze_quantizer:
+            # as the reference: the frozen projection gets no gradient and
+            # no optimizer state (the codebook is a buffer)
+            self.ssl_proj.requires_grad_(False)
 
     def _style(self, spec: torch.Tensor,
                spec_mask: torch.Tensor) -> torch.Tensor:
         """Global style vector from the first 704 spectrogram bins (v2)."""
         return self.ref_enc(spec[..., :704] * spec_mask, spec_mask)
+
+    def forward(self, ssl: torch.Tensor, spec: torch.Tensor,
+                spec_lengths: torch.Tensor, text: torch.Tensor,
+                text_lengths: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                ids_slice: Optional[torch.Tensor] = None,
+                eps: Optional[torch.Tensor] = None):
+        """Training forward (JAX synthesizer.py:141-168); needs
+        ``with_enc_q``.
+
+        ssl: (B, T, ssl_dim) and spec: (B, T, spec_channels) with T even,
+        as ``train/data.py collate_s2`` pads them; text: (B, Tt).  The slice
+        starts ``ids_slice`` (B,) and the posterior noise ``eps``
+        (B, T, inter_channels) are given, or drawn from ``generator``, which
+        also draws the dropout masks in training mode.
+
+        Returns (y_hat (B, segment_size, 1), commit_loss, ids_slice,
+        y_mask (B, T, 1), (z, z_p, m_p, logs_p, m_q, logs_q) each
+        (B, T, inter_channels)).
+        """
+        c = self.cfg
+        spec_mask = sequence_mask(spec_lengths, spec.shape[1])[
+            :, :, None].to(spec.dtype)
+        ge = self._style(spec, spec_mask).transpose(1, 2)   # (B, gin, 1)
+
+        h = self.ssl_proj(ssl.transpose(1, 2)).transpose(1, 2)
+        if c.freeze_quantizer:
+            h = h.detach()
+        quantized, _, commit_loss = self.quantizer(h, n_layers=1)
+        if c.semantic_frame_rate == "25hz":
+            quantized = torch.repeat_interleave(quantized, 2, dim=1)
+
+        _, m_p, logs_p, y_mask = self.enc_p(
+            quantized.transpose(1, 2), spec_lengths, text, text_lengths, ge,
+            generator=generator)
+        z, m_q, logs_q, mask = self.enc_q(
+            spec.transpose(1, 2), spec_lengths, g=ge,
+            eps=eps.transpose(1, 2) if eps is not None else None,
+            generator=generator)
+        z_p = self.flow(z, mask, g=ge)
+
+        if ids_slice is None:
+            ids_slice = rand_slice_starts(spec_lengths, c.segment_frames,
+                                          generator)
+        z_slice = slice_segments(z, ids_slice, c.segment_frames)
+        y_hat = self.dec(z_slice, g=ge)
+        latents = tuple(t.transpose(1, 2)
+                        for t in (z, z_p, m_p, logs_p, m_q, logs_q))
+        return (y_hat.transpose(1, 2), commit_loss, ids_slice,
+                y_mask.transpose(1, 2), latents)
 
     def decode(self, codes: torch.Tensor, text: torch.Tensor,
                text_lengths: torch.Tensor, refer_spec: torch.Tensor,

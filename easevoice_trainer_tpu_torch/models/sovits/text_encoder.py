@@ -1,6 +1,12 @@
 """s2 prior text/SSL encoder with multi-reference timbre cross-attention
-(JAX: models/sovits/text_encoder.py), on (B, C, T)."""
+(JAX: models/sovits/text_encoder.py), on (B, C, T).
+
+Dropout (``p_dropout``) runs in the three rel-pos encoders in training, as
+in the JAX package; MRTE's cross-attention has none there (its
+``MultiHeadAttention`` keeps the default p=0), so it has none here."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,36 +42,40 @@ class TextEncoder(nn.Module):
     def __init__(self, out_channels: int = 192, hidden_channels: int = 192,
                  filter_channels: int = 768, n_heads: int = 2,
                  n_layers: int = 6, kernel_size: int = 3,
-                 n_symbols: int = 732, ssl_dim: int = 768,
-                 gin_channels: int = 512):
+                 p_dropout: float = 0.0, n_symbols: int = 732,
+                 ssl_dim: int = 768, gin_channels: int = 512):
         super().__init__()
         self.out_channels = out_channels
         self.ssl_proj = nn.Conv1d(ssl_dim, hidden_channels, 1)
         self.encoder_ssl = RelPosEncoder(hidden_channels, filter_channels,
-                                         n_heads, n_layers // 2, kernel_size)
+                                         n_heads, n_layers // 2, kernel_size,
+                                         p_dropout)
         self.text_embedding = nn.Embedding(n_symbols, hidden_channels)
         self.encoder_text = RelPosEncoder(hidden_channels, filter_channels,
-                                          n_heads, n_layers, kernel_size)
+                                          n_heads, n_layers, kernel_size,
+                                          p_dropout)
         self.mrte = MRTE(hidden_channels, gin_channels, hidden_channels)
         self.encoder2 = RelPosEncoder(hidden_channels, filter_channels,
-                                      n_heads, n_layers // 2, kernel_size)
+                                      n_heads, n_layers // 2, kernel_size,
+                                      p_dropout)
         self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, y, y_lengths, text, text_lengths, ge,
-                speed: float = 1.0):
+                speed: float = 1.0,
+                generator: Optional[torch.Generator] = None):
         """y: quantized SSL (B, ssl_dim, Ts); text: (B, Tt) int;
-        ge: (B, gin, 1).  Returns (encoded (B, C, Ts), m_p, logs_p,
-        y_mask (B, 1, Ts))."""
+        ge: (B, gin, 1); ``generator`` draws the dropout masks in training.
+        Returns (encoded (B, C, Ts), m_p, logs_p, y_mask (B, 1, Ts))."""
         y_mask = sequence_mask(y_lengths, y.shape[2])[:, None].to(y.dtype)
         text_mask = sequence_mask(text_lengths, text.shape[1])[:, None].to(
             y.dtype)
 
         y = self.ssl_proj(y * y_mask) * y_mask
-        y = self.encoder_ssl(y * y_mask, y_mask)
+        y = self.encoder_ssl(y * y_mask, y_mask, generator)
         t = self.text_embedding(text).transpose(1, 2)
-        t = self.encoder_text(t * text_mask, text_mask)
+        t = self.encoder_text(t * text_mask, text_mask, generator)
         y = self.mrte(y, y_mask, t, text_mask, ge)
-        y = self.encoder2(y * y_mask, y_mask)
+        y = self.encoder2(y * y_mask, y_mask, generator)
 
         if speed != 1.0:
             new_len = int(y.shape[2] / speed) + 1

@@ -4,7 +4,10 @@ Counterparts of ``easevoice_trainer_tpu/nn/attention.py``: multi-head
 attention with learned relative key/value embeddings over a +-window (shared
 across heads, Music-Transformer skew), a -1e4 mask value, the conv FFN and
 the post-norm rel-pos encoder.  Projections are 1x1 convs named as in the
-reference (``conv_q`` ... ``conv_o``).
+reference (``conv_q`` ... ``conv_o``).  In training, dropout applies where
+the JAX modules apply it (attention probabilities, the FFN's hidden
+activation, each sub-block's output), with masks from the ``generator``
+passed to ``forward``.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm
+from .layers import LayerNorm, dropout
 
 MASK_VALUE = -1e4
 
@@ -53,10 +56,11 @@ class MultiHeadAttention(nn.Module):
     """
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
         self.window_size = window_size
+        self.p_dropout = p_dropout
         self.conv_q = nn.Conv1d(channels, channels, 1)
         self.conv_k = nn.Conv1d(channels, channels, 1)
         self.conv_v = nn.Conv1d(channels, channels, 1)
@@ -70,7 +74,8 @@ class MultiHeadAttention(nn.Module):
                 torch.randn(1, 2 * window_size + 1, dk) * std)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q, k, v = self.conv_q(x), self.conv_k(c), self.conv_v(c)
         b, d, t_t = q.shape
         t_s = k.shape[2]
@@ -90,7 +95,8 @@ class MultiHeadAttention(nn.Module):
             scores = scores + _rel_to_abs(rel_logits)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, MASK_VALUE)
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.p_dropout,
+                        self.training, generator)
         out = probs @ v
         if self.window_size is not None:
             rel_v = _window_embeddings(self.emb_rel_v, t_s, self.window_size)
@@ -104,14 +110,18 @@ class ConvFFN(nn.Module):
     """Conv feed-forward with masked same-padding."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.p_dropout = p_dropout
         self.pads = ((kernel_size - 1) // 2, kernel_size // 2)
         self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = nn.Conv1d(filter_channels, out_channels, kernel_size)
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = torch.relu(self.conv_1(F.pad(x * x_mask, self.pads)))
+        y = dropout(y, self.p_dropout, self.training, generator)
         y = self.conv_2(F.pad(y * x_mask, self.pads))
         return y * x_mask
 
@@ -122,8 +132,9 @@ class RelPosEncoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 4):
+                 p_dropout: float = 0.0, window_size: int = 4):
         super().__init__()
+        self.p_dropout = p_dropout
         self.attn_layers = nn.ModuleList()
         self.norm_layers_1 = nn.ModuleList()
         self.ffn_layers = nn.ModuleList()
@@ -131,14 +142,15 @@ class RelPosEncoder(nn.Module):
         for _ in range(n_layers):
             self.attn_layers.append(MultiHeadAttention(
                 hidden_channels, hidden_channels, n_heads,
-                window_size=window_size))
+                window_size=window_size, p_dropout=p_dropout))
             self.norm_layers_1.append(LayerNorm(hidden_channels))
             self.ffn_layers.append(ConvFFN(
                 hidden_channels, hidden_channels, filter_channels,
-                kernel_size))
+                kernel_size, p_dropout))
             self.norm_layers_2.append(LayerNorm(hidden_channels))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, C, T); x_mask: (B, 1, T)."""
         attn_mask = x_mask.unsqueeze(2) * x_mask.unsqueeze(-1)
         x = x * x_mask
@@ -146,6 +158,10 @@ class RelPosEncoder(nn.Module):
                                            self.norm_layers_1,
                                            self.ffn_layers,
                                            self.norm_layers_2):
-            x = norm1(x + attn(x, x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            y = attn(x, x, attn_mask, generator)
+            x = norm1(x + dropout(y, self.p_dropout, self.training,
+                                  generator))
+            y = ffn(x, x_mask, generator)
+            x = norm2(x + dropout(y, self.p_dropout, self.training,
+                                  generator))
         return x * x_mask

@@ -1,10 +1,12 @@
 """Build the hand-written Hopper kernels and bind them with ctypes.
 
 The CUDA sources under ``easevoice_trainer_tpu_torch/csrc/`` have a plain C
-interface.  At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+interface.  At first use each ``.cu`` is compiled with ``nvcc`` for
+``sm_90a`` in its own process, all at once, and the objects are linked into
 one shared library under ``build/torch_kernels/<hash>/`` at the repository
-root (git-ignored); the hash covers the sources and the flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+root (git-ignored); the hash covers the sources, the headers and the flags,
+so an edited source rebuilds and an unchanged one loads the library already
+built.
 
 Every entry point takes ``c_void_p`` pointers (tensor ``data_ptr()``) and the
 current CUDA stream, launches, and returns ``cudaGetLastError()``;
@@ -25,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,9 @@ SIGNATURES = {
     "ev_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _P],
     "ev_mrf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "ev_mrf_conv_bwd_data_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                 _P],
+    "ev_mrf_conv_bwd_weight_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
 }
 
 
@@ -65,6 +70,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -80,7 +89,8 @@ def build() -> KernelLibrary:
         return _loaded
     sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + _headers():
+        digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             digest.update(f.read())
     out_dir = os.path.join(BUILD_ROOT, digest.hexdigest()[:16])
@@ -89,13 +99,29 @@ def build() -> KernelLibrary:
     log = "reused " + so
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        objs = [os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+                for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [src for src, p in zip(sources, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = f"{so}.{tag}"
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
         os.replace(tmp, so)
+        for obj in objs:
+            os.remove(obj)
     _loaded = KernelLibrary(ctypes.CDLL(so), so, time.perf_counter() - t0,
                             log)
     return _loaded

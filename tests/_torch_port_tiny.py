@@ -18,8 +18,8 @@ from easevoice_trainer_tpu_torch import convert
 from easevoice_trainer_tpu_torch.models.cnhubert import CNHubert, HubertConfig
 from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
     Text2SemanticDecoder
-from easevoice_trainer_tpu_torch.models.sovits import SovitsConfig, \
-    SynthesizerTrn
+from easevoice_trainer_tpu_torch.models.sovits import \
+    MultiPeriodDiscriminator, SovitsConfig, SynthesizerTrn
 
 SOVITS_KW = dict(
     spec_channels=1025, segment_size=2560, inter_channels=32,
@@ -50,6 +50,32 @@ def tiny_sovits(seed: int = 0):
     assert not unmatched, unmatched
     model.load_state_dict(convert.sovits_state_dict(params), strict=True)
     return model.eval(), params, state
+
+
+def tiny_sovits_train(seed: int = 3):
+    """The training build (with ``enc_q``): -> (port module in train mode,
+    JAX params tree with enc_q)."""
+    model = SynthesizerTrn(SovitsConfig(**SOVITS_KW), with_enc_q=True)
+    state = _numpy_state(model, seed)
+    params, unmatched = ckpt.torch_to_flax(state,
+                                           ckpt.sovits_generator_rules())
+    assert not unmatched, unmatched
+    model.load_state_dict(convert.sovits_state_dict(params, keep_enc_q=True),
+                          strict=True)
+    return model.train(), params
+
+
+def tiny_mpd(periods=(2, 3, 5, 7, 11), seed: int = 4):
+    """Full-width MultiPeriodDiscriminator: -> (port module in train mode,
+    JAX params tree)."""
+    model = MultiPeriodDiscriminator(periods)
+    state = _numpy_state(model, seed)
+    rules = ckpt.sovits_discriminator_rules(periods)
+    params, unmatched = ckpt.torch_to_flax(state, rules)
+    assert not unmatched, unmatched
+    model.load_state_dict(convert.discriminator_state_dict(params, periods),
+                          strict=True)
+    return model.train(), params
 
 
 def tiny_gpt(seed: int = 1):
