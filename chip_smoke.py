@@ -11,8 +11,13 @@ Phases, one summary line each; any failure exits non-zero:
    source, sm_90a);
 3. kernels: each kernel against its plain PyTorch twin on the same seeded
    inputs at the main paths' shapes (K1-K3 at serving's, K4 at the s2
-   step's), max |diff| against the stated tolerance, and both times (CUDA
-   events);
+   step's), max |diff| against the stated tolerance; the device time of the
+   kernel, of its twin and of the one PyTorch call that computes the same
+   function (SDPA, cuDNN conv / dgrad / wgrad), which the port never calls,
+   each the mean over 20 calls of the CUDA kernel time torch.profiler
+   records; and the least time the card could take for the same work (the
+   bound, from the bytes moved and the fp32 operations done).  K3 and
+   K4-dx are summed per Generator stage beside cuDNN;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -29,14 +34,19 @@ Phases, one summary line each; any failure exits non-zero:
 7. reference train step: one step at a small width on the card and on the
    CPU agrees (losses and the ResBlock gradients).
 
-The line before the last holds one JSON object with each kernel's launches,
-error and times; the last line is the run's verdict
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
-repository beside this file, it exits non-zero and prints no verdict.
+After training it checks that no module of the JAX package, jax or flax was
+loaded in the whole run.  Two lines before the last hold one JSON object
+with each kernel's launches (in all, per serving clone and per s2 step),
+error, device times and bound; the line before the last is the card's name
+and power limit as ``nvidia-smi`` gives them, and the last line is the
+run's verdict ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+without the repository beside this file, it exits non-zero and prints no
+verdict.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import gc
 import json
 import math
@@ -102,18 +112,71 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+# the card's rates for a bound (NVIDIA's H100 SXM data sheet, dense): HBM3
+# bytes, and fp32-accurate products as 3xTF32 on the tensor cores (495
+# TFLOP/s TF32 / 3, above the CUDA cores' 67 TFLOP/s fp32)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 495e12 / 3
+
+
+def device_ms(torch, fn, name=None, reps: int = 20,
+              attempts: int = 3) -> float:
+    """Mean device time of one call of ``fn``: the CUDA kernels and copies
+    torch.profiler records over ``reps`` calls after a warm-up, divided by
+    ``reps``; with ``name``, only the kernels whose name holds it.
+
+    Now and then a profiler session comes back with no device activity at
+    all (seen once in ~150 sessions on an H100); the calls are then profiled
+    again, up to ``attempts`` sessions in all, and it raises after that."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if device:
+            break
+        log(f"[timer] torch.profiler session {attempt} of {attempts} "
+            f"recorded no CUDA activity")
+    else:
+        raise RuntimeError("torch.profiler recorded no CUDA activity")
+    if name is not None:
+        device = [e for e in device if name in e.name]
+        if not device:
+            raise RuntimeError(f"torch.profiler recorded no kernel named "
+                               f"*{name}*")
+    return sum(e.time_range.elapsed_us() for e in device) / 1000.0 / reps
+
+
+class Bound:
+    """Least device time of a set of calls: per call, the larger of the
+    bytes it must move (each input read once, each output written once)
+    over HBM_BYTES_PER_S and its fp32 operations over FP32_OPS_PER_S."""
+
+    def __init__(self):
+        self.ms = self.bytes_ms = self.ops_ms = 0.0
+
+    def add(self, nbytes: float, flops: float) -> None:
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        o = flops / FP32_OPS_PER_S * 1e3
+        self.ms += max(b, o)
+        self.bytes_ms += b
+        self.ops_ms += o
+
+    @property
+    def by(self) -> str:
+        return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
+
+    def result(self) -> dict:
+        return dict(bound_ms=self.ms, bound_by=self.by)
 
 
 def max_err(torch, got, want) -> float:
@@ -125,6 +188,9 @@ def max_err(torch, got, want) -> float:
 # ---------------------------------------------------------------------------
 
 def check_kernels(torch, results):
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.nn.layers import LRELU_SLOPE
     from easevoice_trainer_tpu_torch.ops import attention as att
     from easevoice_trainer_tpu_torch.ops import mrf
 
@@ -142,15 +208,29 @@ def check_kernels(torch, results):
     got = att.prefill_attention(q, k, v, x_len, x_lens, y_lens)
     want = att.prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
     err = max_err(torch, got, want)
-    ms = cuda_ms(torch, lambda: att.prefill_attention(
-        q, k, v, x_len, x_lens, y_lens), 50)
-    plain = cuda_ms(torch, lambda: att.prefill_attention_reference(
-        q, k, v, x_len, x_lens, y_lens), 50)
+    # the library yardstick: SDPA with the hybrid mask as a boolean
+    # attn_mask, heads-first copies made outside the timed calls
+    allowed = att.build_hybrid_mask_bias(x_len, prompt, x_lens, y_lens) == 0
+    qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
+                             attn_mask=allowed)
+    lib_err = max_err(torch, sdpa().transpose(1, 2), want)
+    ms = device_ms(torch, lambda: att.prefill_attention(
+        q, k, v, x_len, x_lens, y_lens), "prefill_attention")
+    plain = device_ms(torch, lambda: att.prefill_attention_reference(
+        q, k, v, x_len, x_lens, y_lens))
+    library = device_ms(torch, sdpa)
+    bound = Bound()
+    pairs = int(allowed.sum()) * h
+    bound.add(4 * 4 * b * t * h * dk, 4 * dk * pairs)  # q, k, v, o; QK, PV
     log(f"[kernels] K1 prefill_attention B={b} H={h} dk={dk} x_len={x_len} "
         f"x_lens={x_lens.tolist()} prompt={prompt}: max|d|={err:.3g} "
-        f"(tol {tol}) kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        f"(tol {tol}); device ms: kernel {ms:.4f}, plain {plain:.4f}, "
+        f"SDPA {library:.4f} (max|d| {lib_err:.3g}), bound {bound.ms:.4f} "
+        f"({bound.by})")
     assert err <= tol, f"prefill_attention disagrees: {err}"
-    results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                        library_ms=library, **bound.result())
 
     # K2: one layer's cache at x_len + prompt + 1120 slots
     cache_len = x_len + prompt + 1120
@@ -168,61 +248,91 @@ def check_kernels(torch, results):
         worst = max(worst, err)
         log(f"[kernels] K2 decode_attention cache_len={cache_len} "
             f"step={step}: max|d|={err:.3g} (tol {tol})")
-    pos = x_len + prompt + 500
-
-    def plain_step():
-        kc[:, pos] = kn[:, 0]
-        vc[:, pos] = vn[:, 0]
-        return att.decode_attention_reference(qn, kc, vc, x_len, x_lens,
-                                              prompt, 500)
-
-    ms = cuda_ms(torch, lambda: att.decode_attention(
-        qn, kn, vn, kc, vc, x_len, x_lens, prompt, 500), 200)
-    plain = cuda_ms(torch, plain_step, 200)
-    log(f"[kernels] K2 step 500 with the K/V row write: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms")
+    # step 500 (the row was written above): the kernel alone, the twin and
+    # SDPA over the first kv_end slots with the text pads masked
+    kv_end = x_len + prompt + 500 + 1
+    slot = torch.arange(kv_end, device=dev)
+    ok = (slot[None, :] < x_lens[:, None]) | (slot[None, :] >= x_len)
+    qh = qn.transpose(1, 2).contiguous()
+    kh, vh = (z[:, :kv_end].transpose(1, 2).contiguous() for z in (kc, vc))
+    sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
+                             attn_mask=ok[:, None, None, :])
+    lib_err = max_err(torch, sdpa().transpose(1, 2), want)
+    ms = device_ms(torch, lambda: att.decode_attention(
+        qn, kn, vn, kc, vc, x_len, x_lens, prompt, 500), "decode_attention")
+    plain = device_ms(torch, lambda: att.decode_attention_reference(
+        qn, kc, vc, x_len, x_lens, prompt, 500))
+    library = device_ms(torch, sdpa)
+    bound = Bound()
+    valid = int(ok.sum())                              # slots over the batch
+    bound.add(4 * (2 * b * h * dk + 2 * valid * h * dk), 4 * dk * h * valid)
+    log(f"[kernels] K2 step 500 ({valid} valid slots over the batch): device "
+        f"ms: kernel {ms:.4f}, plain {plain:.4f}, SDPA {library:.4f} (max|d| "
+        f"{lib_err:.3g}), bound {bound.ms:.5f} ({bound.by})")
     assert worst <= tol, f"decode_attention disagrees: {worst}"
     results["decode_attention"] = dict(max_abs_err=worst, ms=ms,
-                                       plain_ms=plain)
+                                       plain_ms=plain, library_ms=library,
+                                       **bound.result())
 
     # K3: every Generator stage's (C, k, d) at its length for 250 codes
-    # (padded to 256 codes -> 512 frames), batch of 4 rows
+    # (padded to 256 codes -> 512 frames), batch of 4 rows.  The library
+    # call is cuDNN's conv1d on the leaky-relu'd input plus the residual add
     frames = 512
     rates = (10, 8, 2, 2, 2)
     worst_rel = 0.0
     worst = 0.0
-    total_ms = total_plain = 0.0
+    bound = Bound()
+    stages = []
     ch, up = 512, 1
     for i, u in enumerate(rates):
         ch //= 2
         up *= u
         t_len = frames * up
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        act = F.leaky_relu(x, LRELU_SLOPE)
+        sums = [0.0, 0.0, 0.0]     # kernel, plain, library
         for kk in (3, 7, 11):
             w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
                 / math.sqrt(ch * kk)
             bias = torch.randn((ch,), generator=gen, device=dev) * 0.1
             for d in (1, 3, 5):
                 res = x if d == 1 else None
+                pad = (kk - 1) * d // 2
                 got = mrf.mrf_conv(x, w, bias, d, residual=res)
                 want = mrf.mrf_conv_reference(x, w, bias, d, residual=res)
                 err = max_err(torch, got, want)
                 rel = err / max(1.0, float(want.abs().max()))
                 worst, worst_rel = max(worst, err), max(worst_rel, rel)
-                ms = cuda_ms(torch, lambda: mrf.mrf_conv(
-                    x, w, bias, d, residual=res), 3)
-                plain = cuda_ms(torch, lambda: mrf.mrf_conv_reference(
-                    x, w, bias, d, residual=res), 3)
-                total_ms += ms
-                total_plain += plain
+
+                def cudnn():
+                    y = F.conv1d(act, w, bias, padding=pad, dilation=d)
+                    return y if res is None else y + res
+
+                times = (
+                    device_ms(torch, lambda: mrf.mrf_conv(
+                        x, w, bias, d, residual=res)),
+                    device_ms(torch, lambda: mrf.mrf_conv_reference(
+                        x, w, bias, d, residual=res)),
+                    device_ms(torch, cudnn))
+                sums = [a + t for a, t in zip(sums, times)]
+                bound.add(4 * (b * ch * t_len * (3 if res is not None else 2)
+                               + ch * ch * kk + ch),
+                          2 * b * t_len * ch * ch * kk)
                 log(f"[kernels] K3 stage {i} B={b} C={ch} T={t_len} k={kk} "
-                    f"d={d} residual={res is not None}: max|d|={err:.3g} "
-                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+                    f"d={d} residual={res is not None}: max|d|={err:.3g}; "
+                    f"device ms: kernel {times[0]:.4f}, plain {times[1]:.4f}, "
+                    f"cuDNN {times[2]:.4f}")
+        stages.append((ch, t_len, sums))
+    for i, (ch, t_len, (kern, plain, lib)) in enumerate(stages):
+        log(f"[kernels] K3 stage {i} (C={ch}, T={t_len}), 9 shapes: kernel "
+            f"{kern:.3f} ms, cuDNN {lib:.3f} ms, plain {plain:.3f} ms")
+    total = [sum(st[2][n] for st in stages) for n in range(3)]
     log(f"[kernels] K3 mrf_conv 45 shapes: max|d|={worst:.3g}, relative "
-        f"{worst_rel:.3g} (tol {tol} x max(1, max|twin|)); kernel "
-        f"{total_ms:.3f} ms, plain {total_plain:.3f} ms summed over shapes")
-    # cuDNN's fp32 conv can sum in the kernel's own (channel, tap) order and
-    # then agrees bit for bit; the CPU twin sums in another order
+        f"{worst_rel:.3g} (tol {tol} x max(1, max|twin|)); device ms summed "
+        f"over shapes: kernel {total[0]:.3f}, cuDNN {total[2]:.3f}, plain "
+        f"{total[1]:.3f}; bound {bound.ms:.3f} ({bound.by}; bytes "
+        f"{bound.bytes_ms:.3f}, fp32 operations {bound.ops_ms:.3f})")
+    # the card against the CPU twin on the largest and the longest shape
     for ch, t_len, kk, d in ((256, 5120, 11, 5), (16, 327680, 3, 1)):
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
         w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
@@ -236,10 +346,13 @@ def check_kernels(torch, results):
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
         log(f"[kernels] K3 C={ch} T={t_len} k={kk} d={d} against the CPU "
             f"twin: max|d|={err:.3g}, relative {rel:.3g}")
-    del x, w, bias, got, want
+    del x, w, bias, got, want, act
     assert worst_rel <= tol, f"mrf_conv disagrees: {worst_rel}"
-    results["mrf_conv"] = dict(max_abs_err=worst, ms=total_ms,
-                               plain_ms=total_plain)
+    assert total[0] <= total[2], \
+        f"K3 ({total[0]:.3f} ms) is slower than cuDNN ({total[2]:.3f} ms)"
+    results["mrf_conv"] = dict(max_abs_err=worst, ms=total[0],
+                               plain_ms=total[1], library_ms=total[2],
+                               **bound.result())
 
 
 def check_k4(torch, results):
@@ -249,23 +362,34 @@ def check_k4(torch, results):
     takes K3's tolerance, 1e-4 x max(1, max|twin|).  dW and db are sums of
     B*T (up to 163,840) products, taken in 512-sample chunks and then across
     chunks, in another order than cuDNN's: 1e-3 x max(1, max|twin|).  A
-    wrong tap or index gives errors of order 1."""
+    wrong tap or index gives errors of order 1.  The library calls are
+    cuDNN's dgrad (conv_transpose1d) and wgrad (conv1d_weight on the
+    leaky-relu'd input)."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.nn.layers import LRELU_SLOPE
     from easevoice_trainer_tpu_torch.ops import mrf
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
     b = 8
     tol_dx, tol_dw = 1e-4, 1e-3
-    worst = {"mrf_conv_bwd_data": 0.0, "mrf_conv_bwd_weight": 0.0}
+    names = ("mrf_conv_bwd_data", "mrf_conv_bwd_weight")
+    worst = {name: 0.0 for name in names}
     worst_rel = dict(worst)
-    times = {name: [0.0, 0.0] for name in worst}
+    times = {name: [0.0, 0.0, 0.0] for name in names}  # kernel/plain/library
+    bounds = {name: Bound() for name in names}
+    stage_dx = []
     for ch, t_len in S2_STAGES:
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
         dy = torch.randn((b, ch, t_len), generator=gen, device=dev)
+        act = F.leaky_relu(x, LRELU_SLOPE)
+        dx_sums = [0.0, 0.0]  # kernel, cuDNN dgrad
         for kk in (3, 7, 11):
             w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
                 / math.sqrt(ch * kk)
             for d in (1, 3, 5):
+                pad = (kk - 1) * d // 2
                 got = mrf.mrf_conv_bwd_data(dy, x, w, d)
                 want = mrf.mrf_conv_bwd_data_reference(dy, x, w, d)
                 err_x = max_err(torch, got, want)
@@ -279,26 +403,44 @@ def check_k4(torch, results):
                 gw2, gb2 = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
                 assert torch.equal(gw, gw2) and torch.equal(gb, gb2), \
                     "mrf_conv_bwd_weight does not repeat"
-                ms_x = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_data(
-                    dy, x, w, d), 3)
-                pl_x = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_data_reference(
-                    dy, x, w, d), 3)
-                ms_w = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_weight(
-                    dy, x, w.shape, d), 3)
-                pl_w = cuda_ms(torch, lambda: mrf.mrf_conv_bwd_weight_reference(
-                    dy, x, w.shape, d), 3)
-                for name, e, r, ms, pl in (
-                        ("mrf_conv_bwd_data", err_x, rel_x, ms_x, pl_x),
-                        ("mrf_conv_bwd_weight", err_w, rel_w, ms_w, pl_w)):
+                fns = {
+                    "mrf_conv_bwd_data": (
+                        lambda: mrf.mrf_conv_bwd_data(dy, x, w, d),
+                        lambda: mrf.mrf_conv_bwd_data_reference(dy, x, w, d),
+                        lambda: F.conv_transpose1d(dy, w, padding=pad,
+                                                   dilation=d)),
+                    "mrf_conv_bwd_weight": (
+                        lambda: mrf.mrf_conv_bwd_weight(dy, x, w.shape, d),
+                        lambda: mrf.mrf_conv_bwd_weight_reference(
+                            dy, x, w.shape, d),
+                        lambda: torch.nn.grad.conv1d_weight(
+                            act, w.shape, dy, padding=pad, dilation=d)),
+                }
+                flops = 2 * b * t_len * ch * ch * kk
+                line = []
+                for name, e, r in zip(names, (err_x, err_w), (rel_x, rel_w)):
+                    kern, plain, lib = fns[name]
+                    ts = (device_ms(torch, kern), device_ms(torch, plain),
+                          device_ms(torch, lib))
                     worst[name] = max(worst[name], e)
                     worst_rel[name] = max(worst_rel[name], r)
-                    times[name][0] += ms
-                    times[name][1] += pl
+                    times[name] = [a + t for a, t in zip(times[name], ts)]
+                    # dx: dy, x, w in, dx out; dW: dy, x in, dw, db out
+                    bounds[name].add(4 * (3 * b * ch * t_len + ch * ch * kk)
+                                     if name == names[0] else
+                                     4 * (2 * b * ch * t_len + ch * ch * kk
+                                          + ch), flops)
+                    line.append(f"max|d|={e:.3g} rel {r:.3g}, device ms "
+                                f"kernel {ts[0]:.4f}, plain {ts[1]:.4f}, "
+                                f"cuDNN {ts[2]:.4f}")
+                    if name == names[0]:
+                        dx_sums = [dx_sums[0] + ts[0], dx_sums[1] + ts[2]]
                 log(f"[kernels] K4 B={b} C={ch} T={t_len} k={kk} d={d}: dx "
-                    f"max|d|={err_x:.3g} rel {rel_x:.3g}, kernel "
-                    f"{ms_x:.4f} ms, plain {pl_x:.4f} ms; dW/db max|d|="
-                    f"{err_w:.3g} rel {rel_w:.3g}, kernel {ms_w:.4f} ms, "
-                    f"plain {pl_w:.4f} ms")
+                    f"{line[0]}; dW/db {line[1]}")
+        stage_dx.append((ch, t_len, dx_sums))
+    for i, (ch, t_len, (kern, lib)) in enumerate(stage_dx):
+        log(f"[kernels] K4 dx stage {i} (C={ch}, T={t_len}), 9 shapes: "
+            f"kernel {kern:.3f} ms, cuDNN dgrad {lib:.3f} ms")
     # the card against the CPU twin on two shapes
     for ch, t_len, kk, d in ((256, 320, 11, 5), (16, 20480, 3, 1)):
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
@@ -321,13 +463,20 @@ def check_k4(torch, results):
             f"twin: dx relative {rel_x:.3g}, dW/db relative {rel_w:.3g}")
     for name, tol in (("mrf_conv_bwd_data", tol_dx),
                       ("mrf_conv_bwd_weight", tol_dw)):
+        kern, plain, lib = times[name]
+        bd = bounds[name]
         log(f"[kernels] K4 {name} 45 shapes: max|d|={worst[name]:.3g}, "
             f"relative {worst_rel[name]:.3g} (tol {tol} x max(1, "
-            f"max|twin|)); kernel {times[name][0]:.3f} ms, plain "
-            f"{times[name][1]:.3f} ms summed over shapes")
+            f"max|twin|)); device ms summed over shapes: kernel {kern:.3f}, "
+            f"cuDNN {lib:.3f}, plain {plain:.3f}; bound {bd.ms:.3f} "
+            f"({bd.by}; bytes {bd.bytes_ms:.3f}, fp32 operations "
+            f"{bd.ops_ms:.3f})")
         assert worst_rel[name] <= tol, f"{name} disagrees: {worst_rel[name]}"
-        results[name] = dict(max_abs_err=worst[name], ms=times[name][0],
-                             plain_ms=times[name][1])
+        results[name] = dict(max_abs_err=worst[name], ms=kern,
+                             plain_ms=plain, library_ms=lib, **bd.result())
+    kern, lib = times["mrf_conv_bwd_data"][0], times["mrf_conv_bwd_data"][2]
+    assert kern <= lib, \
+        f"K4 dx ({kern:.3f} ms) is slower than cuDNN dgrad ({lib:.3f} ms)"
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +595,8 @@ def serve(torch, tmp: str, results):
         assert launches[name] > 0, \
             f"{name} was never launched on the serving path"
         results[name]["launches"] = launches[name]
+        results[name]["per_path"] = {"serving_clone": launches[name],
+                                     "s2_step": 0}
 
     phases = tts.last_phases
     audio_s = wav.size / sr
@@ -596,6 +747,9 @@ def train(torch, tmp: str, results):
         assert launches[name] > 0, f"{name} was never launched in training"
         results[name]["launches"] = results[name].get("launches", 0) \
             + launches[name]
+        per_path = results[name].setdefault("per_path",
+                                            {"serving_clone": 0})
+        per_path["s2_step"] = launches[name] / len(secs)
 
     # the Generator's ResBlocks and upsamples moved (gradients reached them
     # through K4)
@@ -644,6 +798,60 @@ def train(torch, tmp: str, results):
         f"tensors all changed; export {os.path.basename(resp.data['model_path'])} "
         f"loads strict=True and decodes a finite wav (|wav| max "
         f"{float(wav.abs().max()):.3f}); launches {launches}")
+    profile_train_step(torch, trainer, norm)
+
+
+def profile_train_step(torch, trainer, norm: str) -> None:
+    """One more step of the trained S2TrainStep on a batch of the run's data,
+    under torch.profiler: the step's device time and the MRF kernels' part
+    of it (K3 and K4-dx share conv_mma_kernel, told apart by its BWD
+    template argument)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from easevoice_trainer_tpu_torch.train import data as data_mod
+
+    cfg = trainer.mel_cfg
+    dataset = data_mod.S2Dataset(norm, hop_length=cfg.hop_length,
+                                 sampling_rate=cfg.sampling_rate,
+                                 n_fft=cfg.n_fft, win_length=cfg.win_length)
+    batcher = data_mod.BucketBatcher(dataset.lengths, trainer.batch_size,
+                                     seed=trainer.seed)
+    bucket, idxs = batcher.epoch_batches(1)[0]
+    text_cap = -(-max(len(e.phoneme_ids) for e in dataset.examples) // 16) \
+        * 16  # as SovitsTrain.train pads it
+    batch = trainer._to_device(data_mod.collate_s2(
+        [dataset.load_item(i) for i in idxs], batcher.padded_frames(bucket),
+        text_cap, hop=cfg.hop_length))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trainer.step_fn(batch, gen)  # warm-up on this batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step_fn(batch, gen)
+        torch.cuda.synchronize()
+    groups = {"K3": 0.0, "K4-dx": 0.0, "K4-dW": 0.0, "other": 0.0}
+    launches = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        launches += 1
+        us = e.time_range.elapsed_us()
+        if "conv_mma_kernel" in e.name:
+            groups["K4-dx" if "true" in e.name else "K3"] += us
+        elif "wgrad_partial" in e.name or "reduce_chunks" in e.name:
+            groups["K4-dW"] += us
+        else:
+            groups["other"] += us
+    if not launches:
+        log("[training] torch.profiler recorded no CUDA activity for the "
+            "profiled step: no breakdown this run")
+        return
+    total = sum(groups.values())
+    log(f"[training] one more step under torch.profiler: device time "
+        f"{total / 1000:.2f} ms in {launches} kernels and copies; "
+        + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -769,7 +977,16 @@ def main() -> int:
         train(torch, tmp, results)
         phase = "reference train step"
         reference_train_step(torch)
-        assert "jax" not in sys.modules and "flax" not in sys.modules
+        phase = "isolation"
+        from easevoice_trainer_tpu_torch import native
+
+        foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "easevoice_trainer_tpu", "jax", "flax"))
+        log(f"[isolation] after serving English text, resampling the "
+            f"reference clip (native resampler built: {native.available()}) "
+            f"and 12 training steps, modules of easevoice_trainer_tpu, jax "
+            f"or flax loaded: {foreign}")
+        assert not foreign, foreign
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
@@ -782,8 +999,11 @@ def main() -> int:
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": r["launches"],
+                        "launches_per_path": r["per_path"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,9 @@ import json
 import traceback
 from typing import Any, Callable, Dict
 
-from easevoice_trainer_tpu.utils.connector import MultiProcessOutputConnector
-from easevoice_trainer_tpu.utils.logger import logger
-from easevoice_trainer_tpu.utils.response import EaseVoiceResponse, \
-    ResponseStatus
+from ..utils.connector import MultiProcessOutputConnector
+from ..utils.logger import logger
+from ..utils.response import EaseVoiceResponse, ResponseStatus
 
 
 def read_params() -> Dict[str, Any]:

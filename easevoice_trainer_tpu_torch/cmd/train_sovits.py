@@ -1,4 +1,5 @@
-"""cmd: s2 SoVITS fine-tune on the port (one CUDA card, or the CPU)."""
+"""cmd: s2 SoVITS fine-tune on the port (one CUDA card unless the params
+name ``"device": "cpu"``)."""
 from . import filter_fields, run_task
 
 

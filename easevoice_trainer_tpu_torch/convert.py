@@ -1,7 +1,7 @@
 """JAX parameter trees (as numpy) -> state dicts of the port's modules.
 
-SoVITS, its discriminators and GPT go through the checkpoint name rules the
-JAX package already keeps for torch export (``train/ckpt.py``
+SoVITS, its discriminators and GPT go through the checkpoint name rules of
+``train/ckpt.py`` (the port's copy of the JAX package's torch-export rules:
 ``flax_to_torch`` with ``sovits_generator_rules`` /
 ``sovits_discriminator_rules`` / ``gpt_rules``), so the names are the
 reference torch names.  HuBERT goes through a numpy inverse of the JAX package's
@@ -15,9 +15,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from easevoice_trainer_tpu.train import ckpt
-
 from .nn.layers import weight_norm_key
+from .train import ckpt
 
 
 @torch.no_grad()

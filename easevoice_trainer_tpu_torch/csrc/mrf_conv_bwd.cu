@@ -16,14 +16,20 @@
 // batch and db.  As for K3, the port keeps one launch per conv: a whole stage
 // does not fit 227 KB of shared memory at C=256.
 //
-// Bound on the H100: both are flop-bound at C >= 128 (2*C*C*k flops per
-// sample), bytes-bound at C <= 32.
+// Bound on the H100: both are flop-bound at C >= 64 (2*C*C*k flops per
+// sample), bytes-bound at C <= 32.  Over the 45 s2 shapes chip_smoke times
+// (B=8, (C, T) = (256, 320) ... (16, 20480), k in {3, 7, 11}, d in
+// {1, 3, 5}) each entry point does 100.4 GFLOP: 1.50 ms on the fp32 CUDA
+// cores (67 TFLOP/s), 0.61 ms in 3xTF32 on the tensor cores (3 * 100.4 /
+// 495 TFLOP/s); dx's 1.23 GB of dy, x and dx take 0.37 ms to move.
 //
-// Data gradient: K3's tiled loop (mrf_conv_tile.cuh, BWD = true) run over dy
-// with the weight transposed and flipped as it is staged in shared memory;
-// the lrelu derivative is applied in the epilogue from the saved
-// pre-activation x, so neither lrelu'(x) nor the transposed weight reaches
-// device memory.
+// Data gradient: K3's loop (mrf_conv_tile.cuh, BWD = true), the 3xTF32
+// implicit GEMM on the tensor cores, run over dy with the weight transposed
+// and flipped as it is staged in shared memory; the lrelu derivative is
+// applied in the epilogue from the saved pre-activation x, so neither
+// lrelu'(x) nor the transposed weight reaches device memory.  It replaced a
+// SIMT direct convolution that ran at 14.6 TFLOP/s, 9 % of the 3xTF32 bound
+// (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
 //
 // Weight gradient: a GEMM of M = Cout by N = Cin*k over a reduction of B*T
 // terms (up to 8 * 20480 in the s2 step).  A block owns 16*CO_PER output
@@ -40,9 +46,9 @@
 
 namespace {
 
-using mrf::NT;
-using mrf::TX;
-using mrf::TY;
+constexpr int TX = 16;      // threads along input channels
+constexpr int TY = 16;      // threads along output channels
+constexpr int NT = TX * TY;
 
 constexpr int TS = 64;      // samples per shared-memory stage
 constexpr int MAX_K = 16;   // taps of the generic (KT = 0) instance

@@ -28,16 +28,15 @@ from typing import Any, Dict, Generator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from easevoice_trainer_tpu.inference.preprocessor import TextPreprocessor
-from easevoice_trainer_tpu.train.data import spectrogram_np
-from easevoice_trainer_tpu.utils import audio_io, paths
-from easevoice_trainer_tpu.utils.logger import logger
-
 from .. import convert
 from ..models.cnhubert import feat_output_lengths, load_cnhubert
 from ..models.gpt import DecodeParams, T2SConfig, Text2SemanticDecoder, \
     decode_ar
 from ..models.sovits import SovitsConfig, SynthesizerTrn
+from ..train.data import spectrogram_np
+from ..utils import audio_io, paths
+from ..utils.logger import logger
+from .preprocessor import TextPreprocessor
 
 
 @dataclasses.dataclass

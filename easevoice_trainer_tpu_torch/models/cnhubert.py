@@ -253,9 +253,9 @@ def config_from_hf(model_dir: str) -> HubertConfig:
     )
 
 
-def load_cnhubert(model_dir: str, device="cpu") -> Optional[CNHubert]:
-    """CNHubert with weights from an HF checkpoint directory, or None when
-    the directory holds no weights."""
+def load_cnhubert(model_dir: str, device="cuda") -> Optional[CNHubert]:
+    """CNHubert with weights from an HF checkpoint directory on ``device``,
+    or None when the directory holds no weights."""
     path = os.path.join(model_dir, "pytorch_model.bin")
     if not os.path.exists(path):
         return None

@@ -2,40 +2,23 @@
 
 Same pipeline and layout as the JAX package: reflect-pad the waveform by
 ``(n_fft - hop) / 2`` on each side, frame without centring, periodic Hann
-window, ``sqrt(re^2 + im^2 + 1e-6)``, Slaney mel filterbank from the shared
-numpy ``ops/mel.py``, then ``log(clamp(x, 1e-5))``.  Spectrograms are
-``(..., frames, bins)``.  The FFT is ``torch.fft.rfft``: the JAX package
+window, ``sqrt(re^2 + im^2 + 1e-6)``, Slaney mel filterbank from the numpy
+``ops/mel.py`` (a copy of the JAX package's), then ``log(clamp(x, 1e-5))``.
+Spectrograms are ``(..., frames, bins)``.  The FFT is ``torch.fft.rfft``: the JAX package
 calls ``jnp.fft`` outside any Pallas kernel too.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import importlib.util
 import math
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-import easevoice_trainer_tpu
-
-
-def _shared_mel_module():
-    """The JAX package's numpy ``ops/mel.py``, loaded by path: importing it
-    as ``easevoice_trainer_tpu.ops.mel`` would run ``ops/__init__.py``,
-    which imports jax."""
-    path = os.path.join(os.path.dirname(easevoice_trainer_tpu.__file__),
-                        "ops", "mel.py")
-    spec = importlib.util.spec_from_file_location("_easevoice_mel", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-mel_filterbank = _shared_mel_module().mel_filterbank
+from .mel import mel_filterbank
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,11 +17,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from easevoice_trainer_tpu.utils import audio_io
-from easevoice_trainer_tpu.utils.response import EaseVoiceResponse, \
-    ResponseStatus
-
 from ..inference.tts import TTS, InferenceTaskData, TTSConfig
+from ..utils import audio_io
+from ..utils.response import EaseVoiceResponse, ResponseStatus
 
 
 def generate_random_name() -> str:

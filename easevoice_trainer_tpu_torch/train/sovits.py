@@ -2,7 +2,7 @@
 
 * config = ``configs/s2.json`` overlaid with the request params;
 * data from the normalize output dir (2-name2text / 4-cnhubert / 5-wav32k)
-  through the shared host loader ``train/data.py`` (``S2Dataset``,
+  through the host loader ``train/data.py`` (``S2Dataset``,
   ``BucketBatcher``, ``collate_s2``);
 * resume from ``logs/{G,D}_latest.pth`` (this package's torch format) when
   present, else the pretrained s2G/s2D ``.pth`` merged where names and
@@ -11,9 +11,10 @@
 * per ``save_every_epoch``: resume files + the half-precision deployable
   ``{name}_e{E}_s{S}.pth`` (``{"weight", "config", "info"}``, no ``enc_q``).
 
-fp32 on one device: the first CUDA card when there is one, else the CPU
-(where the kernels' plain twins run).  Defaults come from ``utils/paths.py``
-and the environment: the JAX package's ``GlobalCFG`` initializes jax.
+fp32 on ``SovitsTrainParams.device``: the first CUDA card by default, which
+must exist (no silent move to the host); ``"cpu"`` runs the kernels' plain
+twins.  Defaults (pretrained paths, output dirs) come from the port's own
+``utils/paths.py`` and the environment.
 """
 from __future__ import annotations
 
@@ -27,18 +28,16 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from easevoice_trainer_tpu.train import ckpt as ckpt_io
-from easevoice_trainer_tpu.train import data as data_mod
-from easevoice_trainer_tpu.utils import paths
-from easevoice_trainer_tpu.utils.connector import MultiProcessOutputConnector
-from easevoice_trainer_tpu.utils.logger import logger
-from easevoice_trainer_tpu.utils.response import EaseVoiceResponse, \
-    ResponseStatus
-
 from .. import convert
 from ..models.sovits import MultiPeriodDiscriminator, SovitsConfig, \
     SynthesizerTrn
 from ..ops.stft import MelConfig
+from ..utils import paths
+from ..utils.connector import MultiProcessOutputConnector
+from ..utils.logger import logger
+from ..utils.response import EaseVoiceResponse, ResponseStatus
+from . import ckpt as ckpt_io
+from . import data as data_mod
 from .sovits_step import S2TrainHP, S2TrainStep
 
 TRAIN_LOGS_PATH = "logs"
@@ -60,6 +59,7 @@ class SovitsTrainParams:
     train_input_dir: str = ""
     output_model_name: str = ""
     project_dir: str = ""
+    device: str = "cuda"         # "cpu" runs the plain twins of the kernels
 
 
 def get_sovits_train_dir(project_dir: str, name: Optional[str]) -> str:
@@ -144,8 +144,11 @@ class SovitsTrain:
         self.batch_size = params.batch_size
         self.log_interval = train_cfg.get("log_interval", 10)
         self.seed = train_cfg.get("seed", 1234)
-        self.device = torch.device(
-            "cuda" if torch.cuda.is_available() else "cpu")
+        self.device = torch.device(params.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SovitsTrain: device 'cuda' asked for and no "
+                               "CUDA card is available; pass device='cpu' to "
+                               "train on the host")
 
         self.output_dir = get_sovits_train_dir(params.project_dir,
                                                params.output_model_name)

@@ -87,11 +87,11 @@ def test_load_cnhubert_from_hf_dir(hubert, tmp_path):
     import json
 
     (tmp_path / "config.json").write_text(json.dumps(cfg))
-    assert phub.load_cnhubert(str(tmp_path)) is None
+    assert phub.load_cnhubert(str(tmp_path), device="cpu") is None
     sd = dict(port.state_dict())
     sd["masked_spec_embed"] = torch.zeros(64)
     torch.save(sd, tmp_path / "pytorch_model.bin")
-    loaded = phub.load_cnhubert(str(tmp_path))
+    loaded = phub.load_cnhubert(str(tmp_path), device="cpu")
     wav = torch.from_numpy(np.random.default_rng(1).uniform(
         -0.3, 0.3, (1, 8000)).astype(np.float32))
     torch.testing.assert_close(loaded(wav), port(wav), rtol=0, atol=0)

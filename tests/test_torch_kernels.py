@@ -209,6 +209,42 @@ def test_mrf_conv_bwd_kernels_match_twins(c, t_len, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,t_len,k,d", [
+    (24, 24, 5, 11, 5),      # T below one tile; the halo passes both edges
+    (16, 72, 1, 3, 1),       # a single sample
+    (24, 40, 37, 3, 1),      # T % 4 != 0: 4-byte copies; Cin != Cout
+    (72, 24, 301, 7, 3),     # Cin, Cout not multiples of the 8 / 16 tiles
+    (40, 24, 260, 5, 5),     # generic tap count
+    (64, 64, 4100, 11, 5),   # 16-byte copies, T not a multiple of the tile
+    (32, 32, 1000, 11, 5),   # the 32 x 256 block
+    (200, 128, 300, 7, 1),   # a 4-block channel split with uneven shares
+])
+def test_mrf_conv_mma_tile_edges(cin, cout, t_len, k, d):
+    """The tensor-core loop under K3 and K4's dx at its edges: ragged and
+    tiny T, channel counts off the tile, both copy widths, the generic tap
+    count, the widest halo and small grids split along the input channels
+    (72 -> 24 and 200 -> 128 channels); K3 with and without the residual, dx
+    with exact zeros in x (lrelu'(0) = 1).  1e-4 x max(1, max|twin|)."""
+    gen = _card()
+    x = torch.randn((3, cin, t_len), generator=gen, device="cuda")
+    x[1, :, : max(1, t_len // 3)] = 0.0
+    w = torch.randn((cout, cin, k), generator=gen, device="cuda") \
+        / (cin * k) ** 0.5
+    b = torch.randn((cout,), generator=gen, device="cuda")
+    r = torch.randn((3, cout, t_len), generator=gen, device="cuda")
+    dy = torch.randn((3, cout, t_len), generator=gen, device="cuda")
+    for res in (None, r):
+        before = mrf_conv.launches
+        got = mrf_conv(x, w, b, d, residual=res)
+        assert mrf_conv.launches == before + 1
+        _close_rel(got, mrf_conv_reference(x, w, b, d, residual=res), 1e-4)
+    before = mrf_conv_bwd_data.launches
+    dx = mrf_conv_bwd_data(dy, x, w, d)
+    assert mrf_conv_bwd_data.launches == before + 1
+    _close_rel(dx, mrf.mrf_conv_bwd_data_reference(dy, x, w, d), 1e-4)
+
+
+@pytest.mark.cuda
 def test_mrf_conv_autograd_on_the_card():
     """Forward on K3 and backward on K4 through the autograd Function: the
     output has a grad_fn and the gradients match autograd of the twin."""

@@ -726,8 +726,10 @@ def test_sovits_train_end_to_end_on_cpu(workspace, capsys):
     norm, project = workspace
     params = ptrain.SovitsTrainParams(
         batch_size=8, total_epochs=1, save_every_epoch=1,
-        train_input_dir=norm, output_model_name="tiny", project_dir=project)
+        train_input_dir=norm, output_model_name="tiny", project_dir=project,
+        device="cpu")
     trainer = ptrain.SovitsTrain(params)
+    assert trainer.device.type == "cpu"
     assert trainer.model_cfg == SovitsConfig.from_json_dict(TINY_S2)
     history = []
     resp = trainer.train(on_step=lambda step, m: history.append(
@@ -765,6 +767,21 @@ def test_sovits_train_end_to_end_on_cpu(workspace, capsys):
     assert again.step_seconds == []
     for k, v in again.step_fn.net_g.state_dict().items():
         torch.testing.assert_close(v, trained[k], rtol=0, atol=0)
+
+
+def test_sovits_train_runs_on_the_card_by_default(workspace, monkeypatch):
+    """The trainer's device defaults to CUDA and, with no card, it raises
+    instead of moving to the host; the CPU is taken only when asked for."""
+    norm, project = workspace
+    params = ptrain.SovitsTrainParams(train_input_dir=norm,
+                                      output_model_name="dev",
+                                      project_dir=project)
+    assert params.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptrain.SovitsTrain(params)
+    assert ptrain.SovitsTrain(dataclasses.replace(
+        params, device="cpu")).device == torch.device("cpu")
 
 
 _NO_JAX_S2 = r"""

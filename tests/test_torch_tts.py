@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from easevoice_trainer_tpu import native as jnative
 from easevoice_trainer_tpu.inference import tts as jtts
 from easevoice_trainer_tpu.models.cnhubert import CNHubert as JHubert, \
     HubertConfig as JHubertConfig
@@ -19,6 +20,7 @@ from easevoice_trainer_tpu.models.gpt import T2SConfig as JT2SConfig, \
 from easevoice_trainer_tpu.models.sovits import SovitsConfig as JSovitsConfig, \
     SynthesizerTrn as JSynth
 from easevoice_trainer_tpu.utils import audio_io
+from easevoice_trainer_tpu_torch import native as pnative
 from easevoice_trainer_tpu_torch.inference import tts as ptts
 from easevoice_trainer_tpu_torch.service.voice import VoiceCloneService
 
@@ -88,9 +90,14 @@ def test_tts_config_reads_yaml_writes_json(tmp_path):
     assert ptts.TTSConfig(str(tmp_path / "absent.json")).device == "cuda"
 
 
-def test_tts_run_greedy_matches_jax(models, ref_wav):
+def test_tts_run_greedy_matches_jax(models, ref_wav, monkeypatch):
     """Whole slice: same weights, same reference, greedy tokens; the
-    fragments must have equal lengths and waveforms within WAV_ATOL."""
+    fragments must have equal lengths and waveforms within WAV_ATOL.  Both
+    packages resample the reference with scipy (neither native library is
+    loaded), so HuBERT sees the same 16 kHz input whichever library a
+    checkout has built."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(pnative, "_lib", None)
     tmp, ref = ref_wav
     (_, vparams, _), (_, tparams, _), (_, hparams, _) = models
     jcfg = jtts.TTSConfig(os.path.join(tmp, "jax_tts.yaml"))
@@ -192,7 +199,7 @@ from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
 from easevoice_trainer_tpu_torch.models.sovits import SovitsConfig, \
     SynthesizerTrn
 from easevoice_trainer_tpu_torch.service import voice
-from easevoice_trainer_tpu.utils import audio_io
+from easevoice_trainer_tpu_torch.utils import audio_io
 import json
 SOVITS_KW, T2S_KW, HUBERT_KW = json.loads(sys.argv[1])
 g = torch.Generator().manual_seed(0)
