@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # what a check of the port runs
+    python3 chip_smoke.py --parent DIR      # + an A/B against another tree
+
+``--parent`` takes the root of another checkout (the parent commit unpacked
+with ``git archive`` into a git-ignored directory); its package is imported
+beside this one as ``ev_parent`` and its K1, K2 and GPT decode are timed in
+turns with this tree's on the same inputs (lines "[a/b]").
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -16,13 +22,19 @@ Phases, one summary line each; any failure exits non-zero:
    function (SDPA, cuDNN conv / dgrad / wgrad), which the port never calls,
    each the mean over 20 calls of the CUDA kernel time torch.profiler
    records; and the least time the card could take for the same work (the
-   bound, from the bytes moved and the fp32 operations done).  K3 and
-   K4-dx are summed per Generator stage beside cuDNN;
+   bound, from the bytes moved and the fp32 operations done).  K2 is timed
+   cold, over the 24 layers' caches of a decode with the layer rotated on
+   every call (the loop reads each layer's cache once a step, far more than
+   the 50 MB L2 holds), at steps 0, 500 and the last slot, and warm on one
+   layer beside it.  K3 and K4-dx are summed per Generator stage beside
+   cuDNN;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
    sentences; the wav must be finite and non-silent, every weight on the
-   card, and K1, K2 and K3 launched during this phase;
+   card, and K1, K2 and K3 launched during this phase.  Then one prefill
+   and 16 decode steps of the same GPT under torch.profiler: K1's and K2's
+   device time a launch and the kernels a decode step launches;
 5. reference: the same models on the card and on the CPU (where the plain
    twins run) agree on a small input;
 6. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
@@ -48,6 +60,7 @@ from __future__ import annotations
 import copy
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -78,8 +91,8 @@ KERNEL_INFO = {
         "(_kernel, git 0ec4461)"),
     "decode_attention": (
         "easevoice_trainer_tpu_torch/csrc/decode_attention.cu",
-        "easevoice_trainer_tpu/models/gpt/t2s.py:356 "
-        "(decode_step attention, no Pallas ancestor)"),
+        "easevoice_trainer_tpu/models/gpt/t2s.py:338 "
+        "(decode_step: cache write + attention, no Pallas ancestor)"),
     "mrf_conv": (
         "easevoice_trainer_tpu_torch/csrc/mrf_conv.cu",
         "easevoice_trainer_tpu/ops/fused_mrf.py:125 "
@@ -119,41 +132,54 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 495e12 / 3
 
 
-def device_ms(torch, fn, name=None, reps: int = 20,
-              attempts: int = 3) -> float:
-    """Mean device time of one call of ``fn``: the CUDA kernels and copies
-    torch.profiler records over ``reps`` calls after a warm-up, divided by
-    ``reps``; with ``name``, only the kernels whose name holds it.
-
-    Now and then a profiler session comes back with no device activity at
-    all (seen once in ~150 sessions on an H100); the calls are then profiled
-    again, up to ``attempts`` sessions in all, and it raises after that."""
+def device_events(torch, fn, attempts: int = 3):
+    """The CUDA kernels and copies torch.profiler records over one call of
+    ``fn`` (synchronised at its end).  Now and then a profiler session comes
+    back with no device activity at all (seen once in ~150 sessions on an
+    H100); ``fn`` is then profiled again, up to ``attempts`` sessions in all,
+    and it raises after that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            fn()
             torch.cuda.synchronize()
         device = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
         if device:
-            break
+            return device
         log(f"[timer] torch.profiler session {attempt} of {attempts} "
             f"recorded no CUDA activity")
-    else:
-        raise RuntimeError("torch.profiler recorded no CUDA activity")
+    raise RuntimeError("torch.profiler recorded no CUDA activity")
+
+
+def device_ms(torch, fn, name=None, reps: int = 20) -> float:
+    """Mean device time of one call of ``fn``: the CUDA kernels and copies
+    torch.profiler records over ``reps`` calls after a warm-up, divided by
+    ``reps``; with ``name``, only the kernels whose name holds it."""
+    fn()
+    torch.cuda.synchronize()
+    device = device_events(torch, lambda: [fn() for _ in range(reps)])
     if name is not None:
         device = [e for e in device if name in e.name]
         if not device:
             raise RuntimeError(f"torch.profiler recorded no kernel named "
                                f"*{name}*")
     return sum(e.time_range.elapsed_us() for e in device) / 1000.0 / reps
+
+
+def in_turns(torch, fn, old, name=None):
+    """Device ms of ``fn`` and of ``old``, the same call on the parent
+    commit's package, timed in turns (old, new, new, old), each the mean of
+    its two sessions; (ms, None) without ``old``."""
+    if old is None:
+        return device_ms(torch, fn, name), None
+    first = device_ms(torch, old, name)
+    new = device_ms(torch, fn, name) + device_ms(torch, fn, name)
+    return new / 2, (first + device_ms(torch, old, name)) / 2
 
 
 class Bound:
@@ -187,7 +213,10 @@ def max_err(torch, got, want) -> float:
 # phase 3: each kernel against its twin
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, results):
+def check_kernels(torch, results, parent=None):
+    """K1-K3 against their twins at the serving shapes.  ``parent``: the
+    parent commit's ``ops.attention`` module, whose K1 and K2 are then timed
+    in turns beside this tree's on the same inputs (lines "[a/b]")."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.nn.layers import LRELU_SLOPE
@@ -208,6 +237,8 @@ def check_kernels(torch, results):
     got = att.prefill_attention(q, k, v, x_len, x_lens, y_lens)
     want = att.prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
     err = max_err(torch, got, want)
+    assert torch.equal(got, att.prefill_attention(
+        q, k, v, x_len, x_lens, y_lens)), "prefill_attention does not repeat"
     # the library yardstick: SDPA with the hybrid mask as a boolean
     # attn_mask, heads-first copies made outside the timed calls
     allowed = att.build_hybrid_mask_bias(x_len, prompt, x_lens, y_lens) == 0
@@ -215,8 +246,12 @@ def check_kernels(torch, results):
     sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
                              attn_mask=allowed)
     lib_err = max_err(torch, sdpa().transpose(1, 2), want)
-    ms = device_ms(torch, lambda: att.prefill_attention(
-        q, k, v, x_len, x_lens, y_lens), "prefill_attention")
+
+    def k1(mod):
+        return lambda: mod.prefill_attention(q, k, v, x_len, x_lens, y_lens)
+
+    ms, parent_ms = in_turns(torch, k1(att), parent and k1(parent),
+                             "prefill_attention")
     plain = device_ms(torch, lambda: att.prefill_attention_reference(
         q, k, v, x_len, x_lens, y_lens))
     library = device_ms(torch, sdpa)
@@ -225,54 +260,129 @@ def check_kernels(torch, results):
     bound.add(4 * 4 * b * t * h * dk, 4 * dk * pairs)  # q, k, v, o; QK, PV
     log(f"[kernels] K1 prefill_attention B={b} H={h} dk={dk} x_len={x_len} "
         f"x_lens={x_lens.tolist()} prompt={prompt}: max|d|={err:.3g} "
-        f"(tol {tol}); device ms: kernel {ms:.4f}, plain {plain:.4f}, "
-        f"SDPA {library:.4f} (max|d| {lib_err:.3g}), bound {bound.ms:.4f} "
-        f"({bound.by})")
+        f"(tol {tol}), repeats bit for bit; device ms: kernel {ms:.4f}, "
+        f"plain {plain:.4f}, SDPA {library:.4f} (max|d| {lib_err:.3g}), "
+        f"bound {bound.ms:.5f} ({bound.by}); kernel / SDPA "
+        f"{ms / library:.3f}")
+    if parent is not None:
+        perr = max_err(torch, k1(parent)(), want)
+        log(f"[a/b] K1 prefill_attention, same inputs, in turns: parent "
+            f"{parent_ms:.4f} ms -> this tree {ms:.4f} ms "
+            f"({parent_ms / ms:.2f}x); parent max|d|={perr:.3g}")
     assert err <= tol, f"prefill_attention disagrees: {err}"
     results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         library_ms=library, **bound.result())
+    del qkv, q, k, v, qh, kh, vh, sdpa
 
-    # K2: one layer's cache at x_len + prompt + 1120 slots
+    # K2: the 24 layers' caches of the serving decode, x_len + prompt + 1120
+    # slots each.  The decode loop reads every layer's cache once a step,
+    # 24 x 23.5 MB, far beyond the 50 MB L2, so each launch finds its cache
+    # cold: "cold" rotates the layer on every timed call; "warm" repeats one
+    # layer, whose valid slots then sit in L2.
+    n_layers = 24
     cache_len = x_len + prompt + 1120
-    kc = torch.randn((b, cache_len, h, dk), generator=gen, device=dev)
-    vc = torch.randn((b, cache_len, h, dk), generator=gen, device=dev)
+    last = cache_len - x_len - prompt - 1
+    kcs = torch.randn((n_layers, b, cache_len, h, dk), generator=gen,
+                      device=dev)
+    vcs = torch.randn((n_layers, b, cache_len, h, dk), generator=gen,
+                      device=dev)
+    qkv = torch.randn((b, 1, 3 * h * dk), generator=gen, device=dev)
+    qn, kn, vn = (z.view(b, 1, h, dk) for z in qkv.split(h * dk, dim=-1))
     worst = 0.0
-    for step in (0, 1, 500):
-        qn, kn, vn = (torch.randn((b, 1, h, dk), generator=gen, device=dev)
-                      for _ in range(3))
+    for step in (0, 1, 500, last):
+        pos = x_len + prompt + step
+        kc, vc = kcs[0].clone(), vcs[0].clone()
         got = att.decode_attention(qn, kn, vn, kc, vc, x_len, x_lens, prompt,
                                    step)
-        want = att.decode_attention_reference(qn, kc, vc, x_len, x_lens,
+        kw, vw = kcs[0].clone(), vcs[0].clone()
+        kw[:, pos] = kn[:, 0]
+        vw[:, pos] = vn[:, 0]
+        want = att.decode_attention_reference(qn, kw, vw, x_len, x_lens,
                                               prompt, step)
         err = max_err(torch, got, want)
         worst = max(worst, err)
+        same = torch.equal(kc, kw) and torch.equal(vc, vw)
+        again = torch.equal(got, att.decode_attention(
+            qn, kn, vn, kc, vc, x_len, x_lens, prompt, step))
         log(f"[kernels] K2 decode_attention cache_len={cache_len} "
-            f"step={step}: max|d|={err:.3g} (tol {tol})")
-    # step 500 (the row was written above): the kernel alone, the twin and
-    # SDPA over the first kv_end slots with the text pads masked
-    kv_end = x_len + prompt + 500 + 1
-    slot = torch.arange(kv_end, device=dev)
-    ok = (slot[None, :] < x_lens[:, None]) | (slot[None, :] >= x_len)
-    qh = qn.transpose(1, 2).contiguous()
-    kh, vh = (z[:, :kv_end].transpose(1, 2).contiguous() for z in (kc, vc))
-    sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
-                             attn_mask=ok[:, None, None, :])
-    lib_err = max_err(torch, sdpa().transpose(1, 2), want)
-    ms = device_ms(torch, lambda: att.decode_attention(
-        qn, kn, vn, kc, vc, x_len, x_lens, prompt, 500), "decode_attention")
-    plain = device_ms(torch, lambda: att.decode_attention_reference(
-        qn, kc, vc, x_len, x_lens, prompt, 500))
-    library = device_ms(torch, sdpa)
-    bound = Bound()
-    valid = int(ok.sum())                              # slots over the batch
-    bound.add(4 * (2 * b * h * dk + 2 * valid * h * dk), 4 * dk * h * valid)
-    log(f"[kernels] K2 step 500 ({valid} valid slots over the batch): device "
-        f"ms: kernel {ms:.4f}, plain {plain:.4f}, SDPA {library:.4f} (max|d| "
-        f"{lib_err:.3g}), bound {bound.ms:.5f} ({bound.by})")
+            f"step={step}: max|d|={err:.3g} (tol {tol}); cache after the "
+            f"kernel equals the twin's: {same}; repeats bit for bit: {again}")
+        assert same, "decode_attention left another cache than its twin"
+        assert again, "decode_attention does not repeat"
+    del kc, vc, kw, vw
     assert worst <= tol, f"decode_attention disagrees: {worst}"
-    results["decode_attention"] = dict(max_abs_err=worst, ms=ms,
-                                       plain_ms=plain, library_ms=library,
-                                       **bound.result())
+
+    for step in (0, 500, last):
+        kv_end = x_len + prompt + step + 1
+        kcs[:, :, kv_end - 1] = kn[:, 0]  # the new token's row, as written
+        vcs[:, :, kv_end - 1] = vn[:, 0]
+        slot = torch.arange(kv_end, device=dev)
+        ok = (slot[None, :] < x_lens[:, None]) | (slot[None, :] >= x_len)
+        layer = itertools.count()
+
+        def rotate(fn):
+            return lambda: fn(next(layer) % n_layers)
+
+        def k2(mod):
+            return lambda i: mod.decode_attention(
+                qn, kn, vn, kcs[i], vcs[i], x_len, x_lens, prompt, step)
+
+        cold, parent_cold = in_turns(
+            torch, rotate(k2(att)), parent and rotate(k2(parent)),
+            "decode_attention")
+        warm, parent_warm = in_turns(
+            torch, lambda: k2(att)(0), parent and (lambda: k2(parent)(0)),
+            "decode_attention")
+        plain = device_ms(torch, rotate(
+            lambda i: att.decode_attention_reference(
+                qn, kcs[i], vcs[i], x_len, x_lens, prompt, step)))
+        # SDPA over the first kv_end slots with the text pads masked,
+        # heads-first copies of every layer made outside the timed calls
+        qh = qn.transpose(1, 2).contiguous()
+        heads = [tuple(z[i, :, :kv_end].transpose(1, 2).contiguous()
+                       for z in (kcs, vcs)) for i in range(n_layers)]
+        mask = ok[:, None, None, :]
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(qh, *heads[i],
+                                                  attn_mask=mask)
+
+        want = att.decode_attention_reference(qn, kcs[0], vcs[0], x_len,
+                                              x_lens, prompt, step)
+        lib_err = max_err(torch, sdpa(0).transpose(1, 2), want)
+        library = device_ms(torch, rotate(sdpa))
+        del heads
+        bound = Bound()
+        valid = int(ok.sum())  # slots over the batch, the new one included
+        # q, k, v in and o out, the new row written, the older valid rows
+        # read; QK and PV over every valid slot
+        bound.add(4 * (6 * b * h * dk + 2 * (valid - b) * h * dk),
+                  4 * dk * h * valid)
+        log(f"[kernels] K2 step {step} ({valid} valid slots over the "
+            f"batch): device ms cold ({n_layers} "
+            f"rotating layers): kernel {cold:.5f}, plain {plain:.4f}, SDPA "
+            f"{library:.4f} (max|d| {lib_err:.3g}); warm (one layer): kernel "
+            f"{warm:.5f}; bound {bound.ms:.5f} ({bound.by}): cold kernel at "
+            f"{100 * bound.ms / cold:.1f} % of its bound")
+        if parent is not None:
+            log(f"[a/b] K2 decode_attention step {step}, same inputs, in "
+                f"turns: cold parent {parent_cold:.5f} ms -> this tree "
+                f"{cold:.5f} ms ({parent_cold / cold:.2f}x); warm parent "
+                f"{parent_warm:.5f} -> {warm:.5f} ms")
+        if step == 500:
+            results["decode_attention"] = dict(
+                max_abs_err=worst, ms=cold, warm_ms=warm, plain_ms=plain,
+                library_ms=library, **bound.result())
+    if parent is not None:
+        # the wrappers' whole device work at step 500, cold: the parent
+        # also writes the cache and copies q outside its kernel
+        step = 500
+        wrap = [device_ms(torch, rotate(k2(mod))) for mod in (att, parent)]
+        log(f"[a/b] K2 wrapper at step 500, cold, every kernel and copy it "
+            f"launches: parent {wrap[1]:.5f} ms -> this tree {wrap[0]:.5f} "
+            f"ms")
+    del kcs, vcs
+    torch.cuda.empty_cache()
 
     # K3: every Generator stage's (C, k, d) at its length for 250 codes
     # (padded to 256 codes -> 512 frames), batch of 4 rows.  The library
@@ -479,6 +589,78 @@ def check_k4(torch, results):
         f"K4 dx ({kern:.3f} ms) is slower than cuDNN dgrad ({lib:.3f} ms)"
 
 
+def ab_mrf(torch, parent):
+    """K3 and K4 of this tree against the parent's (``--parent``): the SASS
+    of every kernel of their loops in the two kernel libraries, the outputs
+    on the same inputs bit for bit, and the device time summed over
+    check_kernels' 45 K3 shapes (B=4) and check_k4's 45 K4 shapes (B=8),
+    timed in turns."""
+    import re
+
+    from easevoice_trainer_tpu_torch.ops import build, mrf
+
+    def sass(path):
+        cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+        out = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                             text=True, timeout=600, check=True).stdout
+        funcs = {}
+        for part in out.split("Function : ")[1:]:
+            name, _, body = part.partition("\n")
+            # an anonymous namespace's name carries a hash of its file
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+\w*?_cu_[0-9a-f]{8}",
+                          "_GLOBAL__N_", name.strip())
+            if any(k in name for k in ("conv_mma_kernel", "wgrad_partial",
+                                       "reduce_chunks")):
+                funcs.setdefault(name, []).append(
+                    [ln.strip() for ln in body.splitlines()
+                     if re.search(r"/\*[0-9a-f]{4}\*/", ln)])
+        return funcs
+
+    new, old = (sass(lib.path) for lib in (build.build(),
+                                           parent.ops.build.build()))
+    same = sum(sorted(new[n]) == sorted(old.get(n, [])) for n in new)
+    log(f"[a/b] SASS of the K3/K4 kernels (conv_mma_kernel, wgrad_partial, "
+        f"reduce_chunks): {len(new)} functions in this tree's library, "
+        f"{len(old)} in the parent's, identical: {same}")
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    k3, k4 = [], []
+    ch, up = 512, 1
+    for u in (10, 8, 2, 2, 2):
+        ch //= 2
+        up *= u
+        x = torch.randn((4, ch, 512 * up), generator=gen, device="cuda")
+        for kk in (3, 7, 11):
+            w = torch.randn((ch, ch, kk), generator=gen, device="cuda") \
+                / math.sqrt(ch * kk)
+            bias = torch.randn((ch,), generator=gen, device="cuda") * 0.1
+            k3 += [(x, w, bias, d, x if d == 1 else None) for d in (1, 3, 5)]
+    for ch, t_len in S2_STAGES:
+        x, dy = (torch.randn((8, ch, t_len), generator=gen, device="cuda")
+                 for _ in range(2))
+        for kk in (3, 7, 11):
+            w = torch.randn((ch, ch, kk), generator=gen, device="cuda") \
+                / math.sqrt(ch * kk)
+            k4 += [(dy, x, w, d) for d in (1, 3, 5)]
+    runs = {
+        "K3 mrf_conv": lambda m: [m.mrf_conv(x, w, bias, d, residual=r)
+                                  for x, w, bias, d, r in k3],
+        "K4 mrf_conv_bwd_data": lambda m: [m.mrf_conv_bwd_data(dy, x, w, d)
+                                           for dy, x, w, d in k4],
+        "K4 mrf_conv_bwd_weight": lambda m: [
+            g for dy, x, w, d in k4
+            for g in m.mrf_conv_bwd_weight(dy, x, w.shape, d)],
+    }
+    for label, run in runs.items():
+        equal = all(torch.equal(a, b) for a, b in zip(
+            run(mrf), run(parent.ops.mrf)))
+        ms, parent_ms = in_turns(torch, lambda: run(mrf),
+                                 lambda: run(parent.ops.mrf))
+        log(f"[a/b] {label}, 45 shapes, same inputs: outputs bit-identical: "
+            f"{equal}; device ms summed over the shapes, in turns: parent "
+            f"{parent_ms:.3f} -> this tree {ms:.3f}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
@@ -607,6 +789,86 @@ def serve(torch, tmp: str, results):
         + f"; {tokens} tokens generated, {tokens / phases['ar_decode']:.1f} "
         f"tokens/s in ar_decode; launches {launches}")
     return tts
+
+
+def profile_gpt(torch, model, parent=None):
+    """K1 and K2 inside the serving path: one prefill and 16 decode steps of
+    the full-width GPT under torch.profiler, as ``decode_ar`` runs them (B=4,
+    x_len 64 with the phase-3 lengths, a 250-token prompt, a 1434-slot
+    cache, greedy tokens), at steps 500-515 straight after the prefill (the
+    slots in between hold zeros): K1's and K2's mean device time a launch
+    and the kernels and copies a decode step launches.  With ``parent`` (the
+    parent commit's package) its GPT, given the same weights, is profiled
+    the same way, in turns."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    b, x_len, prompt, cache_len, first, n_steps = 4, 64, 250, 1434, 500, 16
+    x = torch.randint(1, 700, (b, x_len), generator=gen, device="cuda")
+    x_lens = torch.tensor([64, 41, 17, 58], dtype=torch.int32, device="cuda")
+    prompts = torch.randint(0, 1024, (b, prompt), generator=gen,
+                            device="cuda")
+    bert = torch.zeros((b, x_len, 1024), device="cuda")
+    n_layers = model.cfg.n_layers
+
+    def measure(m):
+        state = {}
+
+        def prefill():
+            state["out"] = m.prefill(x, x_lens, prompts, bert, cache_len)
+
+        def decode():
+            logits, kc, vc = state["out"]
+            token = logits.argmax(-1)
+            for step in range(first, first + n_steps):
+                token = m.decode_step(token, step, kc, vc, x_len, x_lens,
+                                      prompt).argmax(-1)
+
+        prefill()
+        decode()  # warm-up
+        pre = device_events(torch, prefill)
+        dec = device_events(torch, decode)
+        k1 = [e.time_range.elapsed_us() for e in pre
+              if "prefill_attention" in e.name]
+        k2 = [e.time_range.elapsed_us() for e in dec
+              if "decode_attention" in e.name]
+        # the trace now and then misses an event (one H100 run traced 383 of
+        # 384 K2 launches), so the counts are printed, not asserted
+        assert k1 and k2, "no K1 or K2 launch in the profiled GPT"
+        return dict(k1_us=float(np.mean(k1)), k2_us=float(np.mean(k2)),
+                    k1_n=len(k1), k2_n=len(k2), per_step=len(dec) / n_steps,
+                    step_ms=sum(e.time_range.elapsed_us() for e in dec)
+                    / 1000.0 / n_steps)
+
+    if parent is None:
+        runs = {"new": [measure(model)]}
+    else:
+        old = parent.models.gpt.Text2SemanticDecoder(model.cfg)
+        old.load_state_dict(model.state_dict())
+        old = old.to("cuda").eval()
+        runs = {"old": [measure(old)], "new": [measure(model)]}
+        runs["new"].append(measure(model))
+        runs["old"].append(measure(old))
+        del old
+    mean = {key: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+            for key, rs in runs.items()}
+    new = mean["new"]
+    log(f"[serving profile] GPT prefill B={b} T={x_len + prompt} + decode "
+        f"steps {first}-{first + n_steps - 1} of a {cache_len}-slot cache: "
+        f"K1 {new['k1_us']:.2f} us a launch ({new['k1_n']:.0f} traced of "
+        f"{n_layers}), K2 {new['k2_us']:.2f} us a launch ({new['k2_n']:.0f} "
+        f"traced of {n_layers * n_steps}); "
+        f"{new['per_step']:.1f} kernels and copies a decode step (greedy "
+        f"argmax included), {new['step_ms']:.3f} ms of device time a step")
+    if parent is not None:
+        old = mean["old"]
+        log(f"[a/b] serving GPT, same weights and inputs, in turns: kernels "
+            f"and copies a decode step parent {old['per_step']:.1f} -> this "
+            f"tree {new['per_step']:.1f} ({old['per_step'] - new['per_step']:.1f}"
+            f" fewer; 3 x {n_layers} layers = {3 * n_layers} expected); K1 "
+            f"us a launch {old['k1_us']:.2f} -> {new['k1_us']:.2f}; K2 us a "
+            f"launch {old['k2_us']:.2f} -> {new['k2_us']:.2f}; device ms a "
+            f"step {old['step_ms']:.3f} -> {new['step_ms']:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -928,7 +1190,37 @@ def reference_train_step(torch):
 # ---------------------------------------------------------------------------
 
 
+def load_parent(root: str):
+    """The port package of another checkout at ``root`` (the parent commit
+    unpacked with ``git archive``), imported as ``ev_parent`` beside this
+    tree's package, with its kernel library built."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "easevoice_trainer_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "ev_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ev_parent"] = mod
+    spec.loader.exec_module(mod)
+    for name in ("ops.attention", "ops.build", "models.gpt"):
+        importlib.import_module(f"ev_parent.{name}")
+    lib = mod.ops.build.build()
+    log(f"[parent] {pkg} imported as ev_parent; kernels {lib.path} built in "
+        f"{lib.build_seconds:.1f} s")
+    return mod
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="root of another checkout (the parent commit "
+                         "unpacked with git archive): its K1, K2 and GPT "
+                         "are timed beside this tree's, in turns")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "easevoice_trainer_tpu_torch")):
         print("chip_smoke: the easevoice_trainer_tpu_torch package is not "
               "beside this script", file=sys.stderr)
@@ -963,11 +1255,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
 
+        parent = None
+        if args.parent:
+            phase = "parent build"
+            parent = load_parent(args.parent)
+
         phase = "kernels"
-        check_kernels(torch, results)
+        check_kernels(torch, results, parent and parent.ops.attention)
         check_k4(torch, results)
+        if parent is not None:
+            phase = "mrf a/b"
+            ab_mrf(torch, parent)
         phase = "serving"
         tts = serve(torch, tmp, results)
+        phase = "serving profile"
+        profile_gpt(torch, tts.t2s, parent)
         phase = "reference"
         reference_check(torch, tts)
         del tts
@@ -1004,6 +1306,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if "warm_ms" in r:
+            kernels[-1]["warm_ms"] = r["warm_ms"]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,8 @@
 // same tile shifted by j*d columns, which is what a direct convolution has
 // over im2col.  The weight slice of every tap is staged next to it.
 //
-// fp32 accuracy from TF32 tensor cores ("3xTF32"): every operand v is split
-// as v = hi + lo, both TF32 (split_tf32), and each product is
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with fp32 accumulators (the lo*lo term,
-// ~2^-22 relative, is dropped).  x, the operand every tap re-reads, is split
+// fp32 accuracy from TF32 tensor cores in 3xTF32 (warp_mma.cuh: split_tf32,
+// mma_tf32, shared with K1).  x, the operand every tap re-reads, is split
 // (and in K3 leaky-relu'd) once per staged element, when a chunk moves from
 // its raw cp.async stage into the hi/lo planes the MMAs read.  A weight is
 // read once per tap by each warp along N, so it stays fp32 in shared memory
@@ -65,7 +63,11 @@
 
 #include <algorithm>
 
+#include "warp_mma.cuh"
+
 namespace mrf {
+
+using namespace ev;
 
 constexpr int NTHREADS = 256;  // 8 warps
 constexpr int BK = 8;          // input channels per chunk: one k-step
@@ -94,50 +96,13 @@ struct Geom {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
+// 4-byte copy for rows that are not 16-byte aligned; ok = false writes zero
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits, to nearest) by
-// an integer add and mask, lo = v - hi exactly.  The tensor core reads the top 19 bits of
-// each operand register, so lo enters truncated to TF32: |lo| <= 2^-11 |v|
-// and the truncation costs at most 2^-10 |lo|.
-__device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
-  hi = __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
-  lo = v - hi;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Block = WARPS_M x (8 / WARPS_M) warps; a warp owns MT m16 x NT n8 tiles.

@@ -7,125 +7,284 @@
 // (easevoice_trainer_tpu/models/gpt/t2s.py:118-131, :173-199) as the prefill
 // runs them.
 //
-// Bound on the H100: at T <= ~600 and dk = 32 the work is tiny (B*H*T*T*dk*4
-// flops, ~0.1 GFLOP at B=4), so the kernel is bound by latency and by the
-// bytes of a dense (B, H, T, T) score/bias tensor that the plain version
-// writes and reads several times.  Design: one block per (q-tile, head,
-// batch row), one thread per query row; K/V stream through shared memory in
-// 64-key tiles with an online softmax, and the mask is evaluated from
-// (x_len, x_lens[b], y_lens[b]) per score, so no (T, T) tensor exists.  Key
-// tiles past the last row's causal reach are never loaded.
+// Bound on the H100: at T <= ~600 and dk = 32 the bytes (q, k, v, o once:
+// 10 MB at the serving shape, 3 us) and the flops (~0.1 GFLOP) are both
+// tiny, so what limits it is latency and parallelism.  Design, a flash
+// attention on the tensor cores:
+//
+// - mma.sync m16n8k8 TF32 in 3xTF32 (warp_mma.cuh), so scores and outputs
+//   keep fp32 accuracy.  One warp owns 16 query rows; its Q fragments are
+//   split into hi/lo once and stay in registers.  Per key tile it computes
+//   S = Q K^T, runs the online softmax on the accumulator fragments (row
+//   max and sum across the 4 lanes of a row by shuffles), and multiplies P
+//   by V straight from the accumulator registers.
+// - No shuffles to bring P into A-fragment layout: a k-step's slot t is key
+//   2t and slot t+4 key 2t+1 of its 8 keys (c0/c1 of the score tile become
+//   a0/a2), and V's B fragment reads its rows in the same order.  The head
+//   dimension is permuted the same way on both sides of each product (for
+//   Q K^T, k-step s slot t is dim 8t+2s, slot t+4 dim 8t+2s+1; for P V, n8
+//   tile n column g is dim 4g+n), so every fragment of K, V and O is two
+//   16-byte accesses of one row.  Shared rows are 36 floats (4 mod 32):
+//   those 16-byte loads hit distinct banks.
+// - 2 warps (32 query rows) a block: a (10, 16, 4) grid of 640 blocks at
+//   the serving shape, one wave.  32-key tiles of K and V come in by
+//   cp.async in a 2-stage ring shared by both warps.
+// - Tile-level mask: the block walks only the text keys below x_lens[b] and
+//   the audio keys up to the causal reach of its last row (and below
+//   x_len + y_lens[b]); text pads and keys past the causal reach are never
+//   loaded.  A tile wholly visible to a warp runs with no mask test, a tile
+//   wholly hidden from it (past its rows' reach, or audio for text rows) is
+//   skipped, and only boundary tiles test each score.
 //
 // Layout: q/k/v are (B, T, H, 32) fp32 views whose head stride is 32 and
 // element stride 1 (the split of the fused qkv projection); the batch and
-// time strides are passed in.  o is (B, T, H, 32) with its own strides.
+// time strides are passed in, multiples of 4 floats, and the pointers are
+// 16-byte aligned (the wrapper checks).  o is (B, T, H, 32) contiguous.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
-constexpr int DK = 32;   // head width of the 512/16 GPT
-constexpr int BQ = 64;   // query rows per block, one per thread
-constexpr int BK = 64;   // keys per shared-memory tile
-constexpr int CH = 16;   // keys folded into the running softmax at once
+using namespace ev;
 
-__global__ void __launch_bounds__(BQ) prefill_attention_kernel(
+constexpr int DK = 32;          // head width of the 512/16 GPT
+constexpr int WARPS = 2;
+constexpr int NTHREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows per block
+constexpr int BKT = 32;         // keys per staged tile
+constexpr int LDS = DK + 4;     // shared row stride in floats, 4 mod 32
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  split_tf32(v, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+}
+
+__global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, long long o_sb, long long o_st,
-    const int* __restrict__ x_lens, const int* __restrict__ y_lens,
-    int T, int x_len, float scale) {
+    long long v_sb, long long v_st, const int* __restrict__ x_lens,
+    const int* __restrict__ y_lens, int T, int H, int x_len, float scale) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ;
-  const int row = q0 + tid;
-  const int xv = x_lens[b];
-  const int yv = y_lens[b];
+  const int r0 = q0 + warp * 16;  // the warp's first row
+  const int xv = min(max(x_lens[b], 0), x_len);
+  const int yv = min(max(y_lens[b], 0), T - x_len);
 
-  __shared__ float sq[BQ][DK + 1];  // +1: row-per-thread reads hit distinct banks
-  __shared__ float sk[BK][DK];
-  __shared__ float sv[BK][DK];
+  // keys the block walks: text [0, xv), audio [x_len, a_end)
+  const int q_last = min(q0 + BQ, T) - 1;
+  const int a_end = q_last >= x_len ? min(q_last + 1, x_len + yv) : x_len;
+  const int n_text = (xv + BKT - 1) / BKT;
+  const int n_tiles = n_text + (a_end - x_len + BKT - 1) / BKT;
 
-  const float* qb = q + b * q_sb + h * DK;
-  for (int idx = tid; idx < BQ * DK; idx += BQ) {
-    const int r = idx / DK, c = idx % DK;
-    const int t = q0 + r;
-    sq[r][c] = t < T ? qb[(long long)t * q_st + c] : 0.f;
-  }
-  __syncthreads();
-
-  float qr[DK], acc[DK];
-#pragma unroll
-  for (int d = 0; d < DK; ++d) {
-    qr[d] = sq[tid][d] * scale;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  // text rows see keys < x_len only; audio rows reach their own position
-  int kend = q0 + BQ > x_len ? q0 + BQ : x_len;
-  if (kend > T) kend = T;
+  __shared__ __align__(16) float sk[2][BKT][LDS];
+  __shared__ __align__(16) float sv[2][BKT][LDS];
 
   const float* kb = k + b * k_sb + h * DK;
   const float* vb = v + b * v_sb + h * DK;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    for (int idx = tid; idx < BK * DK; idx += BQ) {
-      const int r = idx / DK, c = idx % DK;
-      const int t = k0 + r;
-      const bool in = t < T;
-      sk[r][c] = in ? kb[(long long)t * k_st + c] : 0.f;
-      sv[r][c] = in ? vb[(long long)t * v_st + c] : 0.f;
+  auto issue = [&](int i, int slot) {
+    if (i < n_tiles) {
+      const int k0 = i < n_text ? i * BKT : x_len + (i - n_text) * BKT;
+      const int kend = i < n_text ? xv : a_end;
+      for (int p = tid; p < BKT * DK / 4; p += NTHREADS) {
+        const int r = p >> 3, c = (p & 7) * 4;
+        const int key = k0 + r;
+        const bool ok = key < kend;
+        cp_async16(&sk[slot][r][c], ok ? kb + key * k_st + c : kb, ok);
+        cp_async16(&sv[slot][r][c], ok ? vb + key * v_st + c : vb, ok);
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  issue(0, 0);
+  issue(1, 1);
 
-    for (int c0 = 0; c0 < BK && k0 + c0 < kend; c0 += CH) {
-      float s[CH];
-      float mc = -INFINITY;
+  // Q fragments, split once: k-step s reads dims 8t+2s (slots t) and
+  // 8t+2s+1 (slots t+4) of rows g and g+8
+  uint32_t qh[4][4], ql[4][4];
+  {
+    float qa[8], qc[8];
+    const float* qb = q + b * q_sb + h * DK + 8 * t;
 #pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        const int j = k0 + c0 + jj;
-        bool visible;
-        if (j >= T) {
-          visible = false;
-        } else if (j < x_len) {
-          visible = j < xv;
-        } else {
-          visible = row >= x_len && j <= row && j - x_len < yv;
-        }
-        float dot = -INFINITY;
-        if (visible) {
-          dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DK; ++d) dot = fmaf(qr[d], sk[c0 + jj][d], dot);
-          mc = fmaxf(mc, dot);
-        }
-        s[jj] = dot;
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + g + 8 * half;
+      float* dst = half ? qc : qa;
+      float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
+      if (row < T) {
+        lo4 = *reinterpret_cast<const float4*>(qb + row * q_st);
+        hi4 = *reinterpret_cast<const float4*>(qb + row * q_st + 4);
       }
-      if (mc == -INFINITY) continue;
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DK; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < CH; ++jj) {
-        const float p = expf(s[jj] - m_new);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < DK; ++d) acc[d] = fmaf(p, sv[c0 + jj][d], acc[d]);
-      }
-      m = m_new;
+      dst[0] = lo4.x; dst[1] = lo4.y; dst[2] = lo4.z; dst[3] = lo4.w;
+      dst[4] = hi4.x; dst[5] = hi4.y; dst[6] = hi4.z; dst[7] = hi4.w;
     }
-    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      split2(qa[2 * s], qh[s][0], ql[s][0]);
+      split2(qc[2 * s], qh[s][1], ql[s][1]);
+      split2(qa[2 * s + 1], qh[s][2], ql[s][2]);
+      split2(qc[2 * s + 1], qh[s][3], ql[s][3]);
+    }
   }
 
-  if (row < T) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;  // a row with no visible key emits 0
-    float* ob = o + b * o_sb + (long long)row * o_st + h * DK;
+  // O accumulators: tile n, c0 = row g dim 8t+n, c1 = row g dim 8t+4+n,
+  // c2/c3 the same for row g+8
+  float oacc[4][4];
 #pragma unroll
-    for (int d = 0; d < DK; ++d) ob[d] = acc[d] * inv;
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float c = scale * LOG2E;
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const int r_hi = r0 + 15;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int slot = i & 1;
+    const bool text = i < n_text;
+    const int k0 = text ? i * BKT : x_len + (i - n_text) * BKT;
+    // hidden from every row of the warp: audio keys for text rows, or keys
+    // past the last row's causal reach
+    const bool hidden = !text && (r_hi < x_len || k0 > r_hi);
+    if (!hidden) {
+      const bool full = text ? k0 + BKT <= xv
+                             : (r0 >= x_len && k0 + BKT - 1 <= r0 &&
+                                k0 + BKT <= x_len + yv);
+      // S = Q K^T: key tile n holds keys k0 + 8n + g (B column g)
+      float sacc[4][4];
+      float kr[4][8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* row = &sk[slot][8 * n + g][8 * t];
+        const float4 a = *reinterpret_cast<const float4*>(row);
+        const float4 d = *reinterpret_cast<const float4*>(row + 4);
+        kr[n][0] = a.x; kr[n][1] = a.y; kr[n][2] = a.z; kr[n][3] = a.w;
+        kr[n][4] = d.x; kr[n][5] = d.y; kr[n][6] = d.z; kr[n][7] = d.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          split2(kr[n][2 * s], bh[n][0], bl[n][0]);
+          split2(kr[n][2 * s + 1], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(sacc[n], ql[s], bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(sacc[n], qh[s], bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(sacc[n], qh[s], bh[n][0], bh[n][1]);
+      }
+      // scale into log2 units and mask; element e of tile n is row
+      // rows[e >> 1], key k0 + 8n + 2t + (e & 1)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sacc[n][e] * c;
+          if (!full) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            const int row = rows[e >> 1];
+            const bool vis = text ? key < xv
+                                  : (row >= x_len && key <= row &&
+                                     key < x_len + yv);
+            s = vis ? s : -INFINITY;
+          }
+          sacc[n][e] = s;
+        }
+      // online softmax, rows g (e = 0, 1) and g+8 (e = 2, 3)
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mx = fmaxf(mx, fmaxf(sacc[n][2 * r], sacc[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - base);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          sacc[n][2 * r] = exp2f(sacc[n][2 * r] - base);
+          sacc[n][2 * r + 1] = exp2f(sacc[n][2 * r + 1] - base);
+          sum += sacc[n][2 * r] + sacc[n][2 * r + 1];
+        }
+        l[r] = l[r] * alpha[r] + sum;  // this lane's part of the row sum
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        oacc[n][0] *= alpha[0];
+        oacc[n][1] *= alpha[0];
+        oacc[n][2] *= alpha[1];
+        oacc[n][3] *= alpha[1];
+      }
+      // O += P V: k-step j is score tile j (slot t = key 8j+2t, slot t+4 =
+      // key 8j+2t+1), n8 tile n column g is dim 4g+n
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t ah[4], al[4];
+        split2(sacc[j][0], ah[0], al[0]);
+        split2(sacc[j][2], ah[1], al[1]);
+        split2(sacc[j][1], ah[2], al[2]);
+        split2(sacc[j][3], ah[3], al[3]);
+        const float4 v0 =
+            *reinterpret_cast<const float4*>(&sv[slot][8 * j + 2 * t][4 * g]);
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            &sv[slot][8 * j + 2 * t + 1][4 * g]);
+        const float va[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float vc[4] = {v1.x, v1.y, v1.z, v1.w};
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          split2(va[n], bh[n][0], bl[n][0]);
+          split2(vc[n], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(oacc[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(oacc[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32(oacc[n], ah, bh[n][0], bh[n][1]);
+      }
+    }
+    __syncthreads();  // both warps are done with this slot
+    issue(i + 2, slot);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    if (row >= T) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: 0
+    float* ob = o + (((long long)b * T + row) * H + h) * DK + 8 * t;
+    *reinterpret_cast<float4*>(ob) =
+        make_float4(oacc[0][2 * r] * inv, oacc[1][2 * r] * inv,
+                    oacc[2][2 * r] * inv, oacc[3][2 * r] * inv);
+    *reinterpret_cast<float4*>(ob + 4) =
+        make_float4(oacc[0][2 * r + 1] * inv, oacc[1][2 * r + 1] * inv,
+                    oacc[2][2 * r + 1] * inv, oacc[3][2 * r + 1] * inv);
   }
 }
 
@@ -134,13 +293,13 @@ __global__ void __launch_bounds__(BQ) prefill_attention_kernel(
 extern "C" int ev_prefill_attention_f32(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, long long o_sb, long long o_st,
-    const void* x_lens, const void* y_lens, int B, int T, int H, int x_len,
-    float scale, void* stream) {
+    long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
+    int B, int T, int H, int x_len, float scale, void* stream) {
+  if (T <= 0 || x_len < 0 || x_len > T) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  prefill_attention_kernel<<<grid, BQ, 0, (cudaStream_t)stream>>>(
+  prefill_attention_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, q_sb, q_st,
-      k_sb, k_st, v_sb, v_st, o_sb, o_st, (const int*)x_lens,
-      (const int*)y_lens, T, x_len, scale);
+      k_sb, k_st, v_sb, v_st, (const int*)x_lens, (const int*)y_lens, T, H,
+      x_len, scale);
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,24 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
 
 
+def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """q/k/v as the kernels read them: fp32 (B, T, H, dk) with head stride dk
+    and unit stride in dk (views of the fused qkv projection are fine), batch
+    and time strides in whole 16-byte units, 16-byte aligned."""
+    dk = q.shape[-1]
+    if q.dtype != torch.float32 or dk != DK:
+        raise ValueError(f"{name}: needs fp32 and dk={DK}, got "
+                         f"{q.dtype} dk={dk}")
+    for z in (q, k, v):
+        if (z.shape != q.shape or z.stride(2) != DK or z.stride(3) != 1
+                or z.stride(0) % 4 or z.stride(1) % 4
+                or z.data_ptr() % 16):
+            raise ValueError(f"{name}: q/k/v must be {tuple(q.shape)} "
+                             f"fp32 with head stride dk, unit stride in dk, "
+                             f"and 16-byte aligned rows")
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       x_len: int, x_lens: torch.Tensor,
                       y_lens: torch.Tensor) -> torch.Tensor:
@@ -67,14 +85,10 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
     _check_cuda("prefill_attention", q, k, v, x_lens, y_lens)
+    _check_heads("prefill_attention", q, k, v)
     b, t, h, dk = q.shape
-    if q.dtype != torch.float32 or dk != DK:
-        raise ValueError(f"prefill_attention: needs fp32 and dk={DK}, got "
-                         f"{q.dtype} dk={dk}")
-    for z in (q, k, v):
-        if z.shape != q.shape or z.stride(2) != DK or z.stride(3) != 1:
-            raise ValueError("prefill_attention: q/k/v must be (B, T, H, dk) "
-                             "with unit stride in dk and head stride dk")
+    if not 0 <= x_len <= t:
+        raise ValueError(f"prefill_attention: x_len {x_len} outside [0, {t}]")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     o = torch.empty((b, t, h, dk), dtype=torch.float32, device=q.device)
@@ -82,9 +96,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.ev_prefill_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-        x_lens.data_ptr(), y_lens.data_ptr(), b, t, h, int(x_len),
-        1.0 / math.sqrt(dk), torch.cuda.current_stream(q.device).cuda_stream)
+        v.stride(0), v.stride(1), x_lens.data_ptr(), y_lens.data_ptr(),
+        b, t, h, int(x_len), 1.0 / math.sqrt(dk),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "prefill_attention")
     prefill_attention.launches += 1
     return o
@@ -95,8 +109,9 @@ prefill_attention.launches = 0
 
 def decode_attention_reference(q, k_cache, v_cache, x_len: int, x_lens,
                                prompt_len: int, step: int):
-    """Plain twin of K2: dense scores over the whole cache + the kv bias of
-    the decode loop (JAX: decode.py:141-156, t2s.py:366-373)."""
+    """Plain twin of K2's attention: dense scores over the whole cache + the
+    kv bias of the decode loop (JAX: decode.py:141-156, t2s.py:366-373).
+    Reads the cache after the new token's K/V were written."""
     # valid: text slots below x_lens[b] (the pads sit in the middle of the
     # cache), then every slot in [x_len, x_len + prompt_len + step]
     kv_end = x_len + prompt_len + step + 1
@@ -114,39 +129,43 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      step: int) -> torch.Tensor:
     """K2. One decode step of one layer.
 
-    q, k, v: (B, 1, H, dk) for the new token; k_cache/v_cache:
-    (B, cache_len, H, dk), one layer of the (L, B, cache_len, H, dk) stack.
-    The new token's K/V are written in place at slot
-    ``x_len + prompt_len + step`` first, then the query attends to every
-    valid slot.  Returns o (B, 1, H, dk).
+    q, k, v: (B, 1, H, dk) for the new token (strided views of the fused
+    qkv output are fine); k_cache/v_cache: (B, cache_len, H, dk), one layer
+    of the (L, B, cache_len, H, dk) stack.  The new token's K/V are written
+    in place at slot ``x_len + prompt_len + step`` and the query attends to
+    every valid slot, that one included.  On the CPU the twin writes first
+    and then attends, as the JAX ``decode_step`` does; on the card the
+    kernel does both in one launch.  Raises before writing anything when the
+    slot is outside the cache.  Returns o (B, 1, H, dk).
     """
     pos = x_len + prompt_len + step
-    k_cache[:, pos] = k[:, 0]
-    v_cache[:, pos] = v[:, 0]
+    cache_len = k_cache.shape[1]
+    if not x_len <= pos < cache_len:
+        raise ValueError(f"decode_attention: slot {pos} outside the cache's "
+                         f"[{x_len}, {cache_len})")
     if q.device.type == "cpu":
+        k_cache[:, pos] = k[:, 0]
+        v_cache[:, pos] = v[:, 0]
         return decode_attention_reference(q, k_cache, v_cache, x_len, x_lens,
                                           prompt_len, step)
-    _check_cuda("decode_attention", q, k_cache, v_cache, x_lens)
-    b, cache_len, h, dk = k_cache.shape
-    if k_cache.dtype != torch.float32 or dk != DK:
-        raise ValueError(f"decode_attention: needs fp32 and dk={DK}, got "
-                         f"{k_cache.dtype} dk={dk}")
+    _check_cuda("decode_attention", q, k, v, k_cache, v_cache, x_lens)
+    b, _, h, dk = k_cache.shape
+    _check_heads("decode_attention", q, k, v)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()
             and v_cache.shape == k_cache.shape
+            and q.shape == (b, 1, h, dk)
             and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0):
         raise ValueError("decode_attention: caches must be contiguous, "
-                         "16-byte aligned (B, cache_len, H, dk)")
-    if pos >= cache_len:
-        raise ValueError(f"decode_attention: slot {pos} beyond cache "
-                         f"{cache_len}")
-    q = q.contiguous()
+                         "16-byte aligned (B, cache_len, H, dk) matching q")
     x_lens = x_lens.to(torch.int32).contiguous()
     o = torch.empty((b, 1, h, dk), dtype=torch.float32, device=q.device)
     lib = build.build()
     rc = lib.ev_decode_attention_f32(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        x_lens.data_ptr(), b, h, cache_len, int(x_len), pos + 1,
-        1.0 / math.sqrt(dk), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), o.data_ptr(), x_lens.data_ptr(),
+        q.stride(0), k.stride(0), v.stride(0), b, h, cache_len, int(x_len),
+        pos, 1.0 / math.sqrt(dk),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "decode_attention")
     decode_attention.launches += 1
     return o

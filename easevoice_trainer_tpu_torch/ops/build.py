@@ -34,10 +34,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    "ev_prefill_attention_f32": [_P, _P, _P, _P] + [_LL] * 8
+    "ev_prefill_attention_f32": [_P, _P, _P, _P] + [_LL] * 6
     + [_P, _P, _I, _I, _I, _I, _F, _P],
-    "ev_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _P],
+    "ev_decode_attention_f32": [_P] * 7 + [_LL] * 3 + [_I] * 5 + [_F, _P],
     "ev_mrf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "ev_mrf_conv_bwd_data_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _P],

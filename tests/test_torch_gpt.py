@@ -135,6 +135,42 @@ def test_decode_step_twin_matches_jax(gpt, inputs):
         assert_close(pv.numpy(), jv, 2e-4, f"v cache step {step}")
 
 
+@pytest.mark.parametrize("step", [0, 5])
+def test_decode_attention_twin_vs_jax_attention_step(gpt, step):
+    """K2's wrapper on the CPU inside one layer: q/k/v as strided views of
+    the fused projection (``TransformerLayer.qkv``), the new K/V written
+    into the cache and attended to, against the JAX
+    ``TransformerLayer.attention_step`` (dynamic_update_slice + kv_len_mask):
+    the projected output and both caches within 1e-5."""
+    port, jmodel, params, _ = gpt
+    rng = np.random.default_rng(17 + step)
+    d, heads = T2S_KW["hidden_dim"], T2S_KW["n_heads"]
+    cache_len = X_LEN + PROMPT + 8
+    h = rng.normal(0, 1, (B, 1, d)).astype(np.float32)
+    kc = rng.normal(0, 1, (B, cache_len, heads, d // heads)).astype(
+        np.float32)
+    vc = rng.normal(0, 1, kc.shape).astype(np.float32)
+    pos = X_LEN + PROMPT + step
+    slot = np.arange(cache_len)
+    ok = (slot[None] < X_LENS[:, None]) | ((slot[None] >= X_LEN)
+                                           & (slot[None] <= pos))
+    mask = np.where(ok, 0.0, -np.inf).astype(np.float32)[:, None, None]
+    want, wk, wv = jmodel.apply(
+        {"params": params}, h, kc, vc, pos, mask,
+        method=lambda m, *a: m.layers[0].attention_step(*a))
+    layer = port.h.layers[0]
+    pk, pv = _t(kc), _t(vc)
+    with torch.no_grad():
+        q, k, v = layer.qkv(_t(h))
+        assert not q.is_contiguous()
+        o = patt.decode_attention(q, k, v, pk, pv, X_LEN, _t(X_LENS),
+                                  PROMPT, step)
+        got = layer.self_attn.out_proj(o.reshape(h.shape))
+    assert_close(got.numpy(), want, 1e-5, "attention step")
+    assert_close(pk.numpy(), wk, 1e-5, "k cache")
+    assert_close(pv.numpy(), wv, 1e-5, "v cache")
+
+
 def test_sampler_pieces_match_jax():
     rng = np.random.default_rng(13)
     logits = rng.normal(0, 3, (4, 1025)).astype(np.float32)

@@ -95,42 +95,131 @@ def test_kernel_wrappers_refuse_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_len,x_lens,prompt", [
-    (64, [64, 41, 17, 58], 250),   # the serving shape
-    (16, [16, 1, 9, 12], 37),      # ragged tiles, a one-phoneme row
+@pytest.mark.parametrize("x_len,x_lens,prompt,y_lens", [
+    (64, [64, 41, 17, 58], 250, None),   # the serving shape
+    (16, [16, 1, 9, 12], 37, None),      # ragged tiles, a one-phoneme row
+    (13, [13, 1, 7, 12], 1, None),       # prompt 1; x_len off every tile
+    (40, [1, 40, 33, 5], 95, [95, 60, 1, 33]),  # audio pads, T % 32 != 0
+    # text tiles cut short, and a row with no text: its text rows see no
+    # key at all
+    (70, [0, 70, 65, 3], 200, [200, 17, 190, 96]),
 ])
-def test_prefill_attention_kernel_matches_twin(x_len, x_lens, prompt):
+def test_prefill_attention_kernel_matches_twin(x_len, x_lens, prompt, y_lens):
+    """K1 at the serving shape and at its tile edges: T, x_len and the valid
+    lengths off the 32-row query and 32-key tiles, one-phoneme rows, a
+    one-token prompt and padded audio rows; q/k/v are views of one fused
+    projection.  Two identical calls give bit-identical outputs."""
     gen = _card()
     b, h, dk, t = len(x_lens), 16, 32, x_len + prompt
     lens = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
     qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
     q, k, v = (z.view(b, t, h, dk) for z in qkv.split(h * dk, dim=-1))
-    y_lens = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
+    y_lens = torch.tensor(y_lens or [prompt] * b, dtype=torch.int32,
+                          device="cuda")
     before = prefill_attention.launches
     got = prefill_attention(q, k, v, x_len, lens, y_lens)
     assert prefill_attention.launches == before + 1
     want = att.prefill_attention_reference(q, k, v, x_len, lens, y_lens)
+    # rows with no visible key are 0 in the kernel and NaN in the twin
+    want = torch.nan_to_num(want, nan=0.0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, prefill_attention(q, k, v, x_len, lens, y_lens))
+
+
+def _decode_inputs(gen, b, h, cache_len, device):
+    """A cache and the new token's q/k/v as views of one fused projection,
+    as ``TransformerLayer.qkv`` gives them."""
+    dk = 32
+    kc = torch.randn((b, cache_len, h, dk), generator=gen, device=device)
+    vc = torch.randn((b, cache_len, h, dk), generator=gen, device=device)
+    qkv = torch.randn((b, 1, 3 * h * dk), generator=gen, device=device)
+    q, k, v = (z.view(b, 1, h, dk) for z in qkv.split(h * dk, dim=-1))
+    return q, k, v, kc, vc
+
+
+def _decode_against_twin(q, k, v, kc, vc, x_len, lens, prompt, step):
+    """K2 against its twin on copies of one cache: outputs within 1e-4, the
+    caches left bit-equal, and a second launch repeating the first bit for
+    bit."""
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, step)
+    assert decode_attention.launches == before + 1
+    pos = x_len + prompt + step
+    kc2[:, pos] = k[:, 0]
+    vc2[:, pos] = v[:, 0]
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    want = att.decode_attention_reference(q, kc2, vc2, x_len, lens, prompt,
+                                          step)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    again = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, step)
+    assert torch.equal(got, again)
+    return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", [0, 1, 500, 1119])
 def test_decode_attention_kernel_matches_twin(step):
+    """K2 at the serving shape (a 1434-slot cache, split over 8 blocks) at
+    the first, second, a middle and the last slot, with a one-phoneme row."""
     gen = _card()
-    b, h, dk, x_len, prompt = 4, 16, 32, 64, 250
-    cache_len = x_len + prompt + 1120
+    b, h, x_len, prompt = 4, 16, 64, 250
     lens = torch.tensor([64, 41, 1, 58], dtype=torch.int32, device="cuda")
-    kc = torch.randn((b, cache_len, h, dk), generator=gen, device="cuda")
-    vc = torch.randn((b, cache_len, h, dk), generator=gen, device="cuda")
-    q, k, v = (torch.randn((b, 1, h, dk), generator=gen, device="cuda")
-               for _ in range(3))
-    before = decode_attention.launches
-    got = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, step)
-    assert decode_attention.launches == before + 1
-    torch.testing.assert_close(kc[:, x_len + prompt + step], k[:, 0])
-    want = att.decode_attention_reference(q, kc, vc, x_len, lens, prompt,
-                                          step)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    q, k, v, kc, vc = _decode_inputs(gen, b, h, x_len + prompt + 1120,
+                                     "cuda")
+    _decode_against_twin(q, k, v, kc, vc, x_len, lens, prompt, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_len", [56, 1434])
+def test_decode_attention_kernel_fewer_slots_than_split(cache_len):
+    """Fewer valid slots than blocks per (b, h), with rows that have no
+    text and only the new token to attend to; a cache short enough for one
+    block (56 slots) too."""
+    gen = _card()
+    b, h, x_len, prompt = 4, 16, 4, 1
+    lens = torch.tensor([0, 4, 1, 2], dtype=torch.int32, device="cuda")
+    q, k, v, kc, vc = _decode_inputs(gen, b, h, cache_len, "cuda")
+    for step in (0, 2):
+        _decode_against_twin(q, k, v, kc, vc, x_len, lens, prompt, step)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_skips_text_pads():
+    """A value planted in a text-pad slot (x_lens[b] <= s < x_len) and one
+    beyond the write position do not reach the kernel's output."""
+    gen = _card()
+    b, h, x_len, prompt = 4, 16, 64, 250
+    lens = torch.tensor([64, 41, 17, 58], dtype=torch.int32, device="cuda")
+    q, k, v, kc, vc = _decode_inputs(gen, b, h, x_len + prompt + 1120,
+                                     "cuda")
+    base = _decode_against_twin(q, k, v, kc, vc, x_len, lens, prompt, 7)
+    vc[1, 50] = 1e6                    # text pad of row 1
+    kc[2, 20] = 1e6
+    vc[:, x_len + prompt + 8] = 1e6    # not yet generated
+    got = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, 7)
+    assert torch.equal(got, base)
+
+
+def test_decode_attention_takes_views_and_checks_the_slot_first():
+    """The wrapper takes q/k/v as strided views of the fused projection
+    (same output and cache as contiguous copies), and a slot outside the
+    cache raises before anything is written."""
+    gen = torch.Generator().manual_seed(2)
+    b, h, x_len, prompt = 2, 2, 8, 4
+    lens = torch.tensor([8, 3])
+    q, k, v, kc, vc = _decode_inputs(gen, b, h, 24, "cpu")
+    assert not q.is_contiguous()
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, 5)
+    want = decode_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            kc2, vc2, x_len, lens, prompt, 5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    before = (kc.clone(), vc.clone())
+    with pytest.raises(ValueError, match="outside the cache"):
+        decode_attention(q, k, v, kc, vc, x_len, lens, prompt, 24 - 12)
+    assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])
 
 
 @pytest.mark.cuda
