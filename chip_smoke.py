@@ -6,8 +6,9 @@
 
 ``--parent`` takes the root of another checkout (the parent commit unpacked
 with ``git archive`` into a git-ignored directory); its package is imported
-beside this one as ``ev_parent`` and its K1, K2 and GPT decode are timed in
-turns with this tree's on the same inputs (lines "[a/b]").
+beside this one as ``ev_parent`` and its K1-K4 and GPT decode are timed in
+turns with this tree's on the same inputs (lines "[a/b]"; K3 and K4-dx also
+compared by SASS and bit for bit, K4-dW per Generator stage).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -26,8 +27,9 @@ Phases, one summary line each; any failure exits non-zero:
    cold, over the 24 layers' caches of a decode with the layer rotated on
    every call (the loop reads each layer's cache once a step, far more than
    the 50 MB L2 holds), at steps 0, 500 and the last slot, and warm on one
-   layer beside it.  K3 and K4-dx are summed per Generator stage beside
-   cuDNN;
+   layer beside it.  K3 and both K4 entry points are summed per Generator
+   stage beside cuDNN, K4-dW with the split of its B*T sum for each shape
+   and the count of tensor-core instructions in its SASS;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -102,7 +104,7 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu/ops/fused_mrf.py:168 "
         "(_bwd_kernel, dx, git 42ecfe8)"),
     "mrf_conv_bwd_weight": (
-        "easevoice_trainer_tpu_torch/csrc/mrf_conv_bwd.cu",
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_wgrad.cu",
         "easevoice_trainer_tpu/ops/fused_mrf.py:168 "
         "(_bwd_kernel, dW and db, git 42ecfe8)"),
 }
@@ -470,11 +472,13 @@ def check_k4(torch, results):
     B=8, every Generator stage of one 32-frame segment, k in {3, 7, 11},
     d in {1, 3, 5}.  dx is a sum of Cout*k products, like K3's output, and
     takes K3's tolerance, 1e-4 x max(1, max|twin|).  dW and db are sums of
-    B*T (up to 163,840) products, taken in 512-sample chunks and then across
-    chunks, in another order than cuDNN's: 1e-3 x max(1, max|twin|).  A
-    wrong tap or index gives errors of order 1.  The library calls are
-    cuDNN's dgrad (conv_transpose1d) and wgrad (conv1d_weight on the
-    leaky-relu'd input)."""
+    B*T (up to 163,840) products, split per shape into ranges of samples
+    whose partial sums are added in a fixed order (ops/mrf.py wgrad_plan),
+    in another order than cuDNN's: 1e-3 x max(1, max|twin|).  A wrong tap or
+    index gives errors of order 1.  The library calls are cuDNN's dgrad
+    (conv_transpose1d) and wgrad (conv1d_weight on the leaky-relu'd input).
+    Both kernels must not be slower than their library call over the 45
+    shapes; the tensor-core instructions in dW's SASS are counted."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.nn.layers import LRELU_SLOPE
@@ -489,12 +493,12 @@ def check_k4(torch, results):
     worst_rel = dict(worst)
     times = {name: [0.0, 0.0, 0.0] for name in names}  # kernel/plain/library
     bounds = {name: Bound() for name in names}
-    stage_dx = []
+    stage_sums = []
     for ch, t_len in S2_STAGES:
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
         dy = torch.randn((b, ch, t_len), generator=gen, device=dev)
         act = F.leaky_relu(x, LRELU_SLOPE)
-        dx_sums = [0.0, 0.0]  # kernel, cuDNN dgrad
+        sums = [0.0] * 4  # dx kernel, cuDNN dgrad, dW kernel, cuDNN wgrad
         for kk in (3, 7, 11):
             w = torch.randn((ch, ch, kk), generator=gen, device=dev) \
                 / math.sqrt(ch * kk)
@@ -543,14 +547,21 @@ def check_k4(torch, results):
                     line.append(f"max|d|={e:.3g} rel {r:.3g}, device ms "
                                 f"kernel {ts[0]:.4f}, plain {ts[1]:.4f}, "
                                 f"cuDNN {ts[2]:.4f}")
-                    if name == names[0]:
-                        dx_sums = [dx_sums[0] + ts[0], dx_sums[1] + ts[2]]
+                    at = 0 if name == names[0] else 2
+                    sums[at] += ts[0]
+                    sums[at + 1] += ts[2]
+                plan = mrf.wgrad_card_plan(b, ch, ch, t_len, kk, d, dev)
                 log(f"[kernels] K4 B={b} C={ch} T={t_len} k={kk} d={d}: dx "
-                    f"{line[0]}; dW/db {line[1]}")
-        stage_dx.append((ch, t_len, dx_sums))
-    for i, (ch, t_len, (kern, lib)) in enumerate(stage_dx):
-        log(f"[kernels] K4 dx stage {i} (C={ch}, T={t_len}), 9 shapes: "
-            f"kernel {kern:.3f} ms, cuDNN dgrad {lib:.3f} ms")
+                    f"{line[0]}; dW/db {line[1]}; dW plan: tile {plan.bn} x "
+                    f"{plan.bi} x {plan.taps} taps, {plan.tiles} tiles x "
+                    f"{plan.cluster} x {plan.clusters} clusters = "
+                    f"{plan.blocks} blocks, scratch "
+                    f"{plan.scratch_floats * 4 / 1e6:.2f} MB")
+        stage_sums.append((ch, t_len, sums))
+    for i, (ch, t_len, (dx, dgrad, dw, wgrad)) in enumerate(stage_sums):
+        log(f"[kernels] K4 stage {i} (C={ch}, T={t_len}), 9 shapes: dx "
+            f"kernel {dx:.3f} ms, cuDNN dgrad {dgrad:.3f} ms; dW/db kernel "
+            f"{dw:.3f} ms, cuDNN wgrad {wgrad:.3f} ms")
     # the card against the CPU twin on two shapes
     for ch, t_len, kk, d in ((256, 320, 11, 5), (16, 20480, 3, 1)):
         x = torch.randn((b, ch, t_len), generator=gen, device=dev)
@@ -584,44 +595,85 @@ def check_k4(torch, results):
         assert worst_rel[name] <= tol, f"{name} disagrees: {worst_rel[name]}"
         results[name] = dict(max_abs_err=worst[name], ms=kern,
                              plain_ms=plain, library_ms=lib, **bd.result())
-    kern, lib = times["mrf_conv_bwd_data"][0], times["mrf_conv_bwd_data"][2]
-    assert kern <= lib, \
-        f"K4 dx ({kern:.3f} ms) is slower than cuDNN dgrad ({lib:.3f} ms)"
+    for name, label, call in (("mrf_conv_bwd_data", "dx", "dgrad"),
+                              ("mrf_conv_bwd_weight", "dW", "wgrad")):
+        kern, lib = times[name][0], times[name][2]
+        assert kern <= lib, (f"K4 {label} ({kern:.3f} ms) is slower than "
+                             f"cuDNN {call} ({lib:.3f} ms)")
+    from easevoice_trainer_tpu_torch.ops import build
+
+    tensor = {name: sum(opcode(ln).split(".")[0] in ("HGMMA", "HMMA")
+                        for body in bodies for ln in body)
+              for name, bodies in sass_functions(
+                  build.build().path,
+                  ("wgrad_wgmma_kernel", "wgrad_mma_kernel")).items()}
+    log("[kernels] K4 dW tensor-core instructions (HGMMA / HMMA) in the "
+        "SASS: " + ", ".join(f"{short_name(n)} {c}"
+                             for n, c in sorted(tensor.items())))
+    assert tensor and all(tensor.values()), tensor
+
+
+def sass_functions(path: str, keys) -> dict:
+    """The SASS of the kernel library at ``path``: for every function whose
+    name holds one of ``keys``, the instruction lines of each copy of it in
+    the library, by name, with the hash of an anonymous namespace taken out
+    of the name."""
+    import re
+
+    from easevoice_trainer_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                         text=True, timeout=600, check=True).stdout
+    funcs = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+\w*?_cu_[0-9a-f]{8}",
+                      "_GLOBAL__N_", name.strip())
+        if any(k in name for k in keys):
+            funcs.setdefault(name, []).append(
+                [ln.strip() for ln in body.splitlines()
+                 if re.search(r"/\*[0-9a-f]{4}\*/", ln)])
+    return funcs
+
+
+def opcode(line: str) -> str:
+    """The opcode of a SASS line ("/*0040*/ @P0 HGMMA.64x256x8... ;")."""
+    words = line.split("*/", 1)[-1].split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0] if words else ""
+
+
+def short_name(mangled: str) -> str:
+    """The kernel's name out of its mangled one, with its template
+    arguments (e.g. wgrad_wgmma_kernel<256>)."""
+    import re
+
+    m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel)((?:I?Li-?\d+E)*)",
+                  mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(-?\d+)E", m.group(2))
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def ab_mrf(torch, parent):
-    """K3 and K4 of this tree against the parent's (``--parent``): the SASS
-    of every kernel of their loops in the two kernel libraries, the outputs
-    on the same inputs bit for bit, and the device time summed over
-    check_kernels' 45 K3 shapes (B=4) and check_k4's 45 K4 shapes (B=8),
-    timed in turns."""
-    import re
-
+    """K3 and K4 of this tree against the parent's (``--parent``).  K3 and
+    K4-dx run the same loop (conv_mma_kernel): its SASS in the two kernel
+    libraries, its outputs on the same inputs bit for bit, and its device
+    time summed over check_kernels' 45 K3 shapes (B=4) and check_k4's 45 K4
+    shapes (B=8), timed in turns.  K4-dW: the largest difference between
+    the two trees' dW / db relative to the parent's largest magnitude, and
+    the device time of each Generator stage's 9 shapes, timed in turns."""
     from easevoice_trainer_tpu_torch.ops import build, mrf
 
-    def sass(path):
-        cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-        out = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                             text=True, timeout=600, check=True).stdout
-        funcs = {}
-        for part in out.split("Function : ")[1:]:
-            name, _, body = part.partition("\n")
-            # an anonymous namespace's name carries a hash of its file
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+\w*?_cu_[0-9a-f]{8}",
-                          "_GLOBAL__N_", name.strip())
-            if any(k in name for k in ("conv_mma_kernel", "wgrad_partial",
-                                       "reduce_chunks")):
-                funcs.setdefault(name, []).append(
-                    [ln.strip() for ln in body.splitlines()
-                     if re.search(r"/\*[0-9a-f]{4}\*/", ln)])
-        return funcs
-
-    new, old = (sass(lib.path) for lib in (build.build(),
-                                           parent.ops.build.build()))
+    new, old = (sass_functions(lib.path, ("conv_mma_kernel",))
+                for lib in (build.build(), parent.ops.build.build()))
     same = sum(sorted(new[n]) == sorted(old.get(n, [])) for n in new)
-    log(f"[a/b] SASS of the K3/K4 kernels (conv_mma_kernel, wgrad_partial, "
-        f"reduce_chunks): {len(new)} functions in this tree's library, "
-        f"{len(old)} in the parent's, identical: {same}")
+    log(f"[a/b] SASS of the K3/K4-dx loop (conv_mma_kernel): {len(new)} "
+        f"functions in this tree's library, {len(old)} in the parent's, "
+        f"identical: {same}")
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     k3, k4 = [], []
@@ -647,9 +699,6 @@ def ab_mrf(torch, parent):
                                   for x, w, bias, d, r in k3],
         "K4 mrf_conv_bwd_data": lambda m: [m.mrf_conv_bwd_data(dy, x, w, d)
                                            for dy, x, w, d in k4],
-        "K4 mrf_conv_bwd_weight": lambda m: [
-            g for dy, x, w, d in k4
-            for g in m.mrf_conv_bwd_weight(dy, x, w.shape, d)],
     }
     for label, run in runs.items():
         equal = all(torch.equal(a, b) for a, b in zip(
@@ -659,6 +708,25 @@ def ab_mrf(torch, parent):
         log(f"[a/b] {label}, 45 shapes, same inputs: outputs bit-identical: "
             f"{equal}; device ms summed over the shapes, in turns: parent "
             f"{parent_ms:.3f} -> this tree {ms:.3f}")
+
+    def dw_run(m, shapes):
+        return lambda: [g for dy, x, w, d in shapes
+                        for g in m.mrf_conv_bwd_weight(dy, x, w.shape, d)]
+
+    rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(dw_run(mrf, k4)(), dw_run(parent.ops.mrf, k4)()))
+    totals = [0.0, 0.0]
+    for i, (ch, t_len) in enumerate(S2_STAGES):
+        shapes = k4[9 * i:9 * i + 9]
+        ms, parent_ms = in_turns(torch, dw_run(mrf, shapes),
+                                 dw_run(parent.ops.mrf, shapes))
+        totals = [totals[0] + ms, totals[1] + parent_ms]
+        log(f"[a/b] K4 mrf_conv_bwd_weight stage {i} (C={ch}, T={t_len}), 9 "
+            f"shapes, same inputs, in turns: parent {parent_ms:.3f} -> this "
+            f"tree {ms:.3f} ms ({parent_ms / ms:.2f}x)")
+    log(f"[a/b] K4 mrf_conv_bwd_weight, 45 shapes: parent {totals[1]:.3f} -> "
+        f"this tree {totals[0]:.3f} ms ({totals[1] / totals[0]:.2f}x); "
+        f"largest |this - parent| / max(1, max|parent|) {rel:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -1067,7 +1135,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
     """One more step of the trained S2TrainStep on a batch of the run's data,
     under torch.profiler: the step's device time and the MRF kernels' part
     of it (K3 and K4-dx share conv_mma_kernel, told apart by its BWD
-    template argument)."""
+    template argument; K4-dW is wgrad_wgmma_kernel / wgrad_mma_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1102,8 +1170,8 @@ def profile_train_step(torch, trainer, norm: str) -> None:
         us = e.time_range.elapsed_us()
         if "conv_mma_kernel" in e.name:
             groups["K4-dx" if "true" in e.name else "K3"] += us
-        elif "wgrad_partial" in e.name or "reduce_chunks" in e.name:
-            groups["K4-dW"] += us
+        elif "wgrad_wgmma_kernel" in e.name or "wgrad_mma_kernel" in e.name:
+            groups["K4-dW"] += us  # not cuDNN's own *wgrad_* kernels
         else:
             groups["other"] += us
     if not launches:
@@ -1252,7 +1320,7 @@ def main() -> int:
         lib = build.build()
         log(f"[build] {lib.path} in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"[build] {line.strip()}")
 
         parent = None

@@ -1,0 +1,773 @@
+// K4's weight gradient: the dW and db of one MRF ResBlock conv
+// (y = conv1d(leaky_relu(x), w, dilation, same padding) + b), on (B, C, T)
+// fp32, T contiguous:
+//
+//   dw[o,i,q] = sum_{b,t} dy[b,o,t] * lrelu(x)[b,i,t+q*d-p]  (0 outside [0,T))
+//   db[o]     = sum_{b,t} dy[b,o,t]
+//
+// Replaces: the dW / db half of the backward of the Pallas kernel mrf_stage
+// (easevoice_trainer_tpu/ops/fused_mrf.py `_bwd_kernel`, git 42ecfe8), which
+// summed dW over the batch in VMEM as its sequential grid walked the rows.
+// The data gradient is mrf_conv_bwd.cu.
+//
+// Bound on the H100: one GEMM per tap, M = Cin by N = Cout over a reduction
+// of B*T samples.  Over the 45 s2 shapes chip_smoke times (B = 8, (C, T) =
+// (256, 320) ... (16, 20480), k in {3, 7, 11}, d in {1, 3, 5}) that is 100.4
+// GFLOP: 0.61 ms in 3xTF32 on the tensor cores (3 * 100.4 / 495 TFLOP/s);
+// C <= 32 is nearly bound by its bytes (dy and x read once, 21 MB a shape at
+// C = 16).  The whole sum is 0.643 ms.
+//
+// fp32 accuracy from TF32 tensor cores in 3xTF32 (warp_mma.cuh): every
+// product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with fp32 accumulators.
+//
+// Route 1, wgmma (Cin >= 64 and Cout >= 64): a block of three warpgroups
+// owns 64 input channels x BN output channels (64 or 128; a wider N gave
+// fewer, longer blocks and was slower at C = 256) x one tap a warpgroup,
+// for one range of samples.  The tap shift goes through registers, not
+// descriptors: a wgmma shared-memory descriptor cannot start an arbitrary
+// q*d floats into a K-major tile, so the shifted activation is the register
+// operand A (M = input channels): each lane reads its fragment from the raw
+// x tile at t + q*d - p, applies the leaky relu and splits hi/lo in
+// registers.  dy is operand B (N = output channels, time as K): it lands by cp.async straight
+// in the 8 x 16-byte core-matrix layout of a K-major descriptor without
+// swizzle (a 16-byte copy is four samples of one channel, one core-matrix
+// row), is split once in place into hi and lo planes, and is read by every
+// tap's wgmma.  The accumulator is dW^T of one tap, 64 x BN in registers.
+// Two stages of dy and x are in flight (cp.async, 16-byte copies when
+// T % 4 == 0, 4-byte ones otherwise); the next stage's hi/lo split runs
+// while this stage's wgmmas do.
+//
+// Route 2, mma.sync (Cin < 64 or Cout < 64, the C = 32 / 16 stages): a
+// 64-row wgmma tile would be three-quarters empty there, so M is formed from
+// (tap, input channel) pairs, up to 32 channels x k taps, and N is 16 or 32
+// output channels, on mma.sync.m16n8k8 (ev::mma_tf32), both operands split
+// in registers.  The eight warps split the pair rows into groups and the
+// k-steps of each 128-sample stage among themselves, so that every warp
+// has work at C = 16, k = 3.  These shapes are read once from HBM by a grid
+// of two blocks per SM.
+//
+// The B*T sum is split per shape (ops/mrf.py wgrad_plan): the time tiles of
+// all batch rows are cut into S = cluster x clusters contiguous ranges, S
+// chosen so that the grid fills the SMs once.  The partial sums are added in
+// a fixed order with no float atomics: inside a cluster of up to 8 blocks
+// through distributed shared memory, each rank summing its slice of the
+// tile over the ranks in rank order; across clusters (when the shape needs
+// more than one) through a scratch of clusters x tile floats, after a
+// grid-wide barrier of a cooperative launch, in cluster order.  One launch a
+// call, and the result repeats bit for bit.  db is summed from the staged dy
+// tiles in the same pass, by the blocks of the first input-channel tile (and
+// first tap group).
+//
+// Measured (chip_smoke.py check_k4, NVIDIA H100 80GB HBM3, 700 W): 2.7 ms
+// over the 45 shapes, 4.2x the bound, against 6.1 ms for the chunked SIMT
+// kernel it replaced and 8.2 ms for cuDNN's wgrad; PERF.md has the calls.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
+#include "wgmma_tf32.cuh"
+
+namespace {
+
+using namespace ev;
+namespace cg = cooperative_groups;
+
+constexpr int NTH = 256;    // threads an mma.sync block: eight warps
+constexpr int MAX_K = 15;   // taps: the mma route holds 32 x k pair rows
+constexpr int BM = 64;      // input channels a wgmma tile (the M of wgmma)
+constexpr int MTS = 128;    // samples a stage on the mma route
+constexpr int LDY = MTS + 4;  // = 4 mod 32
+
+constexpr int NWG = 3;            // warpgroups of a wgmma block, a tap each
+constexpr int WG_THREADS = 128 * NWG;
+constexpr int TS = 64;            // samples a stage on the wgmma route
+
+// >= n and = 4 mod 32: the rows a warp's fragment loads touch (8 rows x 4
+// columns) fall in 32 different banks
+__host__ __device__ constexpr int pad_rows(int n) {
+  return n + ((4 - n % 32) % 32 + 32) % 32;
+}
+
+// the staged x window of a stage of ts samples: [u0, u0 + rx) with u0 the
+// 16-byte aligned sample at or before t0 - pad
+struct Window {
+  int pad, rx, ldx;
+  __host__ __device__ Window(int ts, int k, int dil) {
+    const int halo = (k - 1) * dil;
+    pad = halo / 2;
+    rx = (ts + halo + 3 + 3) & ~3;
+    ldx = pad_rows(rx);
+  }
+};
+
+// 4-byte copy for rows that are not 16-byte aligned; ok = false writes zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float lrelu(float v, float slope) {
+  return v >= 0.f ? v : v * slope;
+}
+
+// The output tile of an mma.sync block, and the order of its partial sums
+// in shared memory and scratch: element e = (o_l * ti + i_l) * tq + q_l of
+// the dW tile, then `to` db values.
+struct OutTile {
+  int o0, i0, to, ti, tq;
+  bool db;
+  __device__ int floats() const { return to * ti * tq + to; }
+  __device__ void put(int e, float v, float* dw, float* db_out, int Cin,
+                      int Cout, int K) const {
+    const int body = to * ti * tq;
+    if (e < body) {
+      const int ol = e / (ti * tq), rem = e - ol * ti * tq;
+      const int il = rem / tq, ql = rem - il * tq;
+      const int o = o0 + ol, i = i0 + il;
+      if (o < Cout && i < Cin) dw[((long long)o * Cin + i) * K + ql] = v;
+    } else if (db) {
+      const int o = o0 + e - body;
+      if (o < Cout) db_out[o] = v;
+    }
+  }
+};
+
+// sum of p[0], p[stride], ... p[(n-1)*stride] in that order; the loads of
+// eight terms are issued before their adds
+__device__ __forceinline__ float ordered_sum(const float* p, long long stride,
+                                             int n) {
+  float v = 0.f;
+  for (int c0 = 0; c0 < n; c0 += 8) {
+    float t[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) t[u] = c0 + u < n ? p[(c0 + u) * stride] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (c0 + u < n) v += t[u];
+  }
+  return v;
+}
+
+// The output tile of a wgmma block: its partial sums stay in the order of
+// the accumulator registers, thread-major (element r * THREADS + tid is
+// acc[r] of thread tid, warpgroup tid / 128 holding tap q0 + tid / 128),
+// so that parking them is conflict-free and finding an element's (o, i, q)
+// takes shifts; then BN db values.
+template <int BN>
+struct WgTile {
+  static constexpr int THREADS = WG_THREADS;
+  static constexpr int BODY = (BN / 2) * THREADS;
+  int o0, i0, q0, taps;
+  bool db;
+  __device__ int floats() const { return BODY + BN; }
+  __device__ void put(int e, float v, float* dw, float* db_out, int Cin,
+                      int Cout, int K) const {
+    if (e < BODY) {
+      const int t = e % THREADS, r = e / THREADS;
+      const int ql = t / 128, lane = t % 32;
+      const int il = (t / 32 % 4) * 16 + lane / 4 + 8 * ((r >> 1) & 1);
+      const int ol = (r >> 2) * 8 + 2 * (lane % 4) + (r & 1);
+      const int o = o0 + ol, i = i0 + il, q = q0 + ql;
+      if (ql < taps && o < Cout && i < Cin && q < K)
+        dw[((long long)o * Cin + i) * K + q] = v;
+    } else if (db) {
+      const int o = o0 + e - BODY;
+      if (o < Cout) db_out[o] = v;
+    }
+  }
+};
+
+// The block's partial sums are in `part` (out.floats() floats).  Adds them
+// over the blocks of the cluster (blockIdx.x / cs) in rank order, then over
+// the clusters in cluster order, and writes dW and db.
+template <class Tile>
+__device__ void reduce_partials(const float* part, const Tile& out,
+                                float* dw, float* db, float* scratch, int Cin,
+                                int Cout, int K, int cs, int nc) {
+  const int L = out.floats();
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int s = blockIdx.x, S = gridDim.x;
+  const long long slot = ((long long)(s / cs) * gridDim.y + blockIdx.y) * L;
+  auto keep = [&](int e, float v) {
+    if (nc == 1)
+      out.put(e, v, dw, db, Cin, Cout, K);
+    else
+      scratch[slot + e] = v;
+  };
+  if (cs > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = (int)cluster.block_rank();
+    const float* remote[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      remote[r] = cluster.map_shared_rank(const_cast<float*>(part),
+                                          r < cs ? r : 0);
+    for (int e = rank * L / cs + tid; e < (rank + 1) * L / cs; e += nth) {
+      float t[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) t[r] = r < cs ? remote[r][e] : 0.f;
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < cs) v += t[r];
+      keep(e, v);
+    }
+    cluster.sync();  // the others' shared memory lives until it is read
+  } else {
+    __syncthreads();
+    for (int e = tid; e < L; e += nth) keep(e, part[e]);
+  }
+  if (nc > 1) {
+    __threadfence();
+    cg::this_grid().sync();
+    const long long stride = (long long)gridDim.y * L;
+    const float* base = scratch + (long long)blockIdx.y * L;
+    for (int e = s * L / S + tid; e < (s + 1) * L / S; e += nth)
+      out.put(e, ordered_sum(base + e, stride, nc), dw, db, Cin, Cout, K);
+  }
+}
+
+// this block's share of the B * ceil(T/ts) time tiles: [first, first + n)
+struct Share {
+  int first, n, per_row;
+  __device__ Share(int B, int T, int ts) {
+    per_row = (T + ts - 1) / ts;
+    const long long total = (long long)B * per_row;
+    first = (int)(blockIdx.x * total / gridDim.x);
+    n = (int)((blockIdx.x + 1) * total / gridDim.x) - first;
+  }
+};
+
+// ---------------------------------------------------------------- wgmma --
+
+// offset (floats) of dy[o][u] in a K-major core-matrix plane of bn rows
+__device__ __forceinline__ int plane_at(int o, int u, int bn) {
+  return (u >> 2) * (4 * bn) + (o >> 3) * 32 + (o & 7) * 4 + (u & 3);
+}
+
+// grid: (S, m tiles x n tiles x tap groups); taps: taps a block (<= NWG)
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1) wgrad_wgmma_kernel(
+    const float* __restrict__ dy, const float* __restrict__ x,
+    float* __restrict__ dw, float* __restrict__ db,
+    float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
+    int dil, float slope, int taps, int cs, int nc, int vec) {
+  constexpr int PLANE = BN * TS;  // floats of a dy plane
+  constexpr int NTHR = WG_THREADS;
+  constexpr int XT = NTHR / BM;   // threads an x row
+  const Window win(TS, K, dil);
+  const int ldx = win.ldx, rx = win.rx;
+  const int stage = 2 * PLANE + BM * ldx;
+  extern __shared__ __align__(128) float smem[];
+
+  const int groups = (K + taps - 1) / taps;
+  const int ntiles = (Cout + BN - 1) / BN;
+  const int g = blockIdx.y % groups;
+  const int n0 = (blockIdx.y / groups % ntiles) * BN;
+  const int m0 = blockIdx.y / groups / ntiles * BM;
+  const WgTile<BN> out{n0, m0, g * taps, taps, m0 == 0 && g == 0};
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup index, read from lane 0 so that the compiler sees it is
+  // the same across the warp: the branches on it around wgmma are uniform
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wq = (tid >> 5) & 3, gid = lane >> 2, tig = lane & 3;
+  const Share share(B, T, TS);
+
+  auto tile_t0 = [&](int i, int& b) {
+    const int tt = share.first + i;
+    b = tt / share.per_row;
+    return (tt - b * share.per_row) * TS;
+  };
+
+  const int dyo = tid % BN, xr = tid / XT;
+  const bool dy_ok = n0 + dyo < Cout, x_ok = m0 + xr < Cin;
+  auto issue = [&](int i, int slot) {
+    if (i < share.n) {
+      int b;
+      const int t0 = tile_t0(i, b);
+      const int u0 = (t0 - win.pad) & ~3;
+      float* hi = smem + slot * stage;
+      float* xs = hi + 2 * PLANE;
+      const float* dyb = dy + (long long)b * Cout * T;
+      const float* xb = x + (long long)b * Cin * T;
+      // thread tid copies dy row dyo (a fixed output channel) and x row
+      // xr, every NTHR / BN-th and XT-th piece of them
+      const float* dyr = dyb + (long long)(n0 + dyo) * T;
+      const float* xrow = xb + (long long)(m0 + xr) * T;
+      if (vec) {
+        for (int c = tid / BN; c < TS / 4; c += NTHR / BN) {
+          const int t = t0 + 4 * c;
+          const bool ok = dy_ok && t < T;
+          cp_async16(hi + plane_at(dyo, 4 * c, BN), ok ? dyr + t : dy, ok);
+        }
+        for (int c = tid % XT; c < rx / 4; c += XT) {
+          const int t = u0 + 4 * c;
+          const bool ok = x_ok && t >= 0 && t < T;
+          cp_async16(xs + xr * ldx + 4 * c, ok ? xrow + t : x, ok);
+        }
+      } else {
+        for (int u = tid / BN; u < TS; u += NTHR / BN) {
+          const int t = t0 + u;
+          const bool ok = dy_ok && t < T;
+          cp_async4(hi + plane_at(dyo, u, BN), ok ? dyr + t : dy, ok);
+        }
+        for (int c = tid % XT; c < rx; c += XT) {
+          const int t = u0 + c;
+          const bool ok = x_ok && t >= 0 && t < T;
+          cp_async4(xs + xr * ldx + c, ok ? xrow + t : x, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // raw dy (in the hi plane) -> hi and lo planes; each thread splits the
+  // pieces it copied itself, all of output channel tid % BN, and adds them to
+  // its share of db
+  float db_acc = 0.f;
+  auto convert = [&](int i, int slot) {
+    if (i >= share.n) return;
+    float* hi = smem + slot * stage;
+    float* lo = hi + PLANE;
+    if (vec) {
+      for (int c = tid / BN; c < TS / 4; c += NTHR / BN) {
+        const int off = plane_at(dyo, 4 * c, BN);
+        const float4 v = *reinterpret_cast<const float4*>(hi + off);
+        db_acc += v.x;
+        db_acc += v.y;
+        db_acc += v.z;
+        db_acc += v.w;
+        float4 h, l;
+        split_tf32(v.x, h.x, l.x);
+        split_tf32(v.y, h.y, l.y);
+        split_tf32(v.z, h.z, l.z);
+        split_tf32(v.w, h.w, l.w);
+        *reinterpret_cast<float4*>(hi + off) = h;
+        *reinterpret_cast<float4*>(lo + off) = l;
+      }
+    } else {
+      for (int u = tid / BN; u < TS; u += NTHR / BN) {
+        const int off = plane_at(dyo, u, BN);
+        float h, l;
+        db_acc += hi[off];
+        split_tf32(hi[off], h, l);
+        hi[off] = h;
+        lo[off] = l;
+      }
+    }
+  };
+
+  // warpgroup wgi holds tap q0 + wgi of the block
+  float acc[BN / 2];
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+  const bool live = wgi < taps && out.q0 + wgi < K;
+  const int xcol = (out.q0 + wgi) * dil + tig;
+  const int xr0 = (wq * 16 + gid) * ldx, xr1 = xr0 + 8 * ldx;
+
+  issue(0, 0);
+  issue(1, 1);
+  cp_async_wait<1>();
+  convert(0, 0);
+  fence_proxy_async();
+  __syncthreads();
+  for (int i = 0; i < share.n; ++i) {
+    const int slot = i & 1;
+    const float* hi = smem + slot * stage;
+    const float* lo = hi + PLANE;
+    const float* xs = hi + 2 * PLANE;
+    int b;
+    const int start = tile_t0(i, b) - win.pad;
+    const int shift = start - (start & ~3);
+    const uint64_t dh = interleave_desc(hi, BN * 16, 128);
+    const uint64_t dl = interleave_desc(lo, BN * 16, 128);
+    // two k-steps an iteration: their A fragments are two register sets,
+    // one loaded while the other's wgmmas run
+#pragma unroll 2
+    for (int ks = 0; ks < TS / 8; ++ks) {
+      if (!live) break;
+      uint32_t ah[4], al[4];
+      const int c = shift + xcol + 8 * ks;
+      const float v[4] = {xs[xr0 + c], xs[xr1 + c], xs[xr0 + c + 4],
+                          xs[xr1 + c + 4]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float h, l;
+        split_tf32(lrelu(v[e], slope), h, l);
+        ah[e] = __float_as_uint(h);
+        al[e] = __float_as_uint(l);
+      }
+      wgmma_fence();
+      // 8 samples further along K: two core matrices of 4 * BN floats
+      const uint64_t step = (uint64_t)(2 * BN * ks);
+      Wgmma<BN>::mma(acc, al, dh + step);
+      Wgmma<BN>::mma(acc, ah, dl + step);
+      Wgmma<BN>::mma(acc, ah, dh + step);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    cp_async_wait<0>();  // this thread's pieces of tile i + 1
+    convert(i + 1, slot ^ 1);
+    fence_proxy_async();
+    wgmma_wait<0>();
+    __syncthreads();
+    issue(i + 2, slot);
+  }
+
+  // the stages are free (only empty cp.async groups are left): park the
+  // partial sums there in the WgTile order; db's shares go after them and
+  // are added over the threads of each channel in thread order
+  float* part = smem;
+  const int body = WgTile<BN>::BODY;
+  part[body + BN + tid] = db_acc;
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) part[r * NTHR + tid] = acc[r];
+  __syncthreads();
+  if (tid < BN) {
+    float v = 0.f;
+    for (int r = tid; r < NTHR; r += BN) v += part[body + BN + r];
+    part[body + tid] = v;
+  }
+  reduce_partials(part, out, dw, db, scratch, Cin, Cout, K, cs, nc);
+}
+
+// -------------------------------------------------------------- mma.sync --
+
+// grid: (S, input-channel tiles of ci x output-channel tiles of 8 NT).  A
+// warp holds MT m16 tiles of (tap, input channel) pair rows by NT n8 tiles
+// of output channels; the pair rows are cut into pair groups of MT tiles
+// and the eight warps into (pair group, sample group): warp w takes pair
+// group w % pgp and the k-steps w / pgp, w / pgp + 8 / pgp, ... of a stage.
+template <int MT, int NT>
+__global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
+    const float* __restrict__ dy, const float* __restrict__ x,
+    float* __restrict__ dw, float* __restrict__ db,
+    float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
+    int dil, float slope, int ci, int cs, int nc, int vec) {
+  constexpr int MO = 8 * NT;     // output channels a tile
+  constexpr int DYT = NTH / MO;  // threads a dy row
+  const Window win(MTS, K, dil);
+  const int ldx = win.ldx, rx = win.rx;
+  const int stage = MO * LDY + ci * ldx;
+  extern __shared__ __align__(128) float smem[];
+
+  const int cotiles = (Cout + MO - 1) / MO;
+  const int o0 = blockIdx.y % cotiles * MO, i0 = blockIdx.y / cotiles * ci;
+  const OutTile out{o0, i0, MO, ci, K, i0 == 0};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const Share share(B, T, MTS);
+  const int pairs = ci * K;
+  const int groups = ((pairs + 15) / 16 + MT - 1) / MT;  // <= 8
+  const int pgp = groups <= 1 ? 1 : groups <= 2 ? 2 : groups <= 4 ? 4 : 8;
+  const int pg = warp % pgp, sg = warp / pgp, sgn = 8 / pgp;
+  const bool busy = pg < groups;
+  // pair row p is (tap p / ci, input channel p % ci); ci is 16 or 32
+  const int ci_log2 = ci == 16 ? 4 : 5;
+  auto x_at = [&](int p) {
+    return p < pairs ? (p & (ci - 1)) * ldx + (p >> ci_log2) * dil + tig : 0;
+  };
+  const int nlive = min(NT, (min(MO, Cout - o0) + 7) / 8);
+
+  auto tile_t0 = [&](int i, int& b) {
+    const int tt = share.first + i;
+    b = tt / share.per_row;
+    return (tt - b * share.per_row) * MTS;
+  };
+
+  // thread tid copies every DYT-th piece of dy row dyo and every
+  // (NTH / ci)-th piece of x row xr
+  const int dyo = tid / DYT, xt = NTH / ci, xr = tid / xt;
+  const bool dy_ok = o0 + dyo < Cout, x_ok = i0 + xr < Cin;
+  auto issue = [&](int i, int slot) {
+    if (i < share.n) {
+      int b;
+      const int t0 = tile_t0(i, b);
+      const int u0 = (t0 - win.pad) & ~3;
+      float* ys = smem + slot * stage;
+      float* xs = ys + MO * LDY;
+      const float* dyr = dy + ((long long)b * Cout + o0 + dyo) * T;
+      const float* xrow = x + ((long long)b * Cin + i0 + xr) * T;
+      if (vec) {
+        for (int c = tid % DYT; c < MTS / 4; c += DYT) {
+          const int t = t0 + 4 * c;
+          const bool ok = dy_ok && t < T;
+          cp_async16(ys + dyo * LDY + 4 * c, ok ? dyr + t : dy, ok);
+        }
+        for (int c = tid % xt; c < rx / 4; c += xt) {
+          const int t = u0 + 4 * c;
+          const bool ok = x_ok && t >= 0 && t < T;
+          cp_async16(xs + xr * ldx + 4 * c, ok ? xrow + t : x, ok);
+        }
+      } else {
+        for (int u = tid % DYT; u < MTS; u += DYT) {
+          const int t = t0 + u;
+          const bool ok = dy_ok && t < T;
+          cp_async4(ys + dyo * LDY + u, ok ? dyr + t : dy, ok);
+        }
+        for (int c = tid % xt; c < rx; c += xt) {
+          const int t = u0 + c;
+          const bool ok = x_ok && t >= 0 && t < T;
+          cp_async4(xs + xr * ldx + c, ok ? xrow + t : x, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][nt][r] = 0.f;
+  float db_acc = 0.f;
+
+  issue(0, 0);
+  issue(1, 1);
+  for (int i = 0; i < share.n; ++i) {
+    const int slot = i & 1;
+    cp_async_wait<1>();  // this thread's pieces of tile i
+    __syncthreads();
+    const float* ys = smem + slot * stage;
+    const float* xs = ys + MO * LDY;
+    int b;
+    const int start = tile_t0(i, b) - win.pad;
+    const int shift = start - (start & ~3);
+    for (int ks = busy ? sg : MTS / 8; ks < MTS / 8; ks += sgn) {
+      // B fragment: b0 (k = t, n = g), b1 (k = t+4, n = g)
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= nlive) continue;
+        const float* yr = ys + (nt * 8 + gid) * LDY + 8 * ks + tig;
+        float h, l;
+        split_tf32(yr[0], h, l);
+        bh[nt][0] = __float_as_uint(h);
+        bl[nt][0] = __float_as_uint(l);
+        split_tf32(yr[4], h, l);
+        bh[nt][1] = __float_as_uint(h);
+        bl[nt][1] = __float_as_uint(l);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const int base = (pg * MT + mi) * 16;
+        if (base >= pairs) continue;
+        const int c = shift + 8 * ks;
+        const int r0 = x_at(base + gid) + c, r1 = x_at(base + gid + 8) + c;
+        const float v[4] = {xs[r0], xs[r1], xs[r0 + 4], xs[r1 + 4]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h, l;
+          split_tf32(lrelu(v[e], slope), h, l);
+          ah[e] = __float_as_uint(h);
+          al[e] = __float_as_uint(l);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= nlive) continue;
+          mma_tf32(acc[mi][nt], al, bh[nt][0], bh[nt][1]);
+          mma_tf32(acc[mi][nt], ah, bl[nt][0], bl[nt][1]);
+          mma_tf32(acc[mi][nt], ah, bh[nt][0], bh[nt][1]);
+        }
+      }
+    }
+    // db: thread tid adds its piece of channel dyo, MTS / DYT samples
+    const float* yd = ys + dyo * LDY + (tid % DYT) * (MTS / DYT);
+#pragma unroll
+    for (int u = 0; u < MTS / DYT; ++u) db_acc += yd[u];
+    __syncthreads();
+    issue(i + 2, slot);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1);
+  // rows are pairs, columns output channels.  The sample groups add their
+  // sums into the OutTile order one after another, in group order.
+  float* part = smem;
+  for (int g = 0; g < sgn; ++g) {
+    if (sg == g && busy) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int p = (pg * MT + mi) * 16 + gid + 8 * (r >> 1);
+          if (p >= pairs) continue;
+          const int q = p / ci, il = p - q * ci;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int ol = nt * 8 + 2 * tig + (r & 1);
+            float* dst = part + (ol * ci + il) * K + q;
+            *dst = g == 0 ? acc[mi][nt][r] : *dst + acc[mi][nt][r];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the DYT shares of a channel are neighbouring lanes: a fixed tree
+#pragma unroll
+  for (int m = DYT / 2; m >= 1; m /= 2)
+    db_acc += __shfl_xor_sync(0xffffffffu, db_acc, m);
+  if (tid % DYT == 0) part[MO * ci * K + dyo] = db_acc;
+  reduce_partials(part, out, dw, db, scratch, Cin, Cout, K, cs, nc);
+}
+
+// ------------------------------------------------------------------ host --
+
+// shared memory of a launch (bytes): two stages, or the parked partial sums
+// (ops/mrf.py wgrad_plan computes the same, and the scratch from the same
+// partial-sum sizes)
+size_t smem_bytes(int bn, int bi, int taps, int k, int dil) {
+  size_t stages, part;
+  if (bn <= 32) {
+    const Window win(MTS, k, dil);
+    stages = 2 * ((size_t)bn * LDY + (size_t)bi * win.ldx);
+    part = (size_t)bn * bi * k + bn;
+  } else {
+    const Window win(TS, k, dil);
+    stages = 2 * (2 * (size_t)bn * TS + (size_t)BM * win.ldx);
+    part = (size_t)bn / 2 * WG_THREADS + bn + WG_THREADS;
+  }
+  return sizeof(float) * (stages > part ? stages : part);
+}
+
+typedef void (*Kernel)(const float*, const float*, float*, float*, float*,
+                       int, int, int, int, int, int, float, int, int, int,
+                       int);
+
+Kernel kernel_for(int bn) {
+  switch (bn) {
+    case 16: return wgrad_mma_kernel<8, 2>;
+    case 32: return wgrad_mma_kernel<4, 4>;
+    case 64: return wgrad_wgmma_kernel<64>;
+    case 128: return wgrad_wgmma_kernel<128>;
+    default: return nullptr;
+  }
+}
+
+// the route's tile sizes: bn = 16 / 32 (mma.sync, bi in {16, 32} input
+// channels and all k taps a tile) or 64 / 128 (wgmma, bi = 64, taps <= its
+// three warpgroups)
+bool valid(int bn, int bi, int taps, int k) {
+  if (k < 1 || k > MAX_K || k % 2 == 0) return false;
+  if (bn <= 32) return (bn == 16 || bn == 32) && (bi == 16 || bi == 32) &&
+                       taps == k;
+  return kernel_for(bn) != nullptr && bi == BM && taps >= 1 && taps <= NWG;
+}
+
+int threads_for(int bn) {
+  return bn > 32 ? WG_THREADS : NTH;
+}
+
+cudaError_t prepare(Kernel kern, size_t smem) {
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+}
+
+}  // namespace
+
+// The most clusters of `cluster` blocks of this route that the card holds
+// at once (a negative CUDA error code on failure); the planner sizes the
+// grid to it, since a cooperative launch must be co-resident.
+extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
+                                                   int k, int dil,
+                                                   int cluster) {
+  if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8)
+    return -(int)cudaErrorInvalidValue;
+  const Kernel kern = kernel_for(bn);
+  const size_t smem = smem_bytes(bn, bi, taps, k, dil);
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return -(int)e;
+  if (cluster == 1) {
+    int per_sm = 0, dev = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, threads_for(bn), smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return e == cudaSuccess ? per_sm * sms : -(int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads_for(bn));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// dy: (B, Cout, T), x: (B, Cin, T) -> dw: (Cout, Cin, k), db: (Cout,).
+// The plan (ops/mrf.py wgrad_plan): route and tile (bn, bi, taps), the
+// B*T split into `clusters` clusters of `cluster` blocks; scratch holds
+// clusters x tiles x (bn * bi * taps + bn) floats when clusters > 1.
+extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
+                                          void* dw, void* db, void* scratch,
+                                          int B, int Cin, int Cout, int T,
+                                          int k, int dil, float slope, int bn,
+                                          int bi, int taps, int cluster,
+                                          int clusters, void* stream) {
+  if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8 ||
+      clusters < 1 || B < 1 || T < 1 || Cin < 1 || Cout < 1 ||
+      (clusters > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Kernel kern = kernel_for(bn);
+  const size_t smem = smem_bytes(bn, bi, taps, k, dil);
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  int tiles;
+  if (bn <= 32)
+    tiles = ((Cin + bi - 1) / bi) * ((Cout + bn - 1) / bn);
+  else
+    tiles = ((Cin + BM - 1) / BM) * ((Cout + bn - 1) / bn) *
+            ((k + taps - 1) / taps);
+  // 16-byte copies need 16-byte aligned rows of T samples
+  const int vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters, tiles);
+  cfg.blockDim = dim3(threads_for(bn));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[2];
+  int na = 0;
+  if (cluster > 1) {
+    attr[na].id = cudaLaunchAttributeClusterDimension;
+    attr[na].val.clusterDim.x = cluster;
+    attr[na].val.clusterDim.y = 1;
+    attr[na].val.clusterDim.z = 1;
+    ++na;
+  }
+  if (clusters > 1) {  // the grid-wide barrier before the cross-cluster sum
+    attr[na].id = cudaLaunchAttributeCooperative;
+    attr[na].val.cooperative = 1;
+    ++na;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = na;
+  const int tile_arg = bn <= 32 ? bi : taps;
+  e = cudaLaunchKernelEx(&cfg, kern, (const float*)dy, (const float*)x,
+                         (float*)dw, (float*)db, (float*)scratch, B, Cin,
+                         Cout, T, k, dil, slope, tile_arg, cluster, clusters,
+                         vec);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

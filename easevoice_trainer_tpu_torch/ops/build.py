@@ -40,7 +40,9 @@ SIGNATURES = {
     "ev_mrf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "ev_mrf_conv_bwd_data_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                  _P],
-    "ev_mrf_conv_bwd_weight_f32": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "ev_mrf_conv_bwd_weight_f32": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5
+    + [_P],
+    "ev_mrf_conv_bwd_weight_max_clusters": [_I] * 6,
 }
 
 

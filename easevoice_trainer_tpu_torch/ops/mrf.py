@@ -5,7 +5,9 @@ HiFi-GAN MRF ResBlocks, forward and backward.
 its forward and backward run the plain twins (:func:`mrf_conv_reference`,
 :func:`mrf_conv_bwd_data_reference`, :func:`mrf_conv_bwd_weight_reference`);
 on a CUDA tensor they launch the hand-written kernels ``csrc/mrf_conv.cu``
-(K3) and ``csrc/mrf_conv_bwd.cu`` (K4: data and weight gradients) or raise.
+(K3), ``csrc/mrf_conv_bwd.cu`` (K4's data gradient) and
+``csrc/mrf_conv_wgrad.cu`` (K4's weight gradient, whose split of the B*T sum
+:func:`wgrad_plan` chooses per shape) or raise.
 ``mrf_conv.launches``, ``mrf_conv_bwd_data.launches`` and
 ``mrf_conv_bwd_weight.launches`` count kernel launches.
 
@@ -19,7 +21,9 @@ The backward twins are written as explicit formulas, not as autograd of
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +31,16 @@ import torch.nn.functional as F
 from ..nn.layers import LRELU_SLOPE, leaky_relu
 from . import build
 
-# samples of one batch row per partial sum of K4's weight gradient
-WGRAD_CHUNK = 512
+# K4's weight gradient (csrc/mrf_conv_wgrad.cu): the card it plans for
+# (SMs of an H100 SXM), the most taps and the shared memory a block can use
+WGRAD_SMS = 132
+WGRAD_MAX_K = 15
+WGRAD_SMEM = 227 * 1024
+# threads of a wgmma block: three warpgroups, one tap each
+WGRAD_WGMMA_THREADS = 384
+# a larger cluster (fewer partial sums through scratch) is taken while its
+# grid keeps this share of the largest grid that fits
+WGRAD_FILL = 0.9
 
 
 def _pad(k: int, dilation: int) -> int:
@@ -136,31 +148,167 @@ def mrf_conv_bwd_data(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return dx
 
 
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """How K4's weight gradient cuts one shape.  An output tile is ``bn``
+    output channels x ``bi`` input channels x ``taps`` taps: wgmma for
+    ``bn`` in {64, 128} (``bi`` = 64, one tap a warpgroup), mma.sync
+    for ``bn`` in {16, 32} (``bi`` in {16, 32}, all k taps).  The
+    B * ceil(T / ts) time tiles are cut into ``splits`` = cluster x clusters
+    contiguous ranges; each tile's partial sums are added in rank order
+    inside a cluster, then, when ``clusters`` > 1, in cluster order through
+    ``scratch_floats`` floats of scratch."""
+    bn: int
+    bi: int
+    taps: int
+    ts: int
+    tiles: int
+    time_tiles: int
+    cluster: int
+    clusters: int
+    smem_bytes: int
+
+    @property
+    def splits(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def part_floats(self) -> int:
+        """Floats of one block's partial sums: the mma.sync tile, or the
+        wgmma accumulators of its three warpgroups (one tap each), then
+        db."""
+        if self.bn <= 32:
+            return self.bn * self.bi * self.taps + self.bn
+        return self.bn // 2 * WGRAD_WGMMA_THREADS + self.bn
+
+    @property
+    def scratch_floats(self) -> int:
+        if self.clusters == 1:
+            return 0
+        return self.clusters * self.tiles * self.part_floats
+
+    def time_range(self, split: int) -> Tuple[int, int]:
+        """The time tiles [first, end) that split ``split`` sums, as the
+        kernel's ``Share`` computes them."""
+        return (split * self.time_tiles // self.splits,
+                (split + 1) * self.time_tiles // self.splits)
+
+
+def nominal_clusters(bn: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks resident at once on a card of
+    WGRAD_SMS SMs: one wgmma block (three warpgroups) or two mma.sync
+    blocks an SM.  On the card the planner asks the runtime
+    instead."""
+    return WGRAD_SMS * (2 if bn <= 32 else 1) // cluster
+
+
+def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
+               dilation: int,
+               max_clusters: Optional[Callable[[int, int, int, int], int]]
+               = None) -> WgradPlan:
+    """The tile and the split of the B*T sum for one shape.
+    ``max_clusters(bn, bi, taps, cluster)`` is the number of such clusters
+    the card holds at once (default :func:`nominal_clusters`).  The grid
+    must fit on the card at once (a grid-wide barrier needs every block
+    resident), with at most one split per time tile; of the cluster sizes
+    8, 4, 2, 1 the largest whose grid is at least WGRAD_FILL of the largest
+    grid that fits is taken (less scratch, one wave).  Raises ValueError for
+    what the kernel does not take."""
+    if k % 2 == 0 or not 1 <= k <= WGRAD_MAX_K or dilation < 1:
+        raise ValueError(f"mrf_conv_bwd_weight: k={k} d={dilation}: the "
+                         f"kernel takes odd k <= {WGRAD_MAX_K}, d >= 1")
+    if cin >= 64 and cout >= 64:
+        bn, bi, ts = (64 if cout <= 64 else 128), 64, 64
+        groups = -(-k // (WGRAD_WGMMA_THREADS // 128))
+        taps = -(-k // groups)
+        tiles = -(-cin // bi) * -(-cout // bn) * groups
+    else:
+        bn, bi = (16 if cout <= 16 else 32), (16 if cin <= 16 else 32)
+        ts, taps = 128, k
+        tiles = -(-cin // bi) * -(-cout // bn)
+    halo = (k - 1) * dilation
+    rx = (ts + halo + 6) & ~3
+    ldx = rx + (4 - rx % 32) % 32
+    if bn <= 32:  # two stages of dy and x, or the partial sums
+        smem = 4 * max(2 * (bn * (ts + 4) + bi * ldx), bn * bi * k + bn)
+    else:  # two stages of dy hi, lo and x, or the partial sums + db shares
+        threads = WGRAD_WGMMA_THREADS
+        smem = 4 * max(2 * (2 * bn * ts + bi * ldx),
+                       bn // 2 * threads + bn + threads)
+    if smem > WGRAD_SMEM:
+        raise ValueError(f"mrf_conv_bwd_weight: a halo of {halo} samples "
+                         f"needs {smem} B of shared memory")
+    time_tiles = bsz * -(-t_len // ts)
+    if max_clusters is None:
+        def max_clusters(bn, bi, taps, cluster):
+            return nominal_clusters(bn, cluster)
+    fits = {}  # cluster size -> clusters a tile
+    for cluster in (8, 4, 2, 1):
+        clusters = min(max_clusters(bn, bi, taps, cluster) // tiles,
+                       time_tiles // cluster)
+        if clusters >= 1:
+            fits[cluster] = clusters
+    most = max((c * n for c, n in fits.items()), default=1)
+    cluster = next((c for c, n in fits.items()
+                    if c * n >= WGRAD_FILL * most), 1)
+    return WgradPlan(bn, bi, taps, ts, tiles, time_tiles, cluster,
+                     fits.get(cluster, 1), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_clusters(device: int, bn: int, bi: int, taps: int, k: int,
+                   dilation: int, cluster: int) -> int:
+    with torch.cuda.device(device):
+        n = build.build().ev_mrf_conv_bwd_weight_max_clusters(
+            bn, bi, taps, k, dilation, cluster)
+    if n < 0:
+        raise RuntimeError(f"mrf_conv_bwd_weight: occupancy query failed "
+                           f"(CUDA error {-n})")
+    return n
+
+
+def wgrad_card_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
+                    dilation: int, device: torch.device) -> WgradPlan:
+    """:func:`wgrad_plan` with the clusters that CUDA ``device`` holds at
+    once, as the runtime reports them."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return wgrad_plan(bsz, cin, cout, t_len, k, dilation,
+                      lambda bn, bi, taps, cluster: _card_clusters(
+                          index, bn, bi, taps, k, dilation, cluster))
+
+
 def mrf_conv_bwd_weight(dy: torch.Tensor, x: torch.Tensor, w_shape,
                         dilation: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dw, db) of K3; the plain twin on the CPU, K4 on CUDA (partial sums
-    over ``WGRAD_CHUNK``-sample chunks, then a fixed-order reduction)."""
+    """(dw, db) of K3; the plain twin on the CPU, K4 on CUDA (one launch:
+    the B*T sum split as :func:`wgrad_plan` says, partial sums added in a
+    fixed order)."""
     if x.device.type == "cpu":
         return mrf_conv_bwd_weight_reference(dy, x, w_shape, dilation)
     _check_cuda("mrf_conv_bwd_weight", dy, x)
     cout, cin, k = (int(s) for s in w_shape)
     bsz, t_len = x.shape[0], x.shape[-1]
-    if (x.dim() != 3 or x.shape[1] != cin or k % 2 == 0 or k > 16
+    if (x.dim() != 3 or x.shape[1] != cin
             or dy.shape != (bsz, cout, t_len)):
         raise ValueError(f"mrf_conv_bwd_weight: bad shapes x"
                          f"{tuple(x.shape)} dy{tuple(dy.shape)} w{w_shape}")
-    dy, x = dy.contiguous(), x.contiguous()
-    n_chunks = bsz * -(-t_len // WGRAD_CHUNK)
     dev = x.device
+    d = int(dilation)
+    plan = wgrad_card_plan(bsz, cin, cout, t_len, k, d, dev)
+    dy, x = dy.contiguous(), x.contiguous()
     dw = torch.empty((cout, cin, k), dtype=torch.float32, device=dev)
     db = torch.empty((cout,), dtype=torch.float32, device=dev)
-    part_w = torch.empty((n_chunks, cout, cin, k), dtype=torch.float32,
-                         device=dev)
-    part_b = torch.empty((n_chunks, cout), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32,
+                           device=dev) if plan.scratch_floats else None)
     rc = build.build().ev_mrf_conv_bwd_weight_f32(
         dy.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), bsz, cin, cout, t_len, k,
-        int(dilation), LRELU_SLOPE, WGRAD_CHUNK, _stream(x))
+        scratch.data_ptr() if scratch is not None else None, bsz, cin, cout,
+        t_len, k, d, LRELU_SLOPE, plan.bn, plan.bi, plan.taps, plan.cluster,
+        plan.clusters, _stream(x))
     build.check(rc, "mrf_conv_bwd_weight")
     mrf_conv_bwd_weight.launches += 1
     return dw, db

@@ -7,10 +7,11 @@ card and without JAX:
     python3 -m pytest tests/test_torch_kernels.py --noconftest -q
 
 (``tests/conftest.py`` imports jax).  Without a card the ``cuda`` tests skip
-and the CPU tests check the twins and the dispatch rule.  Kernel tolerances:
-1e-4 absolute on outputs of magnitude ~1, for fp32 sums taken in another
-order than the twin's; K4's weight gradient, a sum over B*T products, 1e-3
-relative to its largest magnitude.
+and the CPU tests check the twins, the dispatch rule and the planner of K4's
+weight gradient.  Kernel tolerances: 1e-4 absolute on outputs of magnitude
+~1, for fp32 sums taken in another order than the twin's; K4's weight
+gradient, a sum over B*T products split per shape into ranges whose partial
+sums are added in a fixed order, 1e-3 relative to its largest magnitude.
 """
 import numpy as np
 import pytest
@@ -273,8 +274,9 @@ def _close_rel(got, want, tol):
 @pytest.mark.parametrize("k", [3, 5, 11])
 def test_mrf_conv_bwd_kernels_match_twins(c, t_len, k):
     """K4 at every channel-tile shape, a ragged T (777, 1537), T not a
-    multiple of the 512-sample chunk (320, 1000, 777, 1537), a channel count
-    that is not a multiple of the tile (24) and the generic tap loop (k=5):
+    multiple of the time tiles (1000, 777, 1537), a channel count that is not
+    a multiple of the tile (24) and a tap count without its own instance
+    (k=5):
     dx within 1e-4, dW and db within 1e-3 of the twin's largest magnitude,
     and dW repeated bit for bit by a second launch."""
     gen = _card()
@@ -358,3 +360,95 @@ def test_mrf_conv_autograd_on_the_card():
         grads.append([t.grad for t in ins])
     for got, want in zip(*grads):
         _close_rel(got, want, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,b,t_len,k,d", [
+    (24, 24, 3, 5, 11, 5),      # T below the halo: every tap passes an edge
+    (16, 72, 3, 1, 3, 1),       # a single sample; three output-channel tiles
+    (24, 40, 3, 37, 3, 1),      # T % 4 != 0: 4-byte copies; Cin != Cout
+    (72, 24, 3, 301, 7, 3),     # mma.sync route, three input-channel tiles
+    (40, 24, 3, 260, 5, 5),     # k = 5
+    (32, 32, 1, 1, 15, 5),      # k = 15: 480 (tap, channel) rows; B = 1
+    (64, 64, 1, 4100, 15, 5),   # wgmma N = 64, four tap groups; B = 1
+    (200, 128, 2, 300, 7, 1),   # wgmma N = 128, input channels off the tile
+    (72, 200, 2, 777, 3, 3),    # two N tiles, the second 72 of 128 wide
+    (256, 256, 1, 1537, 15, 3),  # two N tiles, five tap groups of three
+    (16, 16, 2, 40001, 3, 1),   # the long reduction: 33 clusters of 8
+])
+def test_mrf_conv_wgrad_tile_edges(cin, cout, b, t_len, k, d):
+    """K4's weight gradient at the edges of both routes' tiles and splits:
+    ragged and tiny T, channel counts off every tile, both copy widths, tap
+    counts without their own instance, the widest halo, and exact zeros in
+    x (lrelu(0) = 0).  dW and db within 1e-3 x max(1, max|twin|), one
+    launch counted a call, and a second call repeating the first bit for
+    bit."""
+    gen = _card()
+    x = torch.randn((b, cin, t_len), generator=gen, device="cuda")
+    x[0, :, : max(1, t_len // 3)] = 0.0
+    dy = torch.randn((b, cout, t_len), generator=gen, device="cuda")
+    before = mrf_conv_bwd_weight.launches
+    dw, db = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
+    assert mrf_conv_bwd_weight.launches == before + 1
+    ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, (cout, cin, k), d)
+    _close_rel(dw, ww, 1e-3)
+    _close_rel(db, wb, 1e-3)
+    dw2, db2 = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+S2_STAGES = ((256, 320), (128, 2560), (64, 5120), (32, 10240), (16, 20480))
+
+
+def _s2_plans(c, t_len):
+    """The planner's plans for one Generator stage of the s2 step: B=8,
+    k in {3, 7, 11}, d in {1, 3, 5}."""
+    return [mrf.wgrad_plan(8, c, c, t_len, k, d) for k in (3, 7, 11)
+            for d in (1, 3, 5)]
+
+
+@pytest.mark.parametrize("c,t_len", S2_STAGES)
+def test_wgrad_plan_covers_the_s2_shapes(c, t_len):
+    """The planner of K4's weight gradient at the s2 step's 45 shapes, on
+    the nominal H100 (132 SMs): every sample of every row summed by exactly
+    one split; the grid fits the card at once (its grid-wide barrier needs
+    every block resident) and fills at least 70 % of that wave, the rest
+    lost to tile and cluster granularity; the cross-cluster scratch under
+    16 MB a shape."""
+    b = 8
+    for plan in _s2_plans(c, t_len):
+        assert plan.bn == min(max(c, 16), 128)
+        per_row = -(-t_len // plan.ts)
+        assert plan.time_tiles == b * per_row
+        seen = np.zeros((b, t_len), np.int64)
+        for s in range(plan.splits):
+            first, end = plan.time_range(s)
+            assert end > first
+            for tile in range(first, end):
+                t0 = tile % per_row * plan.ts
+                seen[tile // per_row, t0:t0 + plan.ts] += 1
+        assert (seen == 1).all()
+        wave = mrf.WGRAD_SMS * (2 if plan.bn <= 32 else 1)
+        assert plan.tiles * plan.clusters <= mrf.nominal_clusters(
+            plan.bn, plan.cluster)
+        assert 0.7 * wave <= plan.blocks <= wave
+        assert plan.scratch_floats * 4 < 16 << 20
+        assert plan.smem_bytes <= mrf.WGRAD_SMEM
+
+
+def test_wgrad_plan_scratch_over_the_s2_step():
+    """The scratch of the 45 s2 shapes together stays under 160 MB, a fifth
+    of the 0.85 GB that the 512-sample chunks it replaced wrote and read."""
+    total = sum(plan.scratch_floats * 4 for c, t_len in S2_STAGES
+                for plan in _s2_plans(c, t_len))
+    assert total < 160e6, total
+
+
+def test_wgrad_plan_refuses_what_the_kernel_does_not_take():
+    """Even or too many taps, a dilation below 1, and a halo too wide for
+    the shared memory of a block raise before anything is launched."""
+    for k, d in ((4, 1), (17, 1), (3, 0), (15, 40)):
+        with pytest.raises(ValueError):
+            mrf.wgrad_plan(8, 128, 128, 2560, k, d)
+    plan = mrf.wgrad_plan(8, 128, 128, 2560, 15, 5)
+    assert plan.taps * -(-15 // plan.taps) >= 15
