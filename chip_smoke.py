@@ -7,8 +7,9 @@
 ``--parent`` takes the root of another checkout (the parent commit unpacked
 with ``git archive`` into a git-ignored directory); its package is imported
 beside this one as ``ev_parent`` and its K1-K4 and GPT decode are timed in
-turns with this tree's on the same inputs (lines "[a/b]"; K3 and K4-dx also
-compared by SASS and bit for bit, K4-dW per Generator stage).
+turns with this tree's on the same inputs (lines "[a/b]"; K1's serving
+output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
+per Generator stage).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -20,7 +21,8 @@ Phases, one summary line each; any failure exits non-zero:
    inputs at the main paths' shapes (K1-K3 at serving's, K4 at the s2
    step's), max |diff| against the stated tolerance; the device time of the
    kernel, of its twin and of the one PyTorch call that computes the same
-   function (SDPA, cuDNN conv / dgrad / wgrad), which the port never calls,
+   function (SDPA, cuDNN conv / dgrad / wgrad, SDPA's backward), which the
+   port never calls,
    each the mean over 20 calls of the CUDA kernel time torch.profiler
    records; and the least time the card could take for the same work (the
    bound, from the bytes moved and the fp32 operations done).  K2 is timed
@@ -29,7 +31,10 @@ Phases, one summary line each; any failure exits non-zero:
    the 50 MB L2 holds), at steps 0, 500 and the last slot, and warm on one
    layer beside it.  K3 and both K4 entry points are summed per Generator
    stage beside cuDNN, K4-dW with the split of its B*T sum for each shape
-   and the count of tensor-core instructions in its SASS;
+   (and the clusters the occupancy query promises beside those a
+   cooperative launch accepts) and the count of tensor-core instructions in
+   its SASS.  K1 writing its row logsumexp and K5, its gradient, at the two
+   s1 micro-batch shapes (B=8, 416 phonemes, 300 and 1360 tokens);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -46,11 +51,24 @@ Phases, one summary line each; any failure exits non-zero:
    upsample tensor changed, and the export loads ``strict=True`` into the
    inference build and decodes a finite, non-silent wav;
 7. reference train step: one step at a small width on the card and on the
-   CPU agrees (losses and the ResBlock gradients).
+   CPU agrees (losses and the ResBlock gradients);
+8. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
+   repo's configs/gpt.yaml through the port's YAML reader, a seeded random
+   pretrained .ckpt in the export format, 8 synthetic utterances of 250 and
+   1300 tokens replicated to 96 items: 12 micro-batches of B=8 at T = 716
+   and 1776, 3 ScaledAdam updates): finite losses, every tensor and
+   optimizer state on the card, 24 K1 launches and 24 K5 calls (72
+   launches) a micro-batch, every layer's ``in_proj_weight`` changed, the export loads
+   ``strict=True`` into the inference build and decodes; s/micro-batch by
+   bucket, first micro-batch, peak memory, and one accumulation window
+   under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
+9. reference s1 step: one micro-batch at a small width on the card and on
+   the CPU agrees (loss and every qkv gradient).
 
-After training it checks that no module of the JAX package, jax or flax was
-loaded in the whole run.  Two lines before the last hold one JSON object
-with each kernel's launches (in all, per serving clone and per s2 step),
+After training it checks that no module of the JAX package, jax, flax or
+yaml was loaded in the whole run.  Two lines before the last hold one JSON
+object with each kernel's launches (in all, per serving clone, per s2 step
+and per s1 micro-batch),
 error, device times and bound; the line before the last is the card's name
 and power limit as ``nvidia-smi`` gives them, and the last line is the
 run's verdict ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -107,7 +125,17 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu_torch/csrc/mrf_conv_wgrad.cu",
         "easevoice_trainer_tpu/ops/fused_mrf.py:168 "
         "(_bwd_kernel, dW and db, git 42ecfe8)"),
+    "prefill_attention_bwd": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:118 "
+        "(TransformerLayer.attention under jax.value_and_grad, "
+        "train/gpt_step.py:143; no Pallas ancestor)"),
 }
+
+# the s1 micro-batches of the "s1 training" phase: B=8, 416 phonemes
+# (52 s at 8 phonemes a second, padded to 16) and the two token buckets
+# of GPT_BOUNDARIES its data fills (250 -> 300 and 1300 -> 1360 tokens)
+S1_B, S1_X_LEN, S1_Y_LENS = 8, 416, (300, 1360)
 
 # the s2 step's Generator stages for one 32-frame segment: (C, T)
 S2_STAGES = ((256, 320), (128, 2560), (64, 5120), (32, 10240), (16, 20480))
@@ -267,10 +295,14 @@ def check_kernels(torch, results, parent=None):
         f"bound {bound.ms:.5f} ({bound.by}); kernel / SDPA "
         f"{ms / library:.3f}")
     if parent is not None:
-        perr = max_err(torch, k1(parent)(), want)
+        old_o = k1(parent)()
+        perr = max_err(torch, old_o, want)
+        same = torch.equal(old_o, got)
         log(f"[a/b] K1 prefill_attention, same inputs, in turns: parent "
             f"{parent_ms:.4f} ms -> this tree {ms:.4f} ms "
-            f"({parent_ms / ms:.2f}x); parent max|d|={perr:.3g}")
+            f"({parent_ms / ms:.2f}x); parent max|d|={perr:.3g}; outputs "
+            f"bit-identical: {same}")
+        assert same, "K1's serving output differs from the parent's"
     assert err <= tol, f"prefill_attention disagrees: {err}"
     results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         library_ms=library, **bound.result())
@@ -551,12 +583,18 @@ def check_k4(torch, results):
                     sums[at] += ts[0]
                     sums[at + 1] += ts[2]
                 plan = mrf.wgrad_card_plan(b, ch, ch, t_len, kk, d, dev)
+                limits = [mrf.card_clusters(
+                    torch.cuda.current_device(), plan.bn, plan.bi,
+                    plan.taps, kk, d, plan.cluster, probe) for probe in
+                    (False, True)]
                 log(f"[kernels] K4 B={b} C={ch} T={t_len} k={kk} d={d}: dx "
                     f"{line[0]}; dW/db {line[1]}; dW plan: tile {plan.bn} x "
                     f"{plan.bi} x {plan.taps} taps, {plan.tiles} tiles x "
                     f"{plan.cluster} x {plan.clusters} clusters = "
                     f"{plan.blocks} blocks, scratch "
-                    f"{plan.scratch_floats * 4 / 1e6:.2f} MB")
+                    f"{plan.scratch_floats * 4 / 1e6:.2f} MB; clusters of "
+                    f"{plan.cluster} resident: occupancy query {limits[0]}, "
+                    f"accepted by a cooperative launch {limits[1]}")
         stage_sums.append((ch, t_len, sums))
     for i, (ch, t_len, (dx, dgrad, dw, wgrad)) in enumerate(stage_sums):
         log(f"[kernels] K4 stage {i} (C={ch}, T={t_len}), 9 shapes: dx "
@@ -611,6 +649,140 @@ def check_k4(torch, results):
         "SASS: " + ", ".join(f"{short_name(n)} {c}"
                              for n, c in sorted(tensor.items())))
     assert tensor and all(tensor.values()), tensor
+
+
+def s1_lens(torch, gen, b: int, x_len: int, y_len: int):
+    """Ragged (x_lens, y_lens) of one s1 micro-batch on the card: one row
+    at each full length, the others drawn from ``gen``."""
+    x_lens = torch.randint(1, x_len + 1, (b,), generator=gen, device="cuda")
+    y_lens = torch.randint(1, y_len + 1, (b,), generator=gen, device="cuda")
+    x_lens[0], y_lens[-1] = x_len, y_len
+    return x_lens.to(torch.int32), y_lens.to(torch.int32)
+
+
+def check_k5(torch, results):
+    """K1 writing its row logsumexp, and K5 (its gradient), at the s1
+    micro-batch shapes: B=8, H=16, dk=32, 416 phonemes and 300 or 1360
+    tokens, ragged lengths.  K1's o and lse against the twins (1e-4
+    absolute); K5's dq, dk and dv against its plain twin on K1's own o and
+    lse, 1e-4 x max(1, max|twin|) each (sums of up to T products in
+    another order); a second K5 launch bit-identical.  Device ms of K1 (with
+    lse) and of K5, of their twins, and of the library calls: SDPA forward,
+    and SDPA's backward through torch.autograd.grad with the same float
+    mask.  K5's bound counts only the visible (row, key) pairs: five dk-long
+    products each (S, dP, dV, dK, dQ), in 3xTF32; its bytes are q, k, v, o,
+    dO, lse read and dq, dk, dv written once."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(6006)
+    b, h, dk, x_len = S1_B, 16, 32, S1_X_LEN
+    tol = 1e-4
+    sums = {"k1": [0.0, 0.0, 0.0], "k5": [0.0, 0.0, 0.0]}
+    bounds = {"k1": Bound(), "k5": Bound()}
+    worst = {"k1": 0.0, "k5": 0.0}
+    worst_rel = 0.0
+    for y_len in S1_Y_LENS:
+        t = x_len + y_len
+        x_lens, y_lens = s1_lens(torch, gen, b, x_len, y_len)
+        qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+        q, k, v = att._split_heads(qkv, h)
+        do = torch.randn((b, t, h, dk), generator=gen, device="cuda")
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, x_lens, y_lens)
+        want_o = att.prefill_attention_reference(q, k, v, x_len, x_lens,
+                                                 y_lens)
+        want_lse = att.prefill_attention_lse_reference(q, k, x_len, x_lens,
+                                                       y_lens)
+        err_k1 = max(max_err(torch, o, want_o), max_err(torch, lse, want_lse))
+        got = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, x_lens,
+                                        y_lens)
+        want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
+                                                   x_len, x_lens, y_lens)
+        rel = max(max_err(torch, g, w) / max(1.0, float(w.abs().max()))
+                  for g, w in zip(got, want))
+        abs_err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        again = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, x_lens,
+                                          y_lens)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del want, again
+        # the library: SDPA with the hybrid mask as a float bias, heads
+        # first; its backward alone, through autograd
+        bias = att.build_hybrid_mask_bias(x_len, y_len, x_lens, y_lens)
+        qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
+                      for z in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+        lib_err = max_err(torch, out.detach().transpose(1, 2), want_o)
+        doh = do.transpose(1, 2).contiguous()
+        lib_bwd = functools.partial(torch.autograd.grad, out, (qh, kh, vh),
+                                    doh, retain_graph=True)
+        lib_grads = lib_bwd()
+        lib_bwd_err = max(
+            max_err(torch, g.transpose(1, 2), w) / max(1.0, float(
+                w.abs().max())) for g, w in zip(lib_grads, got))
+        times = {
+            "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
+                       q, k, v, x_len, x_lens, y_lens)),
+                   device_ms(torch, lambda: (
+                       att.prefill_attention_reference(
+                           q, k, v, x_len, x_lens, y_lens),
+                       att.prefill_attention_lse_reference(
+                           q, k, x_len, x_lens, y_lens)), reps=5),
+                   device_ms(torch, lambda: F.scaled_dot_product_attention(
+                       qh.detach(), kh.detach(), vh.detach(),
+                       attn_mask=bias))),
+            "k5": (device_ms(torch, lambda: att.prefill_attention_bwd(
+                       q, k, v, o, lse, do, x_len, x_lens, y_lens)),
+                   device_ms(torch, lambda: (
+                       att.prefill_attention_bwd_reference(
+                           q, k, v, o, lse, do, x_len, x_lens, y_lens)),
+                       reps=5),
+                   device_ms(torch, lib_bwd, reps=5)),
+        }
+        pairs = int((bias == 0).sum()) * h
+        elems = b * t * h * dk
+        bounds["k1"].add(4 * (4 * elems + b * h * t), 4 * dk * pairs)
+        bounds["k5"].add(4 * (8 * elems + b * h * t), 10 * dk * pairs)
+        for key in sums:
+            sums[key] = [a + c for a, c in zip(sums[key], times[key])]
+        worst["k1"] = max(worst["k1"], err_k1)
+        worst["k5"] = max(worst["k5"], abs_err)
+        worst_rel = max(worst_rel, rel)
+        log(f"[kernels] K1 + lse B={b} H={h} x_len={x_len} y_len={y_len} "
+            f"(T={t}): o / lse max|d|={err_k1:.3g} (tol {tol}); device ms: "
+            f"kernel {times['k1'][0]:.4f}, plain {times['k1'][1]:.4f}, SDPA "
+            f"{times['k1'][2]:.4f} (max|d| {lib_err:.3g})")
+        log(f"[kernels] K5 prefill_attention_bwd B={b} H={h} x_len={x_len} "
+            f"x_lens={x_lens.tolist()} y_len={y_len} "
+            f"y_lens={y_lens.tolist()}: dq/dk/dv max|d|={abs_err:.3g}, "
+            f"relative {rel:.3g} (tol {tol} x max(1, max|twin|)), finite "
+            f"{finite}, repeats bit for bit {same}; "
+            f"{pairs} visible (row, key, head) triples; device ms: kernel "
+            f"{times['k5'][0]:.4f}, plain {times['k5'][1]:.4f}, SDPA "
+            f"backward {times['k5'][2]:.4f} (relative max|d| against K5 "
+            f"{lib_bwd_err:.3g})")
+        assert err_k1 <= tol, f"K1 with lse disagrees: {err_k1}"
+        assert rel <= tol and finite and same, \
+            f"K5 disagrees ({rel}), is not finite or does not repeat"
+        del qkv, q, k, v, do, o, lse, got, qh, kh, vh, out, lib_grads, bias
+        torch.cuda.empty_cache()
+    log(f"[kernels] K5 worst relative error over the s1 shapes "
+        f"{worst_rel:.3g}")
+    for key, name in (("k1", "K1 + lse"), ("k5", "K5")):
+        kern, plain, lib = sums[key]
+        bd = bounds[key]
+        log(f"[kernels] {name} over the two s1 shapes: kernel {kern:.4f} ms, "
+            f"plain {plain:.4f} ms, library {lib:.4f} ms; bound "
+            f"{bd.ms:.4f} ms ({bd.by}; bytes {bd.bytes_ms:.4f}, operations "
+            f"{bd.ops_ms:.4f}): kernel at {100 * bd.ms / kern:.1f} % of its "
+            f"bound")
+    results["prefill_attention"]["s1"] = dict(
+        ms=sums["k1"][0], plain_ms=sums["k1"][1], library_ms=sums["k1"][2],
+        max_abs_err=worst["k1"], **bounds["k1"].result())
+    results["prefill_attention_bwd"] = dict(
+        max_abs_err=worst["k5"], ms=sums["k5"][0], plain_ms=sums["k5"][1],
+        library_ms=sums["k5"][2], **bounds["k5"].result())
 
 
 def sass_functions(path: str, keys) -> dict:
@@ -1256,6 +1428,283 @@ def reference_train_step(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the s1 fine-tune at full width
+# ---------------------------------------------------------------------------
+
+
+def write_s1_dir(root: str, seed: int) -> None:
+    """A synthetic s1 normalize output at 8 phonemes a second (25 semantic
+    tokens a second): 2-name2text.txt and 6-name2semantic.tsv, no 3-bert;
+    4 utterances of 250 tokens (10 s, 80 phonemes) and 4 of 1300 (52 s,
+    416 phonemes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    text, sem = [], ["item_name\tsemantic_audio"]
+    for i, n_sem in enumerate((250, 1300) * 4):
+        name = f"utt{i}.wav"
+        phones = (PHONES * 40)[:n_sem * 8 // 25]
+        text.append(f"{name}\t{' '.join(phones)}\t1\ttext")
+        sem.append(f"{name}\t"
+                   + " ".join(map(str, rng.integers(0, 1024, n_sem))))
+    for name, lines in (("2-name2text.txt", text),
+                        ("6-name2semantic.tsv", sem)):
+        with open(os.path.join(root, name), "w", encoding="utf8") as f:
+            f.write("\n".join(lines))
+
+
+def train_s1(torch, tmp: str, results):
+    """GPTTrain.train() at full width: T2SConfig from the repo's
+    configs/gpt.yaml (through the port's own YAML reader), a seeded random
+    pretrained .ckpt in the export format, 8 utterances replicated to 96
+    items: 12 micro-batches of B=8 at T = 716 and 1776, 3 ScaledAdam
+    updates.  Returns the trainer."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import convert, ops
+    from easevoice_trainer_tpu_torch.models.gpt import DecodeParams, \
+        T2SConfig, Text2SemanticDecoder, decode_ar
+    from easevoice_trainer_tpu_torch.train import ckpt
+    from easevoice_trainer_tpu_torch.train.gpt import GPTTrain, \
+        GPTTrainParams, gpt_export_tree
+    from easevoice_trainer_tpu_torch.utils import paths, simple_yaml
+
+    t0 = time.perf_counter()
+    cfg_yaml = simple_yaml.load(paths.gpt_config_path())
+    cfg = T2SConfig.from_yaml_dict(cfg_yaml)
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    init = Text2SemanticDecoder(cfg)
+    init.load_state_dict({k: v.cpu() for k, v in convert.random_state_dict(
+        init, gen).items()})
+    pretrained = os.path.join(tmp, "s1_random.ckpt")
+    ckpt.export_gpt_weights(gpt_export_tree(init), pretrained,
+                            config=cfg_yaml, info="random")
+    pre = convert.load_torch_state_dict(pretrained)   # fp16, as saved
+    del init
+    data = os.path.join(tmp, "s1_data")
+    write_s1_dir(data, seed=7)
+    trainer = GPTTrain(GPTTrainParams(
+        batch_size=S1_B, total_epochs=1, save_every_epoch=1,
+        model_path=pretrained, train_input_dir=data,
+        output_model_name="chip_smoke_s1",
+        project_dir=os.path.join(tmp, "s1_project")))
+    assert trainer.device.type == "cuda"
+    assert (cfg.n_layers, cfg.hidden_dim, cfg.n_heads) == (24, 512, 16)
+    log(f"[s1 training] configs/gpt.yaml read: {cfg}; random pretrained "
+        f".ckpt and 8 utterances written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    history = []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    resp = trainer.train(on_step=lambda step, m: history.append(
+        {k: float(v) for k, v in m.items()}))
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert resp.ok, resp.message
+
+    secs, tokens = trainer.step_seconds, trainer.step_tokens
+    n = len(secs)
+    assert n == len(history) == 12, (n, len(history))
+    assert sorted(set(tokens)) == list(S1_Y_LENS), tokens
+    for i, m in enumerate(history):
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        assert not bad, f"micro-batch {i + 1}: non-finite {bad}"
+    step_fn = trainer.step_fn
+    model = step_fn.model
+    for pname, p in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        assert p.device.type == "cuda", f"{pname} on {p.device}"
+    for st in step_fn.optimizer.state.values():
+        assert all(t.device.type == "cuda" for t in st.values())
+    group = step_fn.optimizer.param_groups[0]
+    assert group["step"] == n // 4 and group["norm_buffer"].is_cuda
+    layers = cfg.n_layers
+    assert launches["prefill_attention"] == layers * n, launches
+    k5_per_call = ops.prefill_attention_bwd.launches_per_call
+    assert launches["prefill_attention_bwd"] == k5_per_call * layers * n, \
+        launches
+    for name in results:
+        per_path = results[name].setdefault("per_path", {})
+        for path in ("serving_clone", "s2_step"):
+            per_path.setdefault(path, 0)
+        per_path["s1_micro_batch"] = launches[name] / n
+        results[name]["launches"] = results[name].get("launches", 0) \
+            + launches[name]
+    k5 = results["prefill_attention_bwd"]
+    k5["launches_per_call"] = k5_per_call
+    k5["calls"] = k5["launches"] // k5_per_call
+    # fault 1: every layer's qkv projection moved, so attention passed a
+    # gradient back to it
+    trained = model.state_dict()
+    names = [f"h.layers.{i}.self_attn.in_proj_weight" for i in range(layers)]
+    same = [k for k in names
+            if torch.equal(trained[k].cpu(), pre[k].float())]
+    assert not same, f"unchanged after training: {same}"
+
+    # the export loads strictly into the inference build and decodes
+    obj = torch.load(resp.data["model_path"], map_location="cpu",
+                     weights_only=False)
+    assert set(obj) >= {"weight", "config", "info"}
+    served = Text2SemanticDecoder(cfg)
+    served.load_state_dict(convert.load_torch_state_dict(
+        resp.data["model_path"]), strict=True)
+    served = served.cuda().eval()
+    g2 = torch.Generator(device="cuda").manual_seed(3)
+    tok, lens = decode_ar(
+        served, torch.randint(1, 700, (2, 32), generator=g2, device="cuda"),
+        torch.tensor([32, 20], dtype=torch.int32, device="cuda"),
+        torch.randint(0, 1024, (2, 50), generator=g2, device="cuda"),
+        torch.zeros((2, 32, 1024), device="cuda"),
+        DecodeParams(top_k=1, max_new_tokens=8, min_tokens=8),
+        torch.Generator(device="cuda").manual_seed(0))
+    assert tok.shape[0] == 2 and int(lens.min()) > 0
+
+    by_bucket = {}
+    for i in range(2, n):
+        by_bucket.setdefault(tokens[i], []).append(secs[i])
+    log(f"[s1 training] GPTTrain.train(): {n} micro-batches of B={S1_B} "
+        f"({n // 4} ScaledAdam updates) in {wall:.2f} s wall (data, model "
+        f"and pretrained load included); first micro-batch {secs[0]:.3f} s "
+        f"(T={S1_X_LEN + tokens[0]}); median s/micro-batch over "
+        f"micro-batches 3-{n} by bucket: " + ", ".join(
+            f"T={S1_X_LEN + t} {float(np.median(v)):.4f} s ({len(v)})"
+            for t, v in sorted(by_bucket.items()))
+        + f"; peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log("[s1 training] micro-batch losses " + ", ".join(
+        f"{m['loss']:.1f}" for m in history) + "; grad norms " + ", ".join(
+        f"{m['grad_norm']:.3g}" for m in history))
+    log(f"[s1 training] all {layers} in_proj_weight tensors changed; export "
+        f"{os.path.basename(resp.data['model_path'])} loads strict=True and "
+        f"greedy-decodes 8 tokens a row; launches {launches}")
+    return trainer
+
+
+def profile_s1_window(torch, trainer) -> None:
+    """One accumulation window (4 micro-batches at T = 1776, the fourth
+    ending with the ScaledAdam step) of the trained GPTTrainStep under
+    torch.profiler: device time by group, K1 (prefill_attention_kernel),
+    K5 (its dsum / dkdv / dq kernels), GEMMs (cuBLAS / CUTLASS kernels),
+    the optimizer (the kernels inside the step's ScaledAdam.step range on
+    the device timeline) and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from easevoice_trainer_tpu_torch.train import data as data_mod
+    from easevoice_trainer_tpu_torch.train.gpt import GPT_BOUNDARIES
+    from easevoice_trainer_tpu_torch.train.gpt_step import OPTIMIZER_RANGE
+
+    dataset = data_mod.GPTDataset(trainer.params.train_input_dir,
+                                  max_sec=trainer.max_sec)
+    long_items = [i for i, n in enumerate(dataset.lengths) if n > 1100]
+    batch = trainer._to_device(data_mod.collate_gpt(
+        [dataset.load_item(i) for i in long_items[:S1_B]], S1_X_LEN,
+        GPT_BOUNDARIES[-1]))
+    step_fn = trainer.step_fn
+    assert step_fn.mini_step == 0
+    for _ in range(4):   # warm-up window
+        step_fn(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            step_fn(batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    # the optimizer: the device time of the kernels launched inside the
+    # step's ScaledAdam.step range on the host (the profiler links each
+    # kernel to the host op that launched it)
+    opt_ranges = [e for e in events if e.name == OPTIMIZER_RANGE
+                  and e.device_type == DeviceType.CPU]
+    opt_us = sum(e.device_time_total for e in opt_ranges)
+    if not kernels:
+        log("[s1 training] torch.profiler recorded no CUDA activity for the "
+            "profiled window: no breakdown this run")
+        return
+    groups = {"K1": 0.0, "K5": 0.0, "GEMMs": 0.0, "optimizer": 0.0,
+              "other": 0.0}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        name = e.name.lower()
+        if "prefill_attention_kernel" in name:
+            groups["K1"] += us
+        elif any(k in name for k in ("dkdv_kernel", "dq_kernel(",
+                                     "dsum_kernel")):
+            groups["K5"] += us
+        elif any(k in name for k in ("gemm", "xmma", "cutlass")):
+            groups["GEMMs"] += us
+        else:
+            groups["other"] += us
+    # the optimizer's kernels are elementwise work and reductions
+    groups["optimizer"] = min(opt_us, groups["other"])
+    groups["other"] -= groups["optimizer"]
+    total = sum(groups.values())
+    note = "" if opt_ranges else (" (no ScaledAdam.step range in this "
+                                  "trace: the optimizer is counted in other)")
+    log(f"[s1 training] one accumulation window under torch.profiler (4 "
+        f"micro-batches of B={S1_B} at T={S1_X_LEN + GPT_BOUNDARIES[-1]}, "
+        f"the 4th with the ScaledAdam step): device time {total / 1000:.2f} "
+        f"ms in {len(kernels)} kernels and copies, "
+        f"{total / 4000:.2f} ms a micro-batch; "
+        + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items())
+        + note)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: one s1 micro-batch on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def reference_s1_step(torch):
+    """The training forward and backward of a GPT at a small width (2
+    layers, width 64, 2 heads of dk 32) on the card (K1, K5) and on the CPU
+    (the twins) from the same weights and batch: loss within 1e-5 x
+    max(1, |CPU|), every layer's qkv gradient (in_proj weight and bias)
+    within 1e-4 of its largest CPU magnitude."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
+        Text2SemanticDecoder
+
+    cfg = T2SConfig(embedding_dim=64, hidden_dim=64, n_heads=2, n_layers=2,
+                    ffn_dim=128)
+    gen = torch.Generator().manual_seed(17)
+    b, x_len, y_len = 3, 40, 90
+    batch = (torch.randint(1, 700, (b, x_len), generator=gen),
+             torch.tensor([40, 23, 1]),
+             torch.randint(0, 1024, (b, y_len), generator=gen),
+             torch.tensor([90, 64, 5]),
+             torch.randn((b, x_len, 1024), generator=gen))
+    state = convert.random_state_dict(Text2SemanticDecoder(cfg),
+                                      torch.Generator().manual_seed(18))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = Text2SemanticDecoder(cfg)
+        model.load_state_dict(state)
+        model.to(dev)
+        out = model(*(t.to(dev) for t in batch))
+        out["loss"].backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if "self_attn.in_proj" in k}
+        runs[dev] = (float(out["loss"].detach()), grads)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    loss_err = abs(l_gpu - l_cpu) / max(1.0, abs(l_cpu))
+    grad_err = max(float((g_gpu[k] - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for k, w in g_cpu.items())
+    log(f"[reference] s1 micro-batch card vs CPU (GPT width 64, 2 layers, "
+        f"B={b}, T={x_len + y_len}): loss {l_gpu:.4f} vs {l_cpu:.4f}, "
+        f"relative {loss_err:.3g} (tol 1e-5); {len(g_cpu)} qkv gradients "
+        f"max|d| / max|CPU| = {grad_err:.3g} (tol 1e-4)")
+    assert loss_err <= 1e-5 and grad_err <= 1e-4 and len(g_cpu) == 4
+
+
+# ---------------------------------------------------------------------------
 
 
 def load_parent(root: str):
@@ -1331,6 +1780,7 @@ def main() -> int:
         phase = "kernels"
         check_kernels(torch, results, parent and parent.ops.attention)
         check_k4(torch, results)
+        check_k5(torch, results)
         if parent is not None:
             phase = "mrf a/b"
             ab_mrf(torch, parent)
@@ -1347,15 +1797,26 @@ def main() -> int:
         train(torch, tmp, results)
         phase = "reference train step"
         reference_train_step(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "s1 training"
+        trainer = train_s1(torch, tmp, results)
+        phase = "s1 profile"
+        profile_s1_window(torch, trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "reference s1 step"
+        reference_s1_step(torch)
         phase = "isolation"
         from easevoice_trainer_tpu_torch import native
 
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
-            "easevoice_trainer_tpu", "jax", "flax"))
+            "easevoice_trainer_tpu", "jax", "flax", "yaml"))
         log(f"[isolation] after serving English text, resampling the "
-            f"reference clip (native resampler built: {native.available()}) "
-            f"and 12 training steps, modules of easevoice_trainer_tpu, jax "
-            f"or flax loaded: {foreign}")
+            f"reference clip (native resampler built: {native.available()}), "
+            f"12 s2 training steps and 12 s1 micro-batches, modules of "
+            f"easevoice_trainer_tpu, jax, flax or yaml loaded: {foreign}")
         assert not foreign, foreign
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
@@ -1374,8 +1835,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        if "warm_ms" in r:
-            kernels[-1]["warm_ms"] = r["warm_ms"]
+        for extra in ("warm_ms", "s1", "calls", "launches_per_call"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -257,6 +257,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad_wgmma_kernel(
     float* __restrict__ dw, float* __restrict__ db,
     float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
     int dil, float slope, int taps, int cs, int nc, int vec) {
+  if (B == 0) return;  // a probe launch (ev_mrf_conv_bwd_weight_max_clusters)
   constexpr int PLANE = BN * TS;  // floats of a dy plane
   constexpr int NTHR = WG_THREADS;
   constexpr int XT = NTHR / BM;   // threads an x row
@@ -450,6 +451,7 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
     float* __restrict__ dw, float* __restrict__ db,
     float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
     int dil, float slope, int ci, int cs, int nc, int vec) {
+  if (B == 0) return;  // a probe launch (ev_mrf_conv_bwd_weight_max_clusters)
   constexpr int MO = 8 * NT;     // output channels a tile
   constexpr int DYT = NTH / MO;  // threads a dy row
   const Window win(MTS, K, dil);
@@ -676,14 +678,53 @@ cudaError_t prepare(Kernel kern, size_t smem) {
       (int)smem);
 }
 
+// The largest n <= `n` for which a cooperative launch of n clusters of
+// `cluster` blocks is accepted: the kernel is launched with B = 0, so every
+// block returns at once, and n is stepped down while the runtime refuses
+// the launch as too large (the occupancy query can promise more clusters
+// than a cooperative launch takes).  A negative CUDA error code on any
+// other error.
+int accepted_clusters(Kernel kern, int bn, size_t smem, int cluster, int n) {
+  for (; n > 0; --n) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster * n);
+    cfg.blockDim = dim3(threads_for(bn));
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[2];
+    int na = 0;
+    if (cluster > 1) {
+      attr[na].id = cudaLaunchAttributeClusterDimension;
+      attr[na].val.clusterDim.x = cluster;
+      attr[na].val.clusterDim.y = 1;
+      attr[na].val.clusterDim.z = 1;
+      ++na;
+    }
+    attr[na].id = cudaLaunchAttributeCooperative;
+    attr[na].val.cooperative = 1;
+    ++na;
+    cfg.attrs = attr;
+    cfg.numAttrs = na;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, kern, (const float*)nullptr, (const float*)nullptr,
+        (float*)nullptr, (float*)nullptr, (float*)nullptr, 0, 1, 1, 1, 1, 1,
+        0.f, 1, cluster, n, 0);
+    if (e == cudaSuccess) return n;
+    (void)cudaGetLastError();
+    if (e != cudaErrorCooperativeLaunchTooLarge) return -(int)e;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // The most clusters of `cluster` blocks of this route that the card holds
-// at once (a negative CUDA error code on failure); the planner sizes the
-// grid to it, since a cooperative launch must be co-resident.
+// at once (a negative CUDA error code on failure): the occupancy query's
+// answer, or with `probe` the largest count of them that a cooperative
+// launch accepts (accepted_clusters).  The planner sizes the grid to the
+// probed count, since a cooperative launch must be co-resident.
 extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
                                                    int k, int dil,
-                                                   int cluster) {
+                                                   int cluster, int probe) {
   if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8)
     return -(int)cudaErrorInvalidValue;
   const Kernel kern = kernel_for(bn);
@@ -697,7 +738,9 @@ extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return e == cudaSuccess ? per_sm * sms : -(int)e;
+    if (e != cudaSuccess) return -(int)e;
+    return probe ? accepted_clusters(kern, bn, smem, 1, per_sm * sms)
+                 : per_sm * sms;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
@@ -712,7 +755,8 @@ extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
   cfg.numAttrs = 1;
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
-  return e == cudaSuccess ? n : -(int)e;
+  if (e != cudaSuccess) return -(int)e;
+  return probe ? accepted_clusters(kern, bn, smem, cluster, n) : n;
 }
 
 // dy: (B, Cout, T), x: (B, Cin, T) -> dw: (Cout, Cin, k), db: (Cout,).

@@ -40,6 +40,11 @@
 // element stride 1 (the split of the fused qkv projection); the batch and
 // time strides are passed in, multiples of 4 floats, and the pointers are
 // 16-byte aligned (the wrapper checks).  o is (B, T, H, 32) contiguous.
+// lse, when not null, is (B, H, T) fp32: each row's logsumexp of its
+// visible scaled scores in natural-log units, -inf for a row that sees no
+// key (its o is 0); the training backward (K5, prefill_attention_bwd.cu)
+// recomputes P = exp(S - lse) from it.  The row state it is written from is
+// the online softmax's own, so o is the same with or without it.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,6 +62,7 @@ constexpr int BQ = 16 * WARPS;  // query rows per block
 constexpr int BKT = 32;         // keys per staged tile
 constexpr int LDS = DK + 4;     // shared row stride in floats, 4 mod 32
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
   float h, l;
@@ -68,9 +74,10 @@ __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
 __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    long long q_sb, long long q_st, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, const int* __restrict__ x_lens,
-    const int* __restrict__ y_lens, int T, int H, int x_len, float scale) {
+    float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
+    long long k_st, long long v_sb, long long v_st,
+    const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
+    int H, int x_len, float scale) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -278,6 +285,9 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     const int row = rows[r];
     if (row >= T) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: 0
+    if (lse != nullptr && t == 0)  // m and l are in log2 units
+      lse[((long long)b * H + h) * T + row] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     float* ob = o + (((long long)b * T + row) * H + h) * DK + 8 * t;
     *reinterpret_cast<float4*>(ob) =
         make_float4(oacc[0][2 * r] * inv, oacc[1][2 * r] * inv,
@@ -291,15 +301,15 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
 }  // namespace
 
 extern "C" int ev_prefill_attention_f32(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
     int B, int T, int H, int x_len, float scale, void* stream) {
   if (T <= 0 || x_len < 0 || x_len > T) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   prefill_attention_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, q_sb, q_st,
-      k_sb, k_st, v_sb, v_st, (const int*)x_lens, (const int*)y_lens, T, H,
-      x_len, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
+      (const int*)y_lens, T, H, x_len, scale);
   return (int)cudaGetLastError();
 }

@@ -224,6 +224,8 @@ class TextPreprocessor:
         if self.bert is not None and word2ph is not None:
             try:
                 return self.bert.phone_features(norm_text, word2ph)
+            except NotImplementedError:
+                raise   # a model this package has not ported (tts.py)
             except Exception:
                 pass
         return np.zeros((1024, n_phones), np.float32)

@@ -141,6 +141,39 @@ class NoReferenceAudioError(ValueError):
     pass
 
 
+class UnportedBert:
+    """Stands where the JAX package's ``BertFeatureExtractor``
+    (models/bert.py) would compute Chinese BERT features: asked for them,
+    it raises ``NotImplementedError`` naming the missing module, instead of
+    the zeros that would make the two packages feed the GPT different
+    inputs.  Where the JAX extractor is unavailable (no weights or no
+    tokenizer in the directory) the JAX package gives zeros too, and the
+    preprocessor gets None as it does there."""
+
+    WEIGHTS = ("pytorch_model.bin", "model.safetensors")
+    TOKENIZER = ("tokenizer.json", "vocab.txt")
+
+    def __init__(self, model_dir: str):
+        self.model_dir = model_dir
+
+    @classmethod
+    def where_jax_loads(cls, model_dir: Optional[str]
+                        ) -> Optional["UnportedBert"]:
+        """An instance when ``model_dir`` holds the weights and tokenizer
+        files the JAX extractor loads, else None."""
+        if not model_dir or not os.path.isdir(model_dir):
+            return None
+        has = [any(os.path.exists(os.path.join(model_dir, f)) for f in names)
+               for names in (cls.WEIGHTS, cls.TOKENIZER)]
+        return cls(model_dir) if all(has) else None
+
+    def phone_features(self, text: str, word2ph) -> np.ndarray:
+        raise NotImplementedError(
+            f"Chinese BERT features: the JAX package would compute them "
+            f"with the BERT in {self.model_dir} (models/bert.py "
+            f"BertFeatureExtractor), which this package has not ported yet")
+
+
 class TTS:
     def __init__(self, config: TTSConfig,
                  models: Optional[Dict[str, Any]] = None):
@@ -161,9 +194,10 @@ class TTS:
             self.t2s_cfg = self.t2s.cfg
         else:
             self._init_models()
-        # BERT features are not ported yet: every segment gets zeros, which
-        # is what the JAX package gives non-Chinese text
-        self.preprocessor = TextPreprocessor(None)
+        # BERT features are not ported yet: Chinese text refuses where the
+        # JAX package would compute them, and gets zeros where it would too
+        self.preprocessor = TextPreprocessor(
+            UnportedBert.where_jax_loads(self.cfg.bert_base_path))
 
     # ---- model management ---------------------------------------------------
 

@@ -1,5 +1,5 @@
-"""s1 GPT: autoregressive text -> semantic-token transformer, inference half
-(JAX: models/gpt/t2s.py).
+"""s1 GPT: autoregressive text -> semantic-token transformer (JAX:
+models/gpt/t2s.py).
 
 Phoneme embedding + projected BERT features + sine positions for the text,
 token embedding + sine positions for the semantic tokens, a post-norm
@@ -11,6 +11,12 @@ around them are torch matmuls.  The hybrid mask's plain form,
 ``build_hybrid_mask_bias``, lives beside K1 in ``ops/attention.py``.  The
 LayerNorms use the JAX package's epsilon (1e-6, flax's default), which the
 parity tests hold the port to.
+
+``Text2SemanticDecoder.forward`` is the training forward (the JAX
+``__call__``): every layer's attention goes through
+``ops.attention.self_attention``, K1 forward and K5 backward on the card.
+Dropout is not supported (``configs/gpt.yaml`` and ``T2SConfig`` both say
+0, and K1 takes no dropout mask): a config with ``dropout > 0`` raises.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops import decode_attention, prefill_attention
+from ...ops import decode_attention, prefill_attention, self_attention
 
 LN_EPS = 1e-6
 
@@ -142,6 +148,15 @@ class TransformerLayer(nn.Module):
         x = self.norm2(x + self.ffn(x))
         return x, kv
 
+    def train_forward(self, x, x_len: int, x_lens, y_lens):
+        """The layer under autograd: attention on the fused projection
+        through ``self_attention`` (K1 forward, K5 backward)."""
+        qkv = F.linear(x, self.self_attn.in_proj_weight,
+                       self.self_attn.in_proj_bias)
+        o = self_attention(qkv, self.n_heads, x_len, x_lens, y_lens)
+        x = self.norm1(x + self.self_attn.out_proj(o.reshape(x.shape)))
+        return self.norm2(x + self.ffn(x))
+
 
 class _Layers(nn.Module):
     def __init__(self, cfg: T2SConfig):
@@ -175,6 +190,50 @@ class Text2SemanticDecoder(nn.Module):
 
     def embed_audio(self, y, offset: int = 0):
         return self.ar_audio_position(self.ar_audio_embedding(y), offset)
+
+    def forward(self, x, x_lens, y, y_lens, bert_feature):
+        """Training forward with the CE loss and top-3 accuracy (JAX:
+        t2s.py:256-303).
+
+        x: (B, Tx) phonemes; y: (B, Ty) semantic tokens (0-padded); bert:
+        (B, Tx, 1024).  The inputs are the codes with EOS in every pad slot;
+        the targets the codes shifted by one with EOS from ``len - 1`` on.
+        The CE is a sum over all B x Ty positions (pad rows see only the
+        valid prefix through the mask, so they learn to emit EOS); the
+        accuracy is over the non-EOS targets.  Returns dict(loss, acc,
+        logits (B, Ty, V), targets, num_targets)."""
+        c = self.cfg
+        if c.dropout > 0:
+            raise NotImplementedError(
+                f"Text2SemanticDecoder: dropout {c.dropout} is not supported "
+                f"(K1 takes no dropout mask; configs/gpt.yaml sets 0)")
+        b, x_len = x.shape
+        y_len = y.shape[1]
+        pos = torch.arange(y_len, device=y.device)
+        y_valid = pos[None, :] < y_lens[:, None]
+        codes = torch.where(y_valid, y, torch.zeros_like(y))
+        y_in = torch.where(y_valid, codes, torch.full_like(codes, c.eos_id))
+        shifted = torch.cat([codes[:, 1:], torch.zeros_like(codes[:, :1])],
+                            dim=1)
+        targets = torch.where(pos[None, :] + 1 < y_lens[:, None], shifted,
+                              torch.full_like(shifted, c.eos_id))
+
+        h = torch.cat([self.embed_text(x, bert_feature),
+                       self.embed_audio(y_in)], dim=1)
+        for layer in self.h.layers:
+            h = layer.train_forward(h, x_len, x_lens, y_lens)
+
+        logits = self.ar_predict_layer(h[:, x_len:])      # (B, Ty, V)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(-1, targets[..., None].long())[..., 0].sum()
+        with torch.no_grad():
+            topk = logits.float().topk(3, dim=-1).indices
+            hit = (topk == targets[..., None]).any(dim=-1)
+            acc_mask = (targets != c.eos_id).float()
+            num = acc_mask.sum()
+            acc = (hit.float() * acc_mask).sum() / torch.clamp(num, min=1.0)
+        return {"loss": loss, "acc": acc, "logits": logits,
+                "targets": targets, "num_targets": num}
 
     @torch.no_grad()
     def prefill(self, x, x_lens, prompts, bert_feature, cache_len: int

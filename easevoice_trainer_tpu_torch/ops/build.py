@@ -34,7 +34,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    "ev_prefill_attention_f32": [_P, _P, _P, _P] + [_LL] * 6
+    "ev_prefill_attention_f32": [_P] * 5 + [_LL] * 6
+    + [_P, _P, _I, _I, _I, _I, _F, _P],
+    "ev_prefill_attention_bwd_f32": [_P] * 10 + [_LL] * 4
     + [_P, _P, _I, _I, _I, _I, _F, _P],
     "ev_decode_attention_f32": [_P] * 7 + [_LL] * 3 + [_I] * 5 + [_F, _P],
     "ev_mrf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -42,7 +44,7 @@ SIGNATURES = {
                                  _P],
     "ev_mrf_conv_bwd_weight_f32": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5
     + [_P],
-    "ev_mrf_conv_bwd_weight_max_clusters": [_I] * 6,
+    "ev_mrf_conv_bwd_weight_max_clusters": [_I] * 7,
 }
 
 
@@ -59,6 +61,8 @@ class KernelLibrary:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.ev_cuda_error_string.argtypes = [_I]
+        lib.ev_cuda_error_string.restype = ctypes.c_char_p
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
@@ -128,7 +132,14 @@ def build() -> KernelLibrary:
     return _loaded
 
 
+def error_string(code: int) -> str:
+    """The CUDA runtime's message for error ``code``."""
+    return build().ev_cuda_error_string(code).decode()
+
+
 def check(code: int, name: str) -> None:
-    """Raise when a kernel entry point returned a CUDA error code."""
+    """Raise when a kernel entry point returned a CUDA error code, with the
+    runtime's message for it."""
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+        raise RuntimeError(f"{name}: CUDA error {code} "
+                           f"({error_string(code)}) at launch")

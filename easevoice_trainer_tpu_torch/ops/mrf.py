@@ -259,22 +259,28 @@ def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
                      fits.get(cluster, 1), smem)
 
 
-@functools.lru_cache(maxsize=None)
-def _card_clusters(device: int, bn: int, bi: int, taps: int, k: int,
-                   dilation: int, cluster: int) -> int:
+def card_clusters(device: int, bn: int, bi: int, taps: int, k: int,
+                  dilation: int, cluster: int, probe: bool = True) -> int:
+    """Clusters of ``cluster`` blocks of this tile that CUDA ``device``
+    holds at once: what a cooperative launch accepts (``probe``; the kernel
+    is launched with no work while the runtime refuses the count as too
+    large), or what ``cudaOccupancyMaxActiveClusters`` promises."""
     with torch.cuda.device(device):
         n = build.build().ev_mrf_conv_bwd_weight_max_clusters(
-            bn, bi, taps, k, dilation, cluster)
+            bn, bi, taps, k, dilation, cluster, int(probe))
     if n < 0:
-        raise RuntimeError(f"mrf_conv_bwd_weight: occupancy query failed "
-                           f"(CUDA error {-n})")
+        raise RuntimeError(f"mrf_conv_bwd_weight: cluster query failed "
+                           f"(CUDA error {-n}: {build.error_string(-n)})")
     return n
+
+
+_card_clusters = functools.lru_cache(maxsize=None)(card_clusters)
 
 
 def wgrad_card_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
                     dilation: int, device: torch.device) -> WgradPlan:
-    """:func:`wgrad_plan` with the clusters that CUDA ``device`` holds at
-    once, as the runtime reports them."""
+    """:func:`wgrad_plan` with the clusters that a cooperative launch on
+    CUDA ``device`` accepts (:func:`card_clusters`)."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return wgrad_plan(bsz, cin, cout, t_len, k, dilation,

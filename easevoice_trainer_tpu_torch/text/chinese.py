@@ -22,8 +22,9 @@ import json
 import os
 import re
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from ..utils import paths
 from .symbols import PUNCTUATION
 from .chinese_norm import TextNormalizer
 from .tone_sandhi import ToneSandhi
@@ -134,14 +135,135 @@ def _backend():
         "(see tools/build_pinyin_table.py)")
 
 
-def _g2pw_predictor():
-    """Always None: the dictionary backend only.
+# what the JAX package's G2PWPredictor reads before it reports itself
+# available (text/g2pw.py ``_load``): the char tables, a tokenizer, and one
+# weights file; a directory short of any of them sends it to the dictionary
+G2PW_TABLES = ("POLYPHONIC_CHARS.txt", "MONOPHONIC_CHARS.txt",
+               "bopomofo_to_pinyin_wo_tune_dict.json")
+G2PW_WEIGHTS = ("g2pW.pth", "g2pW.ckpt", "best_accuracy.pth")
+G2PW_ONNX = "g2pW.onnx"
 
-    The JAX package's ``text/g2pw.py`` builds a flax BERT, which this package
-    does not import, so the port takes the path the JAX package takes when no
-    G2PWModel directory exists (its ``chinese.py _g2pw_predictor``).  The
-    G2PW model comes with the port's BERT.
+
+def _g2pw_tables_load(model_dir: str) -> bool:
+    """The three tables parse as ``_load`` parses them."""
+    def rows(name):
+        with open(os.path.join(model_dir, name), encoding="utf8") as f:
+            return [line.split("\t") for line in f.read().strip().split("\n")]
+
+    try:
+        if any(len(r) != 2
+               for r in rows(G2PW_TABLES[0]) + rows(G2PW_TABLES[1])):
+            return False
+        with open(os.path.join(model_dir, G2PW_TABLES[2]),
+                  encoding="utf8") as f:
+            json.load(f)
+    except (OSError, ValueError):
+        return False
+    return True
+
+
+def _g2pw_has_tokenizer(model_dir: str) -> bool:
+    """``AutoTokenizer.from_pretrained`` of ``model_dir/tokenizer`` or
+    ``model_dir`` finds a local BERT tokenizer: a vocabulary, and a config
+    naming its class or model type."""
+    for cand in (os.path.join(model_dir, "tokenizer"), model_dir):
+        def has(*names):
+            return any(os.path.isfile(os.path.join(cand, n)) for n in names)
+
+        if (has("vocab.txt", "tokenizer.json")
+                and has("tokenizer_config.json", "config.json")):
+            return True
+    return False
+
+
+def _onnx_fields(buf: memoryview):
+    """(field, wire type, value) of one protobuf message."""
+    def varint(pos):
+        val = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            val |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return val, pos
+            shift += 7
+
+    pos = 0
+    while pos < len(buf):
+        tag, pos = varint(pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:
+            val, pos = varint(pos)
+        elif wire == 2:
+            ln, pos = varint(pos)
+            val, pos = buf[pos:pos + ln], pos + ln
+        elif wire in (1, 5):
+            ln = 8 if wire == 1 else 4
+            val, pos = buf[pos:pos + ln], pos + ln
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+        yield field, wire, val
+
+
+def _g2pw_weights_load(model_dir: str) -> bool:
+    """g2pW.onnx with the BERT's parameter names on its initializers (an
+    anonymized export is refused, and no torch file is tried after it), or
+    else one torch weights file."""
+    onnx = os.path.join(model_dir, G2PW_ONNX)
+    if not os.path.exists(onnx):
+        return any(os.path.exists(os.path.join(model_dir, f))
+                   for f in G2PW_WEIGHTS)
+    with open(onnx, "rb") as f:
+        model = memoryview(f.read())
+    try:
+        for field, wire, graph in _onnx_fields(model):
+            if field != 7 or wire != 2:          # ModelProto.graph
+                continue
+            for gfield, gwire, tensor in _onnx_fields(graph):
+                if gfield != 5 or gwire != 2:    # GraphProto.initializer
+                    continue
+                for tfield, _, name in _onnx_fields(tensor):
+                    if tfield == 8 and b"embeddings.word_embeddings" in \
+                            bytes(name):         # TensorProto.name
+                        return True
+    except (IndexError, ValueError):
+        return False
+    return False
+
+
+def g2pw_model_dir() -> Optional[str]:
+    """The G2PWModel directory the JAX package would load a predictor from
+    ($EASEVOICE_G2PW_DIR or <base>/models/G2PWModel, unless
+    $EASEVOICE_DISABLE_G2PW), when it holds the tables, tokenizer and
+    weights that loader needs; else None."""
+    if os.environ.get("EASEVOICE_DISABLE_G2PW"):
+        return None
+    model_dir = os.environ.get("EASEVOICE_G2PW_DIR") or os.path.join(
+        paths.get_base_path(), "models", "G2PWModel")
+    if not os.path.isdir(model_dir):
+        return None
+    if not (_g2pw_tables_load(model_dir) and _g2pw_has_tokenizer(model_dir)
+            and _g2pw_weights_load(model_dir)):
+        return None
+    return model_dir
+
+
+def _g2pw_predictor():
+    """None: the dictionary backend, where the JAX package takes it too (no
+    usable G2PWModel directory).
+
+    Where the JAX package would build its model-based predictor (a flax
+    BERT, ``text/g2pw.py``) this raises ``NotImplementedError`` instead of
+    reading polyphones another way: the G2PW model comes with the port's
+    BERT.
     """
+    model_dir = g2pw_model_dir()
+    if model_dir is not None:
+        raise NotImplementedError(
+            f"Chinese polyphones: the JAX package would run its G2PW model "
+            f"from {model_dir} (text/g2pw.py G2PWPredictor), which this "
+            f"package has not ported yet; set EASEVOICE_DISABLE_G2PW=1 for "
+            f"the dictionary readings")
     return None
 
 

@@ -22,8 +22,11 @@ backwards):
 Weight-normed convs are exported with the old-style weight_g/weight_v key
 spelling.
 
-(The port's copy of the torch IO and flax -> torch parts of the JAX
-package's ``train/ckpt.py``; the torch -> flax loaders stay there.)
+(The port's copy of the torch IO, the name rules and the GPT loader and
+exporter of the JAX package's ``train/ckpt.py``: ``torch_to_flax`` reads a
+reference checkpoint into a flax-layout tree and ``flax_to_torch`` writes
+one back, so ``load_gpt_pretrained`` / ``export_gpt_weights`` keep the JAX
+package's formats.  The SoVITS loaders stay there.)
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -98,9 +101,34 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    root: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return root
+
 # ---------------------------------------------------------------------------
 # name translation: torch state dict <-> flax flat paths
 # ---------------------------------------------------------------------------
+
+
+_WN_G_KEYS = ("weight_g", "parametrizations.weight.original0")
+_WN_V_KEYS = ("weight_v", "parametrizations.weight.original1")
+
+
+def _norm_wn(tkey: str) -> str:
+    for g in _WN_G_KEYS:
+        if tkey.endswith(g):
+            return tkey[: -len(g)] + "weight_g"
+    for v in _WN_V_KEYS:
+        if tkey.endswith(v):
+            return tkey[: -len(v)] + "weight_v"
+    return tkey
 
 
 # per-tensor converters ------------------------------------------------------
@@ -364,6 +392,40 @@ def gpt_rules():
 # ---------------------------------------------------------------------------
 
 
+def torch_to_flax(torch_state: Dict[str, np.ndarray], rules,
+                  strip_prefixes=("model.", "module."),
+                  strict: bool = False) -> Tuple[Dict[str, Any], list]:
+    """Apply rules; returns (params tree, list of unmatched torch keys)."""
+    flat: Dict[str, np.ndarray] = {}
+    unmatched = []
+    for key, value in torch_state.items():
+        k = key
+        for p in strip_prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        k = _norm_wn(k)
+        hit = None
+        for rule in rules:
+            hit = rule.try_torch(k, value)
+            if hit is not None:
+                break
+        if hit is None:
+            unmatched.append(key)
+            continue
+        fkey, arr = hit
+        flat[fkey] = np.asarray(arr, np.float32)
+    if strict and unmatched:
+        raise KeyError(f"unmatched torch keys: {unmatched[:10]}"
+                       f" (+{max(0, len(unmatched) - 10)} more)")
+    tree = unflatten_tree(flat)
+    # codebooks arrive as {"0": arr} -> stack to (n_q, K, D)
+    q = tree.get("quantizer", {}).get("codebooks")
+    if isinstance(q, dict):
+        layers = [q[str(i)] for i in range(len(q))]
+        tree["quantizer"]["codebooks"] = np.stack(layers, axis=0)
+    return tree, unmatched
+
+
 def flax_to_torch(params: Dict[str, Any], rules) -> Dict[str, np.ndarray]:
     """Inverse conversion for export (reference-loadable names)."""
     flat = flatten_tree(params)
@@ -391,3 +453,23 @@ def flax_to_torch(params: Dict[str, Any], rules) -> Dict[str, np.ndarray]:
         if not matched:
             raise KeyError(f"no export rule for flax param {fkey}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# high-level API
+# ---------------------------------------------------------------------------
+
+
+def load_gpt_pretrained(path: str):
+    state = load_torch_state(path)
+    return torch_to_flax(state, gpt_rules())
+
+
+def export_gpt_weights(params, path: str, config: Any = None,
+                       info: str = "", half: bool = True) -> None:
+    flat = flax_to_torch(params, gpt_rules())
+    save_torch_state(
+        flat, path,
+        wrapper=lambda sd: {"weight": {"model." + k: v for k, v in sd.items()},
+                            "config": config, "info": info},
+        half=half)

@@ -16,8 +16,8 @@ Artifact inputs are the reference formats exactly (SURVEY §1.2):
 ``.npy`` twins of the ``.pt`` files are also accepted (native output of the
 normalize pipeline here).
 
-(The port's copy of the JAX package's ``train/data.py``, s2 part only: the
-s1 ``GPTDataset`` / ``collate_gpt`` come with the s1 slice.)
+(The port's copy of the JAX package's ``train/data.py``: the s2 part and
+the s1 ``GPTDataset`` / ``collate_gpt``.)
 """
 from __future__ import annotations
 
@@ -250,4 +250,111 @@ def collate_s2(items: List[Dict[str, np.ndarray]], frames: int,
         L = min(len(it["text"]), text_len)
         batch["text"][i, :L] = it["text"][:L]
         batch["text_lengths"][i] = L
+    return batch
+
+
+# ---------------------------------------------------------------------------
+# s1 GPT dataset
+# ---------------------------------------------------------------------------
+
+
+class GPTDataset:
+    """6-name2semantic.tsv + 2-name2text.txt -> (phonemes, semantic, bert).
+
+    Filters follow the reference (auto_reg/data/dataset.py:103-190):
+    semantic length <= max_sec * hz; phoneme length < semantic * 2.5 / hz-ish;
+    3 <= phonemes-per-second <= 25; tiny sets replicated to >= 100 items.
+    BERT features (3-bert/{name}.pt|npy, 1024 x Tt) are attached for zh text
+    when present, else zeros.
+    """
+
+    PAD = 1024
+
+    def __init__(self, exp_dir: str, max_sec: int = 54, hz: int = 25,
+                 min_items: int = 100):
+        self.exp_dir = exp_dir
+        self.hz = hz
+        path_sem = os.path.join(exp_dir, "6-name2semantic.tsv")
+        path_txt = os.path.join(exp_dir, "2-name2text.txt")
+        self.path_bert = os.path.join(exp_dir, "3-bert")
+        phoneme_data: Dict[str, List[str]] = {}
+        with open(path_txt, encoding="utf8") as f:
+            for line in f.read().strip("\n").split("\n"):
+                parts = line.split("\t")
+                if len(parts) == 4:
+                    phoneme_data[parts[0]] = parts[1].split(" ")
+
+        from ..text.symbols import cleaned_text_to_sequence
+
+        items = []
+        with open(path_sem, encoding="utf8") as f:
+            lines = f.read().strip("\n").split("\n")
+        for line in lines[0:]:
+            parts = line.split("\t")
+            if len(parts) != 2 or parts[0] == "item_name":
+                continue
+            name, semantic_str = parts
+            phones = phoneme_data.get(name)
+            if phones is None:
+                continue
+            semantic = np.asarray([int(t) for t in semantic_str.split(" ")],
+                                  np.int32)
+            try:
+                ph = np.asarray(cleaned_text_to_sequence(phones), np.int32)
+            except Exception:
+                continue
+            sec = len(semantic) / hz
+            if sec > max_sec:                       # dataset.py:127-131
+                continue
+            if len(ph) > len(semantic) * 2.5 * (25 / hz):  # dataset.py:141-144
+                continue
+            pps = len(ph) / max(sec, 1e-6)
+            if not (3 < pps < 25):                  # dataset.py:147-153
+                continue
+            items.append((name, ph, semantic))
+        if not items:
+            raise ValueError(f"no usable items in {exp_dir}")
+        if len(items) < min_items:
+            items = items * max(2, min_items // len(items))
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    @property
+    def lengths(self) -> List[int]:
+        return [len(s) for (_, _, s) in self.items]
+
+    def load_item(self, i: int):
+        name, ph, semantic = self.items[i]
+        bert = _load_feature_file(os.path.join(self.path_bert, name))
+        if bert is not None:
+            bert = np.squeeze(bert)
+            if bert.shape[0] == 1024 and bert.ndim == 2:
+                bert = bert.T          # (Tt, 1024)
+            if bert.shape[0] != len(ph):
+                bert = None
+        if bert is None:
+            bert = np.zeros((len(ph), 1024), np.float32)
+        return {"name": name, "phoneme_ids": ph, "semantic_ids": semantic,
+                "bert": bert.astype(np.float32)}
+
+
+def collate_gpt(items, max_ph: int, max_sem: int) -> Dict[str, np.ndarray]:
+    B = len(items)
+    batch = {
+        "phoneme_ids": np.zeros((B, max_ph), np.int32),
+        "phoneme_ids_len": np.zeros((B,), np.int32),
+        "semantic_ids": np.full((B, max_sem), 0, np.int32),
+        "semantic_ids_len": np.zeros((B,), np.int32),
+        "bert_feature": np.zeros((B, max_ph, 1024), np.float32),
+    }
+    for i, it in enumerate(items):
+        lp = min(len(it["phoneme_ids"]), max_ph)
+        ls = min(len(it["semantic_ids"]), max_sem)
+        batch["phoneme_ids"][i, :lp] = it["phoneme_ids"][:lp]
+        batch["phoneme_ids_len"][i] = lp
+        batch["semantic_ids"][i, :ls] = it["semantic_ids"][:ls]
+        batch["semantic_ids_len"][i] = ls
+        batch["bert_feature"][i, :lp] = it["bert"][:lp]
     return batch

@@ -78,8 +78,10 @@ def tiny_mpd(periods=(2, 3, 5, 7, 11), seed: int = 4):
     return model.train(), params
 
 
-def tiny_gpt(seed: int = 1):
-    model = Text2SemanticDecoder(T2SConfig(**T2S_KW))
+def tiny_gpt(seed: int = 1, **cfg_kw):
+    """-> (port Text2SemanticDecoder in eval mode, JAX params tree, original
+    numpy state); ``cfg_kw`` overrides T2S_KW."""
+    model = Text2SemanticDecoder(T2SConfig(**{**T2S_KW, **cfg_kw}))
     state = _numpy_state(model, seed)
     params, unmatched = ckpt.torch_to_flax(state, ckpt.gpt_rules())
     assert not unmatched, unmatched

@@ -1,5 +1,5 @@
-"""The port's kernels (K1-K3 and K4's two entry points) against their plain
-twins.
+"""The port's kernels (K1-K3, K4's two entry points and K5, the gradient of
+K1) against their plain twins.
 
 This file imports no JAX, so the ``cuda`` tests run on a machine with the
 card and without JAX:
@@ -12,6 +12,9 @@ weight gradient.  Kernel tolerances: 1e-4 absolute on outputs of magnitude
 ~1, for fp32 sums taken in another order than the twin's; K4's weight
 gradient, a sum over B*T products split per shape into ranges whose partial
 sums are added in a fixed order, 1e-3 relative to its largest magnitude.
+K5 sums up to T products of magnitude ~1 per output in fp32, in another
+order than the twin's: 1e-4 relative to the largest magnitude of each
+gradient.
 """
 import numpy as np
 import pytest
@@ -19,7 +22,8 @@ import torch
 
 from easevoice_trainer_tpu_torch.ops import attention as att
 from easevoice_trainer_tpu_torch.ops import decode_attention, mrf_conv, \
-    mrf_conv_bwd_data, mrf_conv_bwd_weight, prefill_attention
+    mrf_conv_bwd_data, mrf_conv_bwd_weight, prefill_attention, \
+    prefill_attention_bwd, self_attention
 from easevoice_trainer_tpu_torch.ops import mrf
 from easevoice_trainer_tpu_torch.ops.mrf import mrf_conv_reference
 
@@ -93,6 +97,12 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         decode_attention(z(1, 1, 2, 32), z(1, 1, 2, 32), z(1, 1, 2, 32),
                          z(1, 16, 2, 32), z(1, 16, 2, 32), 4, lens, 4, 0)
+    with pytest.raises(ValueError):
+        prefill_attention_bwd(z(1, 8, 2, 32), z(1, 8, 2, 32), z(1, 8, 2, 32),
+                              z(1, 8, 2, 32), z(1, 2, 8), z(1, 8, 2, 32), 4,
+                              lens, lens)
+    with pytest.raises(ValueError):
+        self_attention(z(1, 8, 192), 2, 4, lens, lens)
 
 
 @pytest.mark.cuda
@@ -125,6 +135,159 @@ def test_prefill_attention_kernel_matches_twin(x_len, x_lens, prompt, y_lens):
     want = torch.nan_to_num(want, nan=0.0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert torch.equal(got, prefill_attention(q, k, v, x_len, lens, y_lens))
+
+
+def _s1_lens(b, x_len, y_len, seed):
+    """Ragged (x_lens, y_lens) of one s1 batch: one row at each full
+    length, the others drawn from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x_lens = rng.integers(1, x_len + 1, b)
+    y_lens = rng.integers(1, y_len + 1, b)
+    x_lens[0], y_lens[-1] = x_len, y_len
+    return x_lens.tolist(), y_lens.tolist()
+
+
+# (x_len, x_lens, y_len, y_lens): K1's tile-edge cases with K5's, and the s1
+# buckets of chip_smoke (B = 8, 416 phonemes, 300 and 1360 tokens)
+K5_CASES = [
+    (416, _s1_lens(8, 416, y_len, seed)[0], y_len,
+     _s1_lens(8, 416, y_len, seed)[1]) for y_len, seed in ((300, 1),
+                                                          (1360, 2))
+] + [
+    (13, [13, 1, 7, 12], 1, [1, 1, 1, 1]),   # one-token prompt, one phoneme
+    (40, [1, 40, 33, 5], 95, [95, 60, 1, 33]),  # audio pads, T % 64 != 0
+    (70, [0, 70, 65, 3], 200, [200, 17, 190, 96]),  # a row with no text
+    (64, [64, 64], 64, [64, 63]),            # every length on a tile edge
+    (0, [0, 0], 45, [45, 20]),               # no text at all
+]
+
+
+def test_prefill_attention_bwd_runs_the_twin_on_the_cpu():
+    """On CPU tensors K5's wrapper runs its plain twin (no launch counted)
+    and writes into the (dq, dk, dv) views it is given, the three slices of
+    one fused-projection gradient; K1's lse twin is -inf exactly for a row
+    that sees no key."""
+    rng = np.random.default_rng(12)
+    b, h, dk, x_len, y_len = 2, 2, 32, 5, 7
+    t = x_len + y_len
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * h * dk)).astype(
+        np.float32))
+    q, k, v = att._split_heads(qkv, h)
+    xl, yl = torch.tensor([5, 0]), torch.tensor([7, 3])
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    assert torch.isinf(lse[1, :, :x_len]).all()
+    assert torch.isfinite(lse[0]).all()
+    assert torch.isfinite(lse[1, :, x_len:]).all()
+    do = torch.from_numpy(rng.normal(size=(b, t, h, dk)).astype(np.float32))
+    dqkv = torch.full_like(qkv, float("nan"))
+    before = prefill_attention_bwd.launches
+    got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                out=att._split_heads(dqkv, h))
+    assert prefill_attention_bwd.launches == before
+    want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len, xl,
+                                               yl)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert torch.isfinite(dqkv).all()
+    assert not dqkv.view(b, t, 3, h, dk)[1, :x_len, 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
+def test_prefill_attention_lse_matches_twin(x_len, x_lens, y_len, y_lens):
+    """K1's row logsumexp against torch.logsumexp of the twin's masked
+    scores (-inf exactly where a row sees no key), and K1's output
+    bit-identical with and without the lse pointer."""
+    gen = _card()
+    b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+    q, k, v = att._split_heads(qkv, h)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    assert torch.equal(o, prefill_attention(q, k, v, x_len, xl, yl))
+    want = att.prefill_attention_lse_reference(q, k, x_len, xl, yl)
+    hidden = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), hidden)
+    assert (lse[hidden] < 0).all()
+    torch.testing.assert_close(lse[~hidden], want[~hidden], rtol=0,
+                               atol=1e-4)
+
+
+def _k5_inputs(gen, x_len, x_lens, y_len, y_lens, h=16, dk=32):
+    """K1's inputs and outputs and a gradient of o that is non-zero on
+    every row, pad rows included."""
+    b, t = len(x_lens), x_len + y_len
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+    q, k, v = att._split_heads(qkv, h)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    do = torch.randn((b, t, h, dk), generator=gen, device="cuda")
+    return q, k, v, o, lse, do, xl, yl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
+def test_prefill_attention_bwd_kernel_matches_twin(x_len, x_lens, y_len,
+                                                   y_lens):
+    """K5 against its plain twin on K1's own o and lse, at the s1 shapes and
+    K1's tile edges: T, x_len and the valid lengths off the 64-row and
+    64-key tiles, one-phoneme rows, rows with no visible key (finite zero
+    gradients), pad query rows with a non-zero dO.  Two launches give
+    bit-identical gradients."""
+    gen = _card()
+    q, k, v, o, lse, do, xl, yl = _k5_inputs(gen, x_len, x_lens, y_len,
+                                             y_lens)
+    before = prefill_attention_bwd.launches
+    got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+    assert prefill_attention_bwd.launches == \
+        before + prefill_attention_bwd.launches_per_call
+    want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len,
+                                               xl, yl)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        _close_rel(g, w, 1e-4)
+    again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if 0 in x_lens:  # text rows of that batch row see nothing
+        row = x_lens.index(0)
+        assert not got[0][row, :x_len].any()
+
+
+@pytest.mark.cuda
+def test_self_attention_autograd_on_the_card():
+    """The training attention through its autograd Function: K1 forward, K5
+    backward into one d(qkv); o and the gradient match autograd of the
+    dense twin (rows that see a key), one K1 launch and one K5 call (its
+    three launches) per call."""
+    gen = _card()
+    b, h, dk, x_len, y_len = 3, 16, 32, 37, 90
+    xl = torch.tensor([37, 20, 5], dtype=torch.int32, device="cuda")
+    yl = torch.tensor([90, 71, 2], dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, x_len + y_len, 3 * h * dk), generator=gen,
+                      device="cuda")
+    do = torch.randn((b, x_len + y_len, h, dk), generator=gen, device="cuda")
+    outs, grads = [], []
+    for card in (True, False):
+        x = qkv.clone().requires_grad_()
+        before = (prefill_attention.launches, prefill_attention_bwd.launches)
+        if card:
+            o = self_attention(x, h, x_len, xl, yl)
+        else:
+            o = att.prefill_attention_reference(*att._split_heads(x, h),
+                                                x_len, xl, yl)
+        assert o.grad_fn is not None
+        o.backward(do)
+        if card:
+            assert (prefill_attention.launches,
+                    prefill_attention_bwd.launches) == (
+                before[0] + 1,
+                before[1] + prefill_attention_bwd.launches_per_call)
+        outs.append(o.detach())
+        grads.append(x.grad)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+    _close_rel(grads[0], grads[1], 1e-4)
 
 
 def _decode_inputs(gen, b, h, cache_len, device):
@@ -434,6 +597,36 @@ def test_wgrad_plan_covers_the_s2_shapes(c, t_len):
         assert 0.7 * wave <= plan.blocks <= wave
         assert plan.scratch_floats * 4 < 16 << 20
         assert plan.smem_bytes <= mrf.WGRAD_SMEM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [0.9, 1.0])
+def test_wgrad_plans_launch_repeatedly(fill, monkeypatch):
+    """Each of the 45 s2 shapes' plans at the cluster threshold ``fill``
+    launched 50 times: every launch accepted (the planner sizes a
+    cooperative grid to what the runtime accepts, not to the occupancy
+    query) and every result equal to the twin's."""
+    gen = _card()
+    monkeypatch.setattr(mrf, "WGRAD_FILL", fill)
+    b = 8
+    for c, t_len in S2_STAGES:
+        x = torch.randn((b, c, t_len), generator=gen, device="cuda")
+        dy = torch.randn((b, c, t_len), generator=gen, device="cuda")
+        for k in (3, 7, 11):
+            for d in (1, 3, 5):
+                ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, (c, c, k),
+                                                           d)
+                first = None
+                for _ in range(50):
+                    gw, gb = mrf_conv_bwd_weight(dy, x, (c, c, k), d)
+                    if first is None:
+                        _close_rel(gw, ww, 1e-3)
+                        _close_rel(gb, wb, 1e-3)
+                        first = (gw, gb)
+                    else:
+                        assert torch.equal(gw, first[0])
+                        assert torch.equal(gb, first[1])
+                torch.cuda.synchronize()
 
 
 def test_wgrad_plan_scratch_over_the_s2_step():

@@ -187,6 +187,50 @@ def test_voice_clone_service_through_pth_files(models, ref_wav, tmp_path):
         sovits_path
 
 
+@pytest.mark.parametrize("files,refuses", [
+    (("pytorch_model.bin", "vocab.txt"), True),
+    (("model.safetensors", "tokenizer.json"), True),
+    (("pytorch_model.bin",), False),   # no tokenizer: JAX gives zeros too
+    ((), False),                       # no weights: the same
+])
+def test_chinese_bert_refused_where_jax_would_run_it(models, tmp_path,
+                                                     monkeypatch, files,
+                                                     refuses):
+    """With a BERT directory that the JAX package's BertFeatureExtractor
+    loads (weights and tokenizer), Chinese text would get real BERT
+    features there; the port, which has not ported BERT, raises
+    NotImplementedError naming it instead of feeding the GPT zeros.  English
+    text, and Chinese text where the JAX extractor is unavailable, give
+    what the JAX preprocessor without BERT gives (zero features)."""
+    from easevoice_trainer_tpu.inference.preprocessor import \
+        TextPreprocessor as JPre
+
+    monkeypatch.setenv("EASEVOICE_DISABLE_G2PW", "1")
+    bert_dir = tmp_path / "chinese-roberta-wwm-ext-large"
+    bert_dir.mkdir()
+    for name in files:
+        (bert_dir / name).write_bytes(b"")
+    (vits, _, _), (t2s, _, _), (hub, _, _) = models
+    cfg = ptts.TTSConfig(str(tmp_path / "tts.json"))
+    cfg.device = "cpu"
+    cfg.bert_base_path = str(bert_dir)
+    pre = ptts.TTS(cfg, models=dict(vits=vits, t2s=t2s,
+                                    cnhubert=hub)).preprocessor
+    jpre = JPre(None)
+    cases = [("Hello world, this is a test.", "en")]
+    if refuses:
+        with pytest.raises(NotImplementedError, match="BERT"):
+            pre.get_phones_and_bert("我们都去了北京。", "all_zh")
+    else:
+        cases.append(("我们都去了北京。", "all_zh"))
+    for text, lang in cases:
+        got, want = pre.get_phones_and_bert(text, lang), \
+            jpre.get_phones_and_bert(text, lang)
+        assert got[0] == want[0] and got[2] == want[2]
+        np.testing.assert_array_equal(got[1], want[1])
+        assert not got[1].any()
+
+
 _NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
 import numpy as np, torch
