@@ -6,10 +6,10 @@
 
 ``--parent`` takes the root of another checkout (the parent commit unpacked
 with ``git archive`` into a git-ignored directory); its package is imported
-beside this one as ``ev_parent`` and its K1-K4 and GPT decode are timed in
+beside this one as ``ev_parent`` and its K1-K5 and GPT decode are timed in
 turns with this tree's on the same inputs (lines "[a/b]"; K1's serving
 output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
-per Generator stage).
+per Generator stage, K5 over the two s1 shapes).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -34,7 +34,9 @@ Phases, one summary line each; any failure exits non-zero:
    (and the clusters the occupancy query promises beside those a
    cooperative launch accepts) and the count of tensor-core instructions in
    its SASS.  K1 writing its row logsumexp and K5, its gradient, at the two
-   s1 micro-batch shapes (B=8, 416 phonemes, 300 and 1360 tokens);
+   s1 micro-batch shapes (B=8, 416 phonemes, 300 and 1360 tokens), with
+   the count of HMMA instructions in each K5 kernel's SASS; K5 must not be
+   slower than SDPA's backward;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -660,7 +662,7 @@ def s1_lens(torch, gen, b: int, x_len: int, y_len: int):
     return x_lens.to(torch.int32), y_lens.to(torch.int32)
 
 
-def check_k5(torch, results):
+def check_k5(torch, results, parent=None):
     """K1 writing its row logsumexp, and K5 (its gradient), at the s1
     micro-batch shapes: B=8, H=16, dk=32, 416 phonemes and 300 or 1360
     tokens, ragged lengths.  K1's o and lse against the twins (1e-4
@@ -669,12 +671,26 @@ def check_k5(torch, results):
     another order); a second K5 launch bit-identical.  Device ms of K1 (with
     lse) and of K5, of their twins, and of the library calls: SDPA forward,
     and SDPA's backward through torch.autograd.grad with the same float
-    mask.  K5's bound counts only the visible (row, key) pairs: five dk-long
-    products each (S, dP, dV, dK, dQ), in 3xTF32; its bytes are q, k, v, o,
-    dO, lse read and dq, dk, dv written once."""
+    mask; K5 must not be slower than SDPA's backward.  K5's bound counts
+    only the visible (row, key) pairs: five dk-long products each (S, dP,
+    dV, dK, dQ), in 3xTF32; its bytes are q, k, v, o, dO, lse read and dq,
+    dk, dv written once.  The count of HMMA (mma.sync) instructions in each
+    K5 kernel's SASS; its dq and dkdv kernels must have some.  ``parent``:
+    the parent commit's ``ops.attention``, whose K5 is then timed in turns
+    with this tree's on the same inputs."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.ops import build
+
+    tensor = {short_name(n): sum(opcode(ln).split(".")[0] == "HMMA"
+                                 for body in bodies for ln in body)
+              for n, bodies in sass_functions(
+                  build.build().path,
+                  ("dsum_kernel", "dkdv_kernel", "dq_kernel")).items()}
+    log("[kernels] K5 tensor-core instructions (HMMA) in the SASS: "
+        + ", ".join(f"{n} {c}" for n, c in sorted(tensor.items())))
+    assert tensor.get("dq_kernel") and tensor.get("dkdv_kernel"), tensor
 
     gen = torch.Generator(device="cuda").manual_seed(6006)
     b, h, dk, x_len = S1_B, 16, 32, S1_X_LEN
@@ -683,6 +699,8 @@ def check_k5(torch, results):
     bounds = {"k1": Bound(), "k5": Bound()}
     worst = {"k1": 0.0, "k5": 0.0}
     worst_rel = 0.0
+    ab = [0.0, 0.0]   # K5 in turns: this tree, the parent
+    ab_rel = 0.0
     for y_len in S1_Y_LENS:
         t = x_len + y_len
         x_lens, y_lens = s1_lens(torch, gen, b, x_len, y_len)
@@ -740,6 +758,18 @@ def check_k5(torch, results):
                        reps=5),
                    device_ms(torch, lib_bwd, reps=5)),
         }
+        if parent is not None:
+            def k5(mod):
+                return lambda: mod.prefill_attention_bwd(
+                    q, k, v, o, lse, do, x_len, x_lens, y_lens)
+
+            ms, parent_ms = in_turns(torch, k5(att), k5(parent))
+            ab = [ab[0] + ms, ab[1] + parent_ms]
+            old_g = k5(parent)()
+            ab_rel = max(ab_rel, max(
+                max_err(torch, g, w) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got, old_g)))
+            del old_g
         pairs = int((bias == 0).sum()) * h
         elems = b * t * h * dk
         bounds["k1"].add(4 * (4 * elems + b * h * t), 4 * dk * pairs)
@@ -777,6 +807,14 @@ def check_k5(torch, results):
             f"{bd.ms:.4f} ms ({bd.by}; bytes {bd.bytes_ms:.4f}, operations "
             f"{bd.ops_ms:.4f}): kernel at {100 * bd.ms / kern:.1f} % of its "
             f"bound")
+    if parent is not None:
+        log(f"[a/b] K5 prefill_attention_bwd, the two s1 shapes, same "
+            f"inputs, in turns: parent {ab[1]:.4f} ms -> this tree "
+            f"{ab[0]:.4f} ms ({ab[1] / ab[0]:.2f}x); largest |this - parent| "
+            f"/ max(1, max|parent|) {ab_rel:.3g}")
+    kern, lib = sums["k5"][0], sums["k5"][2]
+    assert kern <= lib, (f"K5 ({kern:.4f} ms) is slower than SDPA's "
+                         f"backward ({lib:.4f} ms)")
     results["prefill_attention"]["s1"] = dict(
         ms=sums["k1"][0], plain_ms=sums["k1"][1], library_ms=sums["k1"][2],
         max_abs_err=worst["k1"], **bounds["k1"].result())
@@ -822,8 +860,8 @@ def short_name(mangled: str) -> str:
     arguments (e.g. wgrad_wgmma_kernel<256>)."""
     import re
 
-    m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel)((?:I?Li-?\d+E)*)",
-                  mangled)
+    m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel|dsum_kernel|"
+                  r"dkdv_kernel|dq_kernel)((?:I?Li-?\d+E)*)", mangled)
     if not m:
         return mangled
     args = re.findall(r"Li(-?\d+)E", m.group(2))
@@ -1629,14 +1667,16 @@ def profile_s1_window(torch, trainer) -> None:
         return
     groups = {"K1": 0.0, "K5": 0.0, "GEMMs": 0.0, "optimizer": 0.0,
               "other": 0.0}
+    k5_launches = 0
     for e in kernels:
         us = e.time_range.elapsed_us()
         name = e.name.lower()
         if "prefill_attention_kernel" in name:
             groups["K1"] += us
-        elif any(k in name for k in ("dkdv_kernel", "dq_kernel(",
-                                     "dsum_kernel")):
+        elif any(k in name for k in ("dkdv_kernel(", "dq_kernel(",
+                                     "dsum_kernel(")):
             groups["K5"] += us
+            k5_launches += 1
         elif any(k in name for k in ("gemm", "xmma", "cutlass")):
             groups["GEMMs"] += us
         else:
@@ -1653,7 +1693,13 @@ def profile_s1_window(torch, trainer) -> None:
         f"ms in {len(kernels)} kernels and copies, "
         f"{total / 4000:.2f} ms a micro-batch; "
         + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items())
-        + note)
+        + f"; {k5_launches} K5 kernels in the K5 group" + note)
+    from easevoice_trainer_tpu_torch.ops import prefill_attention_bwd
+
+    want = 4 * step_fn.model.cfg.n_layers \
+        * prefill_attention_bwd.launches_per_call
+    assert k5_launches == want, (f"{k5_launches} K5 kernels in the window's "
+                                 f"K5 group, not {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -1735,7 +1781,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="root of another checkout (the parent commit "
-                         "unpacked with git archive): its K1, K2 and GPT "
+                         "unpacked with git archive): its K1-K5 and GPT "
                          "are timed beside this tree's, in turns")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "easevoice_trainer_tpu_torch")):
@@ -1780,7 +1826,7 @@ def main() -> int:
         phase = "kernels"
         check_kernels(torch, results, parent and parent.ops.attention)
         check_k4(torch, results)
-        check_k5(torch, results)
+        check_k5(torch, results, parent and parent.ops.attention)
         if parent is not None:
             phase = "mrf a/b"
             ab_mrf(torch, parent)

@@ -1,0 +1,223 @@
+"""K5's design choices, each taken back in turn, timed on the card.
+
+    python3 -m easevoice_trainer_tpu_torch.bench.k5_variants
+
+Writes variants of ``csrc/prefill_attention_bwd.cu`` under
+``build/k5_variants/`` (git-ignored), each with one choice undone, builds
+each with nvcc into its own library beside the tree's, and times K5's
+three kernels (dsum, dkdv, dq) of every build on the s1 micro-batch shapes
+of ``chip_smoke.py`` (B = 8, H = 16, 416 phonemes, 300 and 1360 tokens,
+ragged lengths): torch.profiler device time, mean of 20 calls, the tree's
+build timed first and last.  Each build's gradients are held against the
+plain twin (relative error, 1e-4 x max(1, max|twin|) each).  Variants:
+
+- ``q8``: dkdv through a query tile 8 queries (one accumulator tile per
+  product) a step, not 16;
+- ``exp2f``: libm's ``exp2f`` in place of ``ex2.approx.ftz``;
+- ``no_cap``: launch bounds of 128 threads alone, no 3-blocks-an-SM cap;
+- ``cvt``: the TF32 rounding of the split by ``cvt.rna.tf32.f32``.
+
+Needs a CUDA card; prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import subprocess
+import sys
+
+_Q8 = '''#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int qc = q0 + 8 * j;
+      if (!live || qc >= T || (!text && qc + 7 < kw)) continue;
+      const bool full = qc + 8 <= T && (text ? kw + 16 <= xv
+                                             : (qc >= kw + 15 &&
+                                                kw + 16 <= y_end));
+      float st[1][4], dpt[1][4];
+      mma_dims<1>(st, kh, kl, &sq[slot][8 * j][0], g, t);
+      mma_dims<1>(dpt, vh, vl, &sdo[slot][8 * j][0], g, t);
+      const float2 l2 = *reinterpret_cast<const float2*>(
+          &slse[slot][8 * j + 2 * t]);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(&sd[slot][8 * j + 2 * t]);
+      const float m[2] = {l2.x * LOG2E, l2.y * LOG2E};
+      const float dd[2] = {d2.x, d2.y};
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool vis = full;
+        if (!full) {
+          const int query = qc + 2 * t + (e & 1);
+          const int key = keys[e >> 1];
+          vis = query < T &&
+                (text ? key < xv : (query >= key && key < y_end));
+        }
+        p[e] = vis ? ex2(fmaf(st[0][e], c, -m[e & 1])) : 0.f;
+        ds[e] = p[e] * (dpt[0][e] - dd[e & 1]);
+      }
+      mma_rows(acc_dv, p, &sdo[slot][8 * j][0], g, t);
+      mma_rows(acc_dk, ds, &sq[slot][8 * j][0], g, t);
+    }
+'''
+
+_SPLIT = '''  float h, l;
+  split_tf32(v, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
+'''
+
+_CVT = '''  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(v));
+  lo = __float_as_uint(v - __uint_as_float(hi));
+'''
+
+
+def _swap(src: str, old: str, new: str, count: int = 1) -> str:
+    if src.count(old) != count:
+        raise ValueError(f"variant: {old[:60]!r} found {src.count(old)} "
+                         f"times, not {count}")
+    return src.replace(old, new)
+
+
+def variants(src: str) -> dict:
+    """The tree's K5 source with each design choice undone, by name."""
+    begin = src.index("#pragma unroll\n    for (int j = 0; j < BQ / 16;")
+    end = src.index("    __syncthreads();  // every warp is done with this "
+                    "slot\n    issue(i + 2, slot);\n  }\n\n  const long long "
+                    "out")
+    return {
+        "q8": src[:begin] + _Q8 + src[end:],
+        "exp2f": _swap(src, "? ex2(fmaf(", "? exp2f(fmaf(", 2),
+        "no_cap": _swap(src, "__launch_bounds__(NT, 3)",
+                        "__launch_bounds__(NT)", 2),
+        "cvt": _swap(src, _SPLIT, _CVT),
+    }
+
+
+def _build(src_path: str, so_path: str):
+    from ..ops import build
+
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC, "-shared", "-o",
+         so_path, src_path], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _entry(so_path: str):
+    from ..ops import build
+
+    fn = ctypes.CDLL(os.path.abspath(so_path)).ev_prefill_attention_bwd_f32
+    fn.argtypes = build.SIGNATURES["ev_prefill_attention_bwd_f32"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_ms(torch, run, name: str, reps: int = 20) -> float:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profiler session now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / 1000.0 / reps
+    raise RuntimeError(f"torch.profiler recorded no kernel named *{name}*")
+
+
+def main() -> int:
+    import torch
+
+    from ..ops import attention as att
+    from ..ops import build
+
+    if not torch.cuda.is_available():
+        print("k5_variants: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k5_variants")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(build.CSRC, "prefill_attention_bwd.cu")) as f:
+        srcs = variants(f.read())
+    procs = {}
+    for name, src in srcs.items():
+        path = os.path.join(out, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = _build(path, os.path.join(out, f"{name}.so"))
+    fns = {"tree": build.build().ev_prefill_attention_bwd_f32}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        kernel = ""
+        for line in log.splitlines():
+            if "entry function" in line:
+                kernel = next((k for k in ("dsum", "dkdv", "dq")
+                               if f"{k}_kernel" in line), "")
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {name} {kernel}] {line.strip()}")
+        fns[name] = _entry(os.path.join(out, f"{name}.so"))
+    order = ["tree", *srcs, "tree"]   # the tree first and last
+
+    gen = torch.Generator(device="cuda").manual_seed(6006)
+    b, h, dk, x_len = 8, 16, 32, 416
+    kernels = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
+    totals = {name: [0.0] * 3 for name in fns}
+    for y_len in (300, 1360):
+        t = x_len + y_len
+        x_lens = torch.randint(1, x_len + 1, (b,), generator=gen,
+                               device="cuda").to(torch.int32)
+        y_lens = torch.randint(1, y_len + 1, (b,), generator=gen,
+                               device="cuda").to(torch.int32)
+        x_lens[0], y_lens[-1] = x_len, y_len
+        qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+        q, k, v = att._split_heads(qkv, h)
+        do = torch.randn((b, t, h, dk), generator=gen, device="cuda")
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, x_lens, y_lens)
+        want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
+                                                   x_len, x_lens, y_lens)
+        dsum = torch.empty((b, h, t), device="cuda")
+        dqkv = torch.empty((b, t, 3 * h * dk), device="cuda")
+        grads = att._split_heads(dqkv, h)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = [z.data_ptr() for z in (q, k, v, o, do, lse, dsum, *grads)]
+        args += [q.stride(0), q.stride(1), grads[0].stride(0),
+                 grads[0].stride(1), x_lens.data_ptr(), y_lens.data_ptr(),
+                 b, t, h, x_len, 1 / math.sqrt(dk), stream]
+        runs = {}
+        for name in order:
+            def run(fn=fns[name]):
+                rc = fn(*args)
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            run()
+            torch.cuda.synchronize()
+            rel = max(float((g - w).abs().max()) / max(1.0, float(
+                w.abs().max())) for g, w in zip(grads, want))
+            assert rel <= 1e-4, f"{name} disagrees with the twin: {rel}"
+            runs.setdefault(name, []).append(
+                [_kernel_ms(torch, run, kn) for kn in kernels])
+        for name, ms in runs.items():
+            m = [sum(z) / len(ms) for z in zip(*ms)]
+            totals[name] = [a + c for a, c in zip(totals[name], m)]
+            print(f"T={t} {name}: dsum {m[0]:.4f} dkdv {m[1]:.4f} dq "
+                  f"{m[2]:.4f}, K5 {sum(m):.4f} ms", flush=True)
+    for name, m in totals.items():
+        print(f"two s1 shapes, {name}: dsum {m[0]:.4f} dkdv {m[1]:.4f} dq "
+              f"{m[2]:.4f}, K5 {sum(m):.4f} ms ({sum(m) / sum(totals['tree']):.3f}"
+              f" x the tree)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -208,9 +208,11 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     o, do = o.contiguous(), do.contiguous()
     lse = lse.contiguous()
     if (o.shape != q.shape or do.shape != q.shape
-            or lse.shape != (b, h, t)):
+            or lse.shape != (b, h, t)
+            or o.data_ptr() % 16 or do.data_ptr() % 16):
         raise ValueError("prefill_attention_bwd: o and do must be "
-                         f"{tuple(q.shape)}, lse {(b, h, t)}")
+                         f"{tuple(q.shape)}, 16-byte aligned, lse "
+                         f"{(b, h, t)}")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)

@@ -159,6 +159,14 @@ K5_CASES = [
     (70, [0, 70, 65, 3], 200, [200, 17, 190, 96]),  # a row with no text
     (64, [64, 64], 64, [64, 63]),            # every length on a tile edge
     (0, [0, 0], 45, [45, 20]),               # no text at all
+    # off K5's 16-row / 16-key warp fragments and its 8-query k-steps
+    (15, [15, 1, 14], 17, [17, 8, 9]),
+    (16, [16, 7, 16], 15, [15, 1, 7]),
+    (17, [17, 16, 9], 40, [40, 17, 15]),
+    (5, [5, 2], 9, [9, 1]),                  # T = 14 < 16
+    # every audio row a pad past y_lens (y_lens 0), and one batch row
+    # whose every row is a pad and sees no key
+    (8, [0, 8, 3], 24, [0, 0, 24]),
 ]
 
 
@@ -233,9 +241,10 @@ def test_prefill_attention_bwd_kernel_matches_twin(x_len, x_lens, y_len,
                                                    y_lens):
     """K5 against its plain twin on K1's own o and lse, at the s1 shapes and
     K1's tile edges: T, x_len and the valid lengths off the 64-row and
-    64-key tiles, one-phoneme rows, rows with no visible key (finite zero
-    gradients), pad query rows with a non-zero dO.  Two launches give
-    bit-identical gradients."""
+    64-key tiles and off K5's 16-row warp fragments and 8-query k-steps,
+    T < 16, one-phoneme rows, rows with no visible key (finite zero
+    gradients), pad query rows with a non-zero dO, a batch row that is all
+    pads.  Two launches give bit-identical gradients."""
     gen = _card()
     q, k, v, o, lse, do, xl, yl = _k5_inputs(gen, x_len, x_lens, y_len,
                                              y_lens)
@@ -253,6 +262,23 @@ def test_prefill_attention_bwd_kernel_matches_twin(x_len, x_lens, y_len,
     if 0 in x_lens:  # text rows of that batch row see nothing
         row = x_lens.index(0)
         assert not got[0][row, :x_len].any()
+    for row, (xl_b, yl_b) in enumerate(zip(x_lens, y_lens)):
+        if xl_b == 0 and yl_b == 0:  # no row of it sees a key: all zero
+            assert not any(g[row].any() for g in got)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_bwd_refuses_misaligned_rows():
+    """K5 reads o and dO 16 bytes at a time: a contiguous dO that does not
+    start on a 16-byte boundary is refused before any launch."""
+    gen = _card()
+    q, k, v, o, lse, do, xl, yl = _k5_inputs(gen, 8, [8, 3], 9, [9, 4], h=2)
+    shifted = torch.zeros(do.numel() + 1, device="cuda")[1:].view(do.shape)
+    shifted.copy_(do)
+    before = prefill_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        prefill_attention_bwd(q, k, v, o, lse, shifted, 8, xl, yl)
+    assert prefill_attention_bwd.launches == before
 
 
 @pytest.mark.cuda
