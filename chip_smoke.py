@@ -36,7 +36,9 @@ Phases, one summary line each; any failure exits non-zero:
    its SASS.  K1 writing its row logsumexp and K5, its gradient, at the two
    s1 micro-batch shapes (B=8, 416 phonemes, 300 and 1360 tokens), with
    the count of HMMA instructions in each K5 kernel's SASS; K5 must not be
-   slower than SDPA's backward;
+   slower than SDPA's backward.  K1's head-width-64 instance
+   (``encoder_attention``) at the encoders' shapes (BERT, G2PW's BERT,
+   HuBERT), each valid row also run alone, unpadded;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -46,15 +48,27 @@ Phases, one summary line each; any failure exits non-zero:
    device time a launch and the kernels a decode step launches;
 5. reference: the same models on the card and on the CPU (where the plain
    twins run) agree on a small input;
-6. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
+6. Chinese serving: a full-width BERT (chinese-roberta-wwm-ext-large's
+   widths, a synthesized 21,128-entry vocabulary, seeded random weights
+   written as pytorch_model.bin and as model.safetensors, which must load
+   equal) and a G2PWModel at bert-base-chinese widths, then
+   ``VoiceCloneService.clone`` of five Chinese sentences ("zh") and one
+   mixed zh/en sentence ("auto"): finite non-silent wavs, non-zero BERT
+   features fed to the GPT, K1 at dk 64 launched 24 times a BERT call and
+   12 times a G2PW batch, ``text_preproc`` split into its BERT and G2PW
+   parts, BERT's hidden state -3 and G2PW's probabilities on the card
+   against the CPU.  Where ``jieba`` does not import, the Chinese runs'
+   G2P results come from the table ZH_PINNED (the line "[chinese] route"
+   says which);
+7. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
    full MPD from seeded random pretrained .pth files, 8 synthetic clips of
    256 frames, batch 8, 12 steps): finite losses, every tensor on the card,
    K3 and both K4 entry points launched, every ResBlock ``weight_v`` and
    upsample tensor changed, and the export loads ``strict=True`` into the
    inference build and decodes a finite, non-silent wav;
-7. reference train step: one step at a small width on the card and on the
+8. reference train step: one step at a small width on the card and on the
    CPU agrees (losses and the ResBlock gradients);
-8. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
+9. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
    repo's configs/gpt.yaml through the port's YAML reader, a seeded random
    pretrained .ckpt in the export format, 8 synthetic utterances of 250 and
    1300 tokens replicated to 96 items: 12 micro-batches of B=8 at T = 716
@@ -64,11 +78,11 @@ Phases, one summary line each; any failure exits non-zero:
    ``strict=True`` into the inference build and decodes; s/micro-batch by
    bucket, first micro-batch, peak memory, and one accumulation window
    under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
-9. reference s1 step: one micro-batch at a small width on the card and on
+10. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient).
 
-After training it checks that no module of the JAX package, jax, flax or
-yaml was loaded in the whole run.  Two lines before the last hold one JSON
+After training it checks that no module of the JAX package, jax, flax,
+yaml, transformers or safetensors was loaded in the whole run.  Two lines before the last hold one JSON
 object with each kernel's launches (in all, per serving clone, per s2 step
 and per s1 micro-batch),
 error, device times and bound; the line before the last is the card's name
@@ -132,6 +146,11 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu/models/gpt/t2s.py:118 "
         "(TransformerLayer.attention under jax.value_and_grad, "
         "train/gpt_step.py:143; no Pallas ancestor)"),
+    "encoder_attention": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
+        "easevoice_trainer_tpu/models/bert.py:49-56 (BertLayer attention "
+        "with its key-padding bias, :88-91; also G2PW's BERT, "
+        "text/g2pw.py:57, and HuBERT's attention; no Pallas ancestor)"),
 }
 
 # the s1 micro-batches of the "s1 training" phase: B=8, 416 phonemes
@@ -164,12 +183,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 495e12 / 3
 
 
+class NoDeviceActivity(RuntimeError):
+    """torch.profiler recorded no CUDA activity in any session."""
+
+
 def device_events(torch, fn, attempts: int = 3):
     """The CUDA kernels and copies torch.profiler records over one call of
     ``fn`` (synchronised at its end).  Now and then a profiler session comes
     back with no device activity at all (seen once in ~150 sessions on an
-    H100); ``fn`` is then profiled again, up to ``attempts`` sessions in all,
-    and it raises after that."""
+    H100, and three sessions in a row once); ``fn`` is then profiled again,
+    up to ``attempts`` sessions in all, and it raises NoDeviceActivity
+    after that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,16 +209,30 @@ def device_events(torch, fn, attempts: int = 3):
             return device
         log(f"[timer] torch.profiler session {attempt} of {attempts} "
             f"recorded no CUDA activity")
-    raise RuntimeError("torch.profiler recorded no CUDA activity")
+    raise NoDeviceActivity("torch.profiler recorded no CUDA activity")
 
 
 def device_ms(torch, fn, name=None, reps: int = 20) -> float:
     """Mean device time of one call of ``fn``: the CUDA kernels and copies
     torch.profiler records over ``reps`` calls after a warm-up, divided by
-    ``reps``; with ``name``, only the kernels whose name holds it."""
+    ``reps``; with ``name``, only the kernels whose name holds it.  Where
+    the profiler records nothing in any of its sessions, the ``reps`` calls
+    are timed between two CUDA events instead (all their device work, and
+    the gaps between launches), and a "[timer]" line says so."""
     fn()
     torch.cuda.synchronize()
-    device = device_events(torch, lambda: [fn() for _ in range(reps)])
+    try:
+        device = device_events(torch, lambda: [fn() for _ in range(reps)])
+    except NoDeviceActivity:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        log(f"[timer] timed with CUDA events instead ({name or 'the call'}"
+            f", every kernel of the call and the gaps between them)")
+        return start.elapsed_time(end) / reps
     if name is not None:
         device = [e for e in device if name in e.name]
         if not device:
@@ -305,6 +343,17 @@ def check_kernels(torch, results, parent=None):
             f"({parent_ms / ms:.2f}x); parent max|d|={perr:.3g}; outputs "
             f"bit-identical: {same}")
         assert same, "K1's serving output differs from the parent's"
+        from easevoice_trainer_tpu_torch.ops import build
+
+        new, old = (sass_functions(path, ("prefill_attention_kernel",))
+                    for path in (build.build().path,
+                                 parent.build.build().path))
+        new32 = [b for n, bs in new.items() if "Li64E" not in n for b in bs]
+        old32 = [b for n, bs in old.items() if "Li64E" not in n for b in bs]
+        log(f"[a/b] K1's dk-32 SASS: {len(new32)} copy in this tree's "
+            f"library ({len(new32[0])} instructions), {len(old32)} in the "
+            f"parent's; identical: {new32 == old32}")
+        assert new32 == old32, "K1's dk-32 SASS differs from the parent's"
     assert err <= tol, f"prefill_attention disagrees: {err}"
     results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         library_ms=library, **bound.result())
@@ -499,6 +548,92 @@ def check_kernels(torch, results, parent=None):
     results["mrf_conv"] = dict(max_abs_err=worst, ms=total[0],
                                plain_ms=total[1], library_ms=total[2],
                                **bound.result())
+
+
+def hubert_frames(seconds: float):
+    """(padded, valid) HuBERT frame counts of a reference clip of
+    ``seconds`` as ``TTS._extract_semantic`` feeds it: 0.3 s of silence
+    appended, 16 kHz, padded to the next 0.5 s."""
+    from easevoice_trainer_tpu_torch.models.cnhubert import \
+        feat_output_lengths
+
+    true_len = int(round((seconds + 0.3) * 16000))
+    padded = max(8000, -(-true_len // 8000) * 8000)
+    return int(feat_output_lengths(padded)), int(feat_output_lengths(
+        true_len))
+
+
+def check_encoder(torch, results):
+    """K1's head-width-64 instance (``encoder_attention``) against its twin
+    at the encoders' shapes, 1e-4 absolute as for K1: BERT (B=1, H=16, T=64
+    and T=512, the 510-character cap of ``split_big_text`` plus [CLS] and
+    [SEP]), G2PW's BERT (B=4, H=12, T=64, ragged valid lengths), HuBERT
+    (B=1, H=12, the 5 s reference's padded frames, the valid ones marked).
+    Each valid row must not depend on padding: a run of that batch row
+    alone, unpadded, gives it again.  Device ms of the kernel, the twin and
+    SDPA with the boolean key mask, and the bound: q, k, v, o moved once;
+    two dk-long products (QK, PV) per visible (row, key) pair, every query
+    row (pads too) seeing its row's valid keys."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    tol, dk = 1e-4, att.ENCODER_DK
+    hub_t, hub_valid = hubert_frames(5.0)
+    g2pw_lens = torch.randint(2, 65, (4,), generator=gen, device="cuda")
+    g2pw_lens[0] = 64
+    shapes = (("BERT", 1, 16, 64, [64]), ("BERT", 1, 16, 512, [512]),
+              ("G2PW", 4, 12, 64, g2pw_lens.tolist()),
+              ("HuBERT", 1, 12, hub_t, [hub_valid]))
+    sums, worst, bound = [0.0, 0.0, 0.0], 0.0, Bound()
+    for label, b, h, t, lens in shapes:
+        valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q, k, v = (torch.randn((b, t, h, dk), generator=gen, device="cuda")
+                   for _ in range(3))
+        got = att.encoder_attention(q, k, v, valid)
+        want = att.prefill_attention_reference(q, k, v, t, valid,
+                                               torch.zeros_like(valid))
+        err = max_err(torch, got, want)
+        pad_err, pad_same = 0.0, True
+        for i, n in enumerate(lens):
+            alone = att.encoder_attention(
+                *(z[i:i + 1, :n].contiguous() for z in (q, k, v)),
+                valid[i:i + 1])[0]
+            pad_err = max(pad_err, max_err(torch, alone, got[i, :n]))
+            pad_same &= torch.equal(alone, got[i, :n])
+        allowed = (torch.arange(t, device="cuda")[None]
+                   < valid[:, None])[:, None, None, :]
+        qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
+                                 attn_mask=allowed)
+        lib_err = max_err(torch, sdpa().transpose(1, 2), want)
+        times = (
+            device_ms(torch, lambda: att.encoder_attention(q, k, v, valid),
+                      "prefill_attention"),
+            device_ms(torch, lambda: att.prefill_attention_reference(
+                q, k, v, t, valid, torch.zeros_like(valid))),
+            device_ms(torch, sdpa))
+        one = Bound()
+        one.add(4 * 4 * b * t * h * dk, 4 * dk * h * t * sum(lens))
+        bound.add(4 * 4 * b * t * h * dk, 4 * dk * h * t * sum(lens))
+        sums = [a + x for a, x in zip(sums, times)]
+        worst = max(worst, err, pad_err)
+        log(f"[kernels] encoder_attention (K1 dk={dk}) {label} B={b} H={h} "
+            f"T={t} valid={lens}: max|d|={err:.3g} (tol {tol}); valid rows "
+            f"alone, unpadded: max|d|={pad_err:.3g}, bit-identical "
+            f"{pad_same}; device ms: kernel {times[0]:.5f}, plain "
+            f"{times[1]:.4f}, SDPA {times[2]:.5f} (max|d| {lib_err:.3g}); "
+            f"bound {one.ms:.5f} ({one.by}), kernel at "
+            f"{100 * one.ms / times[0]:.1f} % of it")
+        del q, k, v, qh, kh, vh, sdpa, got, want
+    assert worst <= tol, f"encoder_attention disagrees: {worst}"
+    log(f"[kernels] encoder_attention, 4 shapes: device ms summed: kernel "
+        f"{sums[0]:.5f}, plain {sums[1]:.4f}, SDPA {sums[2]:.5f}; bound "
+        f"{bound.ms:.5f} ({bound.by})")
+    results["encoder_attention"] = dict(
+        max_abs_err=worst, ms=sums[0], plain_ms=sums[1], library_ms=sums[2],
+        **bound.result())
 
 
 def check_k4(torch, results):
@@ -1051,7 +1186,8 @@ def serve(torch, tmp: str, results):
         for pname, p in list(model.named_parameters()) + list(
                 model.named_buffers()):
             assert p.device.type == "cuda", f"{name}.{pname} on {p.device}"
-    for name in ("prefill_attention", "decode_attention", "mrf_conv"):
+    for name in ("prefill_attention", "decode_attention", "mrf_conv",
+                 "encoder_attention"):
         assert launches[name] > 0, \
             f"{name} was never launched on the serving path"
         results[name]["launches"] = launches[name]
@@ -1203,7 +1339,412 @@ def reference_check(torch, tts):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the s2 fine-tune at full width
+# phase 6: Chinese serving (BERT features and G2PW polyphones on the card)
+# ---------------------------------------------------------------------------
+
+# five Chinese sentences (one clone, text_lang "zh") and one mixed zh/en
+# sentence (another, "auto"); 24 of the characters are polyphonic in the
+# G2PW tables below
+ZH_TEXT = ("银行的行长今天还在重新调整数据。我觉得这种音乐很好听，大家都乐了。"
+           "他长大以后成为了一名教师，教大家数学。朝阳升起的时候，少年背着行李"
+           "出发了。这个问题还差一点，我们重新看一看。")
+ZH_MIXED = "我们用Python写了一个voice cloning的小程序。"
+
+# the G2PW model's polyphonic characters and their readings (labels are
+# TONE3 pinyin; the bopomofo-to-pinyin table maps each body to itself)
+G2PW_POLYPHONES = {
+    "行": ("xing2", "hang2"), "长": ("chang2", "zhang3"),
+    "的": ("de5", "di2"), "还": ("hai2", "huan2"),
+    "重": ("zhong4", "chong2"), "调": ("diao4", "tiao2"),
+    "数": ("shu4", "shu3"), "觉": ("jue2", "jiao4"),
+    "得": ("de2", "de5"), "种": ("zhong3", "zhong4"),
+    "乐": ("le4", "yue4"), "好": ("hao3", "hao4"),
+    "都": ("dou1", "du1"), "了": ("le5", "liao3"),
+    "为": ("wei2", "wei4"), "教": ("jiao1", "jiao4"),
+    "朝": ("chao2", "zhao1"), "少": ("shao3", "shao4"),
+    "背": ("bei4", "bei1"), "着": ("zhe5", "zhao2"),
+    "发": ("fa1", "fa4"), "看": ("kan4", "kan1"),
+    "大": ("da4", "dai4"), "相": ("xiang1", "xiang4"),
+    "中": ("zhong1", "zhong4"), "只": ("zhi3", "zhi1"),
+}
+G2PW_MONOPHONES = {"我": "wo3", "们": "men5", "今": "jin1", "天": "tian1"}
+
+# Where ``jieba`` does not import (the Chinese G2P of both packages needs
+# it), the phase takes the phone ids, word2ph and normalized text of each
+# Chinese run the preprocessor cleans from this table: ``clean_text(run,
+# "zh")`` of the port on the dictionary path, computed where jieba runs and
+# held equal to it by tests/test_torch_host.py.  BERT, G2PW and everything
+# after them still run on the card.
+ZH_PINNED = {
+    '银行的行长今天还在重新调整数据。': (
+        [318, 197, 158, 113, 127, 134, 317, 202, 125, 113, 221, 196, 252, 176, 158, 103, 319, 105, 125, 236, 317, 196, 252, 187, 320, 147, 251, 258, 221, 299, 3],
+        [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1],
+        '银行的行长今天还在重新调整数据.'),
+    '我觉得这种音乐很好听，大家都乐了。': (
+        [316, 232, 221, 307, 127, 134, 320, 133, 320, 237, 318, 196, 318, 309, 158, 141, 158, 119, 252, 201, 1, 127, 100, 221, 171, 127, 240, 224, 133, 224, 134, 3],
+        [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2, 1],
+        '我觉得这种音乐很好听,大家都乐了.'),
+    '他长大以后成为了一名教师，教大家数学。': (
+        [252, 97, 320, 114, 127, 100, 318, 168, 158, 243, 125, 146, 316, 136, 224, 134, 318, 169, 225, 202, 221, 189, 251, 211, 1, 221, 189, 127, 100, 221, 171, 251, 258, 317, 307, 3],
+        [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2, 1],
+        '他长大以后成为了一名教师,教大家数学.'),
+    '朝阳升起的时候，少年背着行李出发了。': (
+        [320, 117, 318, 113, 251, 145, 247, 168, 127, 134, 251, 212, 158, 244, 1, 251, 120, 227, 177, 122, 138, 320, 134, 317, 202, 224, 170, 125, 255, 155, 97, 224, 134, 3],
+        [2, 2, 2, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1],
+        '朝阳升起的时候,少年背着行李出发了.'),
+    '这个问题还差一点，我们重新看一看。': (
+        [320, 133, 156, 134, 316, 143, 252, 167, 158, 103, 125, 100, 318, 169, 127, 178, 1, 316, 232, 225, 144, 125, 236, 317, 196, 222, 110, 318, 170, 222, 110, 3],
+        [2, 2, 2, 2, 2, 2, 2, 2, 1, 2, 2, 2, 2, 2, 2, 2, 1],
+        '这个问题还差一点,我们重新看一看.'),
+    '我们用': (
+        [316, 232, 225, 144, 318, 238],
+        [2, 2, 2],
+        '我们用'),
+    '写了一个': (
+        [317, 193, 224, 134, 318, 167, 156, 134],
+        [2, 2, 2, 2],
+        '写了一个'),
+    '的小程序。': (
+        [127, 134, 317, 188, 125, 146, 317, 299, 3],
+        [2, 2, 2, 2, 1],
+        '的小程序.'),
+}
+
+
+def bert_vocab(size: int = 21128, chars: str = ""):
+    """A BERT vocabulary of ``size`` entries in the layout of
+    chinese-roberta-wwm-ext-large's: [PAD], [unused1-99], [UNK], [CLS],
+    [SEP], [MASK], ASCII (lower case), CJK punctuation, ``##`` pieces of
+    letters and digits, then ``chars`` and the CJK block from U+4E00 to
+    fill it."""
+    import string
+
+    head = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    ascii_ = [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+    punct = list("，。！？、：；“”‘’（）《》【】…—·")
+    pieces = ["##" + c for c in string.ascii_lowercase + string.digits]
+    fixed = head + ascii_ + punct + pieces
+    cjk = list(dict.fromkeys(ch for ch in chars if ch not in fixed))
+    cjk += [chr(c) for c in range(0x4E00, 0x9FA6) if chr(c) not in cjk]
+    return fixed + cjk[:size - len(fixed)]
+
+
+def write_bert_dir(torch, root: str, cfg, gen, vocab,
+                   weights: str = "pytorch_model.bin"):
+    """A BERT directory as HF lays one out: config.json, vocab.txt and
+    seeded random weights (``bert.``-prefixed HF names and a pooler, as a
+    released checkpoint holds them) in ``weights`` (``pytorch_model.bin``
+    or ``model.safetensors``).  Returns the encoder's state dict."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.models.bert import BertModel
+    from easevoice_trainer_tpu_torch.utils import safetensors_io
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"model_type": "bert",
+                   "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_position,
+                   "type_vocab_size": cfg.type_vocab_size,
+                   "layer_norm_eps": cfg.layer_norm_eps}, f)
+    with open(os.path.join(root, "vocab.txt"), "w", encoding="utf8") as f:
+        f.write("\n".join(vocab) + "\n")
+    state = {k: v.cpu() for k, v in convert.random_state_dict(
+        BertModel(cfg), gen).items()}
+    saved = {"bert." + k: v for k, v in state.items()}
+    d = cfg.hidden_size
+    saved["bert.pooler.dense.weight"] = torch.zeros(d, d)
+    saved["bert.pooler.dense.bias"] = torch.zeros(d)
+    path = os.path.join(root, weights)
+    if weights.endswith(".safetensors"):
+        safetensors_io.save_file(saved, path, {"format": "pt"})
+    else:
+        torch.save(saved, path)
+    return state
+
+
+def write_g2pw_dir(torch, root: str, bert_cfg, gen, vocab,
+                   polyphones=None, monophones=None):
+    """A G2PWModel directory: the character tables, the bopomofo-to-pinyin
+    table, a BERT tokenizer under ``tokenizer/``, and seeded random
+    weights of a G2PWModel of ``bert_cfg``'s widths in ``g2pW.pth``."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.text.g2pw import G2PWConfig, \
+        G2PWModel, get_phoneme_labels
+
+    polyphones = polyphones or G2PW_POLYPHONES
+    monophones = monophones or G2PW_MONOPHONES
+    os.makedirs(os.path.join(root, "tokenizer"), exist_ok=True)
+    rows = [(ch, r) for ch, rs in polyphones.items() for r in rs]
+    with open(os.path.join(root, "POLYPHONIC_CHARS.txt"), "w",
+              encoding="utf8") as f:
+        f.write("".join(f"{ch}\t{r}\n" for ch, r in rows))
+    with open(os.path.join(root, "MONOPHONIC_CHARS.txt"), "w",
+              encoding="utf8") as f:
+        f.write("".join(f"{ch}\t{r}\n" for ch, r in monophones.items()))
+    bodies = {r[:-1] for _, r in rows} | {r[:-1] for r in monophones.values()}
+    with open(os.path.join(root, "bopomofo_to_pinyin_wo_tune_dict.json"),
+              "w", encoding="utf8") as f:
+        json.dump({b: b for b in sorted(bodies)}, f, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer", "vocab.txt"), "w",
+              encoding="utf8") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(root, "tokenizer", "tokenizer_config.json"),
+              "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer",
+                   "do_lower_case": True}, f)
+    labels, char2phonemes = get_phoneme_labels(rows)
+    model = G2PWModel(bert_cfg, G2PWConfig(n_labels=len(labels),
+                                           n_chars=len(char2phonemes)))
+    state = {k: v.cpu() for k, v in
+             convert.random_state_dict(model, gen).items()}
+    torch.save(state, os.path.join(root, "g2pW.pth"))
+    return state
+
+
+def serve_chinese(torch, tmp: str, results):
+    """Chinese synthesis through ``VoiceCloneService.clone`` with a
+    full-width BERT (chinese-roberta-wwm-ext-large's widths) and a G2PW
+    model at bert-base-chinese widths on the card, weights from
+    seeded generators.  Two clones: ZH_TEXT with text_lang "zh" and
+    ZH_MIXED with "auto".  Where jieba imports, the whole frontend runs
+    live; elsewhere each Chinese run's G2P result comes from ZH_PINNED,
+    while G2PW reads the polyphones of the same runs and BERT, the GPT
+    and the vocoder run as ever.  Checks: finite non-silent wavs; every
+    BERT phone feature handed to the GPT non-zero; K1 at dk 64 launched 24
+    times a BERT call, 12 times a G2PW batch and 12 times for the
+    reference's HuBERT; the .safetensors load equal to the .bin load;
+    BERT's hidden state -3 on the card within 1e-4 relative of the CPU at
+    full width; G2PW's probabilities on the card against the CPU; no
+    transformers or safetensors module loaded."""
+    import re
+
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.inference import tts as tts_mod
+    from easevoice_trainer_tpu_torch.inference.preprocessor import \
+        TextPreprocessor
+    from easevoice_trainer_tpu_torch.models.bert import BertConfig, \
+        BertFeatureExtractor
+    from easevoice_trainer_tpu_torch.service.voice import VoiceCloneService
+    from easevoice_trainer_tpu_torch.text import chinese
+    from easevoice_trainer_tpu_torch.text.symbols import PUNCTUATION
+    from easevoice_trainer_tpu_torch.utils import safetensors_io
+
+    try:
+        import jieba  # noqa: F401
+        route = "jieba"
+    except ImportError:
+        route = "pinned"
+    log(f"[chinese] route: {route} ("
+        + ("jieba imports: the whole Chinese frontend runs live"
+           if route == "jieba" else
+           "jieba does not import here: each Chinese run's phones, word2ph "
+           "and normalized text come from ZH_PINNED; G2PW, BERT, the GPT "
+           "and the vocoder run live") + ")")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    vocab = bert_vocab()
+    bert_cfg = BertConfig()
+    bert_dir = os.path.join(tmp, "chinese-roberta-wwm-ext-large")
+    write_bert_dir(torch, bert_dir, bert_cfg, gen, vocab)
+    st_dir = os.path.join(tmp, "bert-safetensors")
+    os.makedirs(st_dir)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(bert_dir, name), st_dir)
+    saved = torch.load(os.path.join(bert_dir, "pytorch_model.bin"),
+                       weights_only=True)
+    safetensors_io.save_file(saved, os.path.join(st_dir, "model.safetensors"),
+                             {"format": "pt"})
+    del saved
+    g2pw_dir = os.path.join(tmp, "G2PWModel")
+    g2pw_cfg = BertConfig(hidden_size=768, num_layers=12, num_heads=12,
+                          intermediate_size=3072)
+    write_g2pw_dir(torch, g2pw_dir, g2pw_cfg, gen, vocab)
+    log(f"[chinese] full-width BERT ({bert_cfg.num_layers} layers x "
+        f"{bert_cfg.hidden_size}, vocab {len(vocab)}) as pytorch_model.bin "
+        f"and model.safetensors, and a G2PWModel at bert-base widths "
+        f"({len(G2PW_POLYPHONES)} polyphonic characters) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the same weights through both files
+    bert = BertFeatureExtractor(bert_dir, "cuda")
+    other = BertFeatureExtractor(st_dir, "cuda")
+    assert bert.available and other.available
+    sa, sb = bert.model.state_dict(), other.model.state_dict()
+    same = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
+    log(f"[chinese] model.safetensors (the port's reader) loads equal to "
+        f"pytorch_model.bin: {same} ({len(sa)} tensors)")
+    assert same
+    del other, sa, sb
+
+    # BERT hidden state -3: the card against the CPU, full width
+    sentence = ZH_TEXT.split("。")[0]
+    ops.reset_launch_counts()
+    card = bert.hidden_states(sentence)[-3].cpu()
+    per_call = ops.launch_counts()["encoder_attention"]
+    cpu = copy.deepcopy(bert.model).cpu()
+    enc = bert.tokenizer(sentence)
+    want = cpu(torch.tensor([enc["input_ids"]]),
+               torch.tensor([enc["attention_mask"]]))[-3]
+    rel = max_err(torch, card, want) / max(1.0, float(want.abs().max()))
+    log(f"[chinese] BERT hidden state -3, card vs CPU, {len(enc['input_ids'])}"
+        f" tokens: relative max|d|={rel:.3g} (tol 1e-4); K1 dk-64 launches "
+        f"a BERT call: {per_call}")
+    assert rel <= 1e-4 and per_call == bert_cfg.num_layers
+    del bert, cpu
+
+    env = {"EASEVOICE_G2PW_DIR": g2pw_dir}
+    old_env = {k: os.environ.get(k) for k in
+               ("EASEVOICE_G2PW_DIR", "EASEVOICE_DISABLE_G2PW")}
+    os.environ.update(env)
+    os.environ.pop("EASEVOICE_DISABLE_G2PW", None)
+    try:
+        cfg = tts_mod.TTSConfig(os.path.join(tmp, "tts_zh.json"))
+        cfg.device = "cuda"
+        cfg.bert_base_path = bert_dir
+        cfg.cnhubert_base_path = os.path.join(tmp, "chinese-hubert-base")
+        cfg.vits_weights_path = cfg.t2s_weights_path = ""
+        tts = tts_mod.TTS(cfg)
+        assert tts.preprocessor.bert is tts.bert and tts.bert.available
+        predictor = chinese._g2pw_predictor()
+        assert predictor is not None and \
+            predictor.model.classifier.weight.device.type == "cuda"
+        clock = {"bert": [0, 0.0, 0], "g2pw": [0, 0.0, 0]}
+
+        def timed(key, fn):
+            def run(*args):
+                n0 = ops.launch_counts()["encoder_attention"]
+                t = time.perf_counter()
+                out = fn(*args)
+                clock[key][0] += 1
+                clock[key][1] += time.perf_counter() - t
+                clock[key][2] += ops.launch_counts()["encoder_attention"] - n0
+                return out
+            return run
+
+        tts.bert.phone_features = timed("bert", tts.bert.phone_features)
+        predictor.predict = timed("g2pw", predictor.predict)
+        if route == "pinned":
+            punct = "".join(PUNCTUATION)
+
+            class Pinned(TextPreprocessor):
+                def _clean(self, text, language):
+                    if language != "zh":
+                        return super()._clean(text, language)
+                    phones, word2ph, norm = ZH_PINNED[text]
+                    # G2PW reads each punctuation-split segment, as g2p()
+                    for seg in re.split(f"(?<=[{punct}])\\s*", norm):
+                        seg = re.sub("[a-zA-Z]+", "", seg)
+                        if seg.strip():
+                            readings = predictor.lazy_pinyin(
+                                seg, chinese._char_fallback)
+                            assert len(readings) == len(seg)
+                    return list(phones), list(word2ph), norm
+
+            tts.preprocessor = Pinned(tts.bert)
+
+        fed = []
+        ar_decode = tts._ar_decode
+
+        def checked(batch, *args):
+            fed.extend(float(np.abs(seg["bert_features"]).max())
+                       for seg in batch)
+            return ar_decode(batch, *args)
+
+        tts._ar_decode = checked
+        service = VoiceCloneService(_Sessions(), tts)
+        for label, text, lang in (("zh", ZH_TEXT, "zh"),
+                                  ("mixed", ZH_MIXED, "auto")):
+            for v in clock.values():
+                v[:] = [0, 0.0, 0]
+            fed.clear()
+            params = dict(
+                text=text, text_lang=lang,
+                ref_audio_path=os.path.join(tmp, "ref.wav"), prompt_text="",
+                text_split_method="by_chinese_period", batch_size=4,
+                parallel_infer=True, split_bucket=True, top_k=15,
+                repetition_penalty=1.35, seed=1234, keep_random=False,
+                sovits_path=os.path.join(tmp, "sovits_random.pth"),
+                gpt_path=os.path.join(tmp, "gpt_random.ckpt"),
+                output_dir=os.path.join(tmp, f"out_{label}"))
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            result = service.clone(f"chip-smoke-{label}", params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            assert result.ok, result
+            wav, sr = read_wav(result.data["output_path"])
+            assert sr == 32000 and wav.size > 0
+            assert np.isfinite(wav).all(), "non-finite samples"
+            assert np.abs(wav).max() > 0, "silent output"
+            assert fed and min(fed) > 0, f"zero BERT features fed: {fed}"
+            hubert = launches["encoder_attention"] - clock["bert"][2] \
+                - clock["g2pw"][2]
+            assert clock["bert"][2] == bert_cfg.num_layers \
+                * clock["bert"][0], clock
+            assert clock["g2pw"][2] == predictor.model.bert.cfg.num_layers \
+                * clock["g2pw"][0], clock
+            assert clock["bert"][0] > 0 and clock["g2pw"][0] > 0, clock
+            assert hubert == (tts.cnhubert.cfg.num_layers if label == "zh"
+                              else 0), hubert
+            phases = tts.last_phases
+            log(f"[chinese] clone {label} ({lang}, {route} route): wall "
+                f"{wall:.3f} s, audio {wav.size / sr:.3f} s; phases "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+                + f"; text_preproc: BERT {clock['bert'][1]:.3f} s in "
+                f"{clock['bert'][0]} calls ({clock['bert'][2]} K1 dk-64 "
+                f"launches), G2PW {clock['g2pw'][1]:.3f} s in "
+                f"{clock['g2pw'][0]} batches ({clock['g2pw'][2]} launches), "
+                f"the rest {phases['text_preproc'] - clock['bert'][1] - clock['g2pw'][1]:.3f}"
+                f" s; segments fed to the GPT {len(fed)}, smallest max|BERT "
+                f"feature| {min(fed):.3f}; launches {launches}")
+            for name in ("prefill_attention", "decode_attention", "mrf_conv",
+                         "encoder_attention"):
+                assert launches[name] > 0, f"{name} not launched ({label})"
+                r = results[name]
+                r["launches"] = r.get("launches", 0) + launches[name]
+                per_path = r.setdefault("per_path", {})
+                per_path[f"chinese_clone_{label}"] = launches[name]
+
+        # G2PW on the card against the CPU, on one segment's batch
+        seg = ZH_TEXT.split("。")[0]
+        queries = [i for i, ch in enumerate(seg) if ch in predictor.poly_set]
+        texts = [seg] * len(queries)
+        p_card = predictor.probabilities(texts, queries)
+        predictor.model = predictor.model.cpu()
+        predictor.device = torch.device("cpu")
+        p_cpu = predictor.probabilities(texts, queries)
+        err = float(np.abs(p_card - p_cpu).max())
+        same = bool((p_card.argmax(1) == p_cpu.argmax(1)).all())
+        log(f"[chinese] G2PW probabilities card vs CPU, {len(queries)} "
+            f"polyphonic characters of one segment: max|d|={err:.3g} (tol "
+            f"1e-4); labels identical: {same}")
+        assert err <= 1e-4 and same
+        chinese.set_g2pw_device("cuda")
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("transformers", "safetensors"))
+    log(f"[chinese] modules of transformers or safetensors loaded: {foreign}")
+    assert not foreign, foreign
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the s2 fine-tune at full width
 # ---------------------------------------------------------------------------
 
 PHONES = "HH AH0 L OW1 W ER1 L D SP K AE1 T S .".split()
@@ -1395,7 +1936,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: one train step on the card against the CPU
+# phase 8: one train step on the card against the CPU
 # ---------------------------------------------------------------------------
 
 TINY_SOVITS = dict(
@@ -1466,7 +2007,7 @@ def reference_train_step(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the s1 fine-tune at full width
+# phase 9: the s1 fine-tune at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1703,7 +2244,7 @@ def profile_s1_window(torch, trainer) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: one s1 micro-batch on the card against the CPU
+# phase 10: one s1 micro-batch on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1825,6 +2366,7 @@ def main() -> int:
 
         phase = "kernels"
         check_kernels(torch, results, parent and parent.ops.attention)
+        check_encoder(torch, results)
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
         if parent is not None:
@@ -1837,6 +2379,10 @@ def main() -> int:
         phase = "reference"
         reference_check(torch, tts)
         del tts
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "chinese serving"
+        serve_chinese(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
         phase = "training"
@@ -1858,11 +2404,13 @@ def main() -> int:
         from easevoice_trainer_tpu_torch import native
 
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
-            "easevoice_trainer_tpu", "jax", "flax", "yaml"))
-        log(f"[isolation] after serving English text, resampling the "
-            f"reference clip (native resampler built: {native.available()}), "
-            f"12 s2 training steps and 12 s1 micro-batches, modules of "
-            f"easevoice_trainer_tpu, jax, flax or yaml loaded: {foreign}")
+            "easevoice_trainer_tpu", "jax", "flax", "yaml", "transformers",
+            "safetensors"))
+        log(f"[isolation] after serving English and Chinese text, resampling "
+            f"the reference clip (native resampler built: "
+            f"{native.available()}), 12 s2 training steps and 12 s1 "
+            f"micro-batches, modules of easevoice_trainer_tpu, jax, flax, "
+            f"yaml, transformers or safetensors loaded: {foreign}")
         assert not foreign, foreign
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()

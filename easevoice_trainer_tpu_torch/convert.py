@@ -5,8 +5,9 @@ SoVITS, its discriminators and GPT go through the checkpoint name rules of
 ``flax_to_torch`` with ``sovits_generator_rules`` /
 ``sovits_discriminator_rules`` / ``gpt_rules``), so the names are the
 reference torch names.  HuBERT goes through a numpy inverse of the JAX package's
-``convert_hf_hubert``, giving HF ``HubertModel`` names.  Each result loads
-with ``load_state_dict(strict=True)``.
+``convert_hf_hubert``, giving HF ``HubertModel`` names, and BERT through the
+inverse of ``models/bert.py`` ``convert_hf_bert``, giving HF ``BertModel``
+names.  Each result loads with ``load_state_dict(strict=True)``.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def random_state_dict(module: torch.nn.Module, generator: torch.Generator
             t = torch.ones(shape, device=dev)
         elif name.endswith("_codebook.embed"):
             t = uniform(shape, 1.0)
-        elif name.endswith("gamma") or (len(shape) == 1 and "norm" in name
+        elif name.endswith("gamma") or (len(shape) == 1
+                                        and "norm" in name.lower()
                                         and name.endswith("weight")):
             t = 1.0 + uniform(shape, 0.1)
         elif len(shape) <= 1:
@@ -163,5 +165,37 @@ def hubert_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"{t}.layer_norm.bias"] = p[f"{f}/norm1/bias"]
         out[f"{t}.final_layer_norm.weight"] = p[f"{f}/norm2/scale"]
         out[f"{t}.final_layer_norm.bias"] = p[f"{f}/norm2/bias"]
+        i += 1
+    return _to_torch(out)
+
+
+def bert_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """BertModel params -> HF BertModel names (inverse of the JAX package's
+    ``models/bert.py`` ``convert_hf_bert``): dense kernels transposed to
+    torch's (out, in), LayerNorm scale -> weight."""
+    p = {k: np.asarray(v, np.float32)
+         for k, v in ckpt.flatten_tree(params).items()}
+    out: Dict[str, np.ndarray] = {
+        "embeddings.word_embeddings.weight": p["word_emb/embedding"],
+        "embeddings.position_embeddings.weight": p["pos_emb/embedding"],
+        "embeddings.token_type_embeddings.weight": p["type_emb/embedding"],
+        "embeddings.LayerNorm.weight": p["emb_norm/scale"],
+        "embeddings.LayerNorm.bias": p["emb_norm/bias"],
+    }
+    i = 0
+    while f"layer_{i}/q/kernel" in p:
+        t, f = f"encoder.layer.{i}", f"layer_{i}"
+        for tn, fn in (("attention.self.query", "q"),
+                       ("attention.self.key", "k"),
+                       ("attention.self.value", "v"),
+                       ("attention.output.dense", "attn_out"),
+                       ("intermediate.dense", "ff1"),
+                       ("output.dense", "ff2")):
+            out[f"{t}.{tn}.weight"] = p[f"{f}/{fn}/kernel"].T
+            out[f"{t}.{tn}.bias"] = p[f"{f}/{fn}/bias"]
+        for tn, fn in (("attention.output.LayerNorm", "attn_norm"),
+                       ("output.LayerNorm", "ff_norm")):
+            out[f"{t}.{tn}.weight"] = p[f"{f}/{fn}/scale"]
+            out[f"{t}.{tn}.bias"] = p[f"{f}/{fn}/bias"]
         i += 1
     return _to_torch(out)

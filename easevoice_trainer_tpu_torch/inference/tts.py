@@ -6,9 +6,11 @@ vocoder (JAX: inference/tts.py).
   a YAML file is read with ``yaml``, imported only when the file is not JSON.
 * ``TTS.set_ref_audio``: 3-10 s reference, reference spectrogram + prompt
   semantic tokens via cnhubert -> s2 ``extract_latent``.
-* ``TTS.run``: preprocess text -> sort-by-length batches -> KV-cached AR
-  decode -> VITS decode per batch -> peak-clamped splice with
-  ``fragment_interval`` silence, order restored, int16 output.
+* ``TTS.run``: preprocess text (Chinese runs get BERT phone features from
+  ``models/bert.py`` and polyphones from the G2PW model, both on the
+  device) -> sort-by-length batches -> KV-cached AR decode -> VITS decode
+  per batch -> peak-clamped splice with ``fragment_interval`` silence,
+  order restored, int16 output.
 
 Shapes are padded to the JAX package's buckets (phones to 16, codes to 64,
 text to 16, ``max_new_tokens`` to 32) so both packages compute on the same
@@ -29,12 +31,15 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..models.bert import BertFeatureExtractor
 from ..models.cnhubert import feat_output_lengths, load_cnhubert
 from ..models.gpt import DecodeParams, T2SConfig, Text2SemanticDecoder, \
     decode_ar
 from ..models.sovits import SovitsConfig, SynthesizerTrn
+from ..text import chinese
 from ..train.data import spectrogram_np
 from ..utils import audio_io, paths
+from ..utils.device import resolve_device
 from ..utils.logger import logger
 from .preprocessor import TextPreprocessor
 
@@ -141,46 +146,16 @@ class NoReferenceAudioError(ValueError):
     pass
 
 
-class UnportedBert:
-    """Stands where the JAX package's ``BertFeatureExtractor``
-    (models/bert.py) would compute Chinese BERT features: asked for them,
-    it raises ``NotImplementedError`` naming the missing module, instead of
-    the zeros that would make the two packages feed the GPT different
-    inputs.  Where the JAX extractor is unavailable (no weights or no
-    tokenizer in the directory) the JAX package gives zeros too, and the
-    preprocessor gets None as it does there."""
-
-    WEIGHTS = ("pytorch_model.bin", "model.safetensors")
-    TOKENIZER = ("tokenizer.json", "vocab.txt")
-
-    def __init__(self, model_dir: str):
-        self.model_dir = model_dir
-
-    @classmethod
-    def where_jax_loads(cls, model_dir: Optional[str]
-                        ) -> Optional["UnportedBert"]:
-        """An instance when ``model_dir`` holds the weights and tokenizer
-        files the JAX extractor loads, else None."""
-        if not model_dir or not os.path.isdir(model_dir):
-            return None
-        has = [any(os.path.exists(os.path.join(model_dir, f)) for f in names)
-               for names in (cls.WEIGHTS, cls.TOKENIZER)]
-        return cls(model_dir) if all(has) else None
-
-    def phone_features(self, text: str, word2ph) -> np.ndarray:
-        raise NotImplementedError(
-            f"Chinese BERT features: the JAX package would compute them "
-            f"with the BERT in {self.model_dir} (models/bert.py "
-            f"BertFeatureExtractor), which this package has not ported yet")
-
-
 class TTS:
     def __init__(self, config: TTSConfig,
                  models: Optional[Dict[str, Any]] = None):
         """``models`` (testing/DI hook) may provide the ``vits``, ``t2s`` and
-        ``cnhubert`` modules, already on ``config.device``."""
+        ``cnhubert`` modules and the ``bert`` extractor (or None), already
+        on ``config.device``.  The Chinese frontend's G2PW model runs on
+        that device too."""
         self.cfg = config
-        self.device = torch.device(config.device)
+        self.device = resolve_device(config.device, "TTS")
+        chinese.set_g2pw_device(self.device)
         self.prompt_cache: Dict[str, Any] = {
             "ref_audio_path": None, "refer_spec": [], "prompt_semantic": None,
             "aux_ref_audio_paths": [],
@@ -192,20 +167,21 @@ class TTS:
             self.__dict__.update(models)
             self.vits_cfg = self.vits.cfg
             self.t2s_cfg = self.t2s.cfg
+            self.preprocessor = TextPreprocessor(getattr(self, "bert", None))
         else:
             self._init_models()
-        # BERT features are not ported yet: Chinese text refuses where the
-        # JAX package would compute them, and gets zeros where it would too
-        self.preprocessor = TextPreprocessor(
-            UnportedBert.where_jax_loads(self.cfg.bert_base_path))
 
     # ---- model management ---------------------------------------------------
 
     def _init_models(self) -> None:
         self.vits_cfg = SovitsConfig()
         self.t2s_cfg = T2SConfig()
+        self.bert = BertFeatureExtractor(self.cfg.bert_base_path,
+                                         self.device)
         self.cnhubert = load_cnhubert(self.cfg.cnhubert_base_path,
                                       self.device)
+        self.preprocessor = TextPreprocessor(
+            self.bert if self.bert.available else None)
         if self.cfg.vits_weights_path and os.path.exists(
                 self.cfg.vits_weights_path):
             self.init_vits_weights(self.cfg.vits_weights_path)

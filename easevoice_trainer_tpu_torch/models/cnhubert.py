@@ -1,5 +1,6 @@
-"""HuBERT-base SSL encoder (chinese-hubert-base), plain torch (JAX:
-models/cnhubert.py).
+"""HuBERT-base SSL encoder (chinese-hubert-base) (JAX: models/cnhubert.py):
+plain torch around the attention, which runs on K1's head-width-64
+instance (``ops.attention.encoder_attention``).
 
 Module names are HF ``HubertModel``'s, so its ``pytorch_model.bin`` loads
 with ``load_state_dict(strict=True)`` once :func:`hf_state_for_load` has
@@ -13,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import WNConv1d, weight_norm_key
+from ..ops.attention import encoder_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,16 +148,14 @@ class _Attention(nn.Module):
         self.out_proj = nn.Linear(d, d)
 
     def forward(self, x: torch.Tensor,
-                pad_bias: Optional[torch.Tensor]) -> torch.Tensor:
+                valid_lens: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, d); each row sees the frames below valid_lens[b]."""
         b, t, d = x.shape
-        h = self.n_heads
-        split = lambda z: z.view(b, t, h, d // h).transpose(1, 2)
-        q = split(self.q_proj(x)) / math.sqrt(d // h)
-        scores = q @ split(self.k_proj(x)).transpose(2, 3)
-        if pad_bias is not None:
-            scores = scores + pad_bias
-        attn = torch.softmax(scores, dim=-1) @ split(self.v_proj(x))
-        return self.out_proj(attn.transpose(1, 2).reshape(b, t, d))
+        split = lambda z: z.view(b, t, self.n_heads, d // self.n_heads)
+        attn = encoder_attention(split(self.q_proj(x)),
+                                 split(self.k_proj(x)),
+                                 split(self.v_proj(x)), valid_lens)
+        return self.out_proj(attn.reshape(b, t, d))
 
 
 class _FeedForward(nn.Module):
@@ -178,8 +177,8 @@ class _EncoderLayer(nn.Module):
         self.feed_forward = _FeedForward(d, cfg.intermediate_size)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
-    def forward(self, x, pad_bias):
-        x = self.layer_norm(x + self.attention(x, pad_bias))
+    def forward(self, x, valid_lens):
+        x = self.layer_norm(x + self.attention(x, valid_lens))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
@@ -208,19 +207,20 @@ class CNHubert(nn.Module):
         feats = self.feature_extractor(wav, lengths).transpose(1, 2)
         fp = self.feature_projection
         h = fp.projection(fp.layer_norm(feats))
-        pad_bias = None
-        if lengths is not None:
-            frame_lens = feat_output_lengths(lengths, self.cfg)
+        if lengths is None:
+            valid_lens = torch.full((h.shape[0],), h.shape[1],
+                                    dtype=torch.int32, device=h.device)
+        else:
+            valid_lens = feat_output_lengths(lengths, self.cfg).to(
+                torch.int32)
             valid = (torch.arange(h.shape[1], device=h.device)[None]
-                     < frame_lens[:, None])
-            zero = torch.zeros((), dtype=h.dtype, device=h.device)
-            pad_bias = torch.where(valid, zero, -math.inf)[:, None, None, :]
+                     < valid_lens[:, None])
             h = h * valid[..., None].to(h.dtype)
         enc = self.encoder
         h = h + enc.pos_conv_embed(h.transpose(1, 2)).transpose(1, 2)
         h = enc.layer_norm(h)
         for layer in enc.layers:
-            h = layer(h, pad_bias)
+            h = layer(h, valid_lens)
         return h
 
 

@@ -1,5 +1,6 @@
 """GPT attention kernels K1 (prefill), K2 (single-token decode) and K5 (the
-gradient of K1, for the s1 fine-tune).
+gradient of K1, for the s1 fine-tune), and the encoders' attention (K1 at
+head width 64: BERT, G2PW's BERT, HuBERT).
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs the
 plain PyTorch twin (``*_reference``, written from the JAX math with a dense
@@ -20,7 +21,8 @@ import torch
 
 from . import build
 
-DK = 32  # the kernels are written for the 512/16 GPT's head width
+DK = 32  # the GPT kernels are written for the 512/16 GPT's head width
+ENCODER_DK = 64  # K1's encoder instance: 1024/16 (BERT), 768/12 (G2PW, HuBERT)
 
 
 def build_hybrid_mask_bias(x_len: int, y_len: int, x_lens: torch.Tensor,
@@ -103,16 +105,16 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> None:
+                 v: torch.Tensor, want_dk: int = DK) -> None:
     """q/k/v as the kernels read them: fp32 (B, T, H, dk) with head stride dk
     and unit stride in dk (views of the fused qkv projection are fine), batch
     and time strides in whole 16-byte units, 16-byte aligned."""
     dk = q.shape[-1]
-    if q.dtype != torch.float32 or dk != DK:
-        raise ValueError(f"{name}: needs fp32 and dk={DK}, got "
+    if q.dtype != torch.float32 or dk != want_dk:
+        raise ValueError(f"{name}: needs fp32 and dk={want_dk}, got "
                          f"{q.dtype} dk={dk}")
     for z in (q, k, v):
-        if (z.shape != q.shape or z.stride(2) != DK or z.stride(3) != 1
+        if (z.shape != q.shape or z.stride(2) != dk or z.stride(3) != 1
                 or z.stride(0) % 4 or z.stride(1) % 4
                 or z.data_ptr() % 16):
             raise ValueError(f"{name}: q/k/v must be {tuple(q.shape)} "
@@ -168,6 +170,52 @@ def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 prefill_attention.launches = 0
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid_lens: torch.Tensor) -> torch.Tensor:
+    """Bidirectional attention with a key-padding mask, the encoders' (BERT,
+    G2PW's BERT, HuBERT).  q/k/v: (B, T, H, 64) fp32 (views of the
+    projections are fine); valid_lens: (B,) int.  Every query row of batch
+    row b, pad rows included, sees the keys below ``valid_lens[b]``.
+    Returns o (B, T, H, 64).
+
+    This is K1's hybrid mask with no audio part: with x_len = T and
+    y_lens = 0, ``build_hybrid_mask_bias`` lets each row see the keys below
+    x_lens[b] (its text branch; the audio branch covers no key), which is
+    the JAX BERT's ``pad_bias`` (models/bert.py:88-91: 0 where
+    attention_mask > 0, -inf elsewhere, added to every row's scores) when
+    the mask is a prefix of ones, as a tokenizer's is, and HuBERT's frame
+    mask (models/cnhubert.py:212-217).  The JAX BERT divides q by sqrt(dk)
+    before the product (bert.py:50); K1 scales the scores: both fp32, so
+    they differ in rounding only.  A row with valid_lens 0 would give NaN
+    in JAX and zeros in K1; it does not occur ([CLS] is always valid, a
+    HuBERT clip always has frames).
+
+    On the CPU the plain twin runs (``prefill_attention_reference``); on a
+    CUDA tensor K1's dk-64 instance launches, or this raises."""
+    b, t = q.shape[:2]
+    if q.device.type == "cpu":
+        return prefill_attention_reference(
+            q, k, v, t, valid_lens, torch.zeros_like(valid_lens))
+    _check_cuda("encoder_attention", q, k, v, valid_lens)
+    _check_heads("encoder_attention", q, k, v, ENCODER_DK)
+    h = q.shape[2]
+    valid_lens = valid_lens.to(torch.int32).contiguous()
+    o = torch.empty((b, t, h, ENCODER_DK), dtype=torch.float32,
+                    device=q.device)
+    rc = build.build().ev_encoder_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), valid_lens.data_ptr(), b, t, h,
+        1.0 / math.sqrt(ENCODER_DK),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "encoder_attention")
+    encoder_attention.launches += 1
+    return o
+
+
+encoder_attention.launches = 0
 
 
 def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,

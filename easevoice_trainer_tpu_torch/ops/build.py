@@ -36,6 +36,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ev_prefill_attention_f32": [_P] * 5 + [_LL] * 6
     + [_P, _P, _I, _I, _I, _I, _F, _P],
+    "ev_encoder_attention_f32": [_P] * 4 + [_LL] * 6
+    + [_P, _I, _I, _I, _F, _P],
     "ev_prefill_attention_bwd_f32": [_P] * 10 + [_LL] * 4
     + [_P, _P, _I, _I, _I, _I, _F, _P],
     "ev_decode_attention_f32": [_P] * 7 + [_LL] * 3 + [_I] * 5 + [_F, _P],

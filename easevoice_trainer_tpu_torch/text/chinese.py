@@ -12,9 +12,11 @@ Pinyin readings come from a pluggable backend:
   2. a char/word->pinyin JSON table at $EASEVOICE_PINYIN_TABLE (generated by
      tools/build_pinyin_table.py on a machine with pypinyin);
   3. otherwise a clear error naming the missing dependency.
-The G2PW ONNX polyphone model has no TPU/CPU runtime here (onnxruntime
-absent); polyphone disambiguation quality therefore matches the reference's
-``is_g2pw=False`` path.
+Polyphones are read by the G2PW model (``text/g2pw.py``, a BERT
+classifier on ``set_g2pw_device``'s device, the card by default) where the
+JAX package builds its predictor: a loadable G2PWModel directory at
+$EASEVOICE_G2PW_DIR or <base>/models/G2PWModel; elsewhere the dictionary
+readings above, the reference's ``is_g2pw=False`` path.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import json
 import os
 import re
 from functools import lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 from ..utils import paths
 from .symbols import PUNCTUATION
@@ -135,136 +137,40 @@ def _backend():
         "(see tools/build_pinyin_table.py)")
 
 
-# what the JAX package's G2PWPredictor reads before it reports itself
-# available (text/g2pw.py ``_load``): the char tables, a tokenizer, and one
-# weights file; a directory short of any of them sends it to the dictionary
-G2PW_TABLES = ("POLYPHONIC_CHARS.txt", "MONOPHONIC_CHARS.txt",
-               "bopomofo_to_pinyin_wo_tune_dict.json")
-G2PW_WEIGHTS = ("g2pW.pth", "g2pW.ckpt", "best_accuracy.pth")
-G2PW_ONNX = "g2pW.onnx"
+_G2PW_DEVICE = "cuda"
 
 
-def _g2pw_tables_load(model_dir: str) -> bool:
-    """The three tables parse as ``_load`` parses them."""
-    def rows(name):
-        with open(os.path.join(model_dir, name), encoding="utf8") as f:
-            return [line.split("\t") for line in f.read().strip().split("\n")]
-
-    try:
-        if any(len(r) != 2
-               for r in rows(G2PW_TABLES[0]) + rows(G2PW_TABLES[1])):
-            return False
-        with open(os.path.join(model_dir, G2PW_TABLES[2]),
-                  encoding="utf8") as f:
-            json.load(f)
-    except (OSError, ValueError):
-        return False
-    return True
+def set_g2pw_device(device) -> None:
+    """The device the G2PW model runs on (the card unless a caller asks for
+    the CPU, as ``TTS`` does with ``TTSConfig.device``); clears the cached
+    predictor."""
+    global _G2PW_DEVICE
+    _G2PW_DEVICE = str(device)
+    _g2pw_predictor.cache_clear()
 
 
-def _g2pw_has_tokenizer(model_dir: str) -> bool:
-    """``AutoTokenizer.from_pretrained`` of ``model_dir/tokenizer`` or
-    ``model_dir`` finds a local BERT tokenizer: a vocabulary, and a config
-    naming its class or model type."""
-    for cand in (os.path.join(model_dir, "tokenizer"), model_dir):
-        def has(*names):
-            return any(os.path.isfile(os.path.join(cand, n)) for n in names)
+@lru_cache(maxsize=1)
+def _g2pw_predictor():
+    """Model-based polyphone disambiguation when a G2PWModel dir exists.
 
-        if (has("vocab.txt", "tokenizer.json")
-                and has("tokenizer_config.json", "config.json")):
-            return True
-    return False
-
-
-def _onnx_fields(buf: memoryview):
-    """(field, wire type, value) of one protobuf message."""
-    def varint(pos):
-        val = shift = 0
-        while True:
-            b = buf[pos]
-            pos += 1
-            val |= (b & 0x7F) << shift
-            if not b & 0x80:
-                return val, pos
-            shift += 7
-
-    pos = 0
-    while pos < len(buf):
-        tag, pos = varint(pos)
-        field, wire = tag >> 3, tag & 7
-        if wire == 0:
-            val, pos = varint(pos)
-        elif wire == 2:
-            ln, pos = varint(pos)
-            val, pos = buf[pos:pos + ln], pos + ln
-        elif wire in (1, 5):
-            ln = 8 if wire == 1 else 4
-            val, pos = buf[pos:pos + ln], pos + ln
-        else:
-            raise ValueError(f"unsupported wire type {wire}")
-        yield field, wire, val
-
-
-def _g2pw_weights_load(model_dir: str) -> bool:
-    """g2pW.onnx with the BERT's parameter names on its initializers (an
-    anonymized export is refused, and no torch file is tried after it), or
-    else one torch weights file."""
-    onnx = os.path.join(model_dir, G2PW_ONNX)
-    if not os.path.exists(onnx):
-        return any(os.path.exists(os.path.join(model_dir, f))
-                   for f in G2PW_WEIGHTS)
-    with open(onnx, "rb") as f:
-        model = memoryview(f.read())
-    try:
-        for field, wire, graph in _onnx_fields(model):
-            if field != 7 or wire != 2:          # ModelProto.graph
-                continue
-            for gfield, gwire, tensor in _onnx_fields(graph):
-                if gfield != 5 or gwire != 2:    # GraphProto.initializer
-                    continue
-                for tfield, _, name in _onnx_fields(tensor):
-                    if tfield == 8 and b"embeddings.word_embeddings" in \
-                            bytes(name):         # TensorProto.name
-                        return True
-    except (IndexError, ValueError):
-        return False
-    return False
-
-
-def g2pw_model_dir() -> Optional[str]:
-    """The G2PWModel directory the JAX package would load a predictor from
-    ($EASEVOICE_G2PW_DIR or <base>/models/G2PWModel, unless
-    $EASEVOICE_DISABLE_G2PW), when it holds the tables, tokenizer and
-    weights that loader needs; else None."""
+    Mirrors the reference's ``is_g2pw`` switch (reference:
+    src/easevoice/text/chinese.py:16-28, 212) as the JAX package does: the
+    model directory is looked up at $EASEVOICE_G2PW_DIR or
+    <base>/models/G2PWModel; absent, or not loadable (``text/g2pw.py``:
+    tables, a BERT tokenizer, named weights) -> dictionary backend only.
+    The model runs on ``set_g2pw_device``'s device.  Cached; call
+    ``cache_clear`` after changing the environment.
+    """
     if os.environ.get("EASEVOICE_DISABLE_G2PW"):
         return None
     model_dir = os.environ.get("EASEVOICE_G2PW_DIR") or os.path.join(
         paths.get_base_path(), "models", "G2PWModel")
     if not os.path.isdir(model_dir):
         return None
-    if not (_g2pw_tables_load(model_dir) and _g2pw_has_tokenizer(model_dir)
-            and _g2pw_weights_load(model_dir)):
-        return None
-    return model_dir
+    from .g2pw import G2PWPredictor
 
-
-def _g2pw_predictor():
-    """None: the dictionary backend, where the JAX package takes it too (no
-    usable G2PWModel directory).
-
-    Where the JAX package would build its model-based predictor (a flax
-    BERT, ``text/g2pw.py``) this raises ``NotImplementedError`` instead of
-    reading polyphones another way: the G2PW model comes with the port's
-    BERT.
-    """
-    model_dir = g2pw_model_dir()
-    if model_dir is not None:
-        raise NotImplementedError(
-            f"Chinese polyphones: the JAX package would run its G2PW model "
-            f"from {model_dir} (text/g2pw.py G2PWPredictor), which this "
-            f"package has not ported yet; set EASEVOICE_DISABLE_G2PW=1 for "
-            f"the dictionary readings")
-    return None
+    predictor = G2PWPredictor(model_dir, _G2PW_DEVICE)
+    return predictor if predictor.available else None
 
 
 def _char_fallback(ch: str) -> str:

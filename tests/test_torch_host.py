@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's host-side modules against the
 originals, on the same inputs: text frontend and segmentation, spectrogram
 and mel filterbank, resampling, the s2 data loader and the checkpoint name
-rules.  The copies must agree exactly; they differ from the originals only in
-their imports (and the port's Chinese frontend never loads the flax G2PW
-model, as the JAX package does not when no G2PWModel directory exists).
+rules, the ONNX initializer reader and the G2PW host functions.  The copies
+must agree exactly; they differ from the originals only in their imports.
+Where a G2PWModel directory exists, both Chinese frontends read polyphones
+with their G2PW model and give the same phones.
 
 One subprocess test shows that the port stands alone: with an import hook
 that refuses ``easevoice_trainer_tpu``, ``jax`` and ``flax``, every module of
@@ -40,6 +41,8 @@ from easevoice_trainer_tpu_torch.utils import audio_io as paudio
 
 from _torch_port_tiny import tiny_gpt, tiny_mpd, tiny_sovits_train
 
+from _torch_bert_tiny import VOCAB, chip_smoke, write_g2pw_dir
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # sentences of tests/test_text.py, test_japanese.py and test_cantonese.py
@@ -63,11 +66,11 @@ def dictionary_frontend(monkeypatch):
     monkeypatch.delenv("EASEVOICE_PINYIN_TABLE", raising=False)
     for mod in (jchinese, pchinese):
         mod._backend.cache_clear()
-    jchinese._g2pw_predictor.cache_clear()
+        mod._g2pw_predictor.cache_clear()
     yield
     for mod in (jchinese, pchinese):
         mod._backend.cache_clear()
-    jchinese._g2pw_predictor.cache_clear()
+        mod._g2pw_predictor.cache_clear()
 
 
 @pytest.fixture
@@ -76,13 +79,15 @@ def g2pw_frontend(monkeypatch):
     monkeypatch.delenv("EASEVOICE_DISABLE_G2PW", raising=False)
     monkeypatch.delenv("EASEVOICE_PINYIN_TABLE", raising=False)
     monkeypatch.delenv("EASEVOICE_G2PW_DIR", raising=False)
+    pchinese.set_g2pw_device("cpu")
     for mod in (jchinese, pchinese):
         mod._backend.cache_clear()
-    jchinese._g2pw_predictor.cache_clear()
+        mod._g2pw_predictor.cache_clear()
     yield
+    pchinese.set_g2pw_device("cuda")
     for mod in (jchinese, pchinese):
         mod._backend.cache_clear()
-    jchinese._g2pw_predictor.cache_clear()
+        mod._g2pw_predictor.cache_clear()
 
 
 G2PW_TABLE_TEXT = {"POLYPHONIC_CHARS.txt": "行\txing2\n行\thang2\n",
@@ -144,28 +149,36 @@ def no_network(monkeypatch):
 
 
 @pytest.mark.parametrize("where", ["env", "base path"])
-def test_chinese_polyphones_refused_where_jax_would_run_g2pw(
+def test_chinese_polyphones_match_jax_where_g2pw_runs(
         where, tmp_path, monkeypatch, g2pw_frontend):
     """With a G2PWModel directory ($EASEVOICE_G2PW_DIR, or models/ under the
-    base path) the JAX package would read polyphones with its G2PW model,
-    which the port has not ported: Chinese text raises NotImplementedError
-    naming it instead of taking the dictionary path.  English does not read
-    polyphones and is unchanged; EASEVOICE_DISABLE_G2PW restores the
-    dictionary path, as in the JAX package."""
+    base path) both frontends read polyphones with their G2PW model: the
+    same phones, word2ph and normalized text as the JAX package, and
+    readings that are not the dictionary's everywhere.  English does not
+    read polyphones; EASEVOICE_DISABLE_G2PW restores the dictionary path in
+    both."""
     if where == "env":
-        monkeypatch.setenv("EASEVOICE_G2PW_DIR",
-                           _g2pw_dir(tmp_path / "G2PWModel"))
+        model_dir, _, _ = write_g2pw_dir(tmp_path / "G2PWModel")
+        monkeypatch.setenv("EASEVOICE_G2PW_DIR", model_dir)
     else:
-        _g2pw_dir(tmp_path / "models" / "G2PWModel")
+        model_dir, _, _ = write_g2pw_dir(tmp_path / "models" / "G2PWModel")
         monkeypatch.setenv("EASEVOICE_BASE_PATH", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="G2PW"):
-        pcleaner.clean_text("我们都去了北京。", "zh")
+    assert pchinese._g2pw_predictor() is not None
+    assert jchinese._g2pw_predictor() is not None
+    texts = [t for t, lang in SENTENCES if lang == "zh"] + [
+        chip_smoke.ZH_TEXT, "朝阳升起的时候，少年背着行李出发了。"]
+    model = [pcleaner.clean_text(t, "zh") for t in texts]
+    for text, got in zip(texts, model):
+        assert got == jcleaner.clean_text(text, "zh"), text
     assert pcleaner.clean_text("I have 25 cats.", "en") == \
         jcleaner.clean_text("I have 25 cats.", "en")
     monkeypatch.setenv("EASEVOICE_DISABLE_G2PW", "1")
+    for mod in (jchinese, pchinese):
+        mod._g2pw_predictor.cache_clear()
     assert pchinese._g2pw_predictor() is None
-    assert pcleaner.clean_text("我们都去了北京。", "zh") == \
-        jcleaner.clean_text("我们都去了北京。", "zh")
+    dictionary = [pcleaner.clean_text(t, "zh") for t in texts]
+    assert dictionary == [jcleaner.clean_text(t, "zh") for t in texts]
+    assert dictionary != model
 
 
 def test_chinese_frontend_unchanged_where_jax_takes_the_dictionary(
@@ -175,7 +188,7 @@ def test_chinese_frontend_unchanged_where_jax_takes_the_dictionary(
     phones."""
     monkeypatch.setenv("EASEVOICE_G2PW_DIR",
                        _g2pw_dir(tmp_path / "G2PWModel", complete=False))
-    assert pchinese.g2pw_model_dir() is None
+    assert pchinese._g2pw_predictor() is None
     for text, lang in SENTENCES:
         if lang == "zh":
             assert pcleaner.clean_text(text, lang) == \
@@ -200,7 +213,7 @@ def test_chinese_frontend_unchanged_where_jax_g2pw_does_not_load(
         for name in G2PW_TABLE_TEXT:
             open(os.path.join(model_dir, name), "w").close()
     monkeypatch.setenv("EASEVOICE_G2PW_DIR", model_dir)
-    assert pchinese.g2pw_model_dir() is None
+    assert pchinese._g2pw_predictor() is None
     assert jchinese._g2pw_predictor() is None
     for text, lang in SENTENCES:
         if lang == "zh":
@@ -213,17 +226,137 @@ def test_chinese_frontend_unchanged_where_jax_g2pw_does_not_load(
     ("onnx::MatMul_1", False)])
 def test_g2pw_onnx_rule_matches_jax_loader(name, refused, tmp_path):
     """The port reads g2pW.onnx's initializer names as the JAX loader does:
-    named BERT weights count (the port refuses), anonymized ones do not
-    (the JAX loader raises)."""
+    named BERT weights are read, anonymized ones refused (both loaders
+    raise)."""
     model_dir = _g2pw_dir(tmp_path, weights=("g2pW.onnx", _onnx_bytes(name)))
-    assert pchinese._g2pw_weights_load(model_dir) is refused
     from easevoice_trainer_tpu.text.g2pw import G2PWPredictor
+
+    from easevoice_trainer_tpu_torch.text.g2pw import \
+        G2PWPredictor as PortPredictor
 
     if refused:
         assert G2PWPredictor._load_state(model_dir)
+        assert PortPredictor._load_state(model_dir).keys() == \
+            G2PWPredictor._load_state(model_dir).keys()
     else:
-        with pytest.raises(ValueError, match="anonymized"):
-            G2PWPredictor._load_state(model_dir)
+        for loader in (G2PWPredictor, PortPredictor):
+            with pytest.raises(ValueError, match="anonymized"):
+                loader._load_state(model_dir)
+
+
+def _onnx_model(tensors):
+    """A ModelProto with named initializers of several layouts: raw_data
+    of each dtype, packed float_data, unpacked dims and float_data."""
+    def varint(n):
+        out = bytearray()
+        while True:
+            out.append((n & 0x7F) | (0x80 if n >> 7 else 0))
+            n >>= 7
+            if not n:
+                return bytes(out)
+
+    def ld(field, payload):
+        return varint(field << 3 | 2) + varint(len(payload)) + payload
+
+    inits = b""
+    for name, (code, arr, layout) in tensors.items():
+        t = b""
+        if layout == "packed dims":
+            t += ld(1, b"".join(varint(d) for d in arr.shape))
+        else:
+            t += b"".join(varint(1 << 3) + varint(d) for d in arr.shape)
+        t += varint(2 << 3) + varint(code)
+        if layout == "float_data packed":
+            t += ld(4, struct.pack(f"<{arr.size}f", *arr.ravel()))
+        elif layout == "float_data":
+            t += b"".join(bytes([4 << 3 | 5]) + struct.pack("<f", x)
+                          for x in arr.ravel())
+        else:
+            t += ld(9, arr.tobytes())
+        inits += ld(5, t + ld(8, name.encode()))
+    return ld(7, inits + ld(1, b"node"))
+
+
+def test_onnx_reader_matches_jax(tmp_path):
+    """The copied ``load_onnx_initializers`` (and the ``_fields`` walk the
+    Chinese frontend uses) against the JAX package's audiokit/mdxnet.py."""
+    from easevoice_trainer_tpu.audiokit import mdxnet as jmdx
+    from easevoice_trainer_tpu_torch.audiokit import mdxnet as pmdx
+
+    rng = np.random.default_rng(5)
+    tensors = {
+        "bert.embeddings.word_embeddings.weight":
+            (1, rng.standard_normal((40, 8)).astype("<f4"), "raw"),
+        "half": (10, rng.standard_normal((3, 5)).astype("<f2"), "raw"),
+        "double": (11, rng.standard_normal(7).astype("<f8"), "raw"),
+        "ids": (7, rng.integers(0, 99, (2, 3)).astype("<i8"), "packed dims"),
+        "packed": (1, rng.standard_normal((2, 2)).astype("<f4"),
+                   "float_data packed"),
+        "loose": (1, rng.standard_normal(3).astype("<f4"), "float_data"),
+    }
+    path = str(tmp_path / "m.onnx")
+    with open(path, "wb") as f:
+        f.write(_onnx_model(tensors))
+    want = jmdx.load_onnx_initializers(path)
+    got = pmdx.load_onnx_initializers(path)
+    assert got.keys() == want.keys() == tensors.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k], want[k])
+    with open(path, "rb") as f:
+        data = memoryview(f.read())
+
+    def walk(fields):
+        return [(f, w, bytes(v) if w == 2 else v) for f, w, v in fields]
+
+    assert walk(pmdx._fields(data)) == walk(jmdx._fields(data))
+
+
+def test_g2pw_host_functions_match_jax():
+    """wordize_and_map, tokenize_and_map (over the port's tokenizer) and
+    get_phoneme_labels against the JAX module's."""
+    from easevoice_trainer_tpu.text import g2pw as jg2pw
+    from easevoice_trainer_tpu_torch.text import g2pw as pg2pw
+    from easevoice_trainer_tpu_torch.text.bert_tokenizer import \
+        BertTokenizer
+
+    tok = BertTokenizer({t: i for i, t in enumerate(VOCAB)})
+    for text in ("银行的行长 今天python3 还在,", "中 ab文", "  a1b2 c ",
+                 "我们用python写了一个voice cloning的小程序."):
+        assert pg2pw.wordize_and_map(text) == jg2pw.wordize_and_map(text)
+        assert pg2pw.tokenize_and_map(tok, text) == \
+            jg2pw.tokenize_and_map(tok, text)
+    rows = [("行", "xing2"), ("行", "hang2"), ("了", "le5"),
+            ("了", "liao3"), ("好", "hao3")]
+    assert pg2pw.get_phoneme_labels(rows) == jg2pw.get_phoneme_labels(rows)
+    assert (pg2pw.NON_POLYPHONIC, pg2pw.NON_MONOPHONIC) == \
+        (jg2pw.NON_POLYPHONIC, jg2pw.NON_MONOPHONIC)
+
+
+def test_chip_smoke_pinned_runs_match_clean_text(dictionary_frontend):
+    """chip_smoke's ZH_PINNED (the G2P results its Chinese phase takes
+    where jieba does not import) equals the port's and the JAX package's
+    ``clean_text`` on the dictionary path, for exactly the Chinese runs the
+    preprocessor cleans in that phase's two clones."""
+    runs = {}
+
+    class Record(ppre.TextPreprocessor):
+        def _clean(self, text, language):
+            out = super()._clean(text, language)
+            if language == "zh":
+                runs[text] = out
+            return out
+
+    pre = Record(None)
+    pre.preprocess(chip_smoke.ZH_TEXT, "zh", "by_chinese_period")
+    pre.preprocess(chip_smoke.ZH_MIXED, "auto", "by_chinese_period")
+    assert runs.keys() == chip_smoke.ZH_PINNED.keys()
+    for text, (phones, word2ph, norm) in chip_smoke.ZH_PINNED.items():
+        assert runs[text] == (phones, word2ph, norm)
+        jphones, jw2p, jnorm = jcleaner.clean_text(text, "zh")
+        assert (jw2p, jnorm) == (word2ph, norm)
+        assert jpre.cleaned_text_to_sequence(jphones) == phones
 
 
 @pytest.mark.parametrize("text,lang", SENTENCES)
@@ -471,7 +604,8 @@ def test_flatten_tree_and_conv_transposes_match_jax():
 _ISOLATED = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("easevoice_trainer_tpu", "jax", "jaxlib", "flax")
+REFUSED = ("easevoice_trainer_tpu", "jax", "jaxlib", "flax", "transformers",
+           "safetensors")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -531,8 +665,8 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 
 
 def test_port_stands_alone_subprocess(tmp_path):
-    """A fresh interpreter that refuses to import the JAX package, jax and
-    flax imports every module of the port, runs the text frontend in every
+    """A fresh interpreter that refuses to import the JAX package, jax,
+    flax, transformers and safetensors imports every module of the port, runs the text frontend in every
     language, loads and resamples a wav, reads configs/gpt.yaml and takes
     two micro-batches of the s1 train step."""
     env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1")

@@ -1,5 +1,6 @@
 """The port's kernels (K1-K3, K4's two entry points and K5, the gradient of
-K1) against their plain twins.
+K1; K1's head-width-64 instance as the encoders' attention) against their
+plain twins.
 
 This file imports no JAX, so the ``cuda`` tests run on a machine with the
 card and without JAX:
@@ -21,9 +22,9 @@ import pytest
 import torch
 
 from easevoice_trainer_tpu_torch.ops import attention as att
-from easevoice_trainer_tpu_torch.ops import decode_attention, mrf_conv, \
-    mrf_conv_bwd_data, mrf_conv_bwd_weight, prefill_attention, \
-    prefill_attention_bwd, self_attention
+from easevoice_trainer_tpu_torch.ops import decode_attention, \
+    encoder_attention, mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight, \
+    prefill_attention, prefill_attention_bwd, self_attention
 from easevoice_trainer_tpu_torch.ops import mrf
 from easevoice_trainer_tpu_torch.ops.mrf import mrf_conv_reference
 
@@ -55,6 +56,26 @@ def test_decode_attention_twin_skips_text_pads():
     got = decode_attention(q, k, v, kc.clone(), vc2, x_len, x_lens,
                            prompt_len, 2)
     torch.testing.assert_close(got, base, rtol=0, atol=0)
+
+
+def test_encoder_attention_twin_is_bert_key_padding():
+    """On the CPU encoder_attention is K1's twin with x_len = T and no
+    audio: each row, pads included, sees the keys below valid_lens[b]; the
+    JAX BERT's math (q scaled first, a -inf bias on the pad keys,
+    models/bert.py:49-56, :88-91)."""
+    rng = np.random.default_rng(12)
+    b, t, h, dk = 3, 37, 2, 64
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, t, h, dk))
+                                .astype(np.float32)) for _ in range(3))
+    valid = torch.tensor([37, 20, 1], dtype=torch.int32)
+    n0 = encoder_attention.launches
+    got = encoder_attention(q, k, v, valid)
+    bias = torch.where(torch.arange(t)[None] < valid[:, None], 0.0,
+                       -torch.inf)[:, None, None, :]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q / dk ** 0.5, k) + bias
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert encoder_attention.launches == n0   # the twin launches nothing
 
 
 def test_mrf_conv_twin_matches_lrelu_conv_residual():
@@ -103,6 +124,9 @@ def test_kernel_wrappers_refuse_other_devices():
                               lens, lens)
     with pytest.raises(ValueError):
         self_attention(z(1, 8, 192), 2, 4, lens, lens)
+    with pytest.raises(ValueError):
+        encoder_attention(z(1, 8, 2, 64), z(1, 8, 2, 64), z(1, 8, 2, 64),
+                          lens)
 
 
 @pytest.mark.cuda
@@ -345,6 +369,52 @@ def _decode_against_twin(q, k, v, kc, vc, x_len, lens, prompt, step):
     again = decode_attention(q, k, v, kc, vc, x_len, lens, prompt, step)
     assert torch.equal(got, again)
     return got
+
+
+# (B, H, T, valid lengths): the encoders' shapes (BERT at T 64 and 512,
+# G2PW's BERT with ragged rows, HuBERT at the 5 s reference's 274 frames of
+# which 264 are valid) and K1's tile edges (T and the lengths off the
+# 32-row / 32-key tiles, one valid key, one row)
+ENCODER_CASES = [
+    (1, 16, 64, [64]), (1, 16, 512, [512]), (4, 12, 64, [64, 37, 2, 63]),
+    (1, 12, 274, [264]), (2, 12, 33, [33, 1]), (3, 2, 100, [100, 31, 32]),
+    (1, 4, 5, [3]), (2, 2, 1, [1, 1]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,lens", ENCODER_CASES)
+def test_encoder_attention_kernel_matches_twin(b, h, t, lens):
+    """K1 at dk 64 against its twin (views of one fused projection, as the
+    encoders' q/k/v can be), a second launch bit-identical, and each valid
+    row equal, bit for bit, to a run of that batch row alone, unpadded."""
+    gen = _card()
+    qkv = torch.randn((b, t, 3 * h * 64), generator=gen, device="cuda")
+    q, k, v = (z.view(b, t, h, 64) for z in qkv.split(h * 64, dim=-1))
+    valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n0 = encoder_attention.launches
+    got = encoder_attention(q, k, v, valid)
+    want = att.prefill_attention_reference(q, k, v, t, valid,
+                                           torch.zeros_like(valid))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(encoder_attention(q, k, v, valid), got,
+                               rtol=0, atol=0)
+    assert encoder_attention.launches == n0 + 2
+    for i, n in enumerate(lens):
+        alone = encoder_attention(
+            *(z[i:i + 1, :n].contiguous() for z in (q, k, v)),
+            valid[i:i + 1])
+        torch.testing.assert_close(alone[0], got[i, :n], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_encoder_attention_refuses_other_head_widths():
+    """K1's encoder instance is written for dk 64 only."""
+    _card()
+    z = torch.zeros((1, 8, 2, 32), device="cuda")
+    valid = torch.full((1,), 8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="dk=64"):
+        encoder_attention(z, z, z, valid)
 
 
 @pytest.mark.cuda
