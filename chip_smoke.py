@@ -60,15 +60,35 @@ Phases, one summary line each; any failure exits non-zero:
    against the CPU.  Where ``jieba`` does not import, the Chinese runs'
    G2P results come from the table ZH_PINNED (the line "[chinese] route"
    says which);
-7. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
+7. data prep: three seeded 24 s speech-like sources through
+   ``AudioService.slicer`` (default parameters), the denoise cmd
+   (``python -m easevoice_trainer_tpu_torch.cmd.audio_denoise``) as a
+   subprocess with an FRCRN at ``FRCRNConfig()`` (seeded random weights in
+   modelscope's key layout, BatchNorm statistics calibrated on one clip),
+   a refinement list of mostly zh rows (ZH_PINNED's sentences) and two en
+   rows, then ``NormalizeService.run()`` at full width (BERT-large,
+   HuBERT-base from a ``model.safetensors``-only directory, the s2G of
+   configs/s2.json), each stage timed: one 3-bert file a zh row, one
+   4-cnhubert and 5-wav32k file a clip, T // 2 codes a row, K1 at dk 64
+   launched 24 times a zh row and 12 times a clip.  The folder then trains
+   2 s2 steps and 2 s1 micro-batches (finite losses, the s1 batches
+   carrying the 3-bert features); on the shortest clip the FRCRN output
+   and the SSL features on the card agree with the CPU within 1e-4
+   relative and the semantic codes are identical (or each differing
+   code's two nearest distances within 1e-4 relative); FRCRN's device
+   time by group; K1 at dk 64 against SDPA at these clips' HuBERT shapes
+   and at phase 3's, by torch.profiler and by CUDA events, three times
+   each.  Where ``jieba`` does not import, each zh row's G2P result comes
+   from ZH_PINNED (the line "[data prep] route" says which);
+8. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
    full MPD from seeded random pretrained .pth files, 8 synthetic clips of
    256 frames, batch 8, 12 steps): finite losses, every tensor on the card,
    K3 and both K4 entry points launched, every ResBlock ``weight_v`` and
    upsample tensor changed, and the export loads ``strict=True`` into the
    inference build and decodes a finite, non-silent wav;
-8. reference train step: one step at a small width on the card and on the
+9. reference train step: one step at a small width on the card and on the
    CPU agrees (losses and the ResBlock gradients);
-9. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
+10. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
    repo's configs/gpt.yaml through the port's YAML reader, a seeded random
    pretrained .ckpt in the export format, 8 synthetic utterances of 250 and
    1300 tokens replicated to 96 items: 12 micro-batches of B=8 at T = 716
@@ -78,7 +98,7 @@ Phases, one summary line each; any failure exits non-zero:
    ``strict=True`` into the inference build and decodes; s/micro-batch by
    bucket, first micro-batch, peak memory, and one accumulation window
    under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
-10. reference s1 step: one micro-batch at a small width on the card and on
+11. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient).
 
 After training it checks that no module of the JAX package, jax, flax,
@@ -100,6 +120,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1744,7 +1765,706 @@ def serve_chinese(torch, tmp: str, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the s2 fine-tune at full width
+# phase 7: data prep (slicer, FRCRN denoise, the three normalization stages)
+# ---------------------------------------------------------------------------
+
+PREP_SOURCES, PREP_SECONDS = 3, 24.0
+
+
+class _Enough(Exception):
+    """Raised from a trainer's on_step to end its run after a few steps."""
+
+
+def write_speech_source(path: str, seed: int, seconds: float = PREP_SECONDS,
+                        sr: int = 32000) -> None:
+    """A mono 32 kHz speech-like file: harmonic bursts of 1-6 s (8
+    harmonics of an f0 of 100-250 Hz with a 5 % vibrato, a syllable-rate
+    envelope, RMS 0.12, white noise at about 20 dB SNR) between
+    near-silences of 0.4-1.2 s (RMS 0.001)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts, total, n_total = [], 0, int(seconds * sr)
+    while total < n_total:
+        n = int(sr * rng.uniform(1.0, 6.0))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(100, 250) * (
+            1 + 0.05 * np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        voiced = sum(np.sin(h * phase) / h for h in range(1, 9))
+        env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.05) * (
+            0.6 + 0.4 * np.abs(np.sin(2 * np.pi * rng.uniform(2, 4) * t)))
+        burst = voiced * env
+        burst *= 0.12 / np.sqrt(np.mean(burst ** 2))
+        burst += rng.normal(0, 0.012, n)
+        gap = rng.normal(0, 0.001, int(sr * rng.uniform(0.4, 1.2)))
+        parts += [burst, gap]
+        total += n + len(gap)
+    data = np.concatenate(parts)[:n_total]
+    pcm = np.round(data * 32768.0).clip(-32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def modelscope_names(torch, state: dict) -> dict:
+    """A replica-scheme FRCRN state dict in the key layout of modelscope's
+    released ``speech_frcrn_ans_cirm_16k/pytorch_model.bin`` (the families
+    ``audiokit/frcrn.py adapt_modelscope_state`` maps back), with the fixed
+    STFT kernels and BatchNorm counters a torch checkpoint holds."""
+    out = {}
+    for k, v in state.items():
+        net, rest = k.split(".", 1)
+        m = re.match(r"(enc|dec)(\d+)_(conv|bn)\.(.+)$", rest)
+        if m:
+            side = "encoder" if m.group(1) == "enc" else "decoder"
+            out[f"{net}.{side}{m.group(2)}.{m.group(3)}.{m.group(4)}"] = v
+            if m.group(3) == "bn" and m.group(4).endswith("running_var"):
+                part = m.group(4).split(".")[0]
+                out[f"{net}.{side}{m.group(2)}.bn.{part}."
+                    f"num_batches_tracked"] = torch.tensor(0)
+            continue
+        m = re.match(r"(enc|dec)(\d+)_fr\.fsmn\.(re|im)\.(.+)$", rest)
+        if m:
+            side = "encoder" if m.group(1) == "enc" else "decoder"
+            out[f"{net}.{side}{m.group(2)}.fsmn.fsmn_{m.group(3)}_L1."
+                f"{m.group(4)}"] = v
+            continue
+        m = re.match(r"bottleneck([01])\.(re|im)\.(.+)$", rest)
+        if m:
+            out[f"{net}.cfsmn.fsmn_{m.group(2)}_L{int(m.group(1)) + 1}."
+                f"{m.group(3)}"] = v
+            continue
+        m = re.match(r"mask_conv\.(.+)$", rest)
+        assert m, f"unmapped FRCRN key {k}"
+        out[f"{net}.linear.{m.group(1)}"] = v
+    out["stft.weight"] = torch.zeros(642, 1, 640)
+    out["istft.weight"] = torch.zeros(642, 1, 640)
+    return out
+
+
+def write_frcrn_checkpoint(torch, path: str, cfg, gen, calib) -> None:
+    """Seeded random FRCRN weights at ``cfg`` saved as modelscope's
+    ``pytorch_model.bin``.  Each BatchNorm's running mean and variance are
+    the statistics of its own input on the spectrogram of ``calib`` (a 16
+    kHz waveform on the card), as a trained net's would be: every block's
+    output stays near unit scale, so the 12 blocks of each U-Net neither
+    blow up nor drive the masks' tanh into saturation."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.audiokit import frcrn
+
+    model = frcrn.FRCRN(cfg).cuda().eval()
+    model.load_state_dict(convert.random_state_dict(model, gen))
+
+    def calibrate(module, args):
+        x = args[0]
+        module.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        module.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False)
+                                 + 1e-3)
+
+    norms = [m for m in model.modules() if isinstance(m, frcrn._BatchNorm)]
+    hooks = [m.register_forward_pre_hook(calibrate) for m in norms]
+    with torch.no_grad():
+        spec = frcrn.stft(calib, cfg.win_len, cfg.hop, cfg.fft_len)
+        model(torch.cat([spec.real, spec.imag])[:, None])
+    for h in hooks:
+        h.remove()
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    torch.save(modelscope_names(torch, state), path)
+
+
+def frcrn_groups(torch, den, wav):
+    """Device ms of one ``FRCRNDenoiser.run`` on ``wav`` (1, S) under
+    torch.profiler, by group: complex convs (encoder and mask), transposed
+    convs, FSMN (frequency and bottleneck), BatchNorm + leaky ReLU + the
+    masks (the rest of the U-Nets), STFT + inverse STFT.  Each group is a
+    ``record_function`` range entered by module hooks; its device time is
+    the kernels launched inside it."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from easevoice_trainer_tpu_torch.audiokit import frcrn
+
+    labels = {frcrn.ComplexConv: "complex convs",
+              frcrn.ComplexConvTranspose: "transposed convs",
+              frcrn.FreqFsmn: "FSMN", frcrn.ComplexFsmn: "FSMN"}
+    hooks, stack = [], []
+
+    def enter(label):
+        def pre(module, args):
+            ctx = record_function(label)
+            ctx.__enter__()
+            stack.append(ctx)
+        return pre
+
+    def leave(module, args, out):
+        stack.pop().__exit__(None, None, None)
+
+    for unet in (den.model.unet, den.model.unet2):
+        for name, child in unet.named_children():
+            label = labels.get(type(child))
+            if label is not None:
+                hooks.append(child.register_forward_pre_hook(enter(label)))
+                hooks.append(child.register_forward_hook(leave))
+    stft, istft = frcrn.stft, frcrn.istft
+
+    def ranged(fn):
+        def run(*args, **kw):
+            with record_function("STFT"):
+                return fn(*args, **kw)
+        return run
+
+    frcrn.stft, frcrn.istft = ranged(stft), ranged(istft)
+    try:
+        den.run(wav)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            den.run(wav)
+            torch.cuda.synchronize()
+    finally:
+        frcrn.stft, frcrn.istft = stft, istft
+        for h in hooks:
+            h.remove()
+    events = prof.events()
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)) / 1000
+    groups = {}
+    for label in ("complex convs", "transposed convs", "FSMN", "STFT"):
+        groups[label] = sum(
+            getattr(e, "device_time_total", None)
+            or getattr(e, "cuda_time_total", 0) for e in events
+            if e.name == label and e.device_type == DeviceType.CPU) / 1000
+    groups["BatchNorm, leaky ReLU, masks"] = total - sum(groups.values())
+    return total, groups
+
+
+def k1_vs_sdpa_hubert(torch, frames):
+    """K1 at dk 64 (``encoder_attention``) against SDPA at HuBERT's shapes:
+    B=1, H=12, one T per clip with every frame valid (SDPA with no mask, as
+    the unpadded clips need) and the serving shape of phase 3 (T=274, 264
+    valid, SDPA with the boolean key mask), each timed three times by
+    torch.profiler (mean of 20 calls) and three times by CUDA events
+    around 20 calls.  Returns the per-shape times and the SDPA kernels the
+    profiler saw."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    hub_t, hub_valid = hubert_frames(5.0)
+    shapes = [(t, t) for t in sorted(set(frames))] + [(hub_t, hub_valid)]
+
+    def events_ms(fn, reps=20):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    rows = []
+    for t, valid_n in shapes:
+        q, k, v = (torch.randn((1, t, 12, 64), generator=gen, device="cuda")
+                   for _ in range(3))
+        valid = torch.tensor([valid_n], dtype=torch.int32, device="cuda")
+        qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        mask = None
+        if valid_n < t:
+            mask = (torch.arange(t, device="cuda")[None] < valid[:, None]
+                    )[:, None, None, :]
+        k1 = functools.partial(att.encoder_attention, q, k, v, valid)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
+                                 attn_mask=mask)
+        want = att.prefill_attention_reference(q, k, v, t, valid,
+                                               torch.zeros_like(valid))
+        err = max(max_err(torch, k1(), want),
+                  max_err(torch, sdpa().transpose(1, 2)[:, :valid_n],
+                          want[:, :valid_n]))
+        assert err <= 1e-4, err
+        row = {"T": t, "valid": valid_n, "mask": mask is not None}
+        for name, fn in (("K1", k1), ("SDPA", sdpa)):
+            row[f"{name} profiler"] = [device_ms(torch, fn) for _ in "abc"]
+            row[f"{name} events"] = [events_ms(fn) for _ in "abc"]
+        try:
+            row["SDPA kernels"] = sorted({e.name[:60] for e in device_events(
+                torch, lambda: [sdpa() for _ in range(20)])
+                if e.device_type == DeviceType.CUDA})
+        except NoDeviceActivity:
+            row["SDPA kernels"] = "not recorded"
+        rows.append(row)
+        del q, k, v, qh, kh, vh
+    return rows
+
+
+def data_prep(torch, tmp: str, results):
+    """Dataset preparation at full width, through the entry points a user
+    calls: three synthetic 24 s sources -> ``AudioService.slicer`` ->
+    ``python -m easevoice_trainer_tpu_torch.cmd.audio_denoise`` in a
+    subprocess (FRCRN at ``FRCRNConfig()``, seeded random weights in
+    modelscope's key layout) -> a refinement list (mostly zh rows with the
+    sentences of ZH_PINNED, two en rows) -> ``NormalizeService.run()``
+    (BERT-large, HuBERT-base from a ``model.safetensors``-only directory,
+    the s2G at ``SovitsConfig()``), each stage timed; then 2 s2 steps and 2
+    s1 micro-batches on the normalized folder, the card against the CPU on
+    one clip, and K1 at dk 64 against SDPA at these clips' HuBERT
+    shapes."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import convert, ops
+    from easevoice_trainer_tpu_torch.audiokit import frcrn
+    from easevoice_trainer_tpu_torch.models.bert import BertConfig, \
+        BertFeatureExtractor
+    from easevoice_trainer_tpu_torch.models.cnhubert import CNHubert, \
+        config_from_hf
+    from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
+        Text2SemanticDecoder
+    from easevoice_trainer_tpu_torch.models.sovits import \
+        MultiPeriodDiscriminator, SovitsConfig, SynthesizerTrn
+    from easevoice_trainer_tpu_torch.normalization import Normalize
+    from easevoice_trainer_tpu_torch.service.audio import AudioService
+    from easevoice_trainer_tpu_torch.service.normalize import \
+        NormalizeService
+    from easevoice_trainer_tpu_torch.text import cleaner
+    from easevoice_trainer_tpu_torch.text.symbols import sequence_to_symbols
+    from easevoice_trainer_tpu_torch.train import ckpt
+    from easevoice_trainer_tpu_torch.train import data as data_mod
+    from easevoice_trainer_tpu_torch.train.gpt import GPTTrain, \
+        GPTTrainParams, gpt_export_tree
+    from easevoice_trainer_tpu_torch.train.sovits import SovitsTrain, \
+        SovitsTrainParams
+    from easevoice_trainer_tpu_torch.utils import audio_io, paths, \
+        safetensors_io, simple_yaml
+    from easevoice_trainer_tpu_torch.utils.connector import RESP_PREFIX
+
+    try:
+        import jieba  # noqa: F401
+        route = "jieba"
+    except ImportError:
+        route = "pinned"
+    log(f"[data prep] route: {route} ("
+        + ("jieba imports: the zh rows are cleaned live"
+           if route == "jieba" else
+           "jieba does not import here: each zh row's phones, word2ph and "
+           "normalized text come from ZH_PINNED, the phone ids mapped back "
+           "to symbols; BERT, HuBERT and the s2G run live") + ")")
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "prep")
+    src, work = os.path.join(root, "src"), os.path.join(root, "work")
+    os.makedirs(src)
+
+    # 1. sources and the slicer
+    for i in range(PREP_SOURCES):
+        write_speech_source(os.path.join(src, f"speaker{i}.wav"), 100 + i)
+    audio = AudioService(src, work, "cuda")
+    t0 = time.perf_counter()
+    resp = audio.slicer()
+    slice_s = time.perf_counter() - t0
+    assert resp.ok and all(v == "success" for v in resp.data.values()), resp
+    slices = sorted(os.listdir(os.path.join(work, paths.SLICES_OUTPUT)))
+    lengths = [os.path.getsize(os.path.join(work, paths.SLICES_OUTPUT, n))
+               / 2 / 32000 for n in slices]   # 44-byte header aside
+    log(f"[data prep] AudioService.slicer (default parameters) on "
+        f"{PREP_SOURCES} sources of {PREP_SECONDS:.0f} s: {len(slices)} "
+        f"clips of " + ", ".join(f"{s:.2f}" for s in lengths)
+        + f" s in {slice_s:.2f} s")
+    assert 8 <= len(slices) <= 15, len(slices)
+
+    # 2. denoise: seeded random FRCRN weights, modelscope layout, then the
+    #    denoise cmd as a subprocess (as the session manager runs it)
+    cfg = frcrn.FRCRNConfig()
+    frcrn_dir = os.path.join(root, "speech_frcrn_ans_cirm_16k")
+    os.makedirs(frcrn_dir)
+    frcrn_path = os.path.join(frcrn_dir, "pytorch_model.bin")
+    first = os.path.join(work, paths.SLICES_OUTPUT, slices[0])
+    calib = audio_io.load_audio(first, 16000)[:2 * 16000]
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    write_frcrn_checkpoint(torch, frcrn_path, cfg, gen,
+                           torch.from_numpy(calib)[None].cuda())
+    den = frcrn.FRCRNDenoiser(frcrn_path, "cuda")
+    assert den.cfg == cfg
+    n_params = sum(p.numel() for p in den.model.parameters())
+    wav16 = torch.from_numpy(np.pad(calib, (0, 32000 - len(calib))))[None]
+    with torch.no_grad():
+        spec = frcrn.stft(wav16.cuda())
+        spec = torch.cat([spec.real, spec.imag])[:, None]
+        _, mask = den.model(spec)
+        re, im = mask[:, 0].chunk(2)
+        mask_abs = float(torch.sqrt(re ** 2 + im ** 2).mean())
+    out = den.run(wav16.cuda()).cpu()
+    ratio = float(out.square().mean().sqrt() / wav16.square().mean().sqrt())
+    log(f"[data prep] FRCRN at FRCRNConfig() ({n_params / 1e6:.2f} M "
+        f"parameters; BatchNorm statistics calibrated on 2 s of the first "
+        f"clip) written as modelscope's pytorch_model.bin and read back "
+        f"through adapt_modelscope_state: mean |mask| {mask_abs:.3f}, "
+        f"output RMS / input RMS {ratio:.3f} on that 2 s")
+    assert math.isfinite(mask_abs) and 0.05 < mask_abs < 1.95, mask_abs
+    assert math.isfinite(ratio) and ratio > 0
+
+    params_path = os.path.join(root, "denoise.json")
+    with open(params_path, "w") as f:
+        json.dump({"source_dir": src, "output_dir": work,
+                   "device": "cuda"}, f)
+    env = dict(os.environ, PYTHONPATH=HERE, EASEVOICE_FRCRN_PATH=frcrn_path,
+               NVIDIA_TF32_OVERRIDE="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "easevoice_trainer_tpu_torch.cmd."
+         "audio_denoise", "-c", params_path], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=600)
+    denoise_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(RESP_PREFIX + " ")]
+    assert proc.returncode == 0 and len(lines) == 1, \
+        (proc.returncode, proc.stdout[-2000:], proc.stderr[-3000:])
+    resp = json.loads(lines[0][len(RESP_PREFIX) + 1:])
+    denoised = sorted(os.listdir(os.path.join(work, paths.DENOISES_OUTPUT)))
+    log(f"[data prep] cmd.audio_denoise subprocess: {resp['status']}, "
+        f"'{resp['message']}', {len(denoised)} files in {denoise_s:.2f} s "
+        f"wall ({denoise_s / len(slices):.3f} s a clip, the interpreter's "
+        f"start and the model load included)")
+    assert resp["status"] == "success", resp
+    assert "backend: frcrn-torch" in resp["message"], resp
+    assert all(v == "success" for v in resp["data"].values()), resp
+    assert denoised == slices
+    for name in denoised:
+        wav, sr = read_wav(os.path.join(work, paths.DENOISES_OUTPUT, name))
+        assert sr == 16000 and np.isfinite(wav).all() and \
+            np.abs(wav).max() > 0, name
+
+    # 3. the refinement list: zh rows with ZH_PINNED's sentences, two en
+    zh_sentences = [s + "。" for s in ZH_TEXT.split("。") if s]
+    langs = {}
+    for i, name in enumerate(denoised):
+        lang = "en" if i in (1, len(denoised) - 2) else "zh"
+        text = (SENTENCES[i % len(SENTENCES)] if lang == "en"
+                else zh_sentences[i % len(zh_sentences)])
+        audio.refinement_submit_text(
+            os.path.join(work, paths.DENOISES_OUTPUT, name), lang, text)
+        langs[name] = lang
+    zh_rows = sum(1 for v in langs.values() if v == "zh")
+
+    # 4. the three normalization stages at full width
+    bert_dir = os.path.join(tmp, "chinese-roberta-wwm-ext-large")
+    if not os.path.isdir(bert_dir):   # the phase run alone
+        write_bert_dir(torch, bert_dir, BertConfig(), gen, bert_vocab())
+    # phase 4's HuBERT-base, rewritten as a model.safetensors-only
+    # directory: the SSL stage reads it through load_cnhubert
+    hub_src = os.path.join(tmp, "chinese-hubert-base")
+    hub_bin = os.path.join(hub_src, "pytorch_model.bin")
+    hub_state = (torch.load(hub_bin, weights_only=True)
+                 if os.path.exists(hub_bin) else
+                 convert.random_state_dict(CNHubert(), gen))
+    hub_dir = os.path.join(root, "chinese-hubert-base")
+    os.makedirs(hub_dir)
+    if os.path.exists(os.path.join(hub_src, "config.json")):
+        shutil.copy(os.path.join(hub_src, "config.json"), hub_dir)
+    safetensors_io.save_file({k: v.cpu().contiguous() for k, v in
+                              hub_state.items()},
+                             os.path.join(hub_dir, "model.safetensors"))
+    del hub_state
+    hub_cfg = config_from_hf(hub_dir)
+    s2g = os.path.join(root, "s2G_random.pth")
+    s2d = os.path.join(root, "s2D_random.pth")
+    with open(paths.s2_config_path(), encoding="utf8") as f:
+        s2_cfg = SovitsConfig.from_json_dict(json.load(f))
+    random_weights(torch, SynthesizerTrn(s2_cfg, with_enc_q=True), gen, s2g)
+    random_weights(torch, MultiPeriodDiscriminator(), gen, s2d)
+    old_env = {k: os.environ.get(k) for k in
+               ("bert_path", "cnhubert_path", "sovits_path")}
+    os.environ.update(bert_path=bert_dir, cnhubert_path=hub_dir,
+                      sovits_path=s2g)
+    clean_text = cleaner.clean_text
+    if route == "pinned":
+        def pinned(text, language):
+            if language != "zh":
+                return clean_text(text, language)
+            ids, word2ph, norm = ZH_PINNED[text]
+            return sequence_to_symbols(ids), list(word2ph), norm
+        cleaner.clean_text = pinned
+    bert_call, hubert_call = BertFeatureExtractor.phone_features, \
+        CNHubert.forward
+    clock = {"bert": [0, 0.0], "hubert": [0, 0.0]}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            clock[key][0] += 1
+            clock[key][1] += time.perf_counter() - t
+            return out
+        return run
+
+    BertFeatureExtractor.phone_features = timed("bert", bert_call)
+    CNHubert.forward = timed("hubert", hubert_call)
+    stages = {}
+    try:
+        service = NormalizeService(work, "normalized", "cuda")
+        norm = service.normalize
+        for name in ("text", "ssl", "token"):
+            fn = getattr(norm, name)
+
+            def stage(fn=fn, name=name):
+                n0 = ops.launch_counts()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                n1 = ops.launch_counts()
+                stages[name] = (time.perf_counter() - t,
+                                {k: n1[k] - n0[k] for k in n1})
+                return out
+            setattr(norm, name, stage)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = service.run()
+        torch.cuda.synchronize()
+        norm_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        norm_peak = torch.cuda.max_memory_allocated()
+    finally:
+        cleaner.clean_text = clean_text
+        BertFeatureExtractor.phone_features = bert_call
+        CNHubert.forward = hubert_call
+    assert resp.ok, resp
+    out_dir = resp.data["output_path"]
+    assert out_dir == os.path.join(work, "normalized")
+    clips = len(denoised)
+    bert_files = sorted(os.listdir(norm.bert_dir))
+    assert bert_files == sorted(n + ".pt" for n, v in langs.items()
+                                if v == "zh"), bert_files
+    assert sorted(os.listdir(norm.hubert_dir)) == [n + ".pt"
+                                                   for n in denoised]
+    assert sorted(os.listdir(norm.wav_dir)) == denoised
+    with open(norm.semantic_output_path, encoding="utf8") as f:
+        rows = f.read().strip("\n").split("\n")
+    assert rows[0] == "item_name\tsemantic_audio" and len(rows) == clips + 1
+    frames = {}
+    for row in rows[1:]:
+        name, codes = row.split("\t")
+        ssl = torch.load(os.path.join(norm.hubert_dir, name + ".pt"),
+                         weights_only=True)
+        assert ssl.dtype == torch.float32 and ssl.is_contiguous()
+        assert ssl.shape[:2] == (1, hub_cfg.hidden_size)
+        assert torch.isfinite(ssl).all()
+        frames[name] = ssl.shape[2]
+        assert len(codes.split()) == ssl.shape[2] // 2, name
+    for name in bert_files:
+        feat = torch.load(os.path.join(norm.bert_dir, name), weights_only=True)
+        assert feat.shape[0] == 1024 and feat.dtype == torch.float32
+        assert feat.is_contiguous() and float(feat.abs().max()) > 0
+    bert_layers, hub_layers = BertConfig().num_layers, hub_cfg.num_layers
+    k1 = {k: v[1]["encoder_attention"] for k, v in stages.items()}
+    log(f"[data prep] NormalizeService.run(): {norm_s:.2f} s for {clips} "
+        f"clips ({zh_rows} zh rows, {clips - zh_rows} en rows): "
+        + ", ".join(f"{k} {v[0]:.3f} s ({v[0] / clips:.4f} s a clip, K1 "
+                    f"dk-64 launches {k1[k]})" for k, v in stages.items())
+        + f"; BERT {1000 * clock['bert'][1] / max(1, clock['bert'][0]):.2f} "
+        f"ms a call over {clock['bert'][0]} calls, HuBERT "
+        f"{1000 * clock['hubert'][1] / max(1, clock['hubert'][0]):.2f} ms "
+        f"a clip over {clock['hubert'][0]} clips (host clock, synchronized); "
+        f"peak memory {norm_peak / 2 ** 30:.2f} GiB; launches {launches}")
+    assert k1 == {"text": bert_layers * zh_rows, "ssl": hub_layers * clips,
+                  "token": 0}, k1
+    assert clock["bert"][0] == zh_rows and clock["hubert"][0] == clips
+    assert launches["encoder_attention"] > 0
+    r = results["encoder_attention"]
+    r["launches"] = r.get("launches", 0) + launches["encoder_attention"]
+    r.setdefault("per_path", {})["data_prep_normalize"] = \
+        launches["encoder_attention"]
+
+    # 5. the normalized folder trains: 2 s2 steps, 2 s1 micro-batches
+    cfg_yaml = simple_yaml.load(paths.gpt_config_path())
+    t2s_cfg = T2SConfig.from_yaml_dict(cfg_yaml)
+    init = Text2SemanticDecoder(t2s_cfg)
+    init.load_state_dict({k: v.cpu() for k, v in convert.random_state_dict(
+        init, gen).items()})
+    gpt_ckpt = os.path.join(root, "s1_random.ckpt")
+    ckpt.export_gpt_weights(gpt_export_tree(init), gpt_ckpt,
+                            config=cfg_yaml, info="random")
+    del init
+    fed = []
+    collate = data_mod.collate_gpt
+
+    def recording(items, *args):
+        fed.append([(it["name"], float(np.abs(it["bert"]).max()))
+                    for it in items])
+        return collate(items, *args)
+
+    losses = {"s2": [], "s1": []}
+
+    def stop_after(key, n):
+        def on_step(step, metrics):
+            losses[key].append({k: float(v) for k, v in metrics.items()})
+            if len(losses[key]) == n:
+                raise _Enough
+        return on_step
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2 = SovitsTrain(SovitsTrainParams(
+        batch_size=4, total_epochs=1, save_every_epoch=1,
+        pretrained_s2G=s2g, pretrained_s2D=s2d, train_input_dir=out_dir,
+        output_model_name="prep_s2", project_dir=os.path.join(root, "proj"),
+        device="cuda"))
+    try:
+        s2.train(on_step=stop_after("s2", 2))
+    except _Enough:
+        pass
+    s2_s = time.perf_counter() - t0
+    data_mod.collate_gpt = recording
+    t0 = time.perf_counter()
+    try:
+        s1 = GPTTrain(GPTTrainParams(
+            batch_size=4, total_epochs=1, save_every_epoch=1,
+            model_path=gpt_ckpt, train_input_dir=out_dir,
+            output_model_name="prep_s1",
+            project_dir=os.path.join(root, "proj"), device="cuda"))
+        try:
+            s1.train(on_step=stop_after("s1", 2))
+        except _Enough:
+            pass
+    finally:
+        data_mod.collate_gpt = collate
+    s1_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    train_launches = ops.launch_counts()
+    for key in ("s2", "s1"):
+        assert len(losses[key]) == 2, losses
+        for m in losses[key]:
+            bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+            assert not bad, f"{key}: non-finite {bad}"
+    fed = fed[:2]
+    zh_fed = [a for batch in fed for n, a in batch if langs[n] == "zh"]
+    en_fed = [a for batch in fed for n, a in batch if langs[n] == "en"]
+    assert zh_fed and min(zh_fed) > 0 and not any(en_fed), fed
+    for name in ("mrf_conv", "mrf_conv_bwd_data", "mrf_conv_bwd_weight",
+                 "prefill_attention", "prefill_attention_bwd"):
+        assert train_launches[name] > 0, (name, train_launches)
+    for name, n in train_launches.items():
+        if n:
+            r = results[name]
+            r["launches"] = r.get("launches", 0) + n
+            r.setdefault("per_path", {})["data_prep_training"] = n
+    log(f"[data prep] the normalized folder trains: SovitsTrain 2 steps of "
+        f"B=4 in {s2_s:.2f} s (loss/g/total "
+        + ", ".join(f"{m['loss/g/total']:.3f}" for m in losses["s2"])
+        + f"), GPTTrain 2 micro-batches of B=4 in {s1_s:.2f} s (loss "
+        + ", ".join(f"{m['loss']:.1f}" for m in losses["s1"])
+        + f"), model loads included; the s1 batches carried "
+        f"{len(zh_fed)} zh rows with their 3-bert features (smallest max|f| "
+        f"{min(zh_fed):.3f}) and {len(en_fed)} en rows of zeros; launches "
+        f"{train_launches}")
+    del s2, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the card against the CPU on one clip (the shortest)
+    name = min(denoised, key=lambda n: frames[n])
+    clip32 = audio_io.load_audio(os.path.join(work, paths.SLICES_OUTPUT,
+                                              name), 32000)
+    t0 = time.perf_counter()
+    on_card = den.process(clip32, 32000)
+    card_s = time.perf_counter() - t0
+    on_cpu = frcrn.FRCRNDenoiser(frcrn_path, "cpu").process(clip32, 32000)
+    frcrn_rel = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    one = os.path.join(root, "one")
+    os.makedirs(os.path.join(one, paths.REFINEMENTS_OUTPUT))
+    os.makedirs(os.path.join(one, paths.DENOISES_OUTPUT))
+    shutil.copy(os.path.join(work, paths.DENOISES_OUTPUT, name),
+                os.path.join(one, paths.DENOISES_OUTPUT, name))
+    with open(os.path.join(one, paths.REFINEMENTS_OUTPUT,
+                           paths.REFINEMENT_FILE), "w") as f:
+        f.write(f"{name}|{langs[name]}|-\n")
+    os.environ["cnhubert_path"] = hub_dir
+    cpu_ssl = Normalize(one, "cpu_ssl", "cpu")
+    assert cpu_ssl.ssl().ok
+    want = torch.load(os.path.join(cpu_ssl.hubert_dir, name + ".pt"),
+                      weights_only=True)
+    got = torch.load(os.path.join(norm.hubert_dir, name + ".pt"),
+                     weights_only=True)
+    ssl_rel = max_err(torch, got, want) / float(want.abs().max())
+    cpu_tok = Normalize(one, "cpu_token", "cpu")
+    shutil.copy(os.path.join(norm.hubert_dir, name + ".pt"),
+                cpu_tok.hubert_dir)
+    assert cpu_tok.token().ok
+    with open(cpu_tok.semantic_output_path, encoding="utf8") as f:
+        cpu_codes = [int(c) for c in f.read().split("\n")[1].split("\t")[1]
+                     .split()]
+    card_codes = [int(c) for row in rows[1:] if row.startswith(name + "\t")
+                  for c in row.split("\t")[1].split()]
+    differ = [i for i, (a, b) in enumerate(zip(card_codes, cpu_codes))
+              if a != b]
+    assert len(card_codes) == len(cpu_codes)
+    ties = ""
+    if differ:
+        vits = SynthesizerTrn(s2_cfg)
+        vits.load_state_dict(convert.load_torch_state_dict(
+            s2g, drop_prefix="enc_q."), strict=True)
+        with torch.no_grad():
+            h = vits.ssl_proj(got).transpose(1, 2)[0]     # (T25, D)
+            d = torch.cdist(h, vits.quantizer.codebook(0)) ** 2
+        worst = 0.0
+        for i in differ:
+            d1, d2 = torch.topk(d[i], 2, largest=False).values.tolist()
+            worst = max(worst, (d2 - d1) / max(d2, 1e-12))
+        ties = (f"; the two nearest distances of each differing code within "
+                f"{worst:.3g} relative (tol 1e-4)")
+        assert worst <= 1e-4, worst
+    log(f"[data prep] card vs CPU on {name} ({len(clip32) / 32000:.2f} s): "
+        f"FRCRN output relative max|d|={frcrn_rel:.3g} (tol 1e-4; "
+        f"card {card_s:.3f} s for the clip); 4-cnhubert relative "
+        f"max|d|={ssl_rel:.3g} (tol 1e-4); semantic codes identical "
+        f"{len(card_codes) - len(differ)}/{len(card_codes)}{ties}")
+    assert frcrn_rel <= 1e-4 and ssl_rel <= 1e-4
+    for k, v in old_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+    # FRCRN device time by group, one clip, per second of audio
+    padded = -(-len(on_card) // 32000) * 32000
+    wav = torch.zeros((1, padded), device="cuda")
+    wav[0, :len(on_card)] = torch.from_numpy(
+        audio_io.resample(clip32, 32000, 16000)).cuda()
+    total, groups = frcrn_groups(torch, den, wav)
+    secs = padded / 16000
+    log(f"[data prep] FRCRN under torch.profiler, one clip padded to "
+        f"{secs:.0f} s: device {total:.3f} ms ({total / secs:.3f} ms a "
+        f"second of audio): " + ", ".join(
+            f"{k} {v:.3f} ms ({v / secs:.3f} ms/s)"
+            for k, v in groups.items()))
+
+    # 7. K1 at dk 64 against SDPA at these clips' HuBERT shapes
+    for row in k1_vs_sdpa_hubert(torch, list(frames.values())):
+        log(f"[data prep] HuBERT attention B=1 H=12 T={row['T']} valid "
+            f"{row['valid']} (SDPA {'with' if row['mask'] else 'without'} "
+            f"the boolean key mask), ms a call, three reps each: K1 "
+            f"profiler {row['K1 profiler']}, events {row['K1 events']}; "
+            f"SDPA profiler {row['SDPA profiler']}, events "
+            f"{row['SDPA events']}; SDPA kernels {row['SDPA kernels']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[data prep] phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"(slicer {slice_s:.2f}, denoise subprocess {denoise_s:.2f}, "
+        f"normalize {norm_s:.2f}, s2 {s2_s:.2f}, s1 {s1_s:.2f}); peak "
+        f"memory from the normalize run on, training included, {peak:.2f} "
+        f"GiB (torch.cuda.max_memory_allocated)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the s2 fine-tune at full width
 # ---------------------------------------------------------------------------
 
 PHONES = "HH AH0 L OW1 W ER1 L D SP K AE1 T S .".split()
@@ -1936,7 +2656,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: one train step on the card against the CPU
+# phase 9: one train step on the card against the CPU
 # ---------------------------------------------------------------------------
 
 TINY_SOVITS = dict(
@@ -2007,7 +2727,7 @@ def reference_train_step(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the s1 fine-tune at full width
+# phase 10: the s1 fine-tune at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2244,7 +2964,7 @@ def profile_s1_window(torch, trainer) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: one s1 micro-batch on the card against the CPU
+# phase 11: one s1 micro-batch on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -2339,6 +3059,7 @@ def main() -> int:
 
     results = {}
     phase = "device"
+    t_run = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         kind = torch.cuda.get_device_name(0)
@@ -2385,6 +3106,10 @@ def main() -> int:
         serve_chinese(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
+        phase = "data prep"
+        data_prep(torch, tmp, results)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase = "training"
         train(torch, tmp, results)
         phase = "reference train step"
@@ -2408,9 +3133,11 @@ def main() -> int:
             "safetensors"))
         log(f"[isolation] after serving English and Chinese text, resampling "
             f"the reference clip (native resampler built: "
-            f"{native.available()}), 12 s2 training steps and 12 s1 "
-            f"micro-batches, modules of easevoice_trainer_tpu, jax, flax, "
-            f"yaml, transformers or safetensors loaded: {foreign}")
+            f"{native.available()}), preparing a dataset (slicer, FRCRN, "
+            f"the three normalization stages, 2 + 2 training steps on it), "
+            f"12 s2 training steps and 12 s1 micro-batches, modules of "
+            f"easevoice_trainer_tpu, jax, flax, yaml, transformers or "
+            f"safetensors loaded: {foreign}")
         assert not foreign, foreign
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
@@ -2419,6 +3146,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    log(f"[run] every phase passed in {time.perf_counter() - t_run:.1f} s "
+        f"(the kernels' build included)")
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = results[name]

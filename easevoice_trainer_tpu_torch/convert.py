@@ -199,3 +199,33 @@ def bert_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[f"{t}.{tn}.bias"] = p[f"{f}/{fn}/bias"]
         i += 1
     return _to_torch(out)
+
+
+def frcrn_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """FRCRN params and batch statistics -> the port's FRCRN state dict in
+    the replica key scheme (inverse of the JAX package's
+    ``audiokit/frcrn.py`` ``convert_frcrn_weights``): conv kernels HWIO ->
+    torch (out, in, kf, kt), transposed-conv kernels (kf, kt, out, in) ->
+    torch (in, out, kf, kt), dense kernels -> (out, in), the FSMN's
+    depthwise kernel (taps, 1, D) -> (D, 1, taps, 1), BatchNorm scale /
+    mean / var -> weight / running_mean / running_var."""
+    p = {k: np.asarray(v, np.float32)
+         for k, v in ckpt.flatten_tree(params).items()}
+    s = {k: np.asarray(v, np.float32)
+         for k, v in ckpt.flatten_tree(batch_stats).items()}
+    out: Dict[str, np.ndarray] = {}
+    renames = {"kernel": "weight", "bias": "bias", "scale": "weight",
+               "mean": "running_mean", "var": "running_var"}
+    for tree in (p, s):
+        for key, v in tree.items():
+            *path, leaf = key.split("/")
+            name = ".".join(path + [renames[leaf]])
+            if leaf == "kernel" and v.ndim == 4:       # (conv) kf, kt, i, o
+                v = v.transpose(3, 2, 0, 1)
+            elif leaf == "kernel" and v.ndim == 3:     # FSMN taps, 1, D
+                v = v[:, 0, :].T[:, None, :, None]
+            elif leaf == "kernel":
+                v = v.T
+            out[name] = v
+    return _to_torch(out)

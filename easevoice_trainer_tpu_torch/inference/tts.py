@@ -39,6 +39,7 @@ from ..models.sovits import SovitsConfig, SynthesizerTrn
 from ..text import chinese
 from ..train.data import spectrogram_np
 from ..utils import audio_io, paths
+from ..utils.config import GlobalCFG
 from ..utils.device import resolve_device
 from ..utils.logger import logger
 from .preprocessor import TextPreprocessor
@@ -99,24 +100,16 @@ class TTSConfig:
         merged = {**default, **custom}
 
         # defaults: the JAX package's GlobalCFG env vars and pretrained layout
-        pretrained = paths.pretrained_root()
-        env = os.environ
-        gsv = os.path.join(pretrained, "gsv-v2final-pretrained")
+        glob = GlobalCFG()
         self.device = merged.get("device", "cuda")
         self.is_half = bool(merged.get("is_half", False))
-        self.t2s_weights_path = merged.get(
-            "t2s_weights_path", env.get("gpt_path", os.path.join(
-                gsv, "s1bert25hz-5kh-longer-epoch=12-step=369668.ckpt")))
-        self.vits_weights_path = merged.get(
-            "vits_weights_path",
-            env.get("sovits_path", os.path.join(gsv, "s2G2333k.pth")))
-        self.bert_base_path = merged.get("bert_base_path", env.get(
-            "bert_path",
-            os.path.join(pretrained, "chinese-roberta-wwm-ext-large")))
+        self.t2s_weights_path = merged.get("t2s_weights_path", glob.gpt_path)
+        self.vits_weights_path = merged.get("vits_weights_path",
+                                            glob.sovits_path)
+        self.bert_base_path = merged.get("bert_base_path", glob.bert_path)
         self.cnhubert_base_path = merged.get(
-            "cnhuhbert_base_path", merged.get("cnhubert_base_path", env.get(
-                "cnhubert_path",
-                os.path.join(pretrained, "chinese-hubert-base"))))
+            "cnhuhbert_base_path",
+            merged.get("cnhubert_base_path", glob.cnhubert_path))
         self._default = default or self.as_dict()
 
         # runtime constants (reference: tts.py:126-134)

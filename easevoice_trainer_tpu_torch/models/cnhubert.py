@@ -23,6 +23,7 @@ from torch import nn
 
 from ..nn.layers import WNConv1d, weight_norm_key
 from ..ops.attention import encoder_attention
+from ..utils import safetensors_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,15 +255,22 @@ def config_from_hf(model_dir: str) -> HubertConfig:
 
 
 def load_cnhubert(model_dir: str, device="cuda") -> Optional[CNHubert]:
-    """CNHubert with weights from an HF checkpoint directory on ``device``,
-    or None when the directory holds no weights."""
-    path = os.path.join(model_dir, "pytorch_model.bin")
-    if not os.path.exists(path):
-        return None
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    state = {k: v.to(torch.float32) for k, v in raw.items()
-             if isinstance(v, torch.Tensor)}
-    model = CNHubert(config_from_hf(model_dir))
-    model.load_state_dict(hf_state_for_load(state), strict=True)
-    return model.to(device).eval()
+    """CNHubert with weights from an HF checkpoint directory on ``device``:
+    ``pytorch_model.bin``, else ``model.safetensors`` (JAX
+    models/cnhubert.py:300-313), or None when the directory holds
+    neither."""
+    for fname in ("pytorch_model.bin", "model.safetensors"):
+        path = os.path.join(model_dir, fname)
+        if not os.path.exists(path):
+            continue
+        if fname.endswith(".safetensors"):
+            raw = safetensors_io.load_file(path)
+        else:
+            raw = torch.load(path, map_location="cpu", weights_only=True)
+        state = {k: v.to(torch.float32) for k, v in raw.items()
+                 if isinstance(v, torch.Tensor)}
+        model = CNHubert(config_from_hf(model_dir))
+        model.load_state_dict(hf_state_for_load(state), strict=True)
+        return model.to(device).eval()
+    return None
 

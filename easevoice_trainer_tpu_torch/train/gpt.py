@@ -37,6 +37,7 @@ import torch
 from .. import convert
 from ..models.gpt import T2SConfig, Text2SemanticDecoder
 from ..utils import paths, simple_yaml
+from ..utils.config import GlobalCFG
 from ..utils.connector import MultiProcessOutputConnector
 from ..utils.logger import logger
 from ..utils.response import EaseVoiceResponse, ResponseStatus
@@ -71,10 +72,8 @@ def get_gpt_train_dir(project_dir: str, name: Optional[str]) -> str:
 
 
 def default_pretrained_gpt() -> str:
-    """The JAX package's GlobalCFG default, without initializing jax."""
-    return os.environ.get("gpt_path", os.path.join(
-        paths.pretrained_root(), "gsv-v2final-pretrained",
-        "s1bert25hz-5kh-longer-epoch=12-step=369668.ckpt"))
+    """The JAX package's GlobalCFG default."""
+    return GlobalCFG().gpt_path
 
 
 # semantic-length buckets (25 Hz tokens; 54 s cap -> 1350)

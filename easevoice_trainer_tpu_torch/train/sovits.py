@@ -14,7 +14,7 @@
 fp32 on ``SovitsTrainParams.device``: the first CUDA card by default, which
 must exist (no silent move to the host); ``"cpu"`` runs the kernels' plain
 twins.  Defaults (pretrained paths, output dirs) come from the port's own
-``utils/paths.py`` and the environment.
+``utils/paths.py`` and ``utils/config.py`` (the environment).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from ..models.sovits import MultiPeriodDiscriminator, SovitsConfig, \
     SynthesizerTrn
 from ..ops.stft import MelConfig
 from ..utils import paths
+from ..utils.config import GlobalCFG
 from ..utils.connector import MultiProcessOutputConnector
 from ..utils.logger import logger
 from ..utils.response import EaseVoiceResponse, ResponseStatus
@@ -69,9 +70,8 @@ def get_sovits_train_dir(project_dir: str, name: Optional[str]) -> str:
 
 
 def default_pretrained_s2g() -> str:
-    """The JAX package's GlobalCFG default, without initializing jax."""
-    return os.environ.get("sovits_path", os.path.join(
-        paths.pretrained_root(), "gsv-v2final-pretrained", "s2G2333k.pth"))
+    """The JAX package's GlobalCFG default."""
+    return GlobalCFG().sovits_path
 
 
 @torch.no_grad()

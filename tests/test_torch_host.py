@@ -601,6 +601,111 @@ def test_flatten_tree_and_conv_transposes_match_jax():
         np.testing.assert_array_equal(got[k], want[k])
 
 
+def _speech_like(seed: int, seconds: float, sr: int = 32000) -> np.ndarray:
+    """Harmonic bursts of 1-3 s between 0.4-1.0 s of low noise."""
+    rng = np.random.default_rng(seed)
+    parts, total = [], 0
+    while total < seconds * sr:
+        n = int(sr * rng.uniform(1.0, 3.0))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(110, 240)
+        burst = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in (1, 2, 3))
+        parts.append(0.25 * burst * np.hanning(n) ** 0.2)
+        parts.append(rng.normal(0, 0.002, int(sr * rng.uniform(0.4, 1.0))))
+        total += len(parts[-2]) + len(parts[-1])
+    return np.concatenate(parts)[:int(seconds * sr)].astype(np.float32)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"threshold": -40, "min_length": 2000, "min_interval": 200,
+         "hop_size": 20, "max_sil_kept": 300}])
+def test_slicer_matches_jax(kwargs):
+    from easevoice_trainer_tpu.audiokit import slicer as jslicer
+    from easevoice_trainer_tpu_torch.audiokit import slicer as pslicer
+
+    wav = _speech_like(0, 20.0)
+    want = jslicer.Slicer(32000, **kwargs).slice(wav)
+    got = pslicer.Slicer(32000, **kwargs).slice(wav)
+    assert len(got) == len(want) > 1
+    for (pc, ps, pe), (jc, js, je) in zip(got, want):
+        assert (ps, pe) == (js, je)
+        np.testing.assert_array_equal(pc, jc)
+    np.testing.assert_array_equal(
+        pslicer.frame_rms(wav, 1280, 320), jslicer.frame_rms(wav, 1280, 320))
+
+
+def test_audio_service_slicer_and_refinement_match_jax(tmp_path):
+    """``AudioService.slicer`` writes the same files, and the four
+    refinement methods give the same responses and list files, in both
+    packages."""
+    from easevoice_trainer_tpu.service.audio import AudioService as JService
+    from easevoice_trainer_tpu_torch.service.audio import \
+        AudioService as PService
+
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(2):
+        jaudio.write_wav(str(src / f"talk{i}.wav"), _speech_like(i, 14.0),
+                         32000)
+    services = {"jax": JService(str(src), str(tmp_path / "jax")),
+                "port": PService(str(src), str(tmp_path / "port"), "cpu")}
+    resps = {k: s.slicer().to_dict() for k, s in services.items()}
+    assert resps["port"] == resps["jax"]
+    files = {k: sorted(os.listdir(tmp_path / k / "slices"))
+             for k in services}
+    assert files["port"] == files["jax"] and len(files["jax"]) > 2
+    for name in files["jax"]:
+        a, _ = jaudio.read_wav(str(tmp_path / "jax" / "slices" / name))
+        b, _ = jaudio.read_wav(str(tmp_path / "port" / "slices" / name))
+        np.testing.assert_array_equal(b, a)
+    for k in services:
+        (tmp_path / k / "asrs").mkdir()
+        (tmp_path / k / "asrs" / "asr.list").write_text(
+            "".join(f"/p/{n}|ZH|第{i}句\n" for i, n in enumerate(files[k])),
+            encoding="utf-8")
+
+    def calls(svc):
+        first = files["jax"][0]
+        return [svc.refinement_load_source(),
+                svc.refinement_reload_source(),
+                svc.refinement_submit_text(f"/p/{first}", "EN", "hello\n"),
+                svc.refinement_submit_text("/p/new.wav", "zh", "新的"),
+                svc.refinement_delete_text(f"/p/{files['jax'][1]}"),
+                svc.refinement_load_source()]
+
+    got = {k: [r.to_dict() for r in calls(s)] for k, s in services.items()}
+    assert got["port"] == got["jax"]
+    lists = {k: (tmp_path / k / "refinements" / "refinement.list").read_text(
+        encoding="utf-8") for k in services}
+    assert lists["port"] == lists["jax"] and "new.wav|zh|新的" in lists["jax"]
+
+
+@pytest.mark.parametrize("env", ["defaults", "set"])
+def test_global_config_paths_match_jax(env, monkeypatch, tmp_path):
+    """The port's GlobalCFG path fields against the JAX singleton's (reset
+    before and after, so that it reads this environment)."""
+    from easevoice_trainer_tpu.utils import config as jconfig
+    from easevoice_trainer_tpu_torch.utils import config as pconfig
+
+    names = ("gpt_path", "bert_path", "cnhubert_path", "sovits_path",
+             "is_g2pw")
+    monkeypatch.setenv("EASEVOICE_BASE_PATH", str(tmp_path))
+    for name in names:
+        if env == "set":
+            monkeypatch.setenv(name, "false" if name == "is_g2pw"
+                               else str(tmp_path / name))
+        else:
+            monkeypatch.delenv(name, raising=False)
+    jconfig.GlobalCFG.reset()
+    try:
+        j = jconfig.GlobalCFG()
+        p = pconfig.GlobalCFG()
+        assert {n: getattr(p, n) for n in names} == \
+            {n: getattr(j, n) for n in names}
+    finally:
+        jconfig.GlobalCFG.reset()
+
+
 _ISOLATED = r"""
 import importlib, importlib.abc, pkgutil, sys
 
@@ -660,6 +765,75 @@ for _ in range(2):
     m = step(batch)
 assert all(torch.isfinite(v) for v in m.values())
 assert not torch.equal(before, model.h.layers[0].self_attn.in_proj_weight)
+# dataset preparation through the cmds' main(): slice two sources, denoise
+# with a tiny FRCRN checkpoint, write a refinement list, normalize (en rows:
+# a tiny HuBERT and s2G, no BERT needed) on the CPU
+import json, os
+from easevoice_trainer_tpu_torch import convert
+from easevoice_trainer_tpu_torch.audiokit.frcrn import FRCRN, FRCRNConfig
+from easevoice_trainer_tpu_torch.cmd import audio_denoise, audio_slicer, \
+    normalize
+from easevoice_trainer_tpu_torch.models.cnhubert import CNHubert, \
+    HubertConfig
+from easevoice_trainer_tpu_torch.models.sovits import SovitsConfig, \
+    SynthesizerTrn
+from easevoice_trainer_tpu_torch.service.audio import AudioService
+root = os.path.dirname(path)
+gen = torch.Generator().manual_seed(0)
+src = os.path.join(root, "src")
+os.makedirs(src)
+for i in range(2):
+    t = np.arange(5 * 32000) / 32000
+    burst = 0.3 * np.sin(2 * np.pi * 180 * t) * (np.sin(np.pi * t) > 0.15)
+    audio_io.write_wav(os.path.join(src, f"s{i}.wav"), burst.astype(
+        np.float32), 32000)
+work = os.path.join(root, "work")
+frcrn_cfg = FRCRNConfig(channels=4, depth=2, fsmn_hidden=4, lorder=3)
+state = convert.random_state_dict(FRCRN(frcrn_cfg), gen)
+for k in state:
+    if k.endswith("running_var"):
+        state[k] = state[k].abs() + 0.5
+torch.save(state, os.path.join(root, "frcrn.pth"))
+os.environ["EASEVOICE_FRCRN_PATH"] = os.path.join(root, "frcrn.pth")
+base = {"source_dir": src, "output_dir": work, "device": "cpu"}
+r = audio_slicer.main(dict(base, min_length=1000, min_interval=100))
+assert r.ok and os.listdir(os.path.join(work, "slices")), r
+r = audio_denoise.main(base)
+assert r.ok and "frcrn-torch" in r.message, r
+for name in os.listdir(os.path.join(work, "denoises")):
+    den, sr = audio_io.read_wav(os.path.join(work, "denoises", name))
+    assert sr == 16000 and np.isfinite(den).all() and np.abs(den).max() > 0
+svc = AudioService(src, work, "cpu")
+for name in sorted(os.listdir(os.path.join(work, "denoises"))):
+    svc.refinement_submit_text(name, "en", "hello world")
+hub = os.path.join(root, "hubert")
+os.makedirs(hub)
+hcfg = HubertConfig(conv_dim=(16,) * 7, hidden_size=64, num_layers=1,
+                    num_heads=1, intermediate_size=64, pos_conv_kernel=16,
+                    pos_conv_groups=4)
+json.dump({"conv_dim": [16] * 7, "hidden_size": 64, "num_hidden_layers": 1,
+           "num_attention_heads": 1, "intermediate_size": 64,
+           "num_conv_pos_embeddings": 16, "num_conv_pos_embedding_groups": 4},
+          open(os.path.join(hub, "config.json"), "w"))
+torch.save(convert.random_state_dict(CNHubert(hcfg), gen),
+           os.path.join(hub, "pytorch_model.bin"))
+s2 = dict(spec_channels=1025, segment_size=2560, inter_channels=16,
+          hidden_channels=16, filter_channels=32, n_heads=2, n_layers=1,
+          upsample_initial_channel=32, gin_channels=16, ssl_dim=64)
+os.makedirs(os.path.join(root, "configs"))
+json.dump({"model": s2}, open(os.path.join(root, "configs", "s2.json"), "w"))
+torch.save(convert.random_state_dict(SynthesizerTrn(SovitsConfig(**s2)), gen),
+           os.path.join(root, "s2G.pth"))
+os.environ.update(EASEVOICE_BASE_PATH=root, cnhubert_path=hub,
+                  sovits_path=os.path.join(root, "s2G.pth"),
+                  bert_path=os.path.join(root, "absent"))
+r = normalize.main({"processing_path": work, "device": "cpu"})
+assert r.ok, r
+out = r.data["output_path"]
+n = len(os.listdir(os.path.join(work, "denoises")))
+assert len(os.listdir(os.path.join(out, "4-cnhubert"))) == n
+assert len(open(os.path.join(out, "6-name2semantic.tsv")).read().strip(
+    ).splitlines()) == n + 1
 print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 """
 
@@ -667,8 +841,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 def test_port_stands_alone_subprocess(tmp_path):
     """A fresh interpreter that refuses to import the JAX package, jax,
     flax, transformers and safetensors imports every module of the port, runs the text frontend in every
-    language, loads and resamples a wav, reads configs/gpt.yaml and takes
-    two micro-batches of the s1 train step."""
+    language, loads and resamples a wav, reads configs/gpt.yaml, takes
+    two micro-batches of the s1 train step, and prepares a dataset through
+    the slicer, denoise and normalize cmds on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1")
     env.pop("EASEVOICE_PINYIN_TABLE", None)
     proc = subprocess.run([sys.executable, "-c", _ISOLATED,

@@ -3,6 +3,7 @@ the lengths mask of a padded batch.  fp32 on the CPU; tolerance 1e-4
 relative to the reference's largest magnitude (matmul/conv summation
 order)."""
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -95,3 +96,28 @@ def test_load_cnhubert_from_hf_dir(hubert, tmp_path):
     wav = torch.from_numpy(np.random.default_rng(1).uniform(
         -0.3, 0.3, (1, 8000)).astype(np.float32))
     torch.testing.assert_close(loaded(wav), port(wav), rtol=0, atol=0)
+
+
+def test_load_cnhubert_reads_safetensors_alone(hubert, tmp_path):
+    """A directory holding only ``model.safetensors`` loads as the JAX
+    loader reads it (models/cnhubert.py:300-313), equal to the same
+    weights from ``pytorch_model.bin``."""
+    from easevoice_trainer_tpu_torch.utils import safetensors_io
+
+    port, _, _, _ = hubert
+    cfg = json.dumps({"conv_dim": list(HUBERT_KW["conv_dim"]),
+                      "hidden_size": 64, "num_hidden_layers": 2,
+                      "num_attention_heads": 4, "intermediate_size": 128,
+                      "num_conv_pos_embeddings": 16,
+                      "num_conv_pos_embedding_groups": 4})
+    sd = {k: v.contiguous() for k, v in port.state_dict().items()}
+    for name in ("bin", "st"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "config.json").write_text(cfg)
+    torch.save(sd, tmp_path / "bin" / "pytorch_model.bin")
+    safetensors_io.save_file(sd, str(tmp_path / "st" / "model.safetensors"))
+    from_bin = phub.load_cnhubert(str(tmp_path / "bin"), device="cpu")
+    from_st = phub.load_cnhubert(str(tmp_path / "st"), device="cpu")
+    assert from_st is not None
+    a, b = from_bin.state_dict(), from_st.state_dict()
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)

@@ -1,6 +1,7 @@
 """The port's kernels (K1-K3, K4's two entry points and K5, the gradient of
 K1; K1's head-width-64 instance as the encoders' attention) against their
-plain twins.
+plain twins; the denoiser and the SSL stage of dataset preparation on the card
+against the CPU.
 
 This file imports no JAX, so the ``cuda`` tests run on a machine with the
 card and without JAX:
@@ -741,3 +742,98 @@ def test_wgrad_plan_refuses_what_the_kernel_does_not_take():
             mrf.wgrad_plan(8, 128, 128, 2560, k, d)
     plan = mrf.wgrad_plan(8, 128, 128, 2560, 15, 5)
     assert plan.taps * -(-15 // plan.taps) >= 15
+
+
+def _frcrn_checkpoint(path, cfg):
+    """Seeded random FRCRN weights with positive running variances."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.audiokit.frcrn import FRCRN
+
+    state = convert.random_state_dict(FRCRN(cfg),
+                                      torch.Generator().manual_seed(3))
+    for k in state:
+        if k.endswith("running_var"):
+            state[k] = state[k].abs() + 0.5
+    torch.save(state, str(path))
+
+
+@pytest.mark.cuda
+def test_frcrn_denoiser_card_matches_cpu(tmp_path):
+    """The denoiser (STFT, both U-Nets, inverse STFT) on the card against
+    the CPU at a small config over a 2.5 s clip (two 2 s buckets): within
+    1e-4 of the largest CPU magnitude, TF32 off."""
+    from easevoice_trainer_tpu_torch.audiokit.frcrn import FRCRNConfig, \
+        FRCRNDenoiser
+
+    _card()
+    cfg = FRCRNConfig(channels=16, depth=4, fsmn_hidden=16, lorder=5)
+    _frcrn_checkpoint(tmp_path / "frcrn.pth", cfg)
+    wav = np.random.default_rng(4).uniform(-0.4, 0.4, 40000).astype(
+        np.float32)
+    want = FRCRNDenoiser(str(tmp_path / "frcrn.pth"), "cpu", cfg).process(
+        wav, 16000)
+    got = FRCRNDenoiser(str(tmp_path / "frcrn.pth"), "cuda", cfg).process(
+        wav, 16000)
+    assert got.shape == want.shape == wav.shape
+    err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_normalize_ssl_on_the_card(tmp_path, monkeypatch):
+    """``Normalize.ssl`` with ``device="cuda"``: the HuBERT attention on K1
+    at head width 64, one launch a layer a clip; the 4-cnhubert features
+    within 1e-4 of the largest CPU magnitude and 5-wav32k identical to a
+    CPU run of the same stage."""
+    import json
+    import os
+
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.models.cnhubert import CNHubert, \
+        HubertConfig
+    from easevoice_trainer_tpu_torch.normalization import Normalize
+    from easevoice_trainer_tpu_torch.utils import audio_io
+
+    _card()
+    cfg = HubertConfig(conv_dim=(32,) * 7, hidden_size=128, num_layers=2,
+                       num_heads=2, intermediate_size=256, pos_conv_kernel=16,
+                       pos_conv_groups=4)
+    hub = tmp_path / "hubert"
+    hub.mkdir()
+    (hub / "config.json").write_text(json.dumps({
+        "conv_dim": list(cfg.conv_dim), "hidden_size": 128,
+        "num_hidden_layers": 2, "num_attention_heads": 2,
+        "intermediate_size": 256, "num_conv_pos_embeddings": 16,
+        "num_conv_pos_embedding_groups": 4}))
+    torch.save(convert.random_state_dict(CNHubert(cfg),
+                                         torch.Generator().manual_seed(5)),
+               str(hub / "pytorch_model.bin"))
+    monkeypatch.setenv("cnhubert_path", str(hub))
+    ws = tmp_path / "ws"
+    (ws / "refinements").mkdir(parents=True)
+    (ws / "denoises").mkdir()
+    rng = np.random.default_rng(6)
+    names = [f"c{i}.wav" for i in range(3)]
+    for i, name in enumerate(names):
+        audio_io.write_wav(str(ws / "denoises" / name), rng.uniform(
+            -0.4, 0.4, 16000 + 7777 * i).astype(np.float32), 16000)
+    (ws / "refinements" / "refinement.list").write_text(
+        "\n".join(f"{n}|en|hello" for n in names))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        norm = Normalize(str(ws), f"out_{dev}", device=dev)
+        n0 = encoder_attention.launches
+        assert norm.ssl().ok
+        runs[dev] = (norm, encoder_attention.launches - n0)
+    (cpu, n_cpu), (card, n_card) = runs["cpu"], runs["cuda"]
+    assert n_cpu == 0 and n_card == cfg.num_layers * len(names)
+    for name in names:
+        want = torch.load(os.path.join(cpu.hubert_dir, name + ".pt"))
+        got = torch.load(os.path.join(card.hubert_dir, name + ".pt"))
+        assert got.device.type == "cpu" and got.shape == want.shape
+        err = float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        assert err <= 1e-4, (name, err)
+        a, _ = audio_io.read_wav(os.path.join(cpu.wav_dir, name))
+        b, _ = audio_io.read_wav(os.path.join(card.wav_dir, name))
+        np.testing.assert_array_equal(b, a)
