@@ -38,7 +38,10 @@ Phases, one summary line each; any failure exits non-zero:
    the count of HMMA instructions in each K5 kernel's SASS; K5 must not be
    slower than SDPA's backward.  K1's head-width-64 instance
    (``encoder_attention``) at the encoders' shapes (BERT, G2PW's BERT,
-   HuBERT), each valid row also run alone, unpadded;
+   HuBERT, Whisper's encoder at T=1500) and its dk-32 instance on the same
+   route at CT-punc's shapes, each valid row also run alone, unpadded;
+   SDPA alone at Paraformer's dk-128 encoder shapes, which no hand-written
+   kernel covers;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -65,7 +68,21 @@ Phases, one summary line each; any failure exits non-zero:
    (``python -m easevoice_trainer_tpu_torch.cmd.audio_denoise``) as a
    subprocess with an FRCRN at ``FRCRNConfig()`` (seeded random weights in
    modelscope's key layout, BatchNorm statistics calibrated on one clip),
-   a refinement list of mostly zh rows (ZH_PINNED's sentences) and two en
+   the ASR chain over the denoised clips: fsmn-VAD, Paraformer-large and
+   CT-punc (FunASR's ``model.pt`` / ``config.yaml`` / ``am.mvn`` /
+   ``tokens.json`` layouts) and whisper-small (``model.safetensors``,
+   ``config.json``, a synthesized ``tokenizer.json``), seeded random
+   weights at the published widths; ``python -m
+   easevoice_trainer_tpu_torch.cmd.audio_asr`` as a subprocess (zh, every
+   clip, every trace SUCCESS, one ``asr.list`` row a clip), then the cmd's
+   ``main`` in-process for zh and for en (two clips) with the launch
+   counts (K1 dk 32: 4 a punctuation call; K1 dk 64: 12 a Whisper chunk)
+   and the seconds a minute of audio by stage; the card against the CPU on
+   the shortest clip (VAD segments, Paraformer encoder output and alphas,
+   ids, CT-punc marks; Whisper at 2 + 2 layers, ids and teacher-forced
+   logits); then
+   a refinement list of mostly zh rows (ZH_PINNED's sentences: random
+   weights transcribe nothing meaningful) and two en
    rows, then ``NormalizeService.run()`` at full width (BERT-large,
    HuBERT-base from a ``model.safetensors``-only directory, the s2G of
    configs/s2.json), each stage timed: one 3-bert file a zh row, one
@@ -102,7 +119,9 @@ Phases, one summary line each; any failure exits non-zero:
    the CPU agrees (loss and every qkv gradient).
 
 After training it checks that no module of the JAX package, jax, flax,
-yaml, transformers or safetensors was loaded in the whole run.  Two lines before the last hold one JSON
+yaml, transformers or safetensors was loaded in the whole run (the ASR
+chain's config.yaml files go through the port's reader, Whisper's
+tokenizer is the port's own).  Two lines before the last hold one JSON
 object with each kernel's launches (in all, per serving clone, per s2 step
 and per s1 micro-batch),
 error, device times and bound; the line before the last is the card's name
@@ -114,6 +133,7 @@ verdict.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import gc
 import itertools
@@ -171,7 +191,14 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
         "easevoice_trainer_tpu/models/bert.py:49-56 (BertLayer attention "
         "with its key-padding bias, :88-91; also G2PW's BERT, "
-        "text/g2pw.py:57, and HuBERT's attention; no Pallas ancestor)"),
+        "text/g2pw.py:57, HuBERT's attention and Whisper's encoder "
+        "self-attention, audiokit/asr_whisper.py:184; no Pallas ancestor)"),
+    "encoder_attention_dk32": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
+        "easevoice_trainer_tpu/audiokit/punc_ct.py:94-116 (CT-punc's "
+        "SANMAttention with its word mask; no Pallas ancestor: K1's dk-32 "
+        "instance, the port of ops/pallas/flash_prefill.py:35, git "
+        "0ec4461, with no audio part)"),
 }
 
 # the s1 micro-batches of the "s1 training" phase: B=8, 416 phonemes
@@ -369,12 +396,15 @@ def check_kernels(torch, results, parent=None):
         new, old = (sass_functions(path, ("prefill_attention_kernel",))
                     for path in (build.build().path,
                                  parent.build.build().path))
-        new32 = [b for n, bs in new.items() if "Li64E" not in n for b in bs]
-        old32 = [b for n, bs in old.items() if "Li64E" not in n for b in bs]
-        log(f"[a/b] K1's dk-32 SASS: {len(new32)} copy in this tree's "
-            f"library ({len(new32[0])} instructions), {len(old32)} in the "
-            f"parent's; identical: {new32 == old32}")
-        assert new32 == old32, "K1's dk-32 SASS differs from the parent's"
+        for width in ("Li32E", "Li64E"):
+            mine = [b for n, bs in new.items() if width in n for b in bs]
+            theirs = [b for n, bs in old.items() if width in n for b in bs]
+            log(f"[a/b] K1's dk-{width[2:4]} SASS: {len(mine)} copy in this "
+                f"tree's library ({len(mine[0])} instructions), "
+                f"{len(theirs)} in the parent's; identical: "
+                f"{mine == theirs}")
+            assert mine == theirs, \
+                f"K1's dk-{width[2:4]} SASS differs from the parent's"
     assert err <= tol, f"prefill_attention disagrees: {err}"
     results["prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         library_ms=library, **bound.result())
@@ -655,6 +685,115 @@ def check_encoder(torch, results):
     results["encoder_attention"] = dict(
         max_abs_err=worst, ms=sums[0], plain_ms=sums[1], library_ms=sums[2],
         **bound.result())
+
+
+def check_encoder_asr(torch, results):
+    """K1 on the ASR chain's attention, against its twin (1e-4 absolute):
+    the dk-32 instance at CT-punc's shapes (B=1, H=8, the JAX bucket of a
+    20-word chunk, of a chunk with a carried tail, and of the 200-word
+    cache limit plus a chunk), each valid row also run alone, unpadded;
+    the dk-64 instance at Whisper's encoder shape (B=1, H=12, T=1500, every
+    frame valid).  Device ms of the kernel, the twin and SDPA (boolean key
+    mask where there are pads), and the bound (q, k, v, o once; two
+    dk-long products per visible pair).  Then SDPA alone at Paraformer's
+    dk-128 encoder shapes (B=1, H=4, the buckets of 3.8, 7.7 and 15.4 s
+    clips), which no hand-written kernel covers, beside the plain twin and
+    the bound."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(1117)
+    tol = 1e-4
+
+    def one_shape(b, h, t, dk, lens, pads_alone):
+        valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q, k, v = (torch.randn((b, t, h, dk), generator=gen, device="cuda")
+                   for _ in range(3))
+        want = att.prefill_attention_reference(q, k, v, t, valid,
+                                               torch.zeros_like(valid))
+        got = att.encoder_attention(q, k, v, valid)
+        err = max_err(torch, got, want)
+        same = True
+        if pads_alone:
+            for i, n in enumerate(lens):
+                alone = att.encoder_attention(
+                    *(z[i:i + 1, :n].contiguous() for z in (q, k, v)),
+                    valid[i:i + 1])[0]
+                err = max(err, max_err(torch, alone, got[i, :n]))
+                same &= torch.equal(alone, got[i, :n])
+        mask = None
+        if min(lens) < t:
+            mask = (torch.arange(t, device="cuda")[None]
+                    < valid[:, None])[:, None, None, :]
+        qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh,
+                                 attn_mask=mask)
+        lib_err = max_err(torch, sdpa().transpose(1, 2), want)
+        times = (
+            device_ms(torch, lambda: att.encoder_attention(q, k, v, valid),
+                      "prefill_attention"),
+            device_ms(torch, lambda: att.prefill_attention_reference(
+                q, k, v, t, valid, torch.zeros_like(valid))),
+            device_ms(torch, sdpa))
+        work = (4 * 4 * b * t * h * dk, 4 * dk * h * t * sum(lens))
+        one = Bound()
+        one.add(*work)
+        return err, same, lib_err, times, one, work
+
+    sums, worst, bound = [0.0, 0.0, 0.0], 0.0, Bound()
+    for t, n in ((32, 20), (64, 37), (256, 220)):
+        err, same, lib_err, times, one, work = one_shape(1, 8, t, 32, [n],
+                                                         True)
+        bound.add(*work)
+        sums = [a + x for a, x in zip(sums, times)]
+        worst = max(worst, err)
+        log(f"[kernels] encoder_attention (K1 dk=32) CT-punc B=1 H=8 T={t} "
+            f"valid={n}: max|d|={err:.3g} (tol {tol}), the valid row alone "
+            f"bit-identical {same}; device ms: kernel {times[0]:.5f}, plain "
+            f"{times[1]:.4f}, SDPA {times[2]:.5f} (max|d| {lib_err:.3g}); "
+            f"bound {one.ms:.6f} ({one.by}), kernel at "
+            f"{100 * one.ms / times[0]:.1f} % of it")
+    assert worst <= tol, f"encoder_attention dk 32 disagrees: {worst}"
+    log(f"[kernels] encoder_attention dk 32, 3 CT-punc shapes: device ms "
+        f"summed: kernel {sums[0]:.5f}, plain {sums[1]:.4f}, SDPA "
+        f"{sums[2]:.5f}; bound {bound.ms:.6f} ({bound.by})")
+    results["encoder_attention_dk32"] = dict(
+        max_abs_err=worst, ms=sums[0], plain_ms=sums[1], library_ms=sums[2],
+        **bound.result())
+
+    err, _, lib_err, times, one, _ = one_shape(1, 12, 1500, 64, [1500],
+                                               False)
+    log(f"[kernels] encoder_attention (K1 dk=64) Whisper encoder B=1 H=12 "
+        f"T=1500 all valid: max|d|={err:.3g} (tol {tol}); device ms: kernel "
+        f"{times[0]:.5f}, plain {times[1]:.4f}, SDPA (no mask) "
+        f"{times[2]:.5f} (max|d| {lib_err:.3g}); bound {one.ms:.5f} "
+        f"({one.by}), kernel at {100 * one.ms / times[0]:.1f} % of it")
+    assert err <= tol, f"encoder_attention at Whisper's shape: {err}"
+    results["encoder_attention"]["whisper_T1500"] = dict(
+        max_abs_err=err, ms=times[0], plain_ms=times[1], library_ms=times[2],
+        **one.result())
+
+    for t, n in ((64, 63), (128, 128), (256, 256)):
+        q, k, v = (torch.randn((1, 4, t, 128), generator=gen,
+                               device="cuda") for _ in range(3))
+        valid = torch.tensor([n], device="cuda")
+        mask = (torch.arange(t, device="cuda")[None] < valid[:, None]
+                )[:, None, None, :]
+        sdpa = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                 attn_mask=mask)
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        plain = functools.partial(att.prefill_attention_reference, qt, kt,
+                                  vt, t, valid, torch.zeros_like(valid))
+        err = max_err(torch, sdpa().transpose(1, 2), plain())
+        one = Bound()
+        one.add(4 * 4 * t * 4 * 128, 4 * 128 * 4 * t * n)
+        ms = device_ms(torch, sdpa), device_ms(torch, plain)
+        log(f"[kernels] Paraformer encoder attention (dk 128, no hand-"
+            f"written kernel) B=1 H=4 T={t} valid={n}: SDPA with the "
+            f"boolean key mask {ms[0]:.5f} ms, plain twin {ms[1]:.4f} ms "
+            f"(max|d| {err:.3g}); bound {one.ms:.6f} ms ({one.by})")
+        assert err <= tol, err
 
 
 def check_k4(torch, results):
@@ -2140,6 +2279,11 @@ def data_prep(torch, tmp: str, results):
         assert sr == 16000 and np.isfinite(wav).all() and \
             np.abs(wav).max() > 0, name
 
+    # 2b. the ASR chain over the denoised clips, in its own output dirs
+    asr_chain(torch, tmp, work, denoised, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 3. the refinement list: zh rows with ZH_PINNED's sentences, two en
     zh_sentences = [s + "。" for s in ZH_TEXT.split("。") if s]
     langs = {}
@@ -2461,6 +2605,726 @@ def data_prep(torch, tmp: str, results):
         f"normalize {norm_s:.2f}, s2 {s2_s:.2f}, s1 {s1_s:.2f}); peak "
         f"memory from the normalize run on, training included, {peak:.2f} "
         f"GiB (torch.cuda.max_memory_allocated)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7, ASR: fsmn-VAD -> Paraformer-large -> CT-punc (zh), Whisper (en)
+# ---------------------------------------------------------------------------
+
+# whisper-small's 99 language tokens, in its tokenizer's order
+WHISPER_LANGUAGES = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el "
+    "ms cs ro da hu ta no th ur hr bg lt la mi ml cy sk te fa lv bn sr az "
+    "sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af "
+    "oc ka be tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as "
+    "tt haw ln ha ba jw su").split()
+WHISPER_TASKS = ("<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                 "<|startofprev|>", "<|nocaptions|>", "<|notimestamps|>")
+
+
+def funasr_yaml(kind: str, cfg) -> str:
+    """A FunASR ``config.yaml`` in the layout of the released one of
+    ``kind`` ("paraformer", "vad", "punc") with ``cfg``'s widths: nested
+    mappings, block sequences (the specaug ranges, CT-punc's ``punc_list``,
+    a sequence of sequences in ``train_conf``), flow sequences
+    (``sil_pdf_ids``) and comments."""
+    if kind == "paraformer":
+        n_mels = cfg.input_size // cfg.lfr_m
+        return f"""# network architecture
+model: Paraformer
+model_conf:
+    ctc_weight: 0.0
+    lsm_weight: 0.1
+    length_normalized_loss: true
+    predictor_weight: 1.0
+    predictor_bias: 1
+    sampling_ratio: 0.75
+
+# encoder
+encoder: SANMEncoder
+encoder_conf:
+    output_size: {cfg.d_model}
+    attention_heads: {cfg.n_heads}
+    linear_units: {cfg.ffn_dim}
+    num_blocks: {cfg.encoder_layers}
+    dropout_rate: 0.1
+    positional_dropout_rate: 0.1
+    attention_dropout_rate: 0.1
+    input_layer: pe
+    pos_enc_class: SinusoidalPositionEncoder
+    normalize_before: true
+    kernel_size: {cfg.fsmn_kernel}
+    sanm_shfit: 0
+    selfattention_layer_type: sanm
+
+# decoder
+decoder: ParaformerSANMDecoder
+decoder_conf:
+    attention_heads: {cfg.n_heads}
+    linear_units: {cfg.ffn_dim}
+    num_blocks: {cfg.decoder_layers}
+    dropout_rate: 0.1
+    positional_dropout_rate: 0.1
+    self_attention_dropout_rate: 0.1
+    src_attention_dropout_rate: 0.1
+    att_layer_num: {cfg.decoder_layers}
+    kernel_size: {cfg.fsmn_kernel}
+    sanm_shfit: 0
+
+predictor: CifPredictorV2
+predictor_conf:
+    idim: {cfg.d_model}
+    threshold: {cfg.cif_threshold}
+    l_order: {(cfg.predictor_kernel - 1) // 2}
+    r_order: {(cfg.predictor_kernel - 1) // 2}
+    tail_threshold: {cfg.tail_threshold}
+
+# frontend related
+frontend: WavFrontend
+frontend_conf:
+    fs: 16000
+    window: hamming
+    n_mels: {n_mels}
+    frame_length: 25
+    frame_shift: 10
+    lfr_m: {cfg.lfr_m}
+    lfr_n: {cfg.lfr_n}
+
+specaug: SpecAugLFR
+specaug_conf:
+    apply_time_warp: false
+    time_warp_window: 5
+    time_warp_mode: bicubic
+    apply_freq_mask: true
+    freq_mask_width_range:
+    - 0
+    - 30
+    lfr_rate: {cfg.lfr_n}
+    num_freq_mask: 1
+    apply_time_mask: true
+    time_mask_width_range:
+    - 0
+    - 12
+    num_time_mask: 1
+
+train_conf:
+  accum_grad: 1
+  grad_clip: 5
+  max_epoch: 150
+  val_scheduler_criterion:
+      - valid
+      - acc
+  best_model_criterion:
+  -   - valid
+      - acc
+      - max
+  keep_nbest_models: 10
+  log_interval: 50
+
+optim: adam
+optim_conf:
+   lr: 0.0005
+scheduler: warmuplr
+scheduler_conf:
+   warmup_steps: 30000
+
+tokenizer: CharTokenizer
+tokenizer_conf:
+  unk_symbol: <unk>
+  split_with_space: true
+
+normalize: null
+vocab_size: {cfg.vocab_size}
+"""
+    if kind == "vad":
+        n_mels = cfg.input_dim // cfg.lfr_m
+        return f"""frontend: WavFrontendOnline
+frontend_conf:
+    fs: 16000
+    window: hamming
+    n_mels: {n_mels}
+    frame_length: 25
+    frame_shift: 10
+    dither: 0.0
+    lfr_m: {cfg.lfr_m}
+    lfr_n: {cfg.lfr_n}
+
+model: FsmnVADStreaming
+model_conf:
+    sample_rate: 16000
+    detect_mode: 1
+    snr_mode: 0
+    max_end_silence_time: {cfg.max_end_silence_time}
+    max_start_silence_time: 3000
+    do_start_point_detection: True
+    do_end_point_detection: True
+    window_size_ms: {cfg.window_size_ms}
+    sil_to_speech_time_thres: {cfg.sil_to_speech_time_thres}
+    speech_to_sil_time_thres: {cfg.speech_to_sil_time_thres}
+    speech_2_noise_ratio: 1.0
+    do_extend: 1
+    lookback_time_start_point: {cfg.lookback_time_start_point}
+    lookahead_time_end_point: {cfg.lookahead_time_end_point}
+    max_single_segment_time: {cfg.max_single_segment_time}
+    snr_thres: -100.0
+    noise_frame_num_used_for_snr: 100
+    decibel_thres: -100.0
+    speech_noise_thres: {cfg.speech_noise_thres}
+    fe_prior_thres: 0.0001
+    silence_pdf_num: 1
+    sil_pdf_ids: [{", ".join(str(i) for i in cfg.sil_pdf_ids)}]
+    speech_noise_thresh_low: -0.1
+    speech_noise_thresh_high: 0.3
+    output_frame_probs: False
+    frame_in_ms: 10
+    frame_length_ms: 25
+
+encoder: FSMN
+encoder_conf:
+    input_dim: {cfg.input_dim}
+    input_affine_dim: {cfg.input_affine_dim}
+    fsmn_layers: {cfg.fsmn_layers}
+    linear_dim: {cfg.linear_dim}
+    proj_dim: {cfg.proj_dim}
+    lorder: {cfg.lorder}
+    rorder: {cfg.rorder}
+    lstride: 1
+    rstride: 0
+    output_affine_dim: {cfg.output_affine_dim}
+    output_dim: {cfg.output_dim}
+"""
+    marks = "".join(f"    - {p}\n" for p in cfg.punc_list)
+    weights = "".join("    - 1.0\n" for _ in cfg.punc_list)
+    return f"""model: CTTransformer
+model_conf:
+    ignore_id: 0
+    embed_unit: {cfg.embed_unit}
+    att_unit: {cfg.d_model}
+    dropout_rate: 0.1
+    punc_list:
+{marks}    punc_weight:
+{weights}    sentence_end_id: 3
+
+encoder: SANMEncoder
+encoder_conf:
+    input_size: {cfg.embed_unit}
+    output_size: {cfg.d_model}
+    attention_heads: {cfg.n_heads}
+    linear_units: {cfg.ffn_dim}
+    num_blocks: {cfg.num_blocks}
+    dropout_rate: 0.1
+    positional_dropout_rate: 0.1
+    attention_dropout_rate: 0.0
+    input_layer: pe
+    pos_enc_class: SinusoidalPositionEncoder
+    normalize_before: true
+    kernel_size: {cfg.fsmn_kernel}
+    sanm_shfit: 0
+    selfattention_layer_type: sanm
+    padding_idx: 0
+
+tokenizer: CharTokenizer
+tokenizer_conf:
+  unk_symbol: <unk>
+vocab_size: {cfg.vocab_size}
+"""
+
+
+def write_am_mvn(path: str, dim: int, seed: int) -> None:
+    """A kaldi-nnet ``am.mvn`` of ``dim`` entries: shifts near minus a
+    log-mel's mean, scales near one over its deviation."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shift = " ".join(f"{v:.6f}" for v in rng.uniform(-14.0, -8.0, dim))
+    scale = " ".join(f"{v:.6f}" for v in rng.uniform(0.2, 0.4, dim))
+    with open(path, "w") as f:
+        f.write(f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} "
+                f"{dim}\n<LearnRateCoef> 0 [ {shift} ]\n<Rescale> {dim} "
+                f"{dim}\n<LearnRateCoef> 0 [ {scale} ]\n</Nnet>\n")
+
+
+def asr_tokens(size: int, chars: str, head=("<blank>", "<s>", "</s>")):
+    """A FunASR token list of ``size`` entries: ``head``, ``chars``, the
+    CJK block from U+4E00, English pieces (``xy@@`` continuations and
+    whole words), ``<unk>`` last."""
+    import itertools
+    import string
+
+    out = list(dict.fromkeys(list(head) + list(chars)))[:size - 1]
+    seen = set(out)
+    out += [chr(c) for c in range(0x4E00, 0x9FA6)
+            if chr(c) not in seen][:max(0, (size - 1 - len(out)) // 2)]
+    letters = string.ascii_lowercase
+    for n in itertools.count(1):
+        for word in itertools.product(letters, repeat=n):
+            if len(out) >= size - 1:
+                return out + ["<unk>"]
+            out.append("".join(word) + ("@@" if len(out) % 2 else ""))
+
+
+def write_funasr_dir(torch, root: str, kind: str, cfg, module, gen,
+                     tokens=None, mvn_dim=None, extra=None):
+    """A FunASR model directory: ``config.yaml``, seeded random weights of
+    ``module`` in ``model.pt`` (with ``extra`` tensors, a released file's
+    training-only ones), ``tokens.json`` and ``am.mvn`` where given.
+    Returns the weights written (on the CPU)."""
+    from easevoice_trainer_tpu_torch import convert
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.yaml"), "w",
+              encoding="utf8") as f:
+        f.write(funasr_yaml(kind, cfg))
+    state = {k: v.cpu() for k, v in
+             convert.random_state_dict(module, gen).items()}
+    state.update(extra or {})
+    torch.save(state, os.path.join(root, "model.pt"))
+    if tokens is not None:
+        with open(os.path.join(root, "tokens.json"), "w",
+                  encoding="utf8") as f:
+            json.dump(tokens, f, ensure_ascii=False)
+    if mvn_dim:
+        write_am_mvn(os.path.join(root, "am.mvn"), mvn_dim, len(root))
+    return state
+
+
+def write_asr_dirs(torch, root: str, gen, para_cfg, vad_cfg, punc_cfg,
+                   chars: str):
+    """The three zh ASR directories under ``root`` (``paraformer-zh``,
+    ``fsmn-vad``, ``ct-punc``), as ``tools/fetch_pretrained.py`` lays
+    them out, with seeded random weights: the Paraformer's ``model.pt``
+    also holds the decoder's training-only token embedding, the VAD's
+    carries FunASR's ``encoder.`` prefix.  Returns the three paths."""
+    from easevoice_trainer_tpu_torch.audiokit import asr_paraformer, \
+        punc_ct, vad_fsmn
+
+    paths_ = [os.path.join(root, n)
+              for n in ("paraformer-zh", "fsmn-vad", "ct-punc")]
+    embed = (torch.rand((para_cfg.vocab_size, para_cfg.d_model),
+                        generator=gen, device=gen.device) - 0.5).cpu()
+    write_funasr_dir(torch, paths_[0], "paraformer", para_cfg,
+                     asr_paraformer.Paraformer(para_cfg), gen,
+                     asr_tokens(para_cfg.vocab_size, chars),
+                     para_cfg.input_size, {"decoder.embed.0.weight": embed})
+    vad = vad_fsmn.FSMN(vad_cfg)
+    state = write_funasr_dir(torch, paths_[1], "vad", vad_cfg, vad, gen,
+                             mvn_dim=vad_cfg.input_dim)
+    torch.save({"encoder." + k: v for k, v in state.items()},
+               os.path.join(paths_[1], "model.pt"))
+    write_funasr_dir(torch, paths_[2], "punc", punc_cfg,
+                     punc_ct.CTTransformer(punc_cfg), gen,
+                     asr_tokens(punc_cfg.vocab_size, chars,
+                                ("<blank>", "<s>", "</s>")))
+    return paths_
+
+
+def whisper_tokenizer_json(n_base: int, languages=WHISPER_LANGUAGES,
+                           n_timestamps: int = 1501) -> dict:
+    """A ``tokenizer.json`` in whisper's layout: a byte-level BPE of
+    ``n_base`` pieces (the 256 byte characters, then two-character merges,
+    so multi-byte UTF-8 sequences span pieces), then the added tokens in
+    whisper's order: ``<|endoftext|>``, ``<|startoftranscript|>``, one
+    token a language, the task tokens, ``<|notimestamps|>``, and
+    ``n_timestamps`` timestamps ``<|0.00|>`` ... (not special)."""
+    from easevoice_trainer_tpu_torch.text.whisper_tokenizer import \
+        bytes_to_unicode
+
+    byte_chars = [bytes_to_unicode()[b] for b in range(256)]
+    vocab = {c: i for i, c in enumerate(byte_chars)}
+    merges = []
+    for a in byte_chars:
+        for b in byte_chars:
+            if len(vocab) >= n_base:
+                break
+            vocab[a + b] = len(vocab)
+            merges.append(f"{a} {b}")
+    specials = (["<|endoftext|>", "<|startoftranscript|>"]
+                + [f"<|{lang}|>" for lang in languages] + list(WHISPER_TASKS))
+    added = [{"id": n_base + i, "content": tok, "special": True}
+             for i, tok in enumerate(specials)]
+    added += [{"id": n_base + len(specials) + i,
+               "content": "<|%.2f|>" % (0.02 * i), "special": False}
+              for i in range(n_timestamps)]
+    for entry in added:
+        entry.update(single_word=False, lstrip=False, rstrip=False,
+                     normalized=False)
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "post_processor": None,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                        "trim_offsets": True, "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "",
+                      "end_of_word_suffix": "", "fuse_unk": False,
+                      "byte_fallback": False, "vocab": vocab,
+                      "merges": merges}}
+
+
+def write_whisper_dir(torch, root: str, cfg, gen, tokenizer: dict,
+                      weights: str = "model.safetensors"):
+    """A Whisper directory as HF lays one out: ``config.json``, the
+    tokenizer (``tokenizer.json``, ``tokenizer_config.json``) and seeded
+    random weights under HF's ``model.``-prefixed names with the encoder's
+    stored sinusoids (the LM head is tied, so not stored); the decoder's
+    positions are 20 times larger than the other weights, so that greedy
+    ids change from one position to the next.  Returns the port's state
+    dict (on the CPU)."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.audiokit import asr_whisper
+    from easevoice_trainer_tpu_torch.utils import safetensors_io
+
+    os.makedirs(root, exist_ok=True)
+    eot = tokenizer["added_tokens"][0]["id"]
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"model_type": "whisper", "vocab_size": cfg.vocab_size,
+                   "num_mel_bins": cfg.n_mels, "d_model": cfg.d_model,
+                   "encoder_layers": cfg.encoder_layers,
+                   "decoder_layers": cfg.decoder_layers,
+                   "encoder_attention_heads": cfg.n_heads,
+                   "decoder_attention_heads": cfg.n_heads,
+                   "encoder_ffn_dim": cfg.ffn_dim,
+                   "decoder_ffn_dim": cfg.ffn_dim,
+                   "max_source_positions": cfg.max_source_positions,
+                   "max_target_positions": cfg.max_target_positions,
+                   "pad_token_id": eot, "bos_token_id": eot,
+                   "eos_token_id": eot, "decoder_start_token_id": eot + 1},
+                  f)
+    with open(os.path.join(root, "tokenizer.json"), "w",
+              encoding="utf8") as f:
+        json.dump(tokenizer, f, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "WhisperTokenizer",
+                   "unk_token": "<|endoftext|>",
+                   "bos_token": "<|endoftext|>",
+                   "eos_token": "<|endoftext|>",
+                   "clean_up_tokenization_spaces": False}, f)
+    state = {k: v.cpu() for k, v in convert.random_state_dict(
+        asr_whisper.Whisper(cfg), gen).items()}
+    state["decoder.embed_positions.weight"] *= 20
+    saved = {"model." + k: v for k, v in state.items()}
+    saved["model.encoder.embed_positions.weight"] = torch.from_numpy(
+        asr_whisper._sinusoids(cfg.max_source_positions, cfg.d_model))
+    path = os.path.join(root, weights)
+    if weights.endswith(".safetensors"):
+        safetensors_io.save_file(saved, path, {"format": "pt"})
+    else:
+        torch.save(saved, path)
+    return state
+
+
+class _StageClock:
+    """Host-clock seconds and calls of the ASR stages, by wrapping the
+    functions that compute them (synchronized after each device stage)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds, self.calls, self.restore = {}, {}, []
+
+    def wrap(self, owner, attr: str, label: str, sync: bool = True,
+             count=None):
+        fn = getattr(owner, attr)
+        self.seconds.setdefault(label, 0.0)
+        self.calls.setdefault(label, 0)
+
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                self.torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - t
+            self.calls[label] += count(out) if count else 1
+            return out
+        setattr(owner, attr, run)
+        self.restore.append((owner, attr, fn))
+
+    def undo(self):
+        for owner, attr, fn in reversed(self.restore):
+            setattr(owner, attr, fn)
+        self.restore = []
+
+
+def run_asr_cmd(params: dict, root: str, env: dict, name: str):
+    """``python -m easevoice_trainer_tpu_torch.cmd.audio_asr`` in a
+    subprocess, as the session manager runs it: (response, wall s)."""
+    from easevoice_trainer_tpu_torch.utils.connector import RESP_PREFIX
+
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(params, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "easevoice_trainer_tpu_torch.cmd.audio_asr",
+         "-c", path], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(RESP_PREFIX + " ")]
+    assert proc.returncode == 0 and len(lines) == 1, \
+        (proc.returncode, proc.stdout[-2000:], proc.stderr[-3000:])
+    return json.loads(lines[0][len(RESP_PREFIX) + 1:]), wall
+
+
+def asr_text(out_dir: str) -> str:
+    """``asrs/asr.list`` of ``out_dir`` as written: one ``path|lang|text``
+    line a clip (Whisper's text from random weights may hold newlines)."""
+    from easevoice_trainer_tpu_torch.utils import paths
+
+    with open(os.path.join(out_dir, paths.ASRS_OUTPUT, paths.ASR_FILE),
+              encoding="utf8") as f:
+        return f.read()
+
+
+def asr_chain(torch, tmp: str, work: str, denoised, results):
+    """The ASR chain at full width over the denoised clips of ``work``:
+    fsmn-VAD, Paraformer-large and CT-punc (zh) and whisper-small (en) with
+    seeded random weights in the released layouts; the ASR cmd in a
+    subprocess (zh, every clip), then in-process through the cmd's
+    ``main`` with the launch counts and the stages' clocks (zh, every
+    clip; en, two clips); the card against the CPU on the shortest clip."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import convert, ops
+    from easevoice_trainer_tpu_torch.audiokit import asr_paraformer, \
+        asr_whisper, punc_ct, vad_fsmn
+    from easevoice_trainer_tpu_torch.cmd import audio_asr
+    from easevoice_trainer_tpu_torch.utils import audio_io, paths
+
+    root = os.path.join(tmp, "asr")
+    gen = torch.Generator(device="cuda").manual_seed(20261117)
+    para_cfg = asr_paraformer.ParaformerConfig()
+    vad_cfg = vad_fsmn.FsmnVadConfig()
+    punc_cfg = punc_ct.CTPuncConfig()
+    t0 = time.perf_counter()
+    chars = "".join(ZH_PINNED) + ZH_TEXT
+    para_dir, vad_dir, punc_dir = write_asr_dirs(
+        torch, os.path.join(root, "models"), gen, para_cfg, vad_cfg,
+        punc_cfg, chars)
+    whisper_cfg = asr_whisper.WhisperConfig(
+        n_mels=80, d_model=768, encoder_layers=12, decoder_layers=12,
+        n_heads=12, ffn_dim=3072, vocab_size=51865)
+    tok = whisper_tokenizer_json(50257)
+    assert len(tok["model"]["vocab"]) + len(tok["added_tokens"]) == \
+        whisper_cfg.vocab_size
+    whisper_dir = os.path.join(root, "models", "whisper-small")
+    write_whisper_dir(torch, whisper_dir, whisper_cfg, gen, tok)
+    write_s = time.perf_counter() - t0
+    sizes = {os.path.basename(d): sum(
+        os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)) / 2 ** 20
+        for d in (para_dir, vad_dir, punc_dir, whisper_dir)}
+    log(f"[asr] model directories with seeded random weights at the "
+        f"published widths (Paraformer-large {para_cfg.encoder_layers} + "
+        f"{para_cfg.decoder_layers} layers at d {para_cfg.d_model}, vocab "
+        f"{para_cfg.vocab_size}; fsmn-VAD {vad_cfg.input_dim} -> "
+        f"{vad_cfg.output_dim}; CT-punc {punc_cfg.vocab_size} x "
+        f"{punc_cfg.embed_unit}, {punc_cfg.num_blocks} layers, "
+        f"{punc_cfg.n_heads} heads; whisper-small {whisper_cfg.encoder_layers}"
+        f" + {whisper_cfg.decoder_layers} layers at d {whisper_cfg.d_model}, "
+        f"vocab {whisper_cfg.vocab_size}), written in {write_s:.1f} s: "
+        + ", ".join(f"{k} {v:.0f} MiB" for k, v in sizes.items()))
+
+    # the zh chain: the cmd in a subprocess over every denoised clip
+    zh_dir = os.path.join(root, "zh")
+    os.makedirs(os.path.join(zh_dir, paths.DENOISES_OUTPUT))
+    for name in denoised:
+        shutil.copy(os.path.join(work, paths.DENOISES_OUTPUT, name),
+                    os.path.join(zh_dir, paths.DENOISES_OUTPUT, name))
+    seconds = {name: len(audio_io.load_audio(os.path.join(
+        zh_dir, paths.DENOISES_OUTPUT, name), 16000)) / 16000
+        for name in denoised}
+    asr_env = {"EASEVOICE_PARAFORMER_DIR": para_dir,
+               "EASEVOICE_VAD_DIR": vad_dir, "EASEVOICE_PUNC_DIR": punc_dir,
+               "EASEVOICE_WHISPER_DIR": whisper_dir}
+    env = dict(os.environ, PYTHONPATH=HERE, NVIDIA_TF32_OVERRIDE="0",
+               **asr_env)
+    params = {"source_dir": zh_dir, "output_dir": zh_dir, "language": "zh",
+              "device": "cuda"}
+    resp, sub_s = run_asr_cmd(params, root, env, "asr_zh")
+    rows = asr_text(zh_dir).split("\n")
+    log(f"[asr] cmd.audio_asr subprocess (zh: fsmn-VAD -> Paraformer -> "
+        f"CT-punc): {resp['status']}, '{resp['message']}', {len(rows)} rows "
+        f"for {len(denoised)} clips ({sum(seconds.values()):.1f} s of audio)"
+        f" in {sub_s:.2f} s wall (the interpreter's start and three model "
+        f"loads included); first row: {rows[0][-60:]!r}")
+    assert resp["status"] == "success" and resp["message"] == "asr success"
+    assert all(v == "success" for v in resp["data"].values()), resp
+    assert len(resp["data"]) == len(denoised) == len(rows)
+    with open(os.path.join(zh_dir, paths.REFINEMENTS_OUTPUT,
+                           paths.REFINEMENT_FILE), encoding="utf8") as f:
+        assert f.read().split("\n") == rows
+    for row, name in zip(rows, denoised):
+        path, lang, text = row.split("|", 2)
+        assert path.endswith(name) and lang == "zh" and text, row
+
+    # the same cmd in-process, counted and clocked by stage
+    old_env = {k: os.environ.get(k) for k in asr_env}
+    os.environ.update(asr_env)
+    clock = _StageClock(torch)
+    clock.wrap(asr_paraformer.ParaformerASR, "features", "fbank/LFR (host)",
+               sync=False)
+    clock.wrap(vad_fsmn.FsmnVAD, "speech_probs", "VAD")
+    clock.wrap(asr_paraformer.Paraformer, "encode", "Paraformer encode")
+    clock.wrap(asr_paraformer, "cif_fire", "CIF (host)", sync=False)
+    clock.wrap(asr_paraformer.Paraformer, "decode", "Paraformer decode")
+    clock.wrap(punc_ct.CTPunc, "restore", "punc")
+    clock.wrap(punc_ct.CTPunc, "_logits", "punc calls")
+    clock.wrap(asr_whisper.WhisperASR, "chunk_mels", "log-mel (host)",
+               sync=False)
+    clock.wrap(asr_whisper.WhisperEncoder, "forward", "Whisper encode")
+    clock.wrap(asr_whisper.Whisper, "greedy", "Whisper greedy",
+               count=len)
+    runs = {}
+    try:
+        for lang, names in (("zh", denoised),
+                            ("en", sorted(denoised, key=seconds.get)[:2])):
+            out = os.path.join(root, f"{lang}_in_process")
+            os.makedirs(os.path.join(out, paths.DENOISES_OUTPUT))
+            for name in names:
+                shutil.copy(os.path.join(work, paths.DENOISES_OUTPUT, name),
+                            os.path.join(out, paths.DENOISES_OUTPUT, name))
+            before = dict(clock.seconds), dict(clock.calls)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            resp = audio_asr.main(dict(params, source_dir=out,
+                                       output_dir=out, language=lang))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = ops.launch_counts()
+            assert resp.ok and resp.message == "asr success", resp
+            assert all(v == "success" for v in resp.data.values()), resp
+            runs[lang] = dict(
+                wall=wall, launches=launches, text=asr_text(out),
+                paths=[os.path.join(out, paths.DENOISES_OUTPUT, n)
+                       for n in names],
+                audio=sum(seconds[n] for n in names), clips=len(names),
+                seconds={k: v - before[0][k]
+                         for k, v in clock.seconds.items()},
+                calls={k: v - before[1][k] for k, v in clock.calls.items()})
+    finally:
+        clock.undo()
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    zh, en = runs["zh"], runs["en"]
+    assert [r.split("|", 2)[2] for r in zh["text"].split("\n")] == \
+        [r.split("|", 2)[2] for r in rows], "in-process zh text differs"
+    punc_calls = zh["calls"]["punc calls"]
+    chunks = en["calls"]["Whisper encode"]
+    k32, k64 = (zh["launches"]["encoder_attention_dk32"],
+                en["launches"]["encoder_attention"])
+    log(f"[asr] in-process cmd.audio_asr.main: zh {zh['clips']} clips in "
+        f"{zh['wall']:.2f} s ({punc_calls} punctuation calls, K1 dk-32 "
+        f"launches {k32}, dk-64 {zh['launches']['encoder_attention']}); en "
+        f"{en['clips']} clips ({en['audio']:.2f} s) in {en['wall']:.2f} s "
+        f"({chunks} Whisper chunks, {en['calls']['Whisper greedy']} tokens "
+        f"generated, K1 dk-64 launches {k64}, dk-32 "
+        f"{en['launches']['encoder_attention_dk32']}); each wall includes "
+        f"the model loads; en asr.list ends {en['text'][-60:]!r}")
+    assert k32 == punc_cfg.num_blocks * punc_calls and punc_calls > 0
+    assert zh["launches"]["encoder_attention"] == 0
+    assert k64 == whisper_cfg.encoder_layers * chunks and chunks == 2
+    assert en["launches"]["encoder_attention_dk32"] == 0
+    assert en["text"].startswith(en["paths"][0] + "|en|")
+    assert "\n" + en["paths"][1] + "|en|" in en["text"]
+    for key, n, label in (("encoder_attention_dk32", k32, "asr_zh"),
+                          ("encoder_attention", k64, "asr_whisper")):
+        r = results.setdefault(key, {})
+        r["launches"] = r.get("launches", 0) + n
+        r.setdefault("per_path", {})[label] = n
+    for lang, run in runs.items():
+        minutes = run["audio"] / 60
+        stages = {k: v for k, v in run["seconds"].items()
+                  if run["calls"][k] and k not in ("punc calls",
+                                                   "Whisper greedy")}
+        if lang == "en":
+            tokens = run["calls"]["Whisper greedy"]
+            decode = run["seconds"]["Whisper greedy"] - \
+                run["seconds"]["Whisper encode"]
+            stages["Whisper decode"] = decode
+            per_token = f"; Whisper decode {1000 * decode / tokens:.2f} " \
+                f"ms a token over {tokens} tokens"
+        else:
+            per_token = ""
+        log(f"[asr] {lang} stages, seconds a minute of audio (host clock, "
+            f"synchronized; {run['audio']:.2f} s of audio): "
+            + ", ".join(f"{k} {v / minutes:.4f} ({v:.3f} s, "
+                        f"{run['calls'][k] if k in run['calls'] else '-'} "
+                        f"calls)" for k, v in stages.items()) + per_token)
+
+    # the card against the CPU on the shortest clip
+    name = min(denoised, key=seconds.get)
+    wav = audio_io.load_audio(os.path.join(work, paths.DENOISES_OUTPUT,
+                                           name), 16000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vad = vad_fsmn.FsmnVAD(vad_dir, dev)
+        asr = asr_paraformer.ParaformerASR(para_dir, dev)
+        segs = vad.segments(wav)
+        s, e = segs[0]
+        res = asr._infer(asr.features(wav[s:e]))
+        text = asr_paraformer.tokens_to_text(res.ids, asr.tokens)
+        punc = punc_ct.CTPunc(punc_dir, dev)
+        words = punc_ct.code_mix_split_words(text)
+        marks = punc._predict_puncs(words)
+        out[dev] = dict(segs=segs, enc=res.enc.cpu(), alphas=res.alphas.cpu(),
+                        logits=res.logits.cpu(), ids=res.ids, marks=marks)
+        del vad, asr, punc
+    card, cpu = out["cuda"], out["cpu"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa
+    enc_rel, alpha_rel = rel(card["enc"], cpu["enc"]), \
+        rel(card["alphas"], cpu["alphas"])
+    assert card["segs"] == cpu["segs"], (card["segs"], cpu["segs"])
+    assert len(card["ids"]) == len(cpu["ids"])
+    gaps = []
+    for i, (a, b) in enumerate(zip(card["ids"], cpu["ids"])):
+        if a != b:
+            top = torch.topk(cpu["logits"][0, i], 2).values
+            gaps.append(float((top[0] - top[1]) / top[0].abs()))
+    log(f"[asr] card vs CPU on {name} ({len(wav) / 16000:.2f} s): VAD "
+        f"segments identical {card['segs']}; Paraformer encoder output "
+        f"relative max|d|={enc_rel:.3g}, alphas {alpha_rel:.3g} (tol 1e-4); "
+        f"token ids identical {len(card['ids']) - len(gaps)}/"
+        f"{len(card['ids'])}" + (f" (top-2 gaps of the rest {gaps})" if gaps
+                                 else "")
+        + f"; CT-punc marks identical {card['marks'] == cpu['marks']} over "
+        f"{len(card['marks'])} words")
+    assert enc_rel <= 1e-4 and alpha_rel <= 1e-4
+    assert all(g < 1e-4 for g in gaps), gaps
+    assert card["marks"] == cpu["marks"]
+
+    # Whisper at full width and 2 + 2 layers, the card against the CPU
+    small = dataclasses.replace(whisper_cfg, encoder_layers=2,
+                                decoder_layers=2)
+    model = asr_whisper.Whisper(small)
+    model.load_state_dict(convert.random_state_dict(model, gen))
+    mel = asr_whisper.log_mel_spectrogram(np.pad(
+        wav, (0, asr_whisper.CHUNK_SAMPLES - len(wav))), 80)[None]
+    forced = [tok["added_tokens"][1]["id"],
+              tok["added_tokens"][2]["id"]]        # <|startoftranscript|>, en
+    eot = tok["added_tokens"][0]["id"]
+    got = []                                # the card's, then the CPU's
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        x = torch.from_numpy(mel).to(dev)
+        ids = m.greedy(x, forced, eot, 16)
+        with torch.no_grad():
+            state = m.decoder.start(m.encoder(x))
+            seq = torch.tensor([forced + ids[:-1]], device=dev)
+            got.append((ids, m.decoder(seq, 0, state).cpu()))
+    wrel = rel(got[0][1], got[1][1])
+    log(f"[asr] whisper-small widths at {small.encoder_layers} + "
+        f"{small.decoder_layers} layers, card vs CPU on the same clip: "
+        f"greedy ids identical {got[0][0] == got[1][0]} ({len(got[0][0])} "
+        f"tokens), teacher-forced logits relative max|d|={wrel:.3g} (tol "
+        f"1e-4)")
+    assert got[0][0] == got[1][0] and wrel <= 1e-4
+    del model
+    log("[asr] the refinement list that normalize reads below keeps its "
+        "ZH_PINNED rows: with random weights the ASR text means nothing")
 
 
 # ---------------------------------------------------------------------------
@@ -3088,6 +3952,7 @@ def main() -> int:
         phase = "kernels"
         check_kernels(torch, results, parent and parent.ops.attention)
         check_encoder(torch, results)
+        check_encoder_asr(torch, results)
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
         if parent is not None:
@@ -3134,7 +3999,10 @@ def main() -> int:
         log(f"[isolation] after serving English and Chinese text, resampling "
             f"the reference clip (native resampler built: "
             f"{native.available()}), preparing a dataset (slicer, FRCRN, "
-            f"the three normalization stages, 2 + 2 training steps on it), "
+            f"the ASR chain (fsmn-VAD, Paraformer, CT-punc, Whisper; its "
+            f"config.yaml files read by the port's reader, Whisper's "
+            f"tokenizer the port's own), the three normalization stages, "
+            f"2 + 2 training steps on it), "
             f"12 s2 training steps and 12 s1 micro-batches, modules of "
             f"easevoice_trainer_tpu, jax, flax, yaml, transformers or "
             f"safetensors loaded: {foreign}")
@@ -3158,7 +4026,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        for extra in ("warm_ms", "s1", "calls", "launches_per_call"):
+        for extra in ("warm_ms", "s1", "calls", "launches_per_call",
+                      "whisper_T1500"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

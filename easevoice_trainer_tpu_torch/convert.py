@@ -7,10 +7,14 @@ SoVITS, its discriminators and GPT go through the checkpoint name rules of
 reference torch names.  HuBERT goes through a numpy inverse of the JAX package's
 ``convert_hf_hubert``, giving HF ``HubertModel`` names, and BERT through the
 inverse of ``models/bert.py`` ``convert_hf_bert``, giving HF ``BertModel``
-names.  Each result loads with ``load_state_dict(strict=True)``.
+names.  The ASR nets go through inverses of the JAX package's four ASR
+converters: Paraformer and CT-punc to FunASR's names, the fsmn-VAD to
+FunASR's FSMN encoder names, Whisper to HF's.  Each result loads with
+``load_state_dict(strict=True)``.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -228,4 +232,124 @@ def frcrn_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
             elif leaf == "kernel":
                 v = v.T
             out[name] = v
+    return _to_torch(out)
+
+
+# ---- the ASR chain: inverses of the JAX package's four ASR converters -------
+
+_LAYER = re.compile(r"^(encoders0|decoders3|encoders|decoders)_(\d+)$")
+
+
+def _flax_leaf(leaf: str, v: np.ndarray):
+    """A flax leaf as its torch name and layout: Dense kernels (in, out)
+    -> (out, in), conv kernels (k, in, out) -> (out, in, k), LayerNorm scale
+    and embedding -> weight."""
+    if leaf == "kernel":
+        return "weight", v.T if v.ndim == 2 else v.transpose(2, 1, 0)
+    return {"scale": "weight", "embedding": "weight"}.get(leaf, leaf), v
+
+
+def _sanm_names(params: Dict[str, Any], prefix: str = ""
+                ) -> Dict[str, np.ndarray]:
+    """Flax SAN-M trees (Paraformer, CT-punc) -> FunASR names: layer
+    ``encoders_3`` -> ``encoders.3`` (``encoders0_0``, ``decoders3_0``
+    alike), the encoder FSMN's ``fsmn_block/conv`` -> ``fsmn_block``."""
+    out = {}
+    for key, v in ckpt.flatten_tree(params).items():
+        *path, leaf = key.split("/")
+        path = [_LAYER.sub(r"\1.\2", p) for p in path if p != "conv"]
+        name, v = _flax_leaf(leaf, np.asarray(v, np.float32))
+        out[prefix + ".".join(path + [name])] = v
+    return out
+
+
+def _inner(params: Dict[str, Any]) -> Dict[str, Any]:
+    return params.get("params", params)
+
+
+def paraformer_state_dict(params: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """Paraformer params -> the port's Paraformer state dict, FunASR's names
+    (inverse of ``audiokit/asr_paraformer.py convert_paraformer_weights``)."""
+    return _to_torch(_sanm_names(_inner(params)))
+
+
+def ct_punc_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """CT-Transformer params -> the port's CTTransformer state dict
+    (inverse of ``audiokit/punc_ct.py convert_ct_punc_weights``): the
+    encoder's layers and final norm under ``encoder.``, ``embed`` and the
+    ``decoder`` head at the top."""
+    p = dict(_inner(params))
+    top = {k: p.pop(k) for k in ("embed", "decoder")}
+    return _to_torch({**_sanm_names(top), **_sanm_names(p, "encoder.")})
+
+
+def fsmn_vad_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """FSMN VAD params -> the port's FSMN state dict, FunASR's encoder names
+    without the ``encoder.`` prefix (inverse of ``audiokit/vad_fsmn.py
+    convert_fsmn_vad_weights``): each Dense under ``.linear``, the memory
+    taps (k, 1, C) -> Conv2d (C, 1, k, 1)."""
+    out = {}
+    for key, v in ckpt.flatten_tree(_inner(params)).items():
+        *path, leaf = key.split("/")
+        v = np.asarray(v, np.float32)
+        m = re.match(r"fsmn_(\d+)$", path[0])
+        head = f"fsmn.{m.group(1)}" if m else path[0]
+        if path[-1] in ("conv_left", "conv_right"):
+            out[f"{head}.fsmn_block.{path[-1]}.weight"] = \
+                v.transpose(2, 1, 0)[..., None]
+            continue
+        name, v = _flax_leaf(leaf, v)
+        out[".".join([head] + path[1:] + ["linear", name])] = v
+    return _to_torch(out)
+
+
+def whisper_state_dict(enc_params: Dict[str, Any], dec_params: Dict[str, Any],
+                       cross_params: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """Whisper's three trees (encoder, decoder step, cross K/V) -> the
+    port's Whisper state dict, HF's names without ``model.`` (inverse of
+    ``audiokit/asr_whisper.py convert_whisper_weights``)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def put(torch_name: str, flat: Dict[str, np.ndarray], key: str):
+        for leaf in ("kernel", "bias", "scale", "embedding"):
+            if f"{key}/{leaf}" in flat:
+                name, v = _flax_leaf(leaf, flat[f"{key}/{leaf}"])
+                out[f"{torch_name}.{name}"] = v
+
+    enc = {k: np.asarray(v, np.float32)
+           for k, v in ckpt.flatten_tree(_inner(enc_params)).items()}
+    dec = {k: np.asarray(v, np.float32)
+           for k, v in ckpt.flatten_tree(_inner(dec_params)).items()}
+    cross = {k: np.asarray(v, np.float32)
+             for k, v in ckpt.flatten_tree(_inner(cross_params)).items()}
+    for name in ("conv1", "conv2", "layer_norm"):
+        put(f"encoder.{name}", enc, name)
+    i = 0
+    while f"layer_{i}/fc1/kernel" in enc:
+        t, f = f"encoder.layers.{i}", f"layer_{i}"
+        for name in ("self_attn_layer_norm", "final_layer_norm", "fc1",
+                     "fc2"):
+            put(f"{t}.{name}", enc, f"{f}/{name}")
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{t}.self_attn.{name}", enc, f"{f}/self_attn/{name}")
+        i += 1
+    out["decoder.embed_tokens.weight"] = dec["tok_emb/embedding"]
+    out["decoder.embed_positions.weight"] = dec["pos_emb"]
+    put("decoder.layer_norm", dec, "layer_norm")
+    i = 0
+    while f"layer_{i}_fc1/kernel" in dec:
+        t, f = f"decoder.layers.{i}", f"layer_{i}"
+        for tn, fn in (("self_attn_layer_norm", "self_ln"),
+                       ("encoder_attn_layer_norm", "cross_ln"),
+                       ("final_layer_norm", "ffn_ln"), ("fc1", "fc1"),
+                       ("fc2", "fc2"), ("encoder_attn.q_proj", "cross_q"),
+                       ("encoder_attn.out_proj", "cross_out")):
+            put(f"{t}.{tn}", dec, f"{f}_{fn}")
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{t}.self_attn.{name}", dec, f"{f}_self_attn/{name}")
+        put(f"{t}.encoder_attn.k_proj", cross, f"{f}_cross_k")
+        put(f"{t}.encoder_attn.v_proj", cross, f"{f}_cross_v")
+        i += 1
     return _to_torch(out)

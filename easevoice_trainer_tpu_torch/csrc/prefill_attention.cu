@@ -1,6 +1,7 @@
 // K1: GPT prefill attention over [text; audio prompt] with the hybrid mask
 // computed inline from three lengths; its instance at head width 64 is the
-// encoders' attention (BERT, G2PW's BERT, HuBERT).
+// encoders' attention (BERT, G2PW's BERT, HuBERT, Whisper's encoder), and
+// its dk-32 instance with no audio part is CT-punc's.
 //
 // Replaces: the Pallas kernel flash_prefill_attention
 // (easevoice_trainer_tpu/ops/pallas/flash_prefill.py `_kernel`, git 0ec4461),
@@ -364,20 +365,27 @@ extern "C" int ev_prefill_attention_f32(
   return (int)cudaGetLastError();
 }
 
-// The encoders' attention: K1 at dk = 64 with x_len = T, so every row sees
-// the keys below valid_lens[b] and nothing else (the y_lens the kernel reads
-// clamp to T - x_len = 0).  q/k/v (B, T, H, 64) with the strides above,
-// o (B, T, H, 64) contiguous; no lse.
+// The encoders' attention: K1 with x_len = T, so every row sees the keys
+// below valid_lens[b] and nothing else (the y_lens the kernel reads clamp to
+// T - x_len = 0).  dk selects the instance: 64 (BERT, G2PW's BERT, HuBERT,
+// Whisper's encoder) or 32 (CT-punc's 256/8).  q/k/v (B, T, H, dk) with the
+// strides above, o (B, T, H, dk) contiguous; no lse.
 extern "C" int ev_encoder_attention_f32(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
     long long q_st, long long k_sb, long long k_st, long long v_sb,
-    long long v_st, const void* valid_lens, int B, int T, int H, float scale,
-    void* stream) {
-  if (T <= 0) return (int)cudaErrorInvalidValue;
+    long long v_st, const void* valid_lens, int B, int T, int H, int dk,
+    float scale, void* stream) {
+  if (T <= 0 || (dk != 32 && dk != 64)) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  prefill_attention_kernel<64><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, nullptr,
-      q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
-      (const int*)valid_lens, T, H, T, scale);
+  if (dk == 32)
+    prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
+        (const int*)valid_lens, T, H, T, scale);
+  else
+    prefill_attention_kernel<64><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
+        (const int*)valid_lens, T, H, T, scale);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """GPT attention kernels K1 (prefill), K2 (single-token decode) and K5 (the
 gradient of K1, for the s1 fine-tune), and the encoders' attention (K1 at
-head width 64: BERT, G2PW's BERT, HuBERT).
+head width 64: BERT, G2PW's BERT, HuBERT, Whisper's encoder; at head width
+32: CT-punc).
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs the
 plain PyTorch twin (``*_reference``, written from the JAX math with a dense
@@ -22,7 +23,9 @@ import torch
 from . import build
 
 DK = 32  # the GPT kernels are written for the 512/16 GPT's head width
-ENCODER_DK = 64  # K1's encoder instance: 1024/16 (BERT), 768/12 (G2PW, HuBERT)
+ENCODER_DK = 64  # K1's encoder instance: 1024/16 (BERT), 768/12 (G2PW, HuBERT,
+#                  Whisper-small)
+ENCODER_DKS = (DK, ENCODER_DK)  # the encoder route also takes CT-punc's 256/8
 
 
 def build_hybrid_mask_bias(x_len: int, y_len: int, x_lens: torch.Tensor,
@@ -175,47 +178,59 @@ prefill_attention.launches = 0
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       valid_lens: torch.Tensor) -> torch.Tensor:
     """Bidirectional attention with a key-padding mask, the encoders' (BERT,
-    G2PW's BERT, HuBERT).  q/k/v: (B, T, H, 64) fp32 (views of the
-    projections are fine); valid_lens: (B,) int.  Every query row of batch
-    row b, pad rows included, sees the keys below ``valid_lens[b]``.
-    Returns o (B, T, H, 64).
+    G2PW's BERT, HuBERT and Whisper's encoder at dk 64; CT-punc at dk 32).
+    q/k/v: (B, T, H, dk) fp32 with dk 32 or 64 (views of the projections
+    are fine); valid_lens: (B,) int.  Every query row of batch row b, pad
+    rows included, sees the keys below ``valid_lens[b]``.  Returns o
+    (B, T, H, dk).
 
     This is K1's hybrid mask with no audio part: with x_len = T and
     y_lens = 0, ``build_hybrid_mask_bias`` lets each row see the keys below
     x_lens[b] (its text branch; the audio branch covers no key), which is
     the JAX BERT's ``pad_bias`` (models/bert.py:88-91: 0 where
     attention_mask > 0, -inf elsewhere, added to every row's scores) when
-    the mask is a prefix of ones, as a tokenizer's is, and HuBERT's frame
-    mask (models/cnhubert.py:212-217).  The JAX BERT divides q by sqrt(dk)
-    before the product (bert.py:50); K1 scales the scores: both fp32, so
-    they differ in rounding only.  A row with valid_lens 0 would give NaN
-    in JAX and zeros in K1; it does not occur ([CLS] is always valid, a
-    HuBERT clip always has frames).
+    the mask is a prefix of ones, as a tokenizer's is, HuBERT's frame mask
+    (models/cnhubert.py:212-217) and CT-punc's word mask
+    (audiokit/punc_ct.py:112, ``finfo.min`` where K1 has -inf: every row
+    sees at least one key, so the softmax is the same).  The JAX nets divide
+    q by sqrt(dk) before the product (bert.py:50, asr_whisper.py:151,
+    punc_ct.py:109); K1 scales the scores: both fp32, so they differ in
+    rounding only.  A row with valid_lens 0 would give NaN in JAX and zeros
+    in K1; it does not occur ([CLS] is always valid, a HuBERT clip always
+    has frames, a punctuation call at least one word, Whisper's 1500
+    frames are all valid).
 
     On the CPU the plain twin runs (``prefill_attention_reference``); on a
-    CUDA tensor K1's dk-64 instance launches, or this raises."""
-    b, t = q.shape[:2]
+    CUDA tensor K1's instance of that head width launches, or this raises.
+    ``launches`` counts the dk-64 launches, ``launches_dk32`` the dk-32
+    ones."""
+    b, t, h, dk = q.shape
     if q.device.type == "cpu":
         return prefill_attention_reference(
             q, k, v, t, valid_lens, torch.zeros_like(valid_lens))
     _check_cuda("encoder_attention", q, k, v, valid_lens)
-    _check_heads("encoder_attention", q, k, v, ENCODER_DK)
-    h = q.shape[2]
+    if dk not in ENCODER_DKS:
+        raise ValueError(f"encoder_attention: K1 has instances for dk in "
+                         f"{ENCODER_DKS}, got dk={dk}")
+    _check_heads("encoder_attention", q, k, v, dk)
     valid_lens = valid_lens.to(torch.int32).contiguous()
-    o = torch.empty((b, t, h, ENCODER_DK), dtype=torch.float32,
-                    device=q.device)
+    o = torch.empty((b, t, h, dk), dtype=torch.float32, device=q.device)
     rc = build.build().ev_encoder_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), valid_lens.data_ptr(), b, t, h,
-        1.0 / math.sqrt(ENCODER_DK),
+        v.stride(0), v.stride(1), valid_lens.data_ptr(), b, t, h, dk,
+        1.0 / math.sqrt(dk),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "encoder_attention")
-    encoder_attention.launches += 1
+    if dk == ENCODER_DK:
+        encoder_attention.launches += 1
+    else:
+        encoder_attention.launches_dk32 += 1
     return o
 
 
 encoder_attention.launches = 0
+encoder_attention.launches_dk32 = 0
 
 
 def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,

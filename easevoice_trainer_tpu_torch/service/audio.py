@@ -1,16 +1,29 @@
 """Audio preparation service (JAX: service/audio.py AudioService): the
-slicer, the denoise stage and the refinement list, with the JAX package's
-artifact contract:
+slicer, the denoise stage, ASR and the refinement list, with the JAX
+package's artifact contract:
 
   slices/                   <- {name}_{start:010d}_{end:010d}.wav @32k int16
   denoises/                 <- denoised slices (16 kHz with FRCRN)
   asrs/asr.list             <- path|lang|text
   refinements/refinement.list
 
-Vocal separation (``uvr5``) and ASR (``asr``) wait for their nets.  The
-denoiser runs on the service's device: the card unless the caller asks for
-the CPU.  ``EASEVOICE_ALLOW_PASSTHROUGH=1`` copies the slices unmodified
-where no denoise backend can be built, and the response says so.
+Vocal separation (``uvr5``) waits for its nets.  The denoiser and the ASR
+nets run on the service's device: the card unless the caller asks for the
+CPU.  ``EASEVOICE_ALLOW_PASSTHROUGH=1`` copies the slices unmodified where
+no denoise backend can be built, and writes empty transcripts where no ASR
+model directory exists; the response says so.
+
+ASR: for ``zh``, fsmn-VAD -> Paraformer-large -> CT-punc
+(``EASEVOICE_PARAFORMER_DIR``, ``EASEVOICE_VAD_DIR``, ``EASEVOICE_PUNC_DIR``,
+by default ``<base>/models/asr/{paraformer-zh,fsmn-vad,ct-punc}``; the VAD and
+the punctuation are each left out where their directory holds no
+checkpoint), and Whisper for the other languages, or for zh without a
+Paraformer (``EASEVOICE_WHISPER_DIR``, by default ``<base>/models/whisper``).
+Two differences from the JAX service, on purpose: it tries no external
+backend first (``faster_whisper``, ``funasr``: packages of finished models,
+whatever ``asr_model`` says), and a checkpoint that is present but does not
+load raises, where the JAX loaders log it and quietly drop the VAD or the
+punctuation, or fall through to Whisper.
 """
 from __future__ import annotations
 
@@ -24,7 +37,7 @@ import numpy as np
 
 from ..audiokit.refinement import Refinement
 from ..audiokit.slicer import Slicer
-from ..utils import audio_io
+from ..utils import audio_io, paths
 from ..utils.device import resolve_device
 from ..utils.logger import logger
 from ..utils.paths import (
@@ -137,6 +150,109 @@ class AudioService:
                          traceback.format_exc())
             return None
         return Denoise(device)
+
+    # ---- ASR -----------------------------------------------------------------
+
+    def asr(self, asr_model: str = "funasr", model_size: str = "large",
+            language: str = "zh", precision: str = "float32",
+            **_kwargs) -> EaseVoiceResponse:
+        """Transcribe every denoised clip into ``asrs/asr.list`` and the
+        refinement dump, ``path|lang|text`` a line.  ``asr_model``,
+        ``model_size`` and ``precision`` name external backends, which the
+        port does not have: the route is chosen by ``language``."""
+        files = self._get_files(DENOISES_OUTPUT)
+        output_file = os.path.join(self.output_dir, ASRS_OUTPUT, ASR_FILE)
+        dump_file = os.path.join(self.output_dir, REFINEMENTS_OUTPUT,
+                                 REFINEMENT_FILE)
+        os.makedirs(os.path.dirname(output_file), exist_ok=True)
+        os.makedirs(os.path.dirname(dump_file), exist_ok=True)
+
+        recognize = self._load_asr(language, self.device)
+        if recognize is None and not _passthrough_allowed():
+            return EaseVoiceResponse(
+                ResponseStatus.FAILED,
+                f"ASR backend '{asr_model}' unavailable in this environment")
+
+        lines: List[str] = []
+        trace: Dict[str, str] = {}
+        for path in files:
+            try:
+                text = recognize(path) if recognize else ""
+                lines.append(f"{path}|{language.lower()}|{text}")
+                trace[path] = ResponseStatus.SUCCESS
+            except Exception:
+                logger.error("asr failed for %s\n%s", path,
+                             traceback.format_exc())
+                trace[path] = ResponseStatus.FAILED
+        for target in (output_file, dump_file):
+            with open(target, "w", encoding="utf-8") as f:
+                f.write("\n".join(lines))
+        if recognize is None:
+            # passthrough must be visible to the caller, not silent
+            return EaseVoiceResponse(
+                ResponseStatus.SUCCESS,
+                "asr passthrough: no ASR backend available; empty "
+                "transcripts written (set EASEVOICE_WHISPER_DIR or install "
+                "an ASR backend)", trace)
+        return EaseVoiceResponse(ResponseStatus.SUCCESS, "asr success", trace)
+
+    @staticmethod
+    def _load_asr(language: str, device):
+        """The zh chain for zh where a Paraformer checkpoint exists, else
+        Whisper; None where neither has a checkpoint."""
+        if language == "zh":
+            recognize = AudioService._load_paraformer(device)
+            if recognize is not None:
+                return recognize
+        return AudioService._load_whisper(language, device)
+
+    @staticmethod
+    def _load_paraformer(device):
+        """fsmn-VAD segmentation -> Paraformer transcription -> CT-Transformer
+        punctuation (the reference FunASR pipeline); None without a
+        Paraformer checkpoint, and no VAD / punctuation stage without
+        theirs."""
+        from ..audiokit.asr_paraformer import SAMPLE_RATE, ParaformerASR
+        from ..audiokit.punc_ct import CTPunc
+        from ..audiokit.vad_fsmn import FsmnVAD
+
+        base = paths.get_base_path()
+
+        def model_dir(env: str, name: str) -> str:
+            return os.environ.get(env) or os.path.join(base, "models", "asr",
+                                                       name)
+
+        asr = ParaformerASR(model_dir("EASEVOICE_PARAFORMER_DIR",
+                                      "paraformer-zh"), device)
+        if not asr.available:
+            return None
+        vad = FsmnVAD(model_dir("EASEVOICE_VAD_DIR", "fsmn-vad"), device)
+        punc = CTPunc(model_dir("EASEVOICE_PUNC_DIR", "ct-punc"), device)
+
+        def recognize(path: str) -> str:
+            wav = audio_io.load_audio(path, SAMPLE_RATE, mono=True)
+            if vad.available:
+                segs = vad.segments(wav)
+                text = "".join(asr.transcribe(wav[s:e]) for s, e in segs)
+            else:
+                text = asr.transcribe(wav)
+            if punc.available and text:
+                text = punc.restore(text)
+            return text
+
+        return recognize
+
+    @staticmethod
+    def _load_whisper(language: str, device):
+        from ..audiokit.asr_whisper import WhisperASR
+
+        model_dir = os.environ.get("EASEVOICE_WHISPER_DIR") or os.path.join(
+            paths.get_base_path(), "models", "whisper")
+        asr = WhisperASR(model_dir, device)
+        if not asr.available:
+            return None
+        lang = None if language == "auto" else language
+        return lambda path: asr.transcribe(path, lang)
 
     # ---- refinement -------------------------------------------------------------
 

@@ -6,10 +6,15 @@ must agree exactly; they differ from the originals only in their imports.
 Where a G2PWModel directory exists, both Chinese frontends read polyphones
 with their G2PW model and give the same phones.
 
+The ASR chain's host copies (fbank / LFR / CMVN, CIF, ``tokens_to_text``,
+the VAD's segmenter, CT-punc's word split, Whisper's log-mel) are held to
+theirs too, and the port's YAML reader to PyYAML on FunASR's configs.
+
 One subprocess test shows that the port stands alone: with an import hook
-that refuses ``easevoice_trainer_tpu``, ``jax`` and ``flax``, every module of
-the port imports, the text frontend runs in every language and a wav loads
-and resamples.
+that refuses ``easevoice_trainer_tpu``, ``jax``, ``flax``, ``transformers``,
+``safetensors`` and ``yaml``, every module of the port imports, the text
+frontend runs in every language, a wav loads and resamples, and the data
+preparation and ASR cmds run on the CPU.
 """
 import os
 import struct
@@ -710,7 +715,7 @@ _ISOLATED = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 REFUSED = ("easevoice_trainer_tpu", "jax", "jaxlib", "flax", "transformers",
-           "safetensors")
+           "safetensors", "yaml")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -834,16 +839,36 @@ n = len(os.listdir(os.path.join(work, "denoises")))
 assert len(os.listdir(os.path.join(out, "4-cnhubert"))) == n
 assert len(open(os.path.join(out, "6-name2semantic.tsv")).read().strip(
     ).splitlines()) == n + 1
+# the ASR chain through the ASR cmd's main() on the CPU at tiny widths: zh
+# (fsmn-VAD, Paraformer, CT-punc; FunASR config.yaml files through the
+# port's reader) and en (Whisper; the port's own tokenizer)
+sys.path.insert(0, "tests")
+from _torch_asr_tiny import write_clips, write_whisper_dir, write_zh_dirs
+from easevoice_trainer_tpu_torch.cmd import audio_asr
+asr_root = os.path.join(root, "asr")
+dirs = write_zh_dirs(os.path.join(asr_root, "models"))
+write_whisper_dir(os.path.join(asr_root, "whisper"))
+os.environ.update(EASEVOICE_PARAFORMER_DIR=dirs[0], EASEVOICE_VAD_DIR=dirs[1],
+                  EASEVOICE_PUNC_DIR=dirs[2],
+                  EASEVOICE_WHISPER_DIR=os.path.join(asr_root, "whisper"))
+for lang in ("zh", "en"):
+    out = os.path.join(asr_root, lang)
+    write_clips(out, seconds=(1.5,))
+    r = audio_asr.main({"source_dir": out, "output_dir": out,
+                        "language": lang, "device": "cpu"})
+    assert r.ok and r.message == "asr success", r
+    assert set(r.data.values()) == {"success"}, r
 print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 """
 
 
 def test_port_stands_alone_subprocess(tmp_path):
     """A fresh interpreter that refuses to import the JAX package, jax,
-    flax, transformers and safetensors imports every module of the port, runs the text frontend in every
-    language, loads and resamples a wav, reads configs/gpt.yaml, takes
-    two micro-batches of the s1 train step, and prepares a dataset through
-    the slicer, denoise and normalize cmds on the CPU."""
+    flax, transformers, safetensors and yaml imports every module of the
+    port, runs the text frontend in every language, loads and resamples a
+    wav, reads configs/gpt.yaml, takes two micro-batches of the s1 train
+    step, prepares a dataset through the slicer, denoise and normalize
+    cmds on the CPU, and transcribes through the ASR cmd in zh and en."""
     env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1")
     env.pop("EASEVOICE_PINYIN_TABLE", None)
     proc = subprocess.run([sys.executable, "-c", _ISOLATED,
@@ -851,3 +876,132 @@ def test_port_stands_alone_subprocess(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+# ---- the ASR chain's host copies and the YAML reader ------------------------
+
+from easevoice_trainer_tpu.audiokit import asr_paraformer as japara  # noqa: E402
+from easevoice_trainer_tpu.audiokit import asr_whisper as jwhisper  # noqa: E402
+from easevoice_trainer_tpu.audiokit import punc_ct as jpunc  # noqa: E402
+from easevoice_trainer_tpu.audiokit import vad_fsmn as jvad  # noqa: E402
+from easevoice_trainer_tpu_torch.audiokit import asr_paraformer as ppara  # noqa: E402
+from easevoice_trainer_tpu_torch.audiokit import asr_whisper as pwhisper  # noqa: E402
+from easevoice_trainer_tpu_torch.audiokit import punc_ct as ppunc  # noqa: E402
+from easevoice_trainer_tpu_torch.audiokit import vad_fsmn as pvad  # noqa: E402
+from easevoice_trainer_tpu_torch.utils import simple_yaml  # noqa: E402
+
+
+def test_asr_frontends_match_jax(tmp_path):
+    """kaldi fbank (and its filterbank), LFR 7/6 and 5/1, the am.mvn
+    reader, and Whisper's mel filters and log-mel, on the same waves."""
+    rng = np.random.default_rng(0)
+    for n in (300, 16000, 40123):
+        wav = rng.uniform(-0.5, 0.5, n).astype(np.float32)
+        for n_mels in (80, 16):
+            f = ppara.kaldi_fbank(wav, n_mels=n_mels)
+            np.testing.assert_array_equal(
+                f, japara.kaldi_fbank(wav, n_mels=n_mels))
+            for m, s in ((7, 6), (5, 1)):
+                np.testing.assert_array_equal(ppara.apply_lfr(f, m, s),
+                                              japara.apply_lfr(f, m, s))
+    np.testing.assert_array_equal(ppara.kaldi_fbank_mats(),
+                                  japara.kaldi_fbank_mats())
+    chip_smoke.write_am_mvn(str(tmp_path / "am.mvn"), 560, 3)
+    for a, b in zip(ppara.load_cmvn(str(tmp_path / "am.mvn")),
+                    japara.load_cmvn(str(tmp_path / "am.mvn"))):
+        np.testing.assert_array_equal(a, b)
+    wav = rng.uniform(-0.5, 0.5, pwhisper.CHUNK_SAMPLES).astype(np.float32)
+    for n_mels in (80, 128):
+        np.testing.assert_array_equal(pwhisper.mel_filters(n_mels),
+                                      jwhisper.mel_filters(n_mels))
+        np.testing.assert_array_equal(
+            pwhisper.log_mel_spectrogram(wav, n_mels),
+            jwhisper.log_mel_spectrogram(wav, n_mels))
+    np.testing.assert_array_equal(pwhisper._sinusoids(1500, 768),
+                                  jwhisper._sinusoids(1500, 768))
+
+
+def test_cif_and_tokens_to_text_match_jax():
+    rng = np.random.default_rng(1)
+    for t in (1, 7, 40):
+        hidden = rng.normal(size=(2, t, 5)).astype(np.float32)
+        alphas = rng.uniform(0, 0.9, (2, t)).astype(np.float32)
+        lens = np.array([t, max(1, t - 3)])
+        a = ppara.tail_alphas(alphas, lens, 0.45)
+        np.testing.assert_array_equal(a, japara.tail_alphas(alphas, lens,
+                                                            0.45))
+        h = np.concatenate([hidden, np.zeros((2, 1, 5), np.float32)], 1)
+        for x, y in zip(ppara.cif_fire(h, a), japara.cif_fire(h, a)):
+            np.testing.assert_array_equal(x, y)
+    tokens = ["<blank>", "<s>", "</s>", "你", "好", "hel@@", "lo", "wor@@",
+              "ld", "ok", "<unk>", "a@@", "。"]
+    for _ in range(200):
+        ids = rng.integers(-1, len(tokens) + 1, rng.integers(0, 12)).tolist()
+        assert ppara.tokens_to_text(ids, tokens) == \
+            japara.tokens_to_text(ids, tokens)
+
+
+def test_vad_segmenter_and_punc_words_match_jax():
+    rng = np.random.default_rng(2)
+    cfgs = [(pvad.FsmnVadConfig(), jvad.FsmnVadConfig()),
+            (pvad.FsmnVadConfig(max_single_segment_time=1000),
+             jvad.FsmnVadConfig(max_single_segment_time=1000))]
+    for _ in range(20):
+        n = int(rng.integers(0, 900))
+        probs = np.repeat(rng.uniform(0, 1, (n + 29) // 30), 30)[:n]
+        for p, j in cfgs:
+            assert pvad.segment_speech_probs(probs, p) == \
+                jvad.segment_speech_probs(probs, j)
+    for text in ("我们都去了北京", "hello world 你好 ok2 再见", "", "  a  b ",
+                 "数据data科学 AI"):
+        words = ppunc.code_mix_split_words(text)
+        assert words == jpunc.code_mix_split_words(text)
+        puncs = [["_", "，", "。", "<unk>", "？"][i % 5]
+                 for i in range(len(words))]
+        assert ppunc._join(words, puncs) == jpunc._join(words, puncs)
+
+
+@pytest.mark.parametrize("kind", ["paraformer", "vad", "punc"])
+def test_funasr_configs_read_as_pyyaml_reads_them(kind):
+    """chip_smoke's FunASR config.yaml files (the released layout: nested
+    mappings, block sequences at the key's indentation and deeper, a
+    sequence of sequences, flow sequences, comments) read as
+    ``yaml.safe_load`` reads them, and give the configs they were written
+    from through the port's and the JAX package's ``from_yaml``."""
+    import yaml
+
+    cfgs = {"paraformer": (ppara.ParaformerConfig(), japara.ParaformerConfig),
+            "vad": (pvad.FsmnVadConfig(), jvad.FsmnVadConfig),
+            "punc": (ppunc.CTPuncConfig(), jpunc.CTPuncConfig)}
+    cfg, jcls = cfgs[kind]
+    text = chip_smoke.funasr_yaml(kind, cfg)
+    got = simple_yaml.loads(text)
+    assert got == yaml.safe_load(text)
+    assert type(cfg).from_yaml(got) == cfg
+    assert jcls.from_yaml(got) == jcls(**{
+        f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+
+
+@pytest.mark.parametrize("text", [
+    "a:\n  - 1\n  - [2, x]\n", "a: [1, 2.5, 'b c', \"d\", ~, true]\n",
+    "a:\n  b:\n    c:\n      d: 1\n    e: []\n  f: {}\n",
+    "a:\n- x\n- y\nb: 2\n", "a:\n  -   - 1\n      - 2\n  - 3\n",
+    "a:\n  -\n    - 1\n  - k: v\n    j: [0]\n", "  a: 1\n  b:\n  - 2\n",
+    "punc_list:\n- <unk>\n- _\n- ，\n- 。\n- ？\n- 、\n",
+    "a: [ ]\nb: 1.0e-4\nc: 1e-4\nd: .5\n"])
+def test_simple_yaml_reads_sequences_and_deep_mappings_as_pyyaml(text):
+    import yaml
+
+    assert simple_yaml.loads(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", [
+    "- 1\n", "a: [1, 2,]\n", "a: [1\n", "a:\n  hello\n", "a: 1\n- 2\n",
+    "a:\n  - 1\n - 2\n", "a: [{b: 1}]\n", "a:\n  - 1\n  b: 2\n"])
+def test_simple_yaml_still_refuses_the_rest(text):
+    """A document that is a sequence, trailing commas and unclosed flow
+    sequences, multi-line plain scalars, items at the wrong indentation,
+    flow mappings inside flow sequences: a raise, not another reading
+    than PyYAML's (which reads some of them and refuses others)."""
+    with pytest.raises(ValueError):
+        simple_yaml.loads(text)

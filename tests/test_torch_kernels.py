@@ -79,6 +79,27 @@ def test_encoder_attention_twin_is_bert_key_padding():
     assert encoder_attention.launches == n0   # the twin launches nothing
 
 
+def test_encoder_attention_twin_at_dk_32_is_ct_punc_word_mask():
+    """At dk 32 (CT-punc's 256/8) the CPU route is the same twin: the JAX
+    CT-Transformer's masking of the pad words with ``finfo.min``
+    (audiokit/punc_ct.py:109-113) gives what -inf gives, since every row
+    sees at least one word; no launch is counted."""
+    rng = np.random.default_rng(13)
+    b, t, h, dk = 2, 32, 8, 32
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, t, h, dk))
+                                .astype(np.float32)) for _ in range(3))
+    valid = torch.tensor([20, 1], dtype=torch.int32)
+    n0 = encoder_attention.launches, encoder_attention.launches_dk32
+    got = encoder_attention(q, k, v, valid)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q / dk ** 0.5, k)
+    keep = (torch.arange(t)[None] < valid[:, None])[:, None, None, :]
+    scores = torch.where(keep, scores, torch.finfo(torch.float32).min)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert (encoder_attention.launches,
+            encoder_attention.launches_dk32) == n0
+
+
 def test_mrf_conv_twin_matches_lrelu_conv_residual():
     rng = np.random.default_rng(1)
 
@@ -410,12 +431,51 @@ def test_encoder_attention_kernel_matches_twin(b, h, t, lens):
 
 @pytest.mark.cuda
 def test_encoder_attention_refuses_other_head_widths():
-    """K1's encoder instance is written for dk 64 only."""
+    """K1's encoder route has instances for dk 32 and 64 only: Paraformer's
+    dk 128 raises."""
     _card()
-    z = torch.zeros((1, 8, 2, 32), device="cuda")
+    z = torch.zeros((1, 8, 2, 128), device="cuda")
     valid = torch.full((1,), 8, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="dk=64"):
+    with pytest.raises(ValueError, match="dk=128"):
         encoder_attention(z, z, z, valid)
+
+
+# (dk, B, H, T, valid lengths): CT-punc at dk 32 (H=8, the JAX bucket of a
+# 20-word chunk, of one with a carried tail, of the 200-word cache limit
+# plus a chunk) and K1's tile edges at dk 32; Whisper's encoder at dk 64
+# (H=12, T=1500, every frame valid)
+ASR_CASES = [
+    (32, 1, 8, 32, [20]), (32, 1, 8, 64, [37]), (32, 1, 8, 256, [220]),
+    (32, 2, 3, 33, [33, 1]), (32, 1, 2, 5, [3]), (64, 1, 12, 1500, [1500]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk,b,h,t,lens", ASR_CASES)
+def test_encoder_attention_kernel_matches_twin_on_the_asr_shapes(dk, b, h, t,
+                                                                 lens):
+    """K1's encoder route at the ASR chain's shapes against its twin, each
+    launch counted for its instance, a second launch bit-identical, and
+    each valid row equal to a run of that batch row alone, unpadded."""
+    gen = _card()
+    qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+    q, k, v = (z.view(b, t, h, dk) for z in qkv.split(h * dk, dim=-1))
+    valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n64, n32 = encoder_attention.launches, encoder_attention.launches_dk32
+    got = encoder_attention(q, k, v, valid)
+    want = att.prefill_attention_reference(q, k, v, t, valid,
+                                           torch.zeros_like(valid))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(encoder_attention(q, k, v, valid), got,
+                               rtol=0, atol=0)
+    assert (encoder_attention.launches - n64,
+            encoder_attention.launches_dk32 - n32) == \
+        ((0, 2) if dk == 32 else (2, 0))
+    for i, n in enumerate(lens):
+        alone = encoder_attention(
+            *(z[i:i + 1, :n].contiguous() for z in (q, k, v)),
+            valid[i:i + 1])
+        torch.testing.assert_close(alone[0], got[i, :n], rtol=0, atol=0)
 
 
 @pytest.mark.cuda

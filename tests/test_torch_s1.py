@@ -427,12 +427,15 @@ def test_simple_yaml_matches_pyyaml(source):
 
 
 @pytest.mark.parametrize("text", [
-    "a:\n  - 1\n", "a: [1, 2]\n", "a:\n  b:\n    c: 1\n", "a: &x 1\n",
+    "a:\n  - 1\n  b: 2\n", "a: [1, [2]]\n", "a: {b: 1}\n", "a: &x 1\n",
     "a: |\n  text\n", "a:\n\tb: 1\n", "a: 1\na: 2\n", "a: 0x10\n",
     "a:\n  b: 1\n   c: 2\n"])
 def test_simple_yaml_refuses_what_it_does_not_read(text):
-    """Sequences, flow collections, a third level, anchors, block scalars,
-    tabs, duplicate keys, numbers in other bases and ragged indentation
-    raise instead of being read another way than PyYAML reads them."""
+    """A mapping key after a sequence at one indentation, nested flow
+    sequences, flow mappings with entries, anchors, block scalars, tabs,
+    duplicate keys, numbers in other bases and ragged indentation raise
+    instead of being read another way than PyYAML reads them (block and
+    flow sequences and deeper mappings are read now: FunASR's config.yaml
+    files hold them; tests/test_torch_host.py holds them to PyYAML)."""
     with pytest.raises(ValueError):
         simple_yaml.loads(text)
