@@ -40,6 +40,9 @@ Phases, one summary line each; any failure exits non-zero:
    (``encoder_attention``) at the encoders' shapes (BERT, G2PW's BERT,
    HuBERT, Whisper's encoder at T=1500) and its dk-32 instance on the same
    route at CT-punc's shapes, each valid row also run alone, unpadded;
+   the dk-64 instance at the Roformers' four axial shapes (H=8, no
+   padding: BS-Roformer's 62 band rows of 801 frames and 801 frame rows of
+   62 bands, Mel-Band's with 60 bands), each batch row also run alone;
    SDPA alone at Paraformer's dk-128 encoder shapes, which no hand-written
    kernel covers;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
@@ -97,15 +100,32 @@ Phases, one summary line each; any failure exits non-zero:
    and at phase 3's, by torch.profiler and by CUDA events, three times
    each.  Where ``jieba`` does not import, each zh row's G2P result comes
    from ZH_PINNED (the line "[data prep] route" says which);
-8. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
+8. uvr5: seeded random weights of the five UVR5 families in their
+   released layouts (the VR net at HP5's ch 32 / 16 / 32, DeEcho at nout
+   48, MDX-Net at ``MDXConfig()``, ``BSRoformerConfig()``,
+   ``MelBandRoformerConfig()``; VR and DeEcho BatchNorms calibrated on
+   one clip) under a temporary ``models/uvr5_weights``; ``python -m
+   easevoice_trainer_tpu_torch.cmd.audio_uvr5`` as a subprocess with the
+   default HP5 over a 10 s and a 4 s stereo 44.1 kHz song-like source
+   (every file SUCCESS, stems stereo 44.1 kHz, finite, non-silent, as
+   long as the source); ``AudioService.uvr5`` in-process for each family
+   on the 10 s source, twice (the first request, then the same again),
+   clocked by stage (host analysis, the net's device work, host
+   synthesis) with its peak memory, K1 dk-64 launched exactly 24 times a
+   BS-Roformer chunk and 12 times a Mel-Band chunk (and nowhere else),
+   vocal + instrument = mix for MDX-Net and the Roformers; each net's
+   device time on one window or chunk by kernel (K1's share for the
+   Roformers), and each net on the card against the CPU on it (the
+   Roformers at depth 1), within 1e-4 relative;
+9. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
    full MPD from seeded random pretrained .pth files, 8 synthetic clips of
    256 frames, batch 8, 12 steps): finite losses, every tensor on the card,
    K3 and both K4 entry points launched, every ResBlock ``weight_v`` and
    upsample tensor changed, and the export loads ``strict=True`` into the
    inference build and decodes a finite, non-silent wav;
-9. reference train step: one step at a small width on the card and on the
+10. reference train step: one step at a small width on the card and on the
    CPU agrees (losses and the ResBlock gradients);
-10. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
+11. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
    repo's configs/gpt.yaml through the port's YAML reader, a seeded random
    pretrained .ckpt in the export format, 8 synthetic utterances of 250 and
    1300 tokens replicated to 96 items: 12 micro-batches of B=8 at T = 716
@@ -115,11 +135,12 @@ Phases, one summary line each; any failure exits non-zero:
    ``strict=True`` into the inference build and decodes; s/micro-batch by
    bucket, first micro-batch, peak memory, and one accumulation window
    under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
-11. reference s1 step: one micro-batch at a small width on the card and on
+12. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient).
 
 After training it checks that no module of the JAX package, jax, flax,
-yaml, transformers or safetensors was loaded in the whole run (the ASR
+yaml, transformers or safetensors was loaded in the whole run, UVR5's
+included (the ASR
 chain's config.yaml files go through the port's reader, Whisper's
 tokenizer is the port's own).  Two lines before the last hold one JSON
 object with each kernel's launches (in all, per serving clone, per s2 step
@@ -148,6 +169,7 @@ import tempfile
 import time
 import traceback
 import wave
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -794,6 +816,69 @@ def check_encoder_asr(torch, results):
             f"boolean key mask {ms[0]:.5f} ms, plain twin {ms[1]:.4f} ms "
             f"(max|d| {err:.3g}); bound {one.ms:.6f} ms ({one.by})")
         assert err <= tol, err
+
+
+# the Roformers' axial attention, (label, B, T) at H=8, dk 64: BS-Roformer's
+# time axis (the 62 bands' rows over the 801 frames of an 8 s chunk) and
+# frequency axis (801 frame rows over 62 bands), Mel-Band Roformer's (60)
+ROFORMER_SHAPES = (("BS time", 62, 801), ("BS freq", 801, 62),
+                   ("Mel time", 60, 801), ("Mel freq", 801, 60))
+
+
+def check_encoder_roformer(torch, results):
+    """K1's dk-64 instance at the Roformers' four axial shapes, as
+    ``RoformerAttention`` calls it (q and k rotated, so contiguous; v a view
+    of the fused qkv projection; every key valid), against its twin (1e-4
+    absolute), and each batch row against a run of that row alone.  Device
+    ms of the kernel, the twin and SDPA with no mask, and the bound (q, k,
+    v, o moved once; 4 * B * H * T^2 * dk operations)."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(1212)
+    tol, h, dk = 1e-4, 8, 64
+    out = {}
+    for label, b, t in ROFORMER_SHAPES:
+        qkv = torch.randn((b, t, 3, h, dk), generator=gen, device="cuda")
+        q, k = (qkv[:, :, i].contiguous() for i in (0, 1))
+        v = qkv[:, :, 2]
+        full = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        zeros = torch.zeros_like(full)
+        got = att.encoder_attention(q, k, v, full)
+        want = att.prefill_attention_reference(q, k, v, t, full, zeros)
+        err = max_err(torch, got, want)
+        row_err, same = 0.0, True
+        for i in range(b):
+            alone = att.encoder_attention(q[i:i + 1], k[i:i + 1],
+                                          v[i:i + 1], full[i:i + 1])[0]
+            row_err = max(row_err, max_err(torch, alone, got[i]))
+            same &= torch.equal(alone, got[i])
+        qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        sdpa = functools.partial(F.scaled_dot_product_attention, qh, kh, vh)
+        lib_err = max_err(torch, sdpa().transpose(1, 2), want)
+        times = (
+            device_ms(torch, lambda: att.encoder_attention(q, k, v, full),
+                      "prefill_attention"),
+            device_ms(torch, lambda: att.prefill_attention_reference(
+                q, k, v, t, full, zeros)),
+            device_ms(torch, sdpa))
+        one = Bound()
+        one.add(4 * 4 * b * t * h * dk, 4 * b * h * t * t * dk)
+        log(f"[kernels] encoder_attention (K1 dk=64) {label} axis B={b} "
+            f"H={h} T={t} no padding: max|d|={err:.3g} (tol {tol}); each row "
+            f"alone: max|d|={row_err:.3g}, bit-identical {same}; device ms: "
+            f"kernel {times[0]:.5f}, plain {times[1]:.4f}, SDPA (no mask) "
+            f"{times[2]:.5f} (max|d| {lib_err:.3g}); bound {one.ms:.5f} "
+            f"({one.by}), kernel at {100 * one.ms / times[0]:.1f} % of it")
+        assert err <= tol and row_err <= tol, (label, err, row_err)
+        out[label] = dict(B=b, H=h, T=t, max_abs_err=err,
+                          row_alone_max_abs_err=row_err,
+                          rows_bit_identical=same, ms=times[0],
+                          plain_ms=times[1], library_ms=times[2],
+                          **one.result())
+        del qkv, q, k, v, qh, kh, vh, sdpa, got, want
+    results["encoder_attention"]["roformer"] = out
 
 
 def check_k4(torch, results):
@@ -1922,6 +2007,19 @@ def write_speech_source(path: str, seed: int, seconds: float = PREP_SECONDS,
     near-silences of 0.4-1.2 s (RMS 0.001)."""
     import numpy as np
 
+    pcm = np.round(speech_like(seed, seconds, sr) * 32768.0).clip(
+        -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def speech_like(seed: int, seconds: float, sr: int):
+    """The samples of ``write_speech_source`` (float64, mono)."""
+    import numpy as np
+
     rng = np.random.default_rng(seed)
     parts, total, n_total = [], 0, int(seconds * sr)
     while total < n_total:
@@ -1939,13 +2037,40 @@ def write_speech_source(path: str, seed: int, seconds: float = PREP_SECONDS,
         gap = rng.normal(0, 0.001, int(sr * rng.uniform(0.4, 1.2)))
         parts += [burst, gap]
         total += n + len(gap)
-    data = np.concatenate(parts)[:n_total]
-    pcm = np.round(data * 32768.0).clip(-32768, 32767).astype("<i2")
+    return np.concatenate(parts)[:n_total]
+
+
+def write_song_source(path: str, seed: int, seconds: float,
+                      sr: int = 44100) -> None:
+    """A stereo 44.1 kHz song-like file, UVR5's input: the speech-like
+    signal of ``write_speech_source`` panned a little left of center over a
+    tonal accompaniment (a three-note chord of 6-harmonic tones, a new root
+    every second, panned wide), peak 0.9."""
+    import numpy as np
+
+    voice = speech_like(seed, seconds, sr)
+    rng = np.random.default_rng(seed + 1000)
+    n = len(voice)
+    t = np.arange(n) / sr
+    acc = np.zeros((2, n))
+    for start in range(0, n, sr):
+        seg = slice(start, min(n, start + sr))
+        root = rng.choice([110.0, 130.8, 146.8, 164.8])
+        for i, ratio in enumerate((1.0, 1.26, 1.5)):
+            tone = sum(np.sin(2 * np.pi * root * ratio * h * t[seg]) / h
+                       for h in range(1, 7))
+            pan = (0.8, 0.3, 0.55)[i]
+            acc[0, seg] += pan * tone
+            acc[1, seg] += (1 - pan) * tone
+    acc *= 0.1 / np.sqrt(np.mean(acc ** 2))
+    data = np.stack([0.6 * voice, 0.4 * voice]) + acc
+    data *= 0.9 / np.abs(data).max()
+    pcm = np.round(data.T * 32768.0).clip(-32768, 32767).astype("<i2")
     with wave.open(path, "wb") as w:
-        w.setnchannels(1)
+        w.setnchannels(2)
         w.setsampwidth(2)
         w.setframerate(sr)
-        w.writeframes(pcm.tobytes())
+        w.writeframes(np.ascontiguousarray(pcm).tobytes())
 
 
 def modelscope_names(torch, state: dict) -> dict:
@@ -2884,7 +3009,10 @@ def write_funasr_dir(torch, root: str, kind: str, cfg, module, gen,
                   encoding="utf8") as f:
             json.dump(tokens, f, ensure_ascii=False)
     if mvn_dim:
-        write_am_mvn(os.path.join(root, "am.mvn"), mvn_dim, len(root))
+        # seeded by the model kind: the directory's path differs from run
+        # to run (a test's temp dir), and the statistics must not
+        write_am_mvn(os.path.join(root, "am.mvn"), mvn_dim,
+                     zlib.crc32(kind.encode()))
     return state
 
 
@@ -3045,9 +3173,11 @@ class _StageClock:
         self.restore = []
 
 
-def run_asr_cmd(params: dict, root: str, env: dict, name: str):
-    """``python -m easevoice_trainer_tpu_torch.cmd.audio_asr`` in a
-    subprocess, as the session manager runs it: (response, wall s)."""
+def run_asr_cmd(params: dict, root: str, env: dict, name: str,
+                module: str = "audio_asr"):
+    """``python -m easevoice_trainer_tpu_torch.cmd.<module>`` (by default
+    the ASR cmd) in a subprocess, as the session manager runs it:
+    (response, wall s)."""
     from easevoice_trainer_tpu_torch.utils.connector import RESP_PREFIX
 
     path = os.path.join(root, f"{name}.json")
@@ -3055,7 +3185,7 @@ def run_asr_cmd(params: dict, root: str, env: dict, name: str):
         json.dump(params, f)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "easevoice_trainer_tpu_torch.cmd.audio_asr",
+        [sys.executable, "-m", f"easevoice_trainer_tpu_torch.cmd.{module}",
          "-c", path], cwd=HERE, env=env, capture_output=True, text=True,
         timeout=900)
     wall = time.perf_counter() - t0
@@ -3878,6 +4008,389 @@ def reference_s1_step(torch):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# UVR5 vocal separation
+# ---------------------------------------------------------------------------
+
+
+def uvr5_random_state(torch, module, gen) -> dict:
+    """Seeded random weights for a UVR5 net, on the CPU:
+    ``convert.random_state_dict``'s, with every one-dimensional norm weight
+    (BatchNorm, GroupNorm) and every BatchNorm running variance at
+    1 + U(-0.1, 0.1), and no ``num_batches_tracked`` counter (the port's
+    loaders do not read it)."""
+    from easevoice_trainer_tpu_torch import convert
+
+    state = convert.random_state_dict(module, gen)
+    out = {}
+    for k, v in state.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if v.dim() == 1 and (k.endswith("running_var")
+                             or k.endswith("weight")):
+            v = 1.0 + (torch.rand(v.shape, generator=gen,
+                                  device=gen.device) * 2 - 1) * 0.1
+        out[k] = v.cpu()
+    return out
+
+
+def calibrate_batchnorm(torch, net, run) -> None:
+    """Set each BatchNorm of ``net`` to the statistics of its own input in
+    the forwards ``run()`` makes (the last one's), as a trained net's are:
+    with random weights the stages' activations stay near unit scale."""
+
+    def calibrate(module, args):
+        x = args[0]
+        dims = [d for d in range(x.dim()) if d != 1]
+        module.running_mean.copy_(x.mean(dim=dims))
+        module.running_var.copy_(x.var(dim=dims, unbiased=False) + 1e-3)
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in net.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    with torch.no_grad():
+        run()
+    for h in hooks:
+        h.remove()
+
+
+# (label, model name, file) of the five families' weights under
+# models/uvr5_weights, in get_separator's dispatch order
+UVR5_MODELS = (
+    ("VR", "HP5_only_main_vocal", "HP5_only_main_vocal.pth"),
+    ("DeEcho", "VR-DeEchoNormal", "VR-DeEchoNormal.pth"),
+    ("MDX-Net", "UVR-MDX-NET-Inst_full", "UVR-MDX-NET-Inst_full.pth"),
+    ("BS-Roformer", "model_bs_roformer_ep_317_sdr_12.9755",
+     "model_bs_roformer_ep_317_sdr_12.9755.ckpt"),
+    ("Mel-Band Roformer", "mel_band_roformer_vocals",
+     "mel_band_roformer_vocals.ckpt"),
+)
+UVR5_SECONDS = (10.0, 4.0)
+
+
+def write_uvr5_weights(torch, root: str, calib) -> dict:
+    """Seeded random weights of the five families in their released layouts
+    under ``root``: the VR net at HP5's layout (ch 32 / 16 / 32, no
+    enlarge, 4band_v2), DeEcho at nout 48 (4band_v3), MDX-Net at
+    ``MDXConfig()``, BS-Roformer at ``BSRoformerConfig()`` and Mel-Band at
+    ``MelBandRoformerConfig()`` (each Roformer file also holds its
+    attentions' ``rotary_embed.freqs``, as a released one does).  The VR and
+    DeEcho BatchNorms are calibrated on ``calib`` (stereo 44.1 kHz) through
+    their own separators; MDX-Net's config normalizes with GroupNorm.
+    Returns {file: MB}."""
+    from easevoice_trainer_tpu_torch.audiokit import bs_roformer, mdxnet, \
+        uvr5, uvr5_deecho
+
+    os.makedirs(root, exist_ok=True)
+    nets = (uvr5.CascadedASPPNet(1344), uvr5_deecho.CascadedNet(1344, 48),
+            mdxnet.ConvTDFNet(mdxnet.MDXConfig()),
+            bs_roformer.BSRoformer(bs_roformer.BSRoformerConfig()),
+            bs_roformer.MelBandRoformer(bs_roformer.MelBandRoformerConfig()))
+    sizes = {}
+    for i, ((label, _, name), net) in enumerate(zip(UVR5_MODELS, nets)):
+        path = os.path.join(root, name)
+        gen = torch.Generator(device="cuda").manual_seed(7100 + i)
+        state = uvr5_random_state(torch, net, gen)
+        if "Roformer" in label:
+            for layer in range(net.cfg.depth):
+                for axis in (0, 1):
+                    state[f"layers.{layer}.{axis}.layers.0.0.rotary_embed."
+                          f"freqs"] = torch.ones(net.cfg.dim_head // 2)
+        torch.save(state, path)
+        if label in ("VR", "DeEcho"):
+            sep = (uvr5.VRSeparator(path, device="cuda") if label == "VR"
+                   else uvr5.DeEchoSeparator(path, "cuda"))
+            calibrate_batchnorm(torch, sep.net,
+                                lambda: sep.separate(calib, 44100))
+            torch.save({k: v.cpu() for k, v in sep.net.state_dict().items()
+                        if not k.endswith("num_batches_tracked")}, path)
+            del sep
+        sizes[name] = os.path.getsize(path) / 2 ** 20
+    return sizes
+
+
+def check_stems(out: str, names, sources, short: int) -> None:
+    """Each source's two stems under ``out``: stereo 44.1 kHz, finite,
+    non-silent, as long as the source (up to ``short`` samples shorter: the
+    VR synthesis ends at its top band's last whole hop)."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch.utils import audio_io, paths
+
+    for name in names:
+        for sub, prefix in ((paths.VOCALS_OUTPUT, "vocal"),
+                            (paths.ACCOMPANIMENTS_OUTPUT, "instrument")):
+            data, sr = audio_io.read_wav(
+                os.path.join(out, sub, f"{prefix}_{name}.wav"), mono=False)
+            n = sources[name].shape[1]
+            assert sr == 44100 and data.shape[0] == 2, (name, data.shape)
+            assert np.isfinite(data).all() and np.abs(data).max() > 1e-3, \
+                (name, prefix, float(np.abs(data).max()))
+            assert 0 <= n - data.shape[1] <= short, (name, n, data.shape)
+
+
+def device_groups(torch, fn, top: int = 4):
+    """Device ms of one call of ``fn`` under torch.profiler: in all, in K1
+    (kernels named *prefill_attention*), and the ``top`` kernel names that
+    take the most, shortened."""
+    events = device_events(torch, fn)
+    total, by_name = 0.0, {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1000.0
+        total += ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    k1 = sum(v for k, v in by_name.items() if "prefill_attention" in k)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return total, k1, [(short_name(k)[:60], v) for k, v in ranked]
+
+
+def uvr5_phase(torch, tmp: str, results):
+    """UVR5 vocal separation at full width through the entry points a user
+    calls: seeded random weights of the five families (``write_uvr5_weights``)
+    in a temporary ``models/uvr5_weights`` under the port's base path; two
+    stereo 44.1 kHz song-like sources (10 s and 4 s); ``python -m
+    easevoice_trainer_tpu_torch.cmd.audio_uvr5`` as a subprocess with HP5
+    over both (every file SUCCESS, stems stereo 44.1 kHz, finite,
+    non-silent, as long as the source); then ``AudioService.uvr5``
+    in-process for each family on the 10 s source, clocked by stage (host
+    analysis, the net's device work synchronized, host synthesis), with its
+    peak memory, K1 launches (24 a BS-Roformer chunk, 12 a Mel-Band chunk,
+    none elsewhere) and, for MDX-Net and the Roformers, vocal + instrument
+    = mix; each net's device time on one window or chunk by kernel (K1's
+    share for the Roformers); and each net on the card against the CPU
+    (where the twins run) on that window or chunk, the Roformers at depth
+    1 on the CPU side and the card side alike."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.audiokit import bs_roformer, mdxnet, \
+        uvr5
+    from easevoice_trainer_tpu_torch.service.audio import AudioService
+    from easevoice_trainer_tpu_torch.utils import audio_io, paths
+
+    root = os.path.join(tmp, "uvr5")
+    base = os.path.join(root, "base")
+    src, src10 = os.path.join(root, "src"), os.path.join(root, "src10")
+    os.makedirs(src)
+    os.makedirs(src10)
+    names = [f"song{i}.wav" for i in range(len(UVR5_SECONDS))]
+    sources = {}
+    for i, (name, sec) in enumerate(zip(names, UVR5_SECONDS)):
+        write_song_source(os.path.join(src, name), 30 + i, sec)
+        sources[name] = audio_io.read_wav(os.path.join(src, name),
+                                          mono=False)[0]
+    shutil.copy(os.path.join(src, names[0]), os.path.join(src10, names[0]))
+    old_base = os.environ.get("EASEVOICE_BASE_PATH")
+    os.environ["EASEVOICE_BASE_PATH"] = base
+    try:
+        t = time.perf_counter()
+        sizes = write_uvr5_weights(torch, uvr5.weights_root(),
+                                   sources[names[1]])
+        log(f"[uvr5] random weights in the released layouts, BatchNorms "
+            f"calibrated on the 4 s source, in {time.perf_counter() - t:.1f}"
+            f" s: " + ", ".join(f"{k} {v:.1f} MB" for k, v in sizes.items()))
+
+        # HP5 through the cmd, as the session manager runs it
+        env = dict(os.environ, PYTHONPATH=HERE, NVIDIA_TF32_OVERRIDE="0")
+        out = os.path.join(root, "cmd_out")
+        resp, sub_s = run_asr_cmd({"source_dir": src, "output_dir": out,
+                                   "device": "cuda"},
+                                  root, env, "uvr5_hp5", "audio_uvr5")
+        assert resp["status"] == "success" and \
+            resp["message"] == "UVR5 Success", resp
+        assert resp["data"] == {n: "success" for n in names}, resp
+        check_stems(out, names, sources, 480)
+        log(f"[uvr5] cmd.audio_uvr5 subprocess (HP5_only_main_vocal, the "
+            f"default model): {resp['status']}, '{resp['message']}', trace "
+            f"{resp['data']} for {sum(UVR5_SECONDS):.1f} s of audio in "
+            f"{sub_s:.2f} s wall (the interpreter's start, the kernels' "
+            f"build check and the model load included)")
+
+        # each family in-process on the 10 s source, clocked by stage
+        runs = {}
+        for label, model, _ in UVR5_MODELS:
+            clock = _StageClock(torch)
+            first, mix_err, restore = {}, [], []
+
+            def capture(owner, attr, label_):
+                fn = getattr(owner, attr)
+
+                def run(self, x, *args):
+                    first.setdefault("call", (self, x))
+                    return fn(self, x, *args)
+                setattr(owner, attr, run)
+                restore.append((owner, attr, fn))
+                clock.wrap(owner, attr, label_)
+
+            def check_mix(owner):
+                fn = owner.separate
+
+                def run(self, wav, sr):
+                    vocal, inst = fn(self, wav, sr)
+                    mix_err.append(float(np.abs(
+                        vocal + inst - wav[:, :vocal.shape[1]]).max()))
+                    return vocal, inst
+                owner.separate = run
+                restore.append((owner, "separate", fn))
+
+            if label in ("VR", "DeEcho"):
+                for attr in ("_band_specs", "_combine"):
+                    clock.wrap(uvr5.VRSeparator, attr, "analysis", sync=False)
+                capture(uvr5.DeEchoSeparator if label == "DeEcho"
+                        else uvr5.VRSeparator, "_net_out", "net")
+                clock.wrap(uvr5.VRSeparator, "_multiband_to_wave",
+                           "synthesis", sync=False)
+            elif label == "MDX-Net":
+                clock.wrap(mdxnet.MDXSeparator, "_stft", "analysis",
+                           sync=False)
+                capture(mdxnet.MDXSeparator, "_run_model", "net")
+                clock.wrap(mdxnet.MDXSeparator, "_istft", "synthesis",
+                           sync=False)
+                check_mix(mdxnet.MDXSeparator)
+            else:
+                cls = bs_roformer.BSRoformerSeparator
+                clock.wrap(cls, "_stft", "analysis", sync=False)
+                capture(cls, "_mask", "net")
+                clock.wrap(cls, "_istft", "synthesis", sync=False)
+                check_mix(cls)
+            out = os.path.join(root, f"out_{model}")
+            passes = {}
+            try:
+                # the process's first request of the family (weights read,
+                # cuDNN plans and allocator growth), then the same again
+                for pass_ in ("cold", "warm"):
+                    before = dict(clock.seconds), dict(clock.calls)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    ops.reset_launch_counts()
+                    t = time.perf_counter()
+                    resp = AudioService(src10, out, "cuda").uvr5(model)
+                    torch.cuda.synchronize()
+                    passes[pass_] = dict(
+                        wall=time.perf_counter() - t, resp=resp,
+                        launches=ops.launch_counts(),
+                        peak=torch.cuda.max_memory_allocated(),
+                        seconds={k: v - before[0][k]
+                                 for k, v in clock.seconds.items()},
+                        calls={k: v - before[1][k]
+                               for k, v in clock.calls.items()})
+            finally:
+                clock.undo()
+                for owner, attr, fn in reversed(restore):
+                    setattr(owner, attr, fn)
+            for run in passes.values():
+                resp = run.pop("resp")
+                assert resp.ok and resp.message == "UVR5 Success", resp
+                assert resp.data == {names[0]: "success"}, resp
+                assert "passthrough" not in resp.message
+            assert passes["cold"]["launches"] == passes["warm"]["launches"]
+            short = 480 if label in ("VR", "DeEcho") else 0
+            check_stems(out, names[:1], sources, short)
+            runs[label] = dict(passes["warm"], cold=passes["cold"],
+                               first=first["call"], mix_err=mix_err)
+            if mix_err:
+                assert max(mix_err) <= 1e-5, (label, mix_err)
+
+        # launches: K1 dk 64 a Roformer chunk, nothing elsewhere
+        r = results.setdefault("encoder_attention", {})
+        per_chunk = {}
+        for label, run in runs.items():
+            k1 = run["launches"]["encoder_attention"]
+            others = {k: v for k, v in run["launches"].items()
+                      if v and k != "encoder_attention"}
+            assert not others, (label, others)
+            if "Roformer" in label:
+                chunks = run["calls"]["net"]
+                want = (24 if label == "BS-Roformer" else 12) * chunks
+                assert k1 == want and chunks == 2, (label, k1, chunks)
+                per_chunk[label] = k1 / chunks
+                r["launches"] = r.get("launches", 0) + k1
+                r.setdefault("per_path", {})[
+                    "uvr5_" + label.lower().replace(" ", "_").replace(
+                        "-", "_")] = k1
+            else:
+                assert k1 == 0, (label, k1)
+        r["roformer"]["launches_per_chunk"] = per_chunk
+
+        minutes = UVR5_SECONDS[0] / 60
+        for label, run in runs.items():
+            sec = run["seconds"]
+            other = run["wall"] - sum(sec.values())
+            mix = (f"; max|vocal + instrument - mix| "
+                   f"{max(run['mix_err']):.3g}" if run["mix_err"] else "")
+            cold = run["cold"]
+            log(f"[uvr5] {label} AudioService.uvr5 on the {UVR5_SECONDS[0]:.0f}"
+                f" s source, first request {cold['wall']:.3f} s wall (net "
+                f"{cold['seconds']['net']:.3f} s, peak "
+                f"{cold['peak'] / 2 ** 30:.2f} GiB), the same again "
+                f"{run['wall']:.3f} s wall = "
+                f"{run['wall'] / minutes:.3f} s a minute of audio; by stage, "
+                f"s a minute: host analysis {sec['analysis'] / minutes:.3f}, "
+                f"net (device, synchronized; {run['calls']['net']} calls) "
+                f"{sec['net'] / minutes:.3f}, host synthesis "
+                f"{sec['synthesis'] / minutes:.3f}, other (load, I/O, "
+                f"windowing, copies) {other / minutes:.3f}; peak memory "
+                f"{run['peak'] / 2 ** 30:.2f} GiB; K1 dk-64 launches "
+                f"{run['launches']['encoder_attention']}" + mix)
+
+        # each net's device time on its first call (all the windows of the
+        # 10 s source, or one chunk), by kernel, with its peak memory; and
+        # the card against the CPU on one window or chunk
+        worst = 0.0
+        for label, run in runs.items():
+            sep, x = run["first"]
+            if label in ("VR", "DeEcho"):
+                fn = lambda: sep._net_out(x)                  # noqa: E731
+                card_net, inp = sep.net, x[:1]
+            elif label == "MDX-Net":
+                fn = lambda: sep._run_model(x)                # noqa: E731
+                card_net, inp = sep.net, torch.from_numpy(x[:1]).cuda()
+            else:
+                fn = lambda: sep._mask(x)                     # noqa: E731
+                cfg = dataclasses.replace(sep.cfg, depth=1)
+                card_net = type(sep.net)(cfg)
+                full = sep.net.state_dict()
+                card_net.load_state_dict(
+                    {k: full[k] for k in card_net.state_dict()}, strict=True)
+                card_net = card_net.cuda().eval()
+                inp = torch.from_numpy(x).cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            total, k1, top = device_groups(torch, fn)
+            peak = torch.cuda.max_memory_allocated()
+            share = (f", K1 {k1:.3f} ms = {100 * k1 / total:.1f} %"
+                     if k1 else "")
+            unit = "a chunk" if "Roformer" in label else "its windows"
+            neg = ", and its negation" if label == "MDX-Net" else ""
+            log(f"[uvr5] {label} net, one call on {unit} (input "
+                f"{tuple(x.shape)}{neg}): "
+                f"device {total:.3f} ms{share}, peak memory "
+                f"{peak / 2 ** 30:.2f} GiB; top kernels: "
+                + ", ".join(f"{n} {v:.3f}" for n, v in top))
+            if "Roformer" in label:
+                r["roformer"].setdefault("chunk_device_ms", {})[label] = \
+                    dict(total=total, k1=k1)
+            cpu_net = copy.deepcopy(card_net).cpu()
+            with torch.no_grad():
+                got = card_net(inp).cpu()
+                want = cpu_net(inp.cpu())
+            rel = float((got - want).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            worst = max(worst, rel)
+            depth = " at depth 1" if "Roformer" in label else ""
+            log(f"[uvr5] {label} net{depth} on the card against the CPU, "
+                f"input {tuple(inp.shape)}: relative max|d| {rel:.3g} "
+                f"(tol 1e-4)")
+            assert rel <= 1e-4, (label, rel)
+            del cpu_net, card_net, inp, sep
+            run.pop("first")
+        log(f"[uvr5] every family: card vs CPU within {worst:.3g} relative")
+    finally:
+        if old_base is None:
+            os.environ.pop("EASEVOICE_BASE_PATH", None)
+        else:
+            os.environ["EASEVOICE_BASE_PATH"] = old_base
+
+
 def load_parent(root: str):
     """The port package of another checkout at ``root`` (the parent commit
     unpacked with ``git archive``), imported as ``ev_parent`` beside this
@@ -3953,6 +4466,7 @@ def main() -> int:
         check_kernels(torch, results, parent and parent.ops.attention)
         check_encoder(torch, results)
         check_encoder_asr(torch, results)
+        check_encoder_roformer(torch, results)
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
         if parent is not None:
@@ -3973,6 +4487,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "data prep"
         data_prep(torch, tmp, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "uvr5"
+        uvr5_phase(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
         phase = "training"
@@ -3998,7 +4516,9 @@ def main() -> int:
             "safetensors"))
         log(f"[isolation] after serving English and Chinese text, resampling "
             f"the reference clip (native resampler built: "
-            f"{native.available()}), preparing a dataset (slicer, FRCRN, "
+            f"{native.available()}), separating vocals with UVR5 (the VR "
+            f"and DeEcho nets, MDX-Net, BS- and Mel-Band Roformer), "
+            f"preparing a dataset (slicer, FRCRN, "
             f"the ASR chain (fsmn-VAD, Paraformer, CT-punc, Whisper; its "
             f"config.yaml files read by the port's reader, Whisper's "
             f"tokenizer the port's own), the three normalization stages, "
@@ -4027,7 +4547,7 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
-                      "whisper_T1500"):
+                      "whisper_T1500", "roformer"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -353,3 +353,214 @@ def whisper_state_dict(enc_params: Dict[str, Any], dec_params: Dict[str, Any],
         put(f"{t}.encoder_attn.v_proj", cross, f"{f}_cross_v")
         i += 1
     return _to_torch(out)
+
+
+# ---- UVR5: inverses of the JAX package's five separator converters ----------
+
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _flat(*trees) -> Dict[str, np.ndarray]:
+    out = {}
+    for tree in trees:
+        out.update({k: np.asarray(v, np.float32)
+                    for k, v in ckpt.flatten_tree(tree or {}).items()})
+    return out
+
+
+def _torch_kernel(v: np.ndarray) -> np.ndarray:
+    """A flax kernel in torch's layout: conv (kh, kw, in, out) -> (out, in,
+    kh, kw) (a transposed conv's (kh, kw, out, in) -> (in, out, kh, kw),
+    the same permutation), dense (in, out) -> (out, in)."""
+    return v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+
+
+def _conv_bn(layer: str, leaf: str, v: np.ndarray, bn_index: int):
+    """A ConvBNActiv leaf -> (its name inside ``.conv``, value): the conv
+    (or depthwise) kernel at 0, a pointwise kernel at 1, BatchNorm at
+    ``bn_index``."""
+    if leaf == "kernel":
+        return f"{1 if layer == 'pointwise' else 0}.weight", _torch_kernel(v)
+    return f"{bn_index}.{_BN_LEAF[leaf]}", v
+
+
+_VR_STAGES = {"stg1_low": "stg1_low_band_net",
+              "stg1_high": "stg1_high_band_net",
+              "stg2_full": "stg2_full_band_net",
+              "stg3_full": "stg3_full_band_net"}
+
+
+def vr_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                  ) -> Dict[str, torch.Tensor]:
+    """VR CascadedASPPNet params and batch statistics -> the port's state
+    dict, the reference's names (inverse of ``audiokit/uvr5.py
+    convert_vr_weights``): ``aspp/conv1`` -> ``aspp.conv1.1`` (behind the
+    pooling), ``aspp/bottleneck`` -> ``aspp.bottleneck.0``, a separable
+    block's BatchNorm at ``conv.2``."""
+    flat = _flat(params, batch_stats)
+    separable = {k.rsplit("/", 2)[0] for k in flat if "/depthwise/" in k}
+    out = {}
+    for key, v in flat.items():
+        *block, layer, leaf = key.split("/")
+        if not block:                                   # the output conv
+            out[f"{layer}.weight"] = _torch_kernel(v)
+            continue
+        names = [_VR_STAGES.get(block[0], block[0])] + block[1:]
+        if block[-2:] == ["aspp", "conv1"]:
+            names.append("1")
+        elif block[-2:] == ["aspp", "bottleneck"]:
+            names.append("0")
+        sub, v = _conv_bn(layer, leaf, v,
+                          2 if "/".join(block) in separable else 1)
+        out[".".join(names + ["conv", sub])] = v
+    return _to_torch(out)
+
+
+_DEECHO_STAGES = {"stg1_low": "stg1_low_band_net.0",
+                  "stg1_low_post": "stg1_low_band_net.1",
+                  "stg1_high": "stg1_high_band_net",
+                  "stg2_low": "stg2_low_band_net.0",
+                  "stg2_low_post": "stg2_low_band_net.1",
+                  "stg2_high": "stg2_high_band_net",
+                  "stg3_full": "stg3_full_band_net"}
+
+
+def deecho_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """DeEcho / DeReverb CascadedNet params and batch statistics -> the
+    port's state dict (inverse of ``audiokit/uvr5_deecho.py
+    convert_deecho_weights``).  The JAX LSTM cells keep one bias a gate
+    (torch's ``bias_ih + bias_hh``): it returns as ``bias_ih_l0`` with a
+    zero ``bias_hh_l0``, the same function."""
+    flat = _flat(params, batch_stats)
+    out = {}
+    for key, v in flat.items():
+        *block, layer, leaf = key.split("/")
+        if not block:                                   # the output conv
+            out[f"{layer}.weight"] = _torch_kernel(v)
+            continue
+        names = [_DEECHO_STAGES[block[0]]] + block[1:]
+        if names[-1:] == ["lstm_dec2"] and layer.startswith("dense"):
+            sub = "0" if layer == "dense" else "1"
+            name = "weight" if leaf == "kernel" else _BN_LEAF[leaf]
+            out[".".join(names + ["dense", sub, name])] = (
+                v.T if leaf == "kernel" else v)
+            continue
+        if block[-1:] in (["cell_fwd"], ["cell_bwd"]):
+            continue                                    # below, a gate at once
+        if block[-2:] == ["aspp", "conv1"]:
+            names.append("1")
+        sub, v = _conv_bn(layer, leaf, v, 1)
+        out[".".join(names + ["conv", sub])] = v
+    cells = {k.rsplit("/", 2)[0] for k in flat if "/cell_" in k}
+    for cell in sorted(cells):
+        *block, direction = cell.split("/")
+        name = ".".join([_DEECHO_STAGES[block[0]]] + block[1:] + ["lstm"])
+        sfx = "_reverse" if direction == "cell_bwd" else ""
+        gates = "ifgo"
+        out[f"{name}.weight_ih_l0{sfx}"] = np.concatenate(
+            [flat[f"{cell}/i{g}/kernel"].T for g in gates])
+        out[f"{name}.weight_hh_l0{sfx}"] = np.concatenate(
+            [flat[f"{cell}/h{g}/kernel"].T for g in gates])
+        bias = np.concatenate([flat[f"{cell}/h{g}/bias"] for g in gates])
+        out[f"{name}.bias_ih_l0{sfx}"] = bias
+        out[f"{name}.bias_hh_l0{sfx}"] = np.zeros_like(bias)
+    return _to_torch(out)
+
+
+_MDX_LAYERS = [
+    (r"first_conv", "first_conv.0"), (r"first_norm", "first_conv.1"),
+    (r"(enc|dec)_(\d+)/tfc/conv_(\d+)", r"\1/\2.tfc.H.\3.0"),
+    (r"(enc|dec)_(\d+)/tfc/norm_(\d+)", r"\1/\2.tfc.H.\3.1"),
+    (r"bottleneck/tfc/conv_(\d+)", r"bottleneck_block.tfc.H.\1.0"),
+    (r"bottleneck/tfc/norm_(\d+)", r"bottleneck_block.tfc.H.\1.1"),
+    (r"(enc|dec)_(\d+)/tdf0", r"\1/\2.tdf.0"),
+    (r"(enc|dec)_(\d+)/tdf_norm0", r"\1/\2.tdf.1"),
+    (r"(enc|dec)_(\d+)/tdf1", r"\1/\2.tdf.3"),
+    (r"(enc|dec)_(\d+)/tdf_norm1", r"\1/\2.tdf.4"),
+    (r"bottleneck/tdf0", "bottleneck_block.tdf.0"),
+    (r"bottleneck/tdf_norm0", "bottleneck_block.tdf.1"),
+    (r"bottleneck/tdf1", "bottleneck_block.tdf.3"),
+    (r"bottleneck/tdf_norm1", "bottleneck_block.tdf.4"),
+    (r"(ds|us)_(\d+)", r"\1.\2.0"), (r"(ds|us)_norm_(\d+)", r"\1.\2.1"),
+    (r"final_conv", "final_conv.0"),
+]
+
+
+def mdx_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """ConvTDFNet params (and batch statistics, for a BatchNorm build) ->
+    the port's state dict (inverse of ``audiokit/mdxnet.py
+    convert_mdx_weights``): ``enc_{i}`` -> ``encoding_blocks.{i}``,
+    ``dec_{i}`` -> ``decoding_blocks.{i}``, each norm at its Sequential
+    index."""
+    out = {}
+    for key, v in _flat(params, batch_stats).items():
+        layer, leaf = key.rsplit("/", 1)
+        for pattern, repl in _MDX_LAYERS:
+            if re.fullmatch(pattern, layer):
+                name = re.sub(pattern, repl, layer)
+                break
+        else:
+            raise KeyError(f"mdx_state_dict: no torch name for {key}")
+        name = name.replace("enc/", "encoding_blocks.").replace(
+            "dec/", "decoding_blocks.")
+        if leaf == "kernel":
+            out[f"{name}.weight"] = _torch_kernel(v)
+        else:
+            out[f"{name}.{_BN_LEAF[leaf]}"] = v
+    return _to_torch(out)
+
+
+_ROFORMER_LAYERS = [
+    (r"band_split/norm_(\d+)", r"band_split.to_features.\1.0"),
+    (r"band_split/proj_(\d+)", r"band_split.to_features.\1.1"),
+    (r"time_(\d+)/attn_(\d+)/to_out", r"layers.\1.0.layers.\2.0.to_out.0"),
+    (r"freq_(\d+)/attn_(\d+)/to_out", r"layers.\1.1.layers.\2.0.to_out.0"),
+    (r"time_(\d+)/attn_(\d+)/(\w+)", r"layers.\1.0.layers.\2.0.\3"),
+    (r"freq_(\d+)/attn_(\d+)/(\w+)", r"layers.\1.1.layers.\2.0.\3"),
+    (r"time_(\d+)/ff_(\d+)/norm", r"layers.\1.0.layers.\2.1.net.0"),
+    (r"freq_(\d+)/ff_(\d+)/norm", r"layers.\1.1.layers.\2.1.net.0"),
+    (r"time_(\d+)/ff_(\d+)/ff1", r"layers.\1.0.layers.\2.1.net.1"),
+    (r"freq_(\d+)/ff_(\d+)/ff1", r"layers.\1.1.layers.\2.1.net.1"),
+    (r"time_(\d+)/ff_(\d+)/ff2", r"layers.\1.0.layers.\2.1.net.4"),
+    (r"freq_(\d+)/ff_(\d+)/ff2", r"layers.\1.1.layers.\2.1.net.4"),
+    (r"time_(\d+)/norm", r"layers.\1.0.norm"),
+    (r"freq_(\d+)/norm", r"layers.\1.1.norm"),
+    (r"final_norm", "final_norm"),
+    (r"mask_0/mlp_(\d+)_(\d+)", None),
+]
+
+
+def _roformer_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, v in _flat(_inner(params)).items():
+        layer, leaf = key.rsplit("/", 1)
+        for pattern, repl in _ROFORMER_LAYERS:
+            m = re.fullmatch(pattern, layer)
+            if m:
+                name = (re.sub(pattern, repl, layer) if repl else
+                        f"mask_estimators.0.to_freqs.{m.group(1)}.0."
+                        f"{2 * int(m.group(2))}")
+                break
+        else:
+            raise KeyError(f"roformer state dict: no torch name for {key}")
+        leaf = {"kernel": "weight"}.get(leaf, leaf)
+        out[f"{name}.{leaf}"] = v.T if leaf == "weight" else v
+    return _to_torch(out)
+
+
+def bs_roformer_state_dict(params: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """BSRoformer params -> the port's state dict, the released checkpoint's
+    names (inverse of ``audiokit/bs_roformer.py convert_bs_roformer``)."""
+    return _roformer_state_dict(params)
+
+
+def mel_band_roformer_state_dict(params: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """MelBandRoformer params -> the port's state dict (inverse of
+    ``audiokit/bs_roformer.py convert_mel_band_roformer``; each
+    transformer's trailing ``norm`` included)."""
+    return _roformer_state_dict(params)

@@ -1,17 +1,27 @@
-"""Audio preparation service (JAX: service/audio.py AudioService): the
-slicer, the denoise stage, ASR and the refinement list, with the JAX
-package's artifact contract:
+"""Audio preparation service (JAX: service/audio.py AudioService): UVR5
+vocal separation, the slicer, the denoise stage, ASR and the refinement
+list, with the JAX package's artifact contract:
 
   slices/                   <- {name}_{start:010d}_{end:010d}.wav @32k int16
   denoises/                 <- denoised slices (16 kHz with FRCRN)
   asrs/asr.list             <- path|lang|text
   refinements/refinement.list
 
-Vocal separation (``uvr5``) waits for its nets.  The denoiser and the ASR
-nets run on the service's device: the card unless the caller asks for the
-CPU.  ``EASEVOICE_ALLOW_PASSTHROUGH=1`` copies the slices unmodified where
-no denoise backend can be built, and writes empty transcripts where no ASR
-model directory exists; the response says so.
+  vocals/ accompaniments/   <- UVR5 separation, stereo 44.1 kHz
+                               vocal_{file}.wav / instrument_{file}.wav
+
+The separators, the denoiser and the ASR nets run on the service's device:
+the card unless the caller asks for the CPU.  ``EASEVOICE_ALLOW_PASSTHROUGH=1``
+copies each source as its vocal stem (silence as accompaniment) where the
+UVR5 weights are absent, copies the slices unmodified where no denoise
+backend can be built, and writes empty transcripts where no ASR model
+directory exists; the response says so.
+
+UVR5: ``get_separator`` picks the net by model name (``audiokit/uvr5.py``)
+from ``<base>/models/uvr5_weights``.  A difference from the JAX service, on
+purpose: a checkpoint that is present but does not load fails the request,
+whatever the passthrough switch says, where the JAX service would copy the
+sources through.
 
 ASR: for ``zh``, fsmn-VAD -> Paraformer-large -> CT-punc
 (``EASEVOICE_PARAFORMER_DIR``, ``EASEVOICE_VAD_DIR``, ``EASEVOICE_PUNC_DIR``,
@@ -60,6 +70,67 @@ class AudioService:
         self.refinement = Refinement(
             os.path.join(output_dir, ASRS_OUTPUT, ASR_FILE),
             os.path.join(output_dir, REFINEMENTS_OUTPUT, REFINEMENT_FILE))
+
+    # ---- UVR5 ---------------------------------------------------------------
+
+    def uvr5(self, model_name: str = "HP5_only_main_vocal",
+             audio_format: str = "wav", **_kwargs) -> EaseVoiceResponse:
+        """Separate every source file into ``vocals/vocal_{name}.wav`` and
+        ``accompaniments/instrument_{name}.wav`` (stereo 44.1 kHz); the
+        trace marks each file SUCCESS or FAILED."""
+        from ..audiokit.uvr5 import get_separator
+
+        vocals_dir = os.path.join(self.output_dir, VOCALS_OUTPUT)
+        acc_dir = os.path.join(self.output_dir, ACCOMPANIMENTS_OUTPUT)
+        os.makedirs(vocals_dir, exist_ok=True)
+        os.makedirs(acc_dir, exist_ok=True)
+        files = self._source_files()
+        if not files:
+            return EaseVoiceResponse(ResponseStatus.FAILED,
+                                     "no audio files in source dir")
+        try:
+            separator = get_separator(model_name, self.device)
+        except FileNotFoundError as e:
+            if not _passthrough_allowed():
+                return EaseVoiceResponse(
+                    ResponseStatus.FAILED,
+                    f"UVR5 separator '{model_name}' unavailable: {e}")
+            separator = None
+            logger.warning("UVR5 passthrough mode (weights absent): %s", e)
+        except Exception as e:
+            logger.error("UVR5 separator '%s' did not load\n%s", model_name,
+                         traceback.format_exc())
+            return EaseVoiceResponse(
+                ResponseStatus.FAILED,
+                f"UVR5 separator '{model_name}' did not load: {e}")
+
+        trace: Dict[str, str] = {}
+        for path in files:
+            name = os.path.basename(path)
+            try:
+                wav = audio_io.load_audio(path, 44100, mono=False)
+                if separator is None:
+                    vocal, accomp = wav, np.zeros_like(wav)
+                else:
+                    vocal, accomp = separator.separate(wav, 44100)
+                audio_io.write_wav(
+                    os.path.join(vocals_dir, f"vocal_{name}.wav"),
+                    vocal, 44100)
+                audio_io.write_wav(
+                    os.path.join(acc_dir, f"instrument_{name}.wav"),
+                    accomp, 44100)
+                trace[name] = ResponseStatus.SUCCESS
+            except Exception:
+                logger.error("uvr5 failed for %s\n%s", path,
+                             traceback.format_exc())
+                trace[name] = ResponseStatus.FAILED
+        if separator is None:
+            return EaseVoiceResponse(
+                ResponseStatus.SUCCESS,
+                f"UVR5 passthrough: the weights of '{model_name}' are "
+                f"absent; input copied as vocal, silence as accompaniment",
+                trace)
+        return EaseVoiceResponse(ResponseStatus.SUCCESS, "UVR5 Success", trace)
 
     # ---- slicer ---------------------------------------------------------------
 

@@ -9,12 +9,15 @@ with their G2PW model and give the same phones.
 The ASR chain's host copies (fbank / LFR / CMVN, CIF, ``tokens_to_text``,
 the VAD's segmenter, CT-punc's word split, Whisper's log-mel) are held to
 theirs too, and the port's YAML reader to PyYAML on FunASR's configs.
+UVR5's band configs are byte-identical copies, and its host functions (the
+band filters, the stereo channel coding, the STFTs of the VR, MDX and
+Roformer separators, the mel band membership) equal the originals.
 
 One subprocess test shows that the port stands alone: with an import hook
 that refuses ``easevoice_trainer_tpu``, ``jax``, ``flax``, ``transformers``,
 ``safetensors`` and ``yaml``, every module of the port imports, the text
 frontend runs in every language, a wav loads and resamples, and the data
-preparation and ASR cmds run on the CPU.
+preparation, ASR and UVR5 cmds run on the CPU.
 """
 import os
 import struct
@@ -858,6 +861,50 @@ for lang in ("zh", "en"):
                         "language": lang, "device": "cpu"})
     assert r.ok and r.message == "asr success", r
     assert set(r.data.values()) == {"success"}, r
+# UVR5 through the uvr5 cmd's main() on the CPU: the VR and MDX nets from
+# tiny weights (VR at the released 4band_v2 config); the DeEcho net (whose
+# width its model name fixes) on a tiny band config, and both Roformers
+# from tiny configs on short chunks, through their separators
+import chip_smoke
+from _torch_uvr5_tiny import BS, DEECHO, MDX, MEL, band_params, \
+    deecho_state, random_state, stereo_clip, vr_state
+from easevoice_trainer_tpu_torch.audiokit import bs_roformer, mdxnet, uvr5, \
+    uvr5_deecho
+from easevoice_trainer_tpu_torch.cmd import audio_uvr5
+uvr = os.path.join(root, "uvr5")
+weights = os.path.join(uvr, "base", "models", "uvr5_weights")
+os.makedirs(weights)
+os.environ["EASEVOICE_BASE_PATH"] = os.path.join(uvr, "base")
+torch.save(vr_state(n_fft=1344), os.path.join(weights,
+                                              "HP5_only_main_vocal.pth"))
+torch.save(random_state(mdxnet.ConvTDFNet(MDX), 0),
+           os.path.join(weights, "UVR-MDX-NET-Inst.pth"))
+chip_smoke.write_song_source(os.path.join(uvr, "song.wav"), 3, 0.6)
+for name in ("HP5_only_main_vocal", "UVR-MDX-NET-Inst"):
+    out = os.path.join(uvr, name)
+    r = audio_uvr5.main({"source_dir": uvr, "output_dir": out,
+                         "model_name": name, "device": "cpu"})
+    assert r.ok and r.message == "UVR5 Success", r
+    assert r.data == {"song.wav": "success"}, r
+    vocal, sr = audio_io.read_wav(os.path.join(out, "vocals",
+                                               "vocal_song.wav.wav"),
+                                  mono=False)
+    assert sr == 44100 and vocal.shape[0] == 2 and np.abs(vocal).max() > 0
+wav = stereo_clip(0.6, 1)
+sep = uvr5.DeEchoSeparator.__new__(uvr5.DeEchoSeparator)
+sep.device, sep.mp, sep.agg, sep.tta = torch.device("cpu"), band_params(), \
+    0, False
+sep.net = uvr5.load_net(uvr5_deecho.CascadedNet(128, **DEECHO),
+                        deecho_state(), "cpu")
+vocal, inst = sep.separate(wav, 44100)
+assert vocal.shape[0] == 2 and np.isfinite(vocal).all()
+wav = stereo_clip(0.04, 1)
+for cls, cfg in ((bs_roformer.BSRoformerSeparator, BS),
+                 (bs_roformer.MelBandRoformerSeparator, MEL)):
+    sep = cls.from_state(random_state(cls.NET(cfg), 0), cfg, "cpu")
+    sep.CHUNK, sep.FADE = 800, 80
+    vocal, inst = sep.separate(wav, 44100)
+    assert vocal.shape == wav.shape and np.isfinite(vocal).all()
 print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 """
 
@@ -868,8 +915,14 @@ def test_port_stands_alone_subprocess(tmp_path):
     port, runs the text frontend in every language, loads and resamples a
     wav, reads configs/gpt.yaml, takes two micro-batches of the s1 train
     step, prepares a dataset through the slicer, denoise and normalize
-    cmds on the CPU, and transcribes through the ASR cmd in zh and en."""
-    env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1")
+    cmds on the CPU, transcribes through the ASR cmd in zh and en, and
+    separates through the UVR5 cmd (VR, DeEcho, MDX) and both Roformer
+    separators."""
+    # one OpenMP thread: the test workers share the cores, and oneDNN's
+    # multi-threaded first calls (the DeEcho LSTM's above all) slow down
+    # by minutes when they do
+    env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1",
+               OMP_NUM_THREADS="1")
     env.pop("EASEVOICE_PINYIN_TABLE", None)
     proc = subprocess.run([sys.executable, "-c", _ISOLATED,
                            str(tmp_path / "ref.wav")], cwd=REPO, env=env,
@@ -1005,3 +1058,93 @@ def test_simple_yaml_still_refuses_the_rest(text):
     than PyYAML's (which reads some of them and refuses others)."""
     with pytest.raises(ValueError):
         simple_yaml.loads(text)
+
+
+# ---- UVR5's band configs and host functions ---------------------------------
+
+from easevoice_trainer_tpu.audiokit import uvr5 as juvr5  # noqa: E402
+from easevoice_trainer_tpu_torch.audiokit import uvr5 as puvr5  # noqa: E402
+
+
+def test_uvr5_band_configs_are_byte_identical_copies():
+    names = sorted(os.listdir(juvr5.PARAMS_DIR))
+    assert sorted(os.listdir(puvr5.PARAMS_DIR)) == names and len(names) == 25
+    for name in names:
+        with open(os.path.join(juvr5.PARAMS_DIR, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(puvr5.PARAMS_DIR, name), "rb") as f:
+            assert f.read() == want, name
+        assert puvr5.load_band_params(name) == juvr5.load_band_params(name)
+
+
+def test_uvr5_host_functions_match_jax():
+    """The band filters, the stereo channel coding (each mode) and the
+    multiband STFT / iSTFT, exactly, on seeded inputs."""
+    rng = np.random.default_rng(13)
+    spec = (rng.normal(size=(2, 65, 9)) + 1j * rng.normal(size=(2, 65, 9)))
+    for start, stop in ((10, 20), (20, 20), (60, 64)):
+        np.testing.assert_array_equal(puvr5._fft_lp_filter(spec, start, stop),
+                                      juvr5._fft_lp_filter(spec, start, stop))
+        np.testing.assert_array_equal(
+            puvr5._fft_hp_filter(spec, stop, start - 1),
+            juvr5._fft_hp_filter(spec, stop, start - 1))
+    wav = rng.uniform(-0.5, 0.5, (2, 4000)).astype(np.float32)
+    for mode in ("none", "reverse", "mid_side", "mid_side_b2"):
+        mp = {mode: True}
+        for fn in ("_encode_channels", "_decode_channels"):
+            np.testing.assert_array_equal(getattr(puvr5, fn)(wav, mp),
+                                          getattr(juvr5, fn)(wav, mp))
+    for n_fft, hop in ((640, 80), (960, 480), (128, 120)):
+        got = puvr5._stft(wav, n_fft, hop)
+        np.testing.assert_array_equal(got, juvr5._stft(wav, n_fft, hop))
+        np.testing.assert_array_equal(puvr5._istft(got, hop),
+                                      juvr5._istft(got, hop))
+    np.testing.assert_array_equal(puvr5._stft(wav[0], 320, 80),
+                                  juvr5._stft(wav[0], 320, 80))
+
+
+def test_separator_stft_packing_matches_jax():
+    """MDX-Net's STFT packing (the port's in the reference's (B, C, F, T)
+    layout, the JAX package's in (B, T, F, C)) and the Roformers' centered
+    STFT / iSTFT, exactly."""
+    from easevoice_trainer_tpu.audiokit import bs_roformer as jbs
+    from easevoice_trainer_tpu.audiokit import mdxnet as jmdx
+    from easevoice_trainer_tpu_torch.audiokit import bs_roformer as pbs
+    from easevoice_trainer_tpu_torch.audiokit import mdxnet as pmdx
+
+    cfg = dict(dim_f=64, dim_t=32, n_fft=512, hop=128)
+    jsep = jmdx.MDXSeparator.__new__(jmdx.MDXSeparator)
+    jsep.cfg = jmdx.MDXConfig(**cfg)
+    psep = pmdx.MDXSeparator.__new__(pmdx.MDXSeparator)
+    psep.cfg = pmdx.MDXConfig(**cfg)
+    waves = np.random.default_rng(14).uniform(
+        -0.5, 0.5, (3, 2, psep.cfg.chunk_size)).astype(np.float32)
+    got = psep._stft(waves)
+    np.testing.assert_array_equal(got.transpose(0, 3, 2, 1),
+                                  jsep._stft(waves))
+    np.testing.assert_array_equal(psep._istft(got),
+                                  jsep._istft(got.transpose(0, 3, 2, 1)))
+    jr = jbs.BSRoformerSeparator.__new__(jbs.BSRoformerSeparator)
+    jr.cfg = jbs.BSRoformerConfig()
+    pr = pbs.BSRoformerSeparator.__new__(pbs.BSRoformerSeparator)
+    pr.cfg = pbs.BSRoformerConfig()
+    wav = waves[0, :, :20000]
+    spec = pr._stft(wav)
+    np.testing.assert_array_equal(spec, jr._stft(wav))
+    np.testing.assert_array_equal(pr._istft(spec, 20000),
+                                  jr._istft(spec, 20000))
+
+
+def test_mel_band_membership_matches_jax():
+    """Over the port's ``ops/mel.py mel_filterbank``: the released 60-band
+    config and a small one."""
+    from easevoice_trainer_tpu.audiokit import bs_roformer as jbs
+    from easevoice_trainer_tpu_torch.audiokit import bs_roformer as pbs
+
+    for kw in ({}, dict(num_bands=6, sample_rate=8000, stft_n_fft=32),
+               dict(stereo=False)):
+        got = pbs.mel_band_membership(pbs.MelBandRoformerConfig(**kw))
+        want = jbs.mel_band_membership(jbs.MelBandRoformerConfig(**kw))
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        np.testing.assert_array_equal(got[2], want[2])

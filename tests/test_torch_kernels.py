@@ -897,3 +897,58 @@ def test_normalize_ssl_on_the_card(tmp_path, monkeypatch):
         a, _ = audio_io.read_wav(os.path.join(cpu.wav_dir, name))
         b, _ = audio_io.read_wav(os.path.join(card.wav_dir, name))
         np.testing.assert_array_equal(b, a)
+
+
+# the Roformers' axial attention (B, H, T): BS-Roformer's time axis (62
+# band rows of the 801 frames of an 8 s chunk) and frequency axis (801
+# frame rows of 62 bands), Mel-Band Roformer's (60 bands); no padding
+ROFORMER_CASES = [(62, 8, 801), (801, 8, 62), (60, 8, 801), (801, 8, 60)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t", ROFORMER_CASES)
+def test_encoder_attention_at_the_roformer_shapes(b, h, t):
+    """K1 at dk 64 as ``RoformerAttention`` calls it: q and k rotated
+    (contiguous), v a view of the fused qkv projection, every key valid;
+    within the dk-64 tolerance of its twin, and every batch row equal, bit
+    for bit, to a run of that row alone."""
+    gen = _card()
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device="cuda")
+    q, k = (qkv[:, :, i].contiguous() for i in (0, 1))
+    v = qkv[:, :, 2]
+    full = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    n0 = encoder_attention.launches
+    got = encoder_attention(q, k, v, full)
+    want = att.prefill_attention_reference(q, k, v, t, full,
+                                           torch.zeros_like(full))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert encoder_attention.launches == n0 + 1
+    for i in range(0, b, max(1, b // 16)):
+        alone = encoder_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                  full[i:i + 1])
+        torch.testing.assert_close(alone[0], got[i], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_roformer_card_matches_cpu():
+    """A 2-layer BS-Roformer at the released widths (dim 512, 62 bands) on
+    one second of a chunk: the card (K1) against the CPU (the twin),
+    within 1e-4 of the largest CPU magnitude, two K1 launches a layer."""
+    from easevoice_trainer_tpu_torch import convert
+    from easevoice_trainer_tpu_torch.audiokit.bs_roformer import (
+        BSRoformer, BSRoformerConfig)
+
+    _card()
+    net = BSRoformer(BSRoformerConfig(depth=2))
+    net.load_state_dict(convert.random_state_dict(
+        net, torch.Generator().manual_seed(3)))
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (1, 2050, 101, 2)).astype(np.float32))
+    with torch.no_grad():
+        want = net.eval()(x)
+        n0 = encoder_attention.launches
+        got = net.cuda()(x.cuda()).cpu()
+    assert encoder_attention.launches == n0 + 4
+    err = float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+    assert err <= 1e-4, err
