@@ -136,16 +136,35 @@ Phases, one summary line each; any failure exits non-zero:
    bucket, first micro-batch, peak memory, and one accumulation window
    under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
 12. reference s1 step: one micro-batch at a small width on the card and on
-   the CPU agrees (loss and every qkv gradient).
+   the CPU agrees (loss and every qkv gradient);
+13. rest: the port's REST server as a user drives it, every process of it
+   under an import hook that refuses the JAX package, jax, flax, yaml,
+   transformers, safetensors, aiohttp and psutil: ``python -m
+   easevoice_trainer_tpu_torch.main --dry-run`` exits 0, then the server
+   on a free port, its models those the earlier phases wrote (linked
+   under a base path of its own, whose configs/s2.json logs every step's
+   loss); /session names the card; a namespace and the uploaded 5 s
+   reference; /normalize/start over phase 7's denoised clips with an en
+   row each; one epoch of s2 and of s1 training on the result (a second
+   start 409, losses in the session, the request's device "cuda" whatever
+   the body said); /voiceclone/models lists both; two greedy clones of the
+   two trained models (K1, K2 and K3 counted in the first one's device
+   records under /profiler; the card's used memory after each); a long s2
+   run stopped after its first loss (its processes gone from /proc and
+   from nvidia-smi within 15 s, the session Completed); easy mode over a
+   10 s song (Completed where jieba imports; else Failed at step 5 with
+   jieba named, steps 1-4 done; the line "[rest] easy mode route" says
+   which) and the TensorBoard proxy (502 without a tensorboard binary);
+   each request's wall on a "[rest]" line.
 
-After training it checks that no module of the JAX package, jax, flax,
-yaml, transformers or safetensors was loaded in the whole run, UVR5's
-included (the ASR
-chain's config.yaml files go through the port's reader, Whisper's
-tokenizer is the port's own).  Two lines before the last hold one JSON
+After the REST phase it checks that no module of the JAX package, jax,
+flax, yaml, transformers, safetensors, aiohttp or psutil was loaded in the
+whole run, UVR5's included (the ASR chain's config.yaml files go through
+the port's reader, Whisper's tokenizer is the port's own).  Two lines before the last hold one JSON
 object with each kernel's launches (in all, per serving clone, per s2 step
 and per s1 micro-batch),
-error, device times and bound; the line before the last is the card's name
+error, device times and bound (``launches_per_path`` holds the REST clone's
+trace counts as ``rest_clone_trace``); the line before the last is the card's name
 and power limit as ``nvidia-smi`` gives them, and the last line is the
 run's verdict ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the repository beside this file, it exits non-zero and prints no
@@ -4391,6 +4410,536 @@ def uvr5_phase(torch, tmp: str, results):
             os.environ["EASEVOICE_BASE_PATH"] = old_base
 
 
+# ---------------------------------------------------------------------------
+# phase 13, rest: the port's server, driven over HTTP as a user drives it
+# ---------------------------------------------------------------------------
+
+# the modules no process of the port may load: the JAX package and the
+# libraries the card's machine lacks
+FOREIGN = ("easevoice_trainer_tpu", "jax", "jaxlib", "flax", "yaml",
+           "transformers", "safetensors", "aiohttp", "psutil")
+
+# put on the server's PYTHONPATH as sitecustomize.py: the server and every
+# task process it starts refuse to import a FOREIGN module
+REFUSE_HOOK = f'''import importlib.abc, sys
+FOREIGN = {FOREIGN!r}
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FOREIGN:
+            raise ImportError(f"refused import of {{name}} (chip_smoke)")
+        return None
+sys.meta_path.insert(0, _Refuse())
+'''
+
+
+class _Rest:
+    """A urllib client of the server at ``url``; every request's wall on
+    the host clock goes on a "[rest]" line."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.walls = []
+
+    def __call__(self, method: str, path: str, body=None, query=None,
+                 quiet: bool = False):
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        if query:
+            path += "?" + urllib.parse.urlencode(query)
+        req = urllib.request.Request(
+            self.url + "/apis/v1" + path, method=method,
+            data=None if body is None else json.dumps(body).encode())
+        t = time.perf_counter()
+        try:
+            resp = urllib.request.urlopen(req, timeout=120)
+        except urllib.error.HTTPError as e:
+            resp = e
+        with resp:
+            payload = resp.read()
+            ctype = resp.headers.get("Content-Type", "")
+        wall = time.perf_counter() - t
+        if not quiet:
+            self.walls.append((f"{method} {path.split('?')[0]}", wall))
+            log(f"[rest] {method} {path} -> {resp.status} in "
+                f"{wall * 1000:.1f} ms")
+        if ctype.startswith("application/json"):
+            payload = json.loads(payload)
+        return resp.status, payload
+
+    def wait(self, uid: str, timeout: float, what: str, poll: float = 0.5,
+             on_poll=None):
+        """Poll /session/current until the task ``uid`` ends; -> (session,
+        wall s from the first poll)."""
+        t = time.perf_counter()
+        while True:
+            _, info = self("GET", "/session/current", quiet=True)
+            assert info.get("uuid") == uid, info
+            if on_poll is not None:
+                on_poll(info)
+            if info["status"] != "Running":
+                wall = time.perf_counter() - t
+                log(f"[rest] {what}: {info['status']} after {wall:.2f} s of "
+                    f"polling: '{info.get('message')}'")
+                return info, wall
+            assert time.perf_counter() - t < timeout, \
+                f"{what} still running after {timeout} s: {info}"
+            time.sleep(poll)
+
+
+def _alive(pid: int) -> bool:
+    """False once ``pid`` is gone or a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
+def _symbol(name: str) -> str:
+    """A demangled kernel name without its parameter list."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode()[:120].strip()
+    except OSError:
+        return "?"
+
+
+def _gpu_pids() -> list:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    return [int(p) for p in proc.stdout.split()]
+
+
+def card_used_gib(torch) -> float:
+    """The whole card's used memory, every process's (mem_get_info)."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2 ** 30
+
+
+def trace_kernels(path: str) -> dict:
+    """name -> count of the device kernel records in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return counts
+
+
+# the REST path's kernels by the symbol in their device records: K1's
+# GPT instance (dk 32), its dk-64 instance (the clone's HuBERT), K2, K3
+TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32>"),
+                 ("encoder_attention", "prefill_attention_kernel<64>"),
+                 ("decode_attention", "decode_attention_kernel"),
+                 ("mrf_conv", "conv_mma_kernel"))
+
+
+def rest_base(tmp: str, base: str) -> dict:
+    """The server's installation: ``base`` with configs/ (the repo's s2.json
+    with ``log_interval`` 1, so that each step's loss reaches the session,
+    and gpt.yaml) and models/ linking to the weights the earlier phases
+    wrote (UVR5, FRCRN, the ASR nets); -> the environment's model paths
+    (BERT, HuBERT, the pretrained s2G and GPT)."""
+    os.makedirs(os.path.join(base, "configs"))
+    with open(os.path.join(HERE, "configs", "s2.json")) as f:
+        s2 = json.load(f)
+    s2["train"]["log_interval"] = 1
+    with open(os.path.join(base, "configs", "s2.json"), "w") as f:
+        json.dump(s2, f, indent=2)
+    shutil.copy(os.path.join(HERE, "configs", "gpt.yaml"),
+                os.path.join(base, "configs"))
+    models = os.path.join(base, "models")
+    links = {
+        "uvr5_weights": os.path.join(tmp, "uvr5", "base", "models",
+                                     "uvr5_weights"),
+        "denoise/speech_frcrn_ans_cirm_16k": os.path.join(
+            tmp, "prep", "speech_frcrn_ans_cirm_16k"),
+        "asr/paraformer-zh": os.path.join(tmp, "asr", "models",
+                                          "paraformer-zh"),
+        "asr/fsmn-vad": os.path.join(tmp, "asr", "models", "fsmn-vad"),
+        "asr/ct-punc": os.path.join(tmp, "asr", "models", "ct-punc"),
+        "whisper": os.path.join(tmp, "asr", "models", "whisper-small")}
+    for name, target in links.items():
+        assert os.path.exists(target), target
+        os.makedirs(os.path.dirname(os.path.join(models, name)),
+                    exist_ok=True)
+        os.symlink(target, os.path.join(models, name))
+    env = {"bert_path": os.path.join(tmp, "chinese-roberta-wwm-ext-large"),
+           "cnhubert_path": os.path.join(tmp, "prep",
+                                         "chinese-hubert-base"),
+           "sovits_path": os.path.join(tmp, "prep", "s2G_random.pth"),
+           "gpt_path": os.path.join(tmp, "prep", "s1_random.ckpt")}
+    for path in env.values():
+        assert os.path.exists(path), path
+    return env
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rest_phase(torch, tmp: str, results):
+    """The port's REST server at full width, as a user drives it: ``python
+    -m easevoice_trainer_tpu_torch.main --dry-run``, then the server on the
+    card (every process of it under an import hook refusing FOREIGN)
+    answering: /session, a namespace and an uploaded reference; normalize
+    (en rows over phase 7's denoised clips), the s2 and s1 fine-tunes (a
+    second start 409), the model list; two greedy voice clones of the two
+    trained models, the first under /profiler (K1, K2 and K3 counted in its
+    device records); a stopped s2 run whose process tree is gone; easy mode
+    over a 10 s song (Completed where jieba imports, else Failed at step 5
+    naming jieba); the TensorBoard proxy."""
+    from easevoice_trainer_tpu_torch.service.session import descendants
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    root = os.path.join(tmp, "rest")
+    base = os.path.join(root, "base")
+    hook = os.path.join(root, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(REFUSE_HOOK)
+    env = dict(os.environ, **rest_base(tmp, base))
+    for k in ("EASEVOICE_FRCRN_PATH", "EASEVOICE_PARAFORMER_DIR",
+              "EASEVOICE_VAD_DIR", "EASEVOICE_PUNC_DIR",
+              "EASEVOICE_WHISPER_DIR", "EASEVOICE_ALLOW_PASSTHROUGH"):
+        env.pop(k, None)
+    port = free_port()
+    env.update(PYTHONPATH=hook + os.pathsep + HERE,
+               EASEVOICE_BASE_PATH=base, EASEVOICE_PORT=str(port),
+               EASEVOICE_TRAINER_NAMESPACES_ROOT=os.path.join(root, "ns"),
+               NVIDIA_TF32_OVERRIDE="0")
+    main_cmd = [sys.executable, "-m", "easevoice_trainer_tpu_torch.main"]
+
+    t = time.perf_counter()
+    proc = subprocess.run(main_cmd + ["--dry-run"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "dry-run: server started OK" in \
+        proc.stderr, (proc.returncode, proc.stderr[-3000:])
+    log(f"[rest] main.py --dry-run: exit 0 in {time.perf_counter() - t:.2f}"
+        f" s (the interpreter's start and the imports included)")
+
+    gc.collect()
+    torch.cuda.empty_cache()      # UVR5's cuDNN workspaces need the room
+    log(f"[rest] card memory in use before the server (every process): "
+        f"{card_used_gib(torch):.2f} GiB")
+    server_log = open(os.path.join(root, "server.log"), "w")
+    t = time.perf_counter()
+    server = subprocess.Popen(main_cmd, cwd=root, env=env, stdout=server_log,
+                              stderr=subprocess.STDOUT)
+    rest = _Rest(f"http://127.0.0.1:{port}")
+    try:
+        while True:
+            try:
+                status, _ = rest("GET", "/session/current", quiet=True)
+                break
+            except OSError:
+                assert server.poll() is None, "the server exited"
+                assert time.perf_counter() - t < 300, "no server after 300 s"
+                time.sleep(0.2)
+        log(f"[rest] server up on :{port} (pid {server.pid}) after "
+            f"{time.perf_counter() - t:.2f} s")
+        _rest_drive(torch, rest, root, tmp, kind, server.pid, results)
+    except Exception:
+        server_log.flush()
+        with open(os.path.join(root, "server.log")) as f:
+            log("[rest] server log, last lines:\n" + "".join(
+                f.readlines()[-60:]))
+        raise
+    finally:
+        for pid in descendants(server.pid):
+            try:
+                os.kill(pid, 15)
+            except OSError:
+                pass
+        server.terminate()
+        try:
+            server.wait(30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        server_log.close()
+    total = time.perf_counter() - t_phase
+    log(f"[rest] phase wall {total:.1f} s; request walls (host clock): "
+        + ", ".join(f"{k} {v * 1000:.1f} ms" for k, v in rest.walls))
+
+
+def _rest_drive(torch, rest, root, tmp, kind, server_pid, results):
+    import base64
+
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch.service.session import descendants
+    from easevoice_trainer_tpu_torch.utils import paths
+
+    # the session and its monitor metrics
+    status, info = rest("GET", "/session")
+    metrics = info["monitor_metrics"]
+    log(f"[rest] monitor_metrics {metrics}")
+    assert status == 200 and metrics["accelerator"] == kind, metrics
+    assert metrics["memory_allocated_percentage"].endswith("%"), metrics
+
+    # a namespace and the reference clip uploaded into its voices/
+    status, ns = rest("POST", "/namespaces", {"name": "rest"})
+    assert status == 200, ns
+    home = ns["homePath"]
+    voices = os.path.join(home, "voices")
+    with open(os.path.join(tmp, "ref.wav"), "rb") as f:
+        content = base64.b64encode(f.read()).decode()
+    status, body = rest("POST", "/files", {
+        "directoryPath": voices, "fileName": "ref.wav",
+        "fileContent": content})
+    assert status == 200, body
+    ref = os.path.join(voices, "ref.wav")
+    assert read_wav(ref)[0].size == 5 * 32000
+
+    # normalize: phase 7's denoised clips, an en row each (no jieba needed)
+    work = os.path.join(root, "work")
+    src = os.path.join(tmp, "prep", "work", paths.DENOISES_OUTPUT)
+    clips = sorted(os.listdir(src))
+    shutil.copytree(src, os.path.join(work, paths.DENOISES_OUTPUT))
+    for i, name in enumerate(clips):
+        status, body = rest("POST", "/audio/refinement", {
+            "source_dir": work, "output_dir": work,
+            "source_file_path": os.path.join(work, paths.DENOISES_OUTPUT,
+                                             name),
+            "language": "en", "text_content": SENTENCES[i % len(SENTENCES)]},
+            quiet=i > 0)
+        assert status == 200 and body["status"] == "success", body
+    status, body = rest("POST", "/normalize/start",
+                        {"processing_path": work, "device": "cpu"})
+    assert status == 200, body
+    info, wall = rest.wait(body["uuid"], 600, "normalize")
+    assert info["status"] == "Completed", info
+    assert info["request"]["device"] == "cuda", info["request"]
+    norm = body["data"]["normalize_path"]
+    assert info["data"]["output_path"] == norm
+    for name in (paths.TEXT_OUTPUT_NAME, paths.SSL_OUTPUT, paths.WAV_OUTPUT,
+                 paths.SEMANTIC_OUTPUT):
+        assert os.path.exists(os.path.join(norm, name)), name
+    assert len(os.listdir(os.path.join(norm, paths.SSL_OUTPUT))) == \
+        len(clips)
+    log(f"[rest] normalize of {len(clips)} clips (en rows): {wall:.2f} s "
+        f"from start to Completed; the folder holds 2-name2text, "
+        f"4-cnhubert, 5-wav32k and 6-name2semantic")
+
+    # the fine-tunes, each then a second start (409)
+    # (one epoch each: the loaders replicate a small folder, enough s1
+    # micro-batches for a loss line every 10)
+    trained = {}
+    for route, name, suffix in (("sovits", "rest_s2", ".pth"),
+                                ("gpt", "rest_s1", ".ckpt")):
+        body_in = dict(train_input_dir=norm, project_dir=home,
+                       output_model_name=name, batch_size=4, total_epochs=1,
+                       save_every_epoch=1)
+        status, body = rest("POST", f"/train/{route}/start", body_in)
+        assert status == 200, body
+        status2, again = rest("POST", f"/train/{route}/start", body_in)
+        assert status2 == 409, (status2, again)
+        info, wall = rest.wait(body["uuid"], 900, f"train {route}")
+        assert info["status"] == "Completed", info
+        assert info["request"]["device"] == "cuda", info["request"]
+        losses = info.get("losses", [])
+        assert losses and all(math.isfinite(x["loss"]) for x in losses), \
+            info
+        path = info["data"]["model_path"]
+        assert path.endswith(suffix) and os.path.exists(path), path
+        trained[route] = os.path.basename(path)
+        log(f"[rest] train {route}: {wall:.2f} s from start to Completed "
+            f"({info['data']['global_step']} steps of B=4, one epoch); losses "
+            + ", ".join(f"{x['step']}: {x['loss']:.3f}" for x in losses)
+            + f"; {os.path.basename(path)}")
+    status, models = rest("GET", "/voiceclone/models",
+                          query={"project_dir": home})
+    assert status == 200 and trained["sovits"] in models["sovits"] and \
+        trained["gpt"] in models["gpts"], models
+
+    # two greedy clones of the trained models, the first profiled
+    clone = dict(
+        text=" ".join(SENTENCES[:2]), text_lang="en", ref_audio_path=ref,
+        prompt_text="", text_split_method="by_english_period", batch_size=2,
+        top_k=1, seed=1234, keep_random=False,
+        sovits_path=trained["sovits"], gpt_path=trained["gpt"],
+        project_dir=home, output_dir=os.path.join(home, "outputs"))
+    status, body = rest("POST", "/profiler/start")
+    assert status == 200, body
+    trace_dir = body["trace_dir"]
+    walls, used = [], []
+    for i in range(2):
+        t = time.perf_counter()
+        status, body = rest("POST", "/voiceclone/clone", clone)
+        assert status == 200, body
+        info, _ = rest.wait(body["uuid"], 600, f"clone {i + 1}", poll=0.1)
+        walls.append(time.perf_counter() - t)
+        assert info["status"] == "Completed", info
+        if i == 0:
+            t = time.perf_counter()
+            status, body = rest("POST", "/profiler/stop")
+            assert status == 200, body
+            traces = sorted(os.listdir(trace_dir))
+            assert len(traces) == 1, traces
+            counts = trace_kernels(os.path.join(trace_dir, traces[0]))
+            log(f"[rest] profiler stop and the trace read in "
+                f"{time.perf_counter() - t:.2f} s; "
+                f"{os.path.getsize(os.path.join(trace_dir, traces[0])) / 2 ** 20:.1f}"
+                f" MiB; {sum(counts.values())} kernel records")
+        used.append(card_used_gib(torch))
+        wav, sr = read_wav(info["data"]["output_path"])
+        assert sr == 32000 and wav.size > 0 and np.isfinite(wav).all()
+        assert np.abs(wav).max() > 0, "silent clone"
+        log(f"[rest] clone {i + 1}: {walls[-1]:.2f} s from the request to "
+            f"Completed (a fresh TTS built in the server), "
+            f"{wav.size / sr:.2f} s of audio; card memory in use after it "
+            f"(every process, mem_get_info) {used[-1]:.2f} GiB")
+    found = {}
+    for key, symbol in TRACE_KERNELS:
+        found[key] = sum(n for name, n in counts.items() if symbol in name)
+        results[key].setdefault("per_path", {})["rest_clone_trace"] = \
+            found[key]
+    named = {_symbol(n) for n in counts
+             if any(s in n for _, s in TRACE_KERNELS)}
+    log(f"[rest] the first clone's device records: " + ", ".join(
+        f"{k} {v}" for k, v in found.items()) + "; kernels named: "
+        + ", ".join(sorted(named)))
+    for key in ("prefill_attention", "decode_attention", "mrf_conv"):
+        assert found[key] > 0, f"{key} absent from the clone's trace"
+
+    # a stop: a long s2 run, stopped after its first loss (the server's
+    # other children, TensorBoard's for one, are not the run's)
+    others = set(descendants(server_pid))
+    status, body = rest("POST", "/train/sovits/start", dict(
+        train_input_dir=norm, project_dir=home, output_model_name="rest_stop",
+        batch_size=4, total_epochs=100, save_every_epoch=100))
+    assert status == 200, body
+    uid = body["uuid"]
+    t = time.perf_counter()
+    while True:
+        _, info = rest("GET", "/session/current", quiet=True)
+        if info.get("losses"):
+            break
+        assert info["status"] == "Running", info
+        assert time.perf_counter() - t < 600, "no loss after 600 s"
+        time.sleep(0.2)
+    tree = [p for p in descendants(server_pid) if p not in others]
+    gpu_before = _gpu_pids()
+    log(f"[rest] the s2 run's first loss after {time.perf_counter() - t:.2f}"
+        f" s; its processes {[(p, _cmdline(p)) for p in tree]}; nvidia-smi "
+        f"compute apps (pids as its namespace sees them) {gpu_before}")
+    assert tree
+    status, body = rest("DELETE", "/train/sovits/stop", query={"uid": uid})
+    assert status == 200 and body["message"] == "Task stopped by user.", \
+        body
+    t = time.perf_counter()
+    while any(_alive(p) for p in tree):
+        assert time.perf_counter() - t < 15, \
+            [p for p in tree if _alive(p)]
+        time.sleep(0.1)
+    gone = time.perf_counter() - t
+    # nvidia-smi may list pids of another pid namespace: the run's card
+    # context is gone when its list is one shorter
+    while True:
+        gpu_after = _gpu_pids()
+        if len(gpu_after) == len(gpu_before) - 1:
+            break
+        assert time.perf_counter() - t < 15, (gpu_before, gpu_after)
+        time.sleep(0.5)
+    released = time.perf_counter() - t
+    time.sleep(1.0)
+    _, info = rest("GET", "/session/current")
+    assert info["uuid"] == uid and info["status"] == "Completed" and \
+        info["message"] == "Task stopped by user." and \
+        info["error"] is None, info
+    log(f"[rest] stop: the run's processes {tree} gone from /proc "
+        f"{gone:.2f} s and its card context from nvidia-smi's list "
+        f"{released:.2f} s after the answer ({gpu_before} -> {gpu_after}); "
+        f"the session reads Completed, 'Task stopped by user.'")
+
+    # easy mode over a 10 s song
+    try:
+        import jieba  # noqa: F401
+        route = "jieba"
+    except ImportError:
+        route = "no jieba"
+    song = os.path.join(root, "song")
+    os.makedirs(song)
+    write_song_source(os.path.join(song, "song.wav"), 50, 10.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = [card_used_gib(torch)]
+    status, body = rest("POST", "/easevoice/start",
+                        {"source_dir": song, "project_dir": home})
+    assert status == 200, body
+    info, wall = rest.wait(
+        body["uuid"], 900, "easy mode", poll=0.25,
+        on_poll=lambda _: peak.append(card_used_gib(torch)))
+    outs = [d for d in os.listdir(song) if d.startswith("easy_mode_")]
+    assert len(outs) == 1, outs
+    out = os.path.join(song, outs[0])
+    made = {d: len(os.listdir(os.path.join(out, d))) for d in (
+        paths.VOCALS_OUTPUT, paths.SLICES_OUTPUT, paths.DENOISES_OUTPUT,
+        paths.ASRS_OUTPUT) if os.path.isdir(os.path.join(out, d))}
+    log(f"[rest] easy mode route: {route} ("
+        + ("jieba imports: all seven steps must complete"
+           if route == "jieba" else
+           "jieba does not import here: the zh normalize step must fail on "
+           "it, after steps 1-4") + f"); {info['status']} after {wall:.2f} s"
+        f", step {info.get('current_step')} of {info.get('total_steps')}, "
+        f"progress {info.get('progress')}, '{info.get('current_step_description')}'"
+        f"; artifacts {made}; card memory in use, every process: "
+        f"{peak[0]:.2f} GiB before, peak {max(peak):.2f} GiB over "
+        f"{len(peak) - 1} samples")
+    assert all(made.get(d) for d in (
+        paths.VOCALS_OUTPUT, paths.SLICES_OUTPUT, paths.DENOISES_OUTPUT,
+        paths.ASRS_OUTPUT)), made
+    if route == "jieba":
+        assert info["status"] == "Completed", info
+        assert set(info["data"]) == {"sovits_output", "gpt_output"}, info
+        assert all(os.path.exists(p) for p in info["data"].values()), info
+    else:
+        assert info["status"] == "Failed", info
+        assert info["current_step"] == 5, info
+        assert abs(info["progress"] - 4 / 7 * 100) < 1e-9, info
+        assert "No module named 'jieba'" in info["error"], info
+        assert info["error"].startswith("Normalization failed: "), info
+
+    # the TensorBoard proxy: 502 without the binary; with it, the server
+    # started TensorBoard on :6006, which may take seconds to answer
+    binary = shutil.which("tensorboard")
+    t = time.perf_counter()
+    while True:
+        status, body = rest("GET", "/tensorboard/")
+        if binary is None or status != 502 or \
+                time.perf_counter() - t > 60:
+            break
+        time.sleep(2)
+    log(f"[rest] tensorboard binary {binary or 'not on PATH'}: the proxy "
+        f"answered {status}" + (f" ({len(body)} bytes proxied)"
+                                if status != 502 else f": {body}"))
+    if binary is None:
+        assert status == 502, (status, body)
+    else:
+        assert status != 502, (status, body)
+
+
 def load_parent(root: str):
     """The port package of another checkout at ``root`` (the parent commit
     unpacked with ``git archive``), imported as ``ev_parent`` beside this
@@ -4508,12 +5057,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "reference s1 step"
         reference_s1_step(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "rest"
+        rest_phase(torch, tmp, results)
         phase = "isolation"
         from easevoice_trainer_tpu_torch import native
 
-        foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
-            "easevoice_trainer_tpu", "jax", "flax", "yaml", "transformers",
-            "safetensors"))
+        foreign = sorted(m for m in sys.modules
+                         if m.split(".")[0] in FOREIGN)
         log(f"[isolation] after serving English and Chinese text, resampling "
             f"the reference clip (native resampler built: "
             f"{native.available()}), separating vocals with UVR5 (the VR "
@@ -4523,9 +5075,10 @@ def main() -> int:
             f"config.yaml files read by the port's reader, Whisper's "
             f"tokenizer the port's own), the three normalization stages, "
             f"2 + 2 training steps on it), "
-            f"12 s2 training steps and 12 s1 micro-batches, modules of "
-            f"easevoice_trainer_tpu, jax, flax, yaml, transformers or "
-            f"safetensors loaded: {foreign}")
+            f"12 s2 training steps and 12 s1 micro-batches, and driving "
+            f"the REST server (whose processes ran under a hook refusing "
+            f"the same modules), modules of {', '.join(FOREIGN)} loaded "
+            f"here: {foreign}")
         assert not foreign, foreign
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()

@@ -117,11 +117,14 @@ class Normalize:
                                 "bert_feature and phones not match")
                         self._save_pt(feature, path_bert)
                 rows.append((name, " ".join(phones), word2ph, norm_text))
-            except Exception:
+            except Exception as e:
+                # the message names the cause (a missing jieba, say): the
+                # session shows it, where the log may not reach the user
                 logger.error("text normalize failed for %s\n%s", wav_name,
                              traceback.format_exc())
-                return EaseVoiceResponse(ResponseStatus.FAILED,
-                                         "failed to process text")
+                return EaseVoiceResponse(
+                    ResponseStatus.FAILED,
+                    f"failed to process text: {type(e).__name__}: {e}")
         with open(self.text_output_path, "w", encoding="utf8") as f:
             f.write("\n".join("%s\t%s\t%s\t%s" % r for r in rows) + "\n")
         return EaseVoiceResponse(ResponseStatus.SUCCESS, "success")

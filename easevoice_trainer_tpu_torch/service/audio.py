@@ -58,6 +58,67 @@ from ..utils.response import EaseVoiceResponse, ResponseStatus
 AUDIO_EXTS = ("wav", "flac", "mp3", "m4a")
 
 
+# ---- request schemas (JAX: service/audio.py:43-96) ---------------------------
+
+@dataclasses.dataclass
+class AudioUVR5Params:
+    source_dir: str
+    output_dir: str
+    model_name: str = "HP5_only_main_vocal"
+    audio_format: str = "wav"
+
+
+@dataclasses.dataclass
+class AudioSlicerParams:
+    source_dir: str
+    output_dir: str
+    threshold: int = -34
+    min_length: int = 4000
+    min_interval: int = 300
+    hop_size: int = 10
+    max_silent_kept: int = 500
+    normalize_max: float = 0.9
+    alpha_mix: float = 0.25
+
+
+@dataclasses.dataclass
+class AudioDenoiseParams:
+    source_dir: str
+    output_dir: str
+
+
+@dataclasses.dataclass
+class AudioASRParams:
+    source_dir: str
+    output_dir: str
+    asr_model: str = "funasr"
+    model_size: str = "large"
+    language: str = "zh"
+    precision: str = "float32"
+
+
+@dataclasses.dataclass
+class AudioRefinementSubmitParams:
+    source_dir: str
+    output_dir: str
+    source_file_path: str
+    language: str
+    text_content: str
+
+
+@dataclasses.dataclass
+class AudioRefinementDeleteParams:
+    source_dir: str
+    output_dir: str
+    source_file_path: str
+
+
+@dataclasses.dataclass
+class AudioRefinementReloadParams:
+    source_dir: str
+    output_dir: str
+
+
 def _passthrough_allowed() -> bool:
     return os.environ.get("EASEVOICE_ALLOW_PASSTHROUGH", "0") == "1"
 

@@ -4,8 +4,10 @@ Resolves named models from the project's trained-model dirs, runs the TTS
 pipeline, concatenates fragments and writes ``voice_<timestamp>.wav`` to the
 task's output dir.  ``session_manager`` is any object with
 ``update_session_info(uuid, info)`` and
-``end_session_with_response(uuid, response)``, such as the JAX package's
-``service.session.SessionManager``.
+``end_session_with_response(uuid, response)``, such as this package's
+``service.session.SessionManager``.  Without a ``tts`` the service builds
+its own on ``device`` (the card unless the caller asks for the CPU), as the
+REST server does for every request.
 """
 from __future__ import annotations
 
@@ -50,14 +52,18 @@ def list_train_sovits(project_dir: str) -> Dict[str, str]:
 
 
 class VoiceCloneService:
-    def __init__(self, session_manager: Any, tts: Optional[TTS] = None):
+    def __init__(self, session_manager: Any, tts: Optional[TTS] = None,
+                 device="cuda"):
         self.session_manager = session_manager
         self._tts = tts
+        self.device = str(device)
 
     @property
     def tts(self) -> TTS:
         if self._tts is None:
-            self._tts = TTS(TTSConfig())
+            cfg = TTSConfig()
+            cfg.device = self.device
+            self._tts = TTS(cfg)
         return self._tts
 
     def clone(self, uuid: str, params: dict) -> EaseVoiceResponse:

@@ -11,8 +11,9 @@
   step's optimizer and accumulation state, S counting micro-batches as in
   JAX; this package's torch format), else the pretrained ``.ckpt`` merged
   where names and shapes match;
-* a loss line to the connector every 10 micro-batches and the session data
-  every epoch;
+* a loss line to the connector (and the metrics to TensorBoard,
+  ``tb_log_dir()/<name>``, where a writer imports) every 10 micro-batches,
+  and the session data every epoch;
 * per ``save_every_epoch``: the resume file and the deployable
   ``{name}-e{E}.ckpt`` in ``export_gpt_weights``' format (half precision,
   ``model.``-prefixed reference names).
@@ -44,7 +45,7 @@ from ..utils.response import EaseVoiceResponse, ResponseStatus
 from . import ckpt as ckpt_io
 from . import data as data_mod
 from .gpt_step import GPTTrainHP, GPTTrainStep
-from .sovits import _round_up, merge_matching
+from .sovits import _round_up, _tb_writer, merge_matching
 
 
 @dataclasses.dataclass
@@ -207,6 +208,7 @@ class GPTTrain:
                 self.pretrained))
             logger.info("loaded pretrained GPT %s", self.pretrained)
 
+        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name))
         last: Dict[str, float] = {}
         for epoch in range(start_epoch, self.epochs + 1):
             for bucket_id, idxs in batcher.epoch_batches(epoch):
@@ -237,6 +239,9 @@ class GPTTrain:
                         global_step, last["loss"],
                         other={"acc": last["acc"], "lr": 0.002,
                                "epoch": epoch})
+                    if writer:
+                        for k, v in last.items():
+                            writer.add_scalar(k, v, global_step)
             if epoch % self.params.save_every_epoch == 0 \
                     or epoch == self.epochs:
                 self._save_resume(step_fn, epoch)
@@ -246,6 +251,8 @@ class GPTTrain:
                 {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
 
         final = self._export_weights(model, self.epochs)
+        if writer:
+            writer.close()
         return EaseVoiceResponse(
             ResponseStatus.SUCCESS, "train gpt success",
             data={"model_path": final, "global_step": step_fn.step,

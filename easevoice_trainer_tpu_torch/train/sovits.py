@@ -7,7 +7,9 @@
 * resume from ``logs/{G,D}_latest.pth`` (this package's torch format) when
   present, else the pretrained s2G/s2D ``.pth`` merged where names and
   shapes match;
-* a loss line to the connector every ``log_interval`` steps;
+* a loss line to the connector every ``log_interval`` steps, and every 5
+  steps the step's scalars to TensorBoard (``tb_log_dir()/<name>``) where
+  ``torch.utils.tensorboard`` (or ``tensorboardX``) imports;
 * per ``save_every_epoch``: resume files + the half-precision deployable
   ``{name}_e{E}_s{S}.pth`` (``{"weight", "config", "info"}``, no ``enc_q``).
 
@@ -106,6 +108,25 @@ def export_sovits_weights(net_g: SynthesizerTrn, path: str, config: Any,
         flat, path,
         wrapper=lambda sd: {"weight": sd, "config": config, "info": info},
         half=True)
+
+
+def _tb_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir``, or None with a
+    warning where no writer imports (JAX: train/sovits.py ``_tb_writer``)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        os.makedirs(log_dir, exist_ok=True)
+        return SummaryWriter(log_dir)
+    except Exception:
+        try:
+            from tensorboardX import SummaryWriter
+
+            os.makedirs(log_dir, exist_ok=True)
+            return SummaryWriter(log_dir)
+        except Exception:
+            logger.warning("tensorboard unavailable; scalars not written")
+            return None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -256,6 +277,7 @@ class SovitsTrain:
             self._load_pretrained(net_g, net_d)
 
         generator = torch.Generator(device=self.device)
+        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name))
         last_metrics: Dict[str, float] = {}
         for epoch in range(start_epoch, self.epochs + 1):
             for bucket_id, idxs in batcher.epoch_batches(epoch):
@@ -282,6 +304,9 @@ class SovitsTrain:
                             "learning_rate": self.hp.learning_rate
                             * (self.hp.lr_decay ** (epoch - 1)),
                         })
+                if writer and global_step % 5 == 0:
+                    for k, v in metrics.items():
+                        writer.add_scalar(k, float(v), global_step)
             if epoch % self.params.save_every_epoch == 0 \
                     or epoch == self.epochs:
                 self._save_resume(step_fn, epoch)
@@ -291,6 +316,8 @@ class SovitsTrain:
                 {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
 
         final_path = self._export_weights(net_g, self.epochs, step_fn.step)
+        if writer:
+            writer.close()
         return EaseVoiceResponse(
             ResponseStatus.SUCCESS, "train sovits success",
             data={

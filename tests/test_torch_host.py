@@ -718,7 +718,7 @@ _ISOLATED = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 REFUSED = ("easevoice_trainer_tpu", "jax", "jaxlib", "flax", "transformers",
-           "safetensors", "yaml")
+           "safetensors", "yaml", "aiohttp", "psutil")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -905,19 +905,48 @@ for cls, cfg in ((bs_roformer.BSRoformerSeparator, BS),
     sep.CHUNK, sep.FADE = 800, 80
     vocal, inst = sep.separate(wav, 44100)
     assert vocal.shape == wav.shape and np.isfinite(vocal).all()
+# the REST server on the CPU: main.py's dry run, then the app serving a
+# few requests (namespaces, the session with its CPU meter, the panel)
+import socket, threading, urllib.request
+os.chdir(root)
+os.environ["EASEVOICE_TRAINER_NAMESPACES_ROOT"] = os.path.join(root, "ns")
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+os.environ["EASEVOICE_PORT"] = str(sock.getsockname()[1])
+sock.close()
+from easevoice_trainer_tpu_torch import main as server_main
+server_main.serve(dry_run=True, device="cpu")
+from easevoice_trainer_tpu_torch.rest.app import build_app
+server = build_app(device="cpu").make_server("127.0.0.1", 0)
+server.serve_in_thread()
+url = f"http://127.0.0.1:{server.server_address[1]}"
+def ask(path, body=None):
+    req = urllib.request.Request(url + path, method="POST" if body else
+                                 "GET", data=body and json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.status, resp.read()
+status, body = ask("/apis/v1/namespaces", {"name": "demo"})
+assert status == 200 and json.loads(body)["name"] == "demo", body
+status, body = ask("/apis/v1/session")
+metrics = json.loads(body)["monitor_metrics"]
+assert metrics["accelerator"] == "cpu" and metrics["cpu_percentage"][-1] == "%"
+status, body = ask("/")
+assert status == 200 and b"/apis/v1" in body
+server.shutdown_app()
 print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 """
 
 
 def test_port_stands_alone_subprocess(tmp_path):
     """A fresh interpreter that refuses to import the JAX package, jax,
-    flax, transformers, safetensors and yaml imports every module of the
-    port, runs the text frontend in every language, loads and resamples a
-    wav, reads configs/gpt.yaml, takes two micro-batches of the s1 train
-    step, prepares a dataset through the slicer, denoise and normalize
-    cmds on the CPU, transcribes through the ASR cmd in zh and en, and
-    separates through the UVR5 cmd (VR, DeEcho, MDX) and both Roformer
-    separators."""
+    flax, transformers, safetensors, yaml, aiohttp and psutil imports every
+    module of the port, runs the text frontend in every language, loads
+    and resamples a wav, reads configs/gpt.yaml, takes two micro-batches of
+    the s1 train step, prepares a dataset through the slicer, denoise and
+    normalize cmds on the CPU, transcribes through the ASR cmd in zh and
+    en, separates through the UVR5 cmd (VR, DeEcho, MDX) and both Roformer
+    separators, and boots the REST server on the CPU (the dry run, then a
+    few requests)."""
     # one OpenMP thread: the test workers share the cores, and oneDNN's
     # multi-threaded first calls (the DeEcho LSTM's above all) slow down
     # by minutes when they do
