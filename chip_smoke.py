@@ -44,7 +44,12 @@ Phases, one summary line each; any failure exits non-zero:
    padding: BS-Roformer's 62 band rows of 801 frames and 801 frame rows of
    62 bands, Mel-Band's with 60 bands), each batch row also run alone;
    SDPA alone at Paraformer's dk-128 encoder shapes, which no hand-written
-   kernel covers;
+   kernel covers.  Then the bf16 instances of the fine-tunes under
+   is_half (``check_bf16``): K1 with its lse and K5 at the two s1 shapes,
+   K3, K4-dx and K4-dW at the 45 s2 shapes, each against its bf16 twin
+   and at the card tests' tile edges, with its device time beside the fp32
+   instance's, the bf16 library call's and the twin's, and its bound in
+   bf16 (989 TFLOP/s dense);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -92,7 +97,8 @@ Phases, one summary line each; any failure exits non-zero:
    4-cnhubert and 5-wav32k file a clip, T // 2 codes a row, K1 at dk 64
    launched 24 times a zh row and 12 times a clip.  The folder then trains
    2 s2 steps and 2 s1 micro-batches (finite losses, the s1 batches
-   carrying the 3-bert features); on the shortest clip the FRCRN output
+   carrying the 3-bert features; is_half at its default, so on the bf16
+   instances); on the shortest clip the FRCRN output
    and the SSL features on the card agree with the CPU within 1e-4
    relative and the semantic codes are identical (or each differing
    code's two nearest distances within 1e-4 relative); FRCRN's device
@@ -119,24 +125,31 @@ Phases, one summary line each; any failure exits non-zero:
    Roformers at depth 1), within 1e-4 relative;
 9. training: ``SovitsTrain.train()`` at full width (SovitsConfig() and the
    full MPD from seeded random pretrained .pth files, 8 synthetic clips of
-   256 frames, batch 8, 12 steps): finite losses, every tensor on the card,
-   K3 and both K4 entry points launched, every ResBlock ``weight_v`` and
-   upsample tensor changed, and the export loads ``strict=True`` into the
-   inference build and decodes a finite, non-silent wav;
+   256 frames, batch 8, 12 steps), twice: with is_half at its default (bf16
+   compute, K3 and K4's bf16 instances, no fp32 instance launched) and
+   with is_half=False (fp32, the other way round); s/step, the first step,
+   peak memory and the losses of each; finite losses, every tensor on the
+   card and every parameter fp32, every ResBlock ``weight_v`` and upsample
+   tensor changed, and the export loads ``strict=True`` into the inference
+   build and decodes a finite, non-silent wav; one more bf16 step under
+   torch.profiler;
 10. reference train step: one step at a small width on the card and on the
-   CPU agrees (losses and the ResBlock gradients);
+   CPU agrees (losses and the ResBlock gradients), in fp32 and in bf16;
 11. s1 training: ``GPTTrain.train()`` at full width (T2SConfig from the
    repo's configs/gpt.yaml through the port's YAML reader, a seeded random
    pretrained .ckpt in the export format, 8 synthetic utterances of 250 and
    1300 tokens replicated to 96 items: 12 micro-batches of B=8 at T = 716
-   and 1776, 3 ScaledAdam updates): finite losses, every tensor and
-   optimizer state on the card, 24 K1 launches and 24 K5 calls (72
-   launches) a micro-batch, every layer's ``in_proj_weight`` changed, the export loads
+   and 1776, 3 ScaledAdam updates), with is_half at its default (bf16, K1
+   and K5's bf16 instances) and with is_half=False (fp32): finite losses,
+   every tensor and optimizer state on the card, 24 K1 launches and 24 K5
+   calls (72 launches) a micro-batch of the run's instances and none of
+   the other's, every layer's ``in_proj_weight`` changed, the export loads
    ``strict=True`` into the inference build and decodes; s/micro-batch by
-   bucket, first micro-batch, peak memory, and one accumulation window
-   under torch.profiler by group (K1, K5, GEMMs, optimizer, other);
+   bucket, first micro-batch, peak memory of each run, and one bf16
+   accumulation window under torch.profiler by group (K1, K5, GEMMs,
+   optimizer, other);
 12. reference s1 step: one micro-batch at a small width on the card and on
-   the CPU agrees (loss and every qkv gradient);
+   the CPU agrees (loss and every qkv gradient), in fp32 and in bf16;
 13. rest: the port's REST server as a user drives it, every process of it
    under an import hook that refuses the JAX package, jax, flax, yaml,
    transformers, safetensors, aiohttp and psutil: ``python -m
@@ -162,7 +175,8 @@ flax, yaml, transformers, safetensors, aiohttp or psutil was loaded in the
 whole run, UVR5's included (the ASR chain's config.yaml files go through
 the port's reader, Whisper's tokenizer is the port's own).  Two lines before the last hold one JSON
 object with each kernel's launches (in all, per serving clone, per s2 step
-and per s1 micro-batch),
+and per s1 micro-batch; a bf16 instance is an entry of its own, its
+``fp32_ms`` the fp32 instance's time on the same inputs),
 error, device times and bound (``launches_per_path`` holds the REST clone's
 trace counts as ``rest_clone_trace``); the line before the last is the card's name
 and power limit as ``nvidia-smi`` gives them, and the last line is the
@@ -240,6 +254,30 @@ KERNEL_INFO = {
         "SANMAttention with its word mask; no Pallas ancestor: K1's dk-32 "
         "instance, the port of ops/pallas/flash_prefill.py:35, git "
         "0ec4461, with no audio part)"),
+    # the bf16 instances of the fine-tunes under is_half
+    "prefill_attention_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
+        "easevoice_trainer_tpu/ops/pallas/flash_prefill.py:35 "
+        "(_kernel, git 0ec4461), as TransformerLayer.attention computes it "
+        "with dtype bfloat16 (models/gpt/t2s.py:118-131)"),
+    "prefill_attention_bwd_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:118 (TransformerLayer."
+        "attention with dtype bfloat16 under jax.value_and_grad, "
+        "train/gpt_step.py:143; no Pallas ancestor)"),
+    "mrf_conv_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_bf16.cu",
+        "easevoice_trainer_tpu/ops/fused_mrf.py:125 (_fwd_kernel, git "
+        "42ecfe8), as the bf16 Generator computes it "
+        "(models/sovits/generator.py:31-44)"),
+    "mrf_conv_bwd_data_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_bwd_bf16.cu",
+        "easevoice_trainer_tpu/ops/fused_mrf.py:168 (_bwd_kernel, dx, git "
+        "42ecfe8), in bf16"),
+    "mrf_conv_bwd_weight_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/mrf_conv_wgrad.cu",
+        "easevoice_trainer_tpu/ops/fused_mrf.py:168 (_bwd_kernel, dW and "
+        "db, git 42ecfe8), in bf16"),
 }
 
 # the s1 micro-batches of the "s1 training" phase: B=8, 416 phonemes
@@ -344,14 +382,17 @@ def in_turns(torch, fn, old, name=None):
 class Bound:
     """Least device time of a set of calls: per call, the larger of the
     bytes it must move (each input read once, each output written once)
-    over HBM_BYTES_PER_S and its fp32 operations over FP32_OPS_PER_S."""
+    over HBM_BYTES_PER_S and its operations over ``ops_per_s``
+    (FP32_OPS_PER_S: fp32-accurate products; BF16_OPS_PER_S for the bf16
+    instances)."""
 
-    def __init__(self):
+    def __init__(self, ops_per_s: float = FP32_OPS_PER_S):
         self.ms = self.bytes_ms = self.ops_ms = 0.0
+        self.ops_per_s = ops_per_s
 
     def add(self, nbytes: float, flops: float) -> None:
         b = nbytes / HBM_BYTES_PER_S * 1e3
-        o = flops / FP32_OPS_PER_S * 1e3
+        o = flops / self.ops_per_s * 1e3
         self.ms += max(b, o)
         self.bytes_ms += b
         self.ops_ms += o
@@ -438,10 +479,12 @@ def check_kernels(torch, results, parent=None):
                     for path in (build.build().path,
                                  parent.build.build().path))
         for width in ("Li32E", "Li64E"):
-            mine = [b for n, bs in new.items() if width in n for b in bs]
+            # this tree's fp32 instances (the bf16 one is new)
+            mine = [b for n, bs in new.items()
+                    if width in n and "bfloat16" not in n for b in bs]
             theirs = [b for n, bs in old.items() if width in n for b in bs]
-            log(f"[a/b] K1's dk-{width[2:4]} SASS: {len(mine)} copy in this "
-                f"tree's library ({len(mine[0])} instructions), "
+            log(f"[a/b] K1's dk-{width[2:4]} fp32 SASS: {len(mine)} copy in "
+                f"this tree's library ({len(mine[0])} instructions), "
                 f"{len(theirs)} in the parent's; identical: "
                 f"{mine == theirs}")
             assert mine == theirs, \
@@ -1222,6 +1265,303 @@ def check_k5(torch, results, parent=None):
         library_ms=sums["k5"][2], **bounds["k5"].result())
 
 
+# ---------------------------------------------------------------------------
+# phase 3, bf16: the fine-tunes' bf16 instances against their bf16 twins
+# ---------------------------------------------------------------------------
+
+# the card's dense bf16 tensor-core rate (NVIDIA's H100 SXM data sheet)
+BF16_OPS_PER_S = 989e12
+# a bf16 instance against its bf16 twin: both round an fp32 result that
+# differs in summation order only, so they differ by one bf16 step where
+# they round apart (or by a step of a larger intermediate in K3's chain of
+# roundings): every element within BF16_TOL x max(1, max|twin|), and at most
+# BF16_SHARE of the elements off by more than one step of their own value
+BF16_TOL = 2.0 ** -6
+BF16_SHARE = 0.02
+
+
+def bf16_err(torch, got, want):
+    """(max |got - want|, that / max(1, max|want|), the share of elements
+    off by more than one bf16 step of their own value)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    top = float(err.max()) if err.numel() else 0.0
+    share = float((err > 2.0 ** -7 * w.abs() + 1e-6).float().mean())
+    return top, top / max(1.0, float(w.abs().max())), share
+
+
+class _Worst:
+    """The worst (max|d|, relative, share) over a kernel's comparisons."""
+
+    def __init__(self):
+        self.abs = self.rel = self.share = 0.0
+
+    def add(self, e) -> None:
+        self.abs = max(self.abs, e[0])
+        self.rel = max(self.rel, e[1])
+        self.share = max(self.share, e[2])
+
+    def ok(self) -> bool:
+        return self.rel <= BF16_TOL and self.share <= BF16_SHARE
+
+    def __str__(self) -> str:
+        return (f"max|d|={self.abs:.3g}, relative {self.rel:.3g} (tol "
+                f"{BF16_TOL:.3g}), share off by more than a step "
+                f"{self.share:.3g} (tol {BF16_SHARE})")
+
+
+# K1 / K5 tile edges, as the card tests take them (x_len, x_lens, y_len,
+# y_lens): x_len 15 / 16 / 17, T < 16, a batch row that is all pads
+BF16_ATTN_EDGES = ((15, [15, 1, 14], 17, [17, 8, 9]),
+                   (16, [16, 7, 16], 15, [15, 1, 7]),
+                   (17, [17, 16, 9], 40, [40, 17, 15]),
+                   (5, [5, 2], 9, [9, 1]),
+                   (8, [0, 8, 3], 24, [0, 0, 24]))
+# K3 / K4 tile edges (Cin, Cout, B, T, k, d): T below a tile and its halo, a
+# single sample, T % 4 != 0, channels off the tiles, k = 5, k = 15, a
+# channel split with uneven shares
+BF16_CONV_EDGES = ((24, 24, 3, 5, 11, 5), (16, 72, 3, 1, 3, 1),
+                   (24, 40, 3, 37, 3, 1), (72, 24, 3, 301, 7, 3),
+                   (40, 24, 3, 260, 5, 5), (32, 32, 1, 1, 15, 5),
+                   (200, 128, 2, 300, 7, 1))
+
+
+def check_bf16(torch, results):
+    """The bf16 instances of the s1 and s2 fine-tunes under is_half, each
+    against its bf16 twin on the same inputs (BF16_TOL, BF16_SHARE): K1 with
+    its lse and K5 at the two s1 micro-batch shapes and at their tile edges
+    (BF16_ATTN_EDGES), K5 repeated bit for bit; K3, K4-dx and K4-dW at the
+    45 s2 shapes (B=8, every Generator stage, k in {3, 7, 11}, d in
+    {1, 3, 5}, K3 with the residual at d = 1 as a ResBlock's second conv)
+    and at the tile edges (BF16_CONV_EDGES), K4-dW repeated bit for bit.
+    Device ms of each bf16 instance beside the fp32 instance's (the same
+    inputs in fp32), the bf16 library call's (SDPA forward and backward;
+    cuDNN conv, dgrad, wgrad) and the bf16 twin's; the bound in bf16 (the
+    bytes of bf16 operands over 3.35 TB/s against the operations over 989
+    TFLOP/s dense bf16).  No instance is held to be faster than its library
+    call: they are first, simple instances."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.ops import mrf
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1414)
+    names = {"k1": "prefill_attention_bf16", "k5": "prefill_attention_bwd_bf16",
+             "k3": "mrf_conv_bf16", "dx": "mrf_conv_bwd_data_bf16",
+             "dw": "mrf_conv_bwd_weight_bf16"}
+    # kernel bf16, kernel fp32, library bf16, twin bf16
+    sums = {key: [0.0, 0.0, 0.0, 0.0] for key in names}
+    bounds = {key: Bound(BF16_OPS_PER_S) for key in names}
+    worst = {key: _Worst() for key in names}
+    lse_err = 0.0
+
+    def attention_case(x_len, x_lens, y_len, y_lens, timed):
+        nonlocal lse_err
+        b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
+        xl = torch.tensor(x_lens, dtype=torch.int32, device=dev)
+        yl = torch.tensor(y_lens, dtype=torch.int32, device=dev)
+        qkv32 = torch.randn((b, t, 3 * h * dk), generator=gen, device=dev)
+        do32 = torch.randn((b, t, h, dk), generator=gen, device=dev)
+        qkv, do = qkv32.to(bf), do32.to(bf)
+        q, k, v = att._split_heads(qkv, h)
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+        want_o = torch.nan_to_num(att.prefill_attention_reference(
+            q, k, v, x_len, xl, yl), nan=0.0)
+        worst["k1"].add(bf16_err(torch, o, want_o))
+        want_lse = att.prefill_attention_lse_reference(q, k, x_len, xl, yl)
+        seen = torch.isfinite(want_lse)
+        assert torch.equal(torch.isfinite(lse), seen)
+        lse_err = max(lse_err, max_err(torch, lse[seen], want_lse[seen]))
+        got = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+        want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
+                                                   x_len, xl, yl)
+        for g, w in zip(got, want):
+            assert g.dtype == bf and torch.isfinite(g.float()).all()
+            worst["k5"].add(bf16_err(torch, g, w))
+        again = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl,
+                                          yl)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+            "K5's bf16 instance does not repeat"
+        del want, again
+        if not timed:
+            return
+        q32, k32, v32 = att._split_heads(qkv32, h)
+        o32, lse32 = att.prefill_attention_lse(q32, k32, v32, x_len, xl, yl)
+        bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
+        qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
+                      for z in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh,
+                                             attn_mask=bias.to(bf))
+        lib_bwd = functools.partial(torch.autograd.grad, out, (qh, kh, vh),
+                                    do.transpose(1, 2).contiguous(),
+                                    retain_graph=True)
+        times = {
+            "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
+                       q, k, v, x_len, xl, yl)),
+                   device_ms(torch, lambda: att.prefill_attention_lse(
+                       q32, k32, v32, x_len, xl, yl)),
+                   device_ms(torch, lambda: F.scaled_dot_product_attention(
+                       qh.detach(), kh.detach(), vh.detach(),
+                       attn_mask=bias.to(bf))),
+                   device_ms(torch, lambda: (
+                       att.prefill_attention_reference(
+                           q, k, v, x_len, xl, yl),
+                       att.prefill_attention_lse_reference(
+                           q, k, x_len, xl, yl)), reps=5)),
+            "k5": (device_ms(torch, lambda: att.prefill_attention_bwd(
+                       q, k, v, o, lse, do, x_len, xl, yl)),
+                   device_ms(torch, lambda: att.prefill_attention_bwd(
+                       q32, k32, v32, o32, lse32, do32, x_len, xl, yl)),
+                   device_ms(torch, lib_bwd, reps=5),
+                   device_ms(torch, lambda: att.prefill_attention_bwd_reference(
+                       q, k, v, o, lse, do, x_len, xl, yl), reps=5)),
+        }
+        pairs = int((bias == 0).sum()) * h
+        elems = b * t * h * dk
+        # K1: q, k, v read, o written (bf16), lse written (fp32); QK, PV.
+        # K5: q, k, v, o, dO read and dq, dk, dv written (bf16), lse read
+        # (fp32); S, dP, dV, dK, dQ
+        bounds["k1"].add(2 * 4 * elems + 4 * b * h * t, 4 * dk * pairs)
+        bounds["k5"].add(2 * 8 * elems + 4 * b * h * t, 10 * dk * pairs)
+        for key in ("k1", "k5"):
+            sums[key] = [a + c for a, c in zip(sums[key], times[key])]
+        log(f"[kernels] bf16 K1 + lse / K5 B={b} H={h} x_len={x_len} "
+            f"y_len={y_len} (T={t}): device ms K1 bf16 {times['k1'][0]:.4f}, "
+            f"fp32 {times['k1'][1]:.4f}, SDPA bf16 {times['k1'][2]:.4f}, twin "
+            f"{times['k1'][3]:.4f}; K5 bf16 {times['k5'][0]:.4f}, fp32 "
+            f"{times['k5'][1]:.4f}, SDPA backward bf16 {times['k5'][2]:.4f}, "
+            f"twin {times['k5'][3]:.4f}")
+        del qh, kh, vh, out, lib_bwd, bias, o32, lse32
+
+    for y_len in S1_Y_LENS:
+        xl, yl = s1_lens(torch, gen, S1_B, S1_X_LEN, y_len)
+        attention_case(S1_X_LEN, xl.tolist(), y_len, yl.tolist(), True)
+        torch.cuda.empty_cache()
+    for case in BF16_ATTN_EDGES:
+        attention_case(*case, False)
+
+    def conv_inputs(b, cin, cout, t_len, k):
+        x32 = torch.randn((b, cin, t_len), generator=gen, device=dev)
+        x32[0, :, : max(1, t_len // 3)] = 0.0   # lrelu(0) = 0, lrelu'(0) = 1
+        dy32 = torch.randn((b, cout, t_len), generator=gen, device=dev)
+        w32 = torch.randn((cout, cin, k), generator=gen, device=dev) \
+            / math.sqrt(cin * k)
+        bias32 = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        return x32, dy32, w32, bias32
+
+    def conv_case(x, dy, w, bias, d, res):
+        y = mrf.mrf_conv(x, w, bias, d, residual=res)
+        worst["k3"].add(bf16_err(torch, y, mrf.mrf_conv_reference(
+            x, w, bias, d, residual=res)))
+        dx = mrf.mrf_conv_bwd_data(dy, x, w, d)
+        worst["dx"].add(bf16_err(torch, dx, mrf.mrf_conv_bwd_data_reference(
+            dy, x, w, d)))
+        gw, gb = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
+        ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, w.shape, d)
+        worst["dw"].add(bf16_err(torch, gw, ww))
+        worst["dw"].add(bf16_err(torch, gb, wb))
+        gw2, gb2 = mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)
+        assert torch.equal(gw, gw2) and torch.equal(gb, gb2), \
+            "K4-dW's bf16 instance does not repeat"
+
+    b = 8
+    for i, (ch, t_len) in enumerate(S2_STAGES):
+        x32, dy32, _, _ = conv_inputs(b, ch, ch, t_len, 3)
+        x, dy = x32.to(bf), dy32.to(bf)
+        act = mrf.leaky_relu(x)   # bf16, as JAX rounds it
+        shapes = []
+        for kk in (3, 7, 11):
+            _, _, w32, bias32 = conv_inputs(1, ch, ch, 1, kk)
+            w, bias = w32.to(bf), bias32.to(bf)
+            for d in (1, 3, 5):
+                res, res32 = (x, x32) if d == 1 else (None, None)
+                conv_case(x, dy, w, bias, d, res)
+                shapes.append((w, w32, bias, bias32, d, res, res32, kk))
+                pad = (kk - 1) * d // 2
+                flops = 2 * b * t_len * ch * ch * kk
+                bounds["k3"].add(2 * (b * ch * t_len * (
+                    3 if res is not None else 2) + ch * ch * kk + ch), flops)
+                bounds["dx"].add(2 * (3 * b * ch * t_len + ch * ch * kk),
+                                 flops)
+                bounds["dw"].add(2 * (2 * b * ch * t_len + ch * ch * kk + ch),
+                                 flops)
+
+        def each(fn):
+            return lambda: [fn(*s) for s in shapes]
+
+        def cudnn_conv(w, w32, bias, bias32, d, res, res32, kk):
+            y = F.conv1d(act, w, bias, padding=(kk - 1) * d // 2,
+                         dilation=d)
+            return y if res is None else y + res
+
+        runs = {
+            "k3": (each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv(x, w, bias, d, residual=res)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv(x32, w32, bias32, d, residual=res32)),
+                   each(cudnn_conv),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_reference(x, w, bias, d, residual=res))),
+            "dx": (each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_data(dy, x, w, d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_data(dy32, x32, w32, d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        F.conv_transpose1d(dy, w, padding=(kk - 1) * d // 2,
+                                           dilation=d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_data_reference(dy, x, w, d))),
+            "dw": (each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_weight(dy, x, w.shape, d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_weight(dy32, x32, w32.shape, d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        torch.nn.grad.conv1d_weight(
+                            act, w.shape, dy, padding=(kk - 1) * d // 2,
+                            dilation=d)),
+                   each(lambda w, w32, bias, bias32, d, res, res32, kk:
+                        mrf.mrf_conv_bwd_weight_reference(dy, x, w.shape,
+                                                          d))),
+        }
+        stage = {}
+        for key, fns in runs.items():
+            stage[key] = [device_ms(torch, fn, reps=reps)
+                          for fn, reps in zip(fns, (10, 10, 10, 3))]
+            sums[key] = [a + c for a, c in zip(sums[key], stage[key])]
+        log(f"[kernels] bf16 stage {i} (C={ch}, T={t_len}), 9 shapes, device "
+            f"ms (bf16 instance / fp32 instance / cuDNN bf16 / bf16 twin): "
+            + "; ".join(f"{label} " + " / ".join(f"{t:.3f}" for t in stage[k])
+                        for k, label in (("k3", "K3"), ("dx", "K4-dx"),
+                                         ("dw", "K4-dW"))))
+        del x, dy, x32, dy32, act, shapes, runs
+        torch.cuda.empty_cache()
+    for cin, cout, bb, t_len, kk, d in BF16_CONV_EDGES:
+        x32, dy32, w32, bias32 = conv_inputs(bb, cin, cout, t_len, kk)
+        r = torch.randn((bb, cout, t_len), generator=gen, device=dev).to(bf)
+        for res in (None, r):
+            conv_case(x32.to(bf), dy32.to(bf), w32.to(bf), bias32.to(bf), d,
+                      res)
+    for key, name in names.items():
+        kern, fp32, lib, plain = sums[key]
+        bd = bounds[key]
+        log(f"[kernels] {name} against its bf16 twin: {worst[key]}"
+            + (f"; lse max|d|={lse_err:.3g} (tol 1e-4)" if key == "k1"
+               else "")
+            + f"; device ms summed over "
+            + ("the two s1 shapes" if key in ("k1", "k5") else "45 shapes")
+            + f": bf16 instance {kern:.4f}, fp32 instance {fp32:.4f}, "
+            f"library bf16 {lib:.4f}, twin {plain:.4f}; bound in bf16 "
+            f"{bd.ms:.4f} ({bd.by}; bytes {bd.bytes_ms:.4f}, operations "
+            f"{bd.ops_ms:.4f}): {100 * bd.ms / kern:.1f} % of the bound")
+        assert worst[key].ok(), f"{name} disagrees with its twin: {worst[key]}"
+        results[name] = dict(max_abs_err=worst[key].abs, ms=kern,
+                             plain_ms=plain, library_ms=lib, fp32_ms=fp32,
+                             max_rel_err=worst[key].rel, **bd.result())
+    assert lse_err <= 1e-4, f"K1's bf16 lse disagrees: {lse_err}"
+
+
 def sass_functions(path: str, keys) -> dict:
     """The SASS of the kernel library at ``path``: for every function whose
     name holds one of ``keys``, the instruction lines of each copy of it in
@@ -1264,7 +1604,18 @@ def short_name(mangled: str) -> str:
     if not m:
         return mangled
     args = re.findall(r"Li(-?\d+)E", m.group(2))
+    if "bfloat16" in mangled[m.end():m.end() + 40]:
+        args.append("bf16")
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
+def same_sass(new: dict, old: dict):
+    """(the count of old's function bodies that new holds instruction for
+    instruction, the count of old's bodies): the parent's fp32 kernels
+    against this tree's library, whose template names differ."""
+    have = [b for bs in new.values() for b in bs]
+    bodies = [b for bs in old.values() for b in bs]
+    return sum(b in have for b in bodies), len(bodies)
 
 
 def ab_mrf(torch, parent):
@@ -1279,10 +1630,11 @@ def ab_mrf(torch, parent):
 
     new, old = (sass_functions(lib.path, ("conv_mma_kernel",))
                 for lib in (build.build(), parent.ops.build.build()))
-    same = sum(sorted(new[n]) == sorted(old.get(n, [])) for n in new)
+    same, total = same_sass(new, old)
     log(f"[a/b] SASS of the K3/K4-dx loop (conv_mma_kernel): {len(new)} "
-        f"functions in this tree's library, {len(old)} in the parent's, "
-        f"identical: {same}")
+        f"functions in this tree's library, {len(old)} in the parent's; "
+        f"{same} of the parent's {total} bodies found here instruction for "
+        f"instruction")
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     k3, k4 = [], []
@@ -1457,6 +1809,8 @@ def serve(torch, tmp: str, results):
         results[name]["launches"] = launches[name]
         results[name]["per_path"] = {"serving_clone": launches[name],
                                      "s2_step": 0}
+    bf16 = {n: c for n, c in launches.items() if n.endswith("_bf16") and c}
+    assert not bf16, f"serving launched bf16 instances: {bf16}"
 
     phases = tts.last_phases
     audio_s = wav.size / sr
@@ -2637,9 +2991,10 @@ def data_prep(torch, tmp: str, results):
     zh_fed = [a for batch in fed for n, a in batch if langs[n] == "zh"]
     en_fed = [a for batch in fed for n, a in batch if langs[n] == "en"]
     assert zh_fed and min(zh_fed) > 0 and not any(en_fed), fed
+    # is_half at its default: both fine-tunes on the bf16 instances
     for name in ("mrf_conv", "mrf_conv_bwd_data", "mrf_conv_bwd_weight",
                  "prefill_attention", "prefill_attention_bwd"):
-        assert train_launches[name] > 0, (name, train_launches)
+        assert train_launches[name + "_bf16"] > 0, (name, train_launches)
     for name, n in train_launches.items():
         if n:
             r = results[name]
@@ -3504,10 +3859,42 @@ def write_normalize_dir(root: str, clips: int, frames: int, seed: int):
         f.write("\n".join(lines))
 
 
+def _is_half(value):
+    """Context: the env var ``is_half`` set to ``value`` (None: unset, the
+    default True) while a trainer is built."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        old = os.environ.get("is_half")
+        if value is None:
+            os.environ.pop("is_half", None)
+        else:
+            os.environ["is_half"] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop("is_half", None)
+            else:
+                os.environ["is_half"] = old
+    return ctx()
+
+
+# the fine-tune runs of phases 9 and 11: the default (is_half, bf16) and
+# is_half=False (fp32, the port before bf16)
+TRAIN_RUNS = (("bf16", None), ("fp32", "False"))
+MRF_KERNELS = ("mrf_conv", "mrf_conv_bwd_data", "mrf_conv_bwd_weight")
+S1_KERNELS = ("prefill_attention", "prefill_attention_bwd")
+
+
 def train(torch, tmp: str, results):
     """SovitsTrain.train() at full width: SovitsConfig() and the full MPD
     from seeded random pretrained .pth files, 8 clips of 256 frames
-    replicated to 96 items, batch 8, one epoch = 12 steps."""
+    replicated to 96 items, batch 8, one epoch = 12 steps; run with is_half
+    at its default (bf16 compute, the ResBlocks on the bf16 instances of K3
+    and K4) and with is_half=False (fp32, the fp32 instances), each from the
+    same pretrained files.  The bf16 run's trainer is then profiled."""
     import numpy as np
 
     from easevoice_trainer_tpu_torch import ops
@@ -3524,49 +3911,87 @@ def train(torch, tmp: str, results):
     random_weights(torch, MultiPeriodDiscriminator(), gen, s2d)
     norm = os.path.join(tmp, "norm")
     write_normalize_dir(norm, clips=8, frames=256, seed=3)
-    project = os.path.join(tmp, "project")
-    trainer = SovitsTrain(SovitsTrainParams(
-        batch_size=8, total_epochs=1, save_every_epoch=1,
-        pretrained_s2G=s2g, pretrained_s2D=s2d, train_input_dir=norm,
-        output_model_name="chip_smoke", project_dir=project))
-    assert trainer.device.type == "cuda"
     log(f"[training] random s2G/s2D .pth and a normalize dir of 8 clips "
         f"written in {time.perf_counter() - t0:.1f} s")
 
-    history = []
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    resp = trainer.train(on_step=lambda step, m: history.append(
-        {k: float(v) for k, v in m.items()}))
-    wall = time.perf_counter() - t1
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    assert resp.ok, resp.message
+    runs = {}
+    for tag, is_half in TRAIN_RUNS:
+        with _is_half(is_half):
+            trainer = SovitsTrain(SovitsTrainParams(
+                batch_size=8, total_epochs=1, save_every_epoch=1,
+                pretrained_s2G=s2g, pretrained_s2D=s2d, train_input_dir=norm,
+                output_model_name=f"chip_smoke_{tag}",
+                project_dir=os.path.join(tmp, f"project_{tag}")))
+        assert trainer.device.type == "cuda"
+        want_dtype = torch.bfloat16 if tag == "bf16" else None
+        assert trainer.compute_dtype == want_dtype, trainer.compute_dtype
+        history = []
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        resp = trainer.train(on_step=lambda step, m: history.append(
+            {k: float(v) for k, v in m.items()}))
+        wall = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert resp.ok, resp.message
+        secs = trainer.step_seconds
+        assert len(history) == len(secs) == 12, (len(history), len(secs))
+        for i, m in enumerate(history):
+            bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+            assert not bad, f"{tag} step {i + 1}: non-finite {bad}"
+        # the run went through its instances and the other precision's not
+        for name in MRF_KERNELS:
+            mine, other = (f"{name}_bf16", name) if tag == "bf16" \
+                else (name, f"{name}_bf16")
+            assert launches[mine] > 0, f"{mine} never launched ({tag})"
+            assert launches[other] == 0, f"{other} launched ({tag})"
+            r = results[mine]
+            r["launches"] = r.get("launches", 0) + launches[mine]
+            r.setdefault("per_path", {"serving_clone": 0})["s2_step"] = \
+                launches[mine] / len(secs)
+        steady = float(np.median(secs[2:12]))
+        runs[tag] = dict(trainer=trainer, history=history, secs=secs,
+                         peak=peak, steady=steady, resp=resp)
+        log(f"[training] {tag} (is_half={is_half or 'default'}): "
+            f"SovitsTrain.train(): 12 steps of B=8 x 20480 samples in "
+            f"{wall:.2f} s wall (data, models and pretrained load "
+            f"included); first step {secs[0]:.3f} s, median s/step over "
+            f"steps 3-12 {steady:.4f} s (min {min(secs[2:]):.4f}, max "
+            f"{max(secs[2:]):.4f}); peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); launches {launches}")
+        log(f"[training] {tag} losses, steps 1-12 (loss/g/total; "
+            f"loss/d/total): " + ", ".join(
+                f"{m['loss/g/total']:.3f}; {m['loss/d/total']:.3f}"
+                for m in history))
+        if tag != "bf16":
+            del trainer
+            runs[tag].pop("trainer")
+            gc.collect()
+            torch.cuda.empty_cache()
+    bf, fp = runs["bf16"], runs["fp32"]
+    log(f"[training] bf16 against fp32: median s/step {bf['steady']:.4f} vs "
+        f"{fp['steady']:.4f} ({fp['steady'] / bf['steady']:.2f}x), first "
+        f"step {bf['secs'][0]:.3f} vs {fp['secs'][0]:.3f} s, peak "
+        f"{bf['peak'] / 2 ** 30:.2f} vs {fp['peak'] / 2 ** 30:.2f} GiB; "
+        f"loss/g/total at step 12 {bf['history'][-1]['loss/g/total']:.3f} "
+        f"vs {fp['history'][-1]['loss/g/total']:.3f}")
 
-    secs = trainer.step_seconds
-    assert len(history) == len(secs) == 12, (len(history), len(secs))
-    for i, m in enumerate(history):
-        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
-        assert not bad, f"step {i + 1}: non-finite {bad}"
+    trainer, resp = bf["trainer"], bf["resp"]
     step_fn = trainer.step_fn
     for name, net in (("G", step_fn.net_g), ("D", step_fn.net_d)):
         for pname, p in list(net.named_parameters()) + list(
                 net.named_buffers()):
             assert p.device.type == "cuda", f"{name}.{pname} on {p.device}"
+            # parameters stay fp32 under bf16 compute
+            assert not p.is_floating_point() or p.dtype == torch.float32, \
+                f"{name}.{pname} is {p.dtype}"
     for opt in (step_fn.optim_g, step_fn.optim_d):
         for st in opt.state.values():
             assert all(t.device.type == "cuda" for t in st.values())
-    for name in ("mrf_conv", "mrf_conv_bwd_data", "mrf_conv_bwd_weight"):
-        assert launches[name] > 0, f"{name} was never launched in training"
-        results[name]["launches"] = results[name].get("launches", 0) \
-            + launches[name]
-        per_path = results[name].setdefault("per_path",
-                                            {"serving_clone": 0})
-        per_path["s2_step"] = launches[name] / len(secs)
 
     # the Generator's ResBlocks and upsamples moved (gradients reached them
-    # through K4)
+    # through K4's bf16 instances)
     trained = torch.load(os.path.join(trainer.train_logs_dir,
                                       "G_latest.pth"), map_location="cpu",
                          weights_only=False)["model"]
@@ -3595,23 +4020,10 @@ def train(torch, tmp: str, results):
             torch.tensor([150], device="cuda"))
     assert wav.shape == (1, 40 * 2 * 640, 1)
     assert torch.isfinite(wav).all() and float(wav.abs().max()) > 0
-
-    steady = float(np.median(secs[2:12]))
-    first, last = history[0], history[-1]
-    log(f"[training] SovitsTrain.train(): 12 steps of B=8 x 20480 samples "
-        f"in {wall:.2f} s wall (data, models and pretrained load "
-        f"included); first step {secs[0]:.3f} s, median s/step over steps "
-        f"3-12 {steady:.4f} s (min {min(secs[2:]):.4f}, max "
-        f"{max(secs[2:]):.4f}); peak memory "
-        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    log(f"[training] step 1 losses " + ", ".join(
-        f"{k} {v:.4f}" for k, v in first.items()))
-    log(f"[training] step 12 losses " + ", ".join(
-        f"{k} {v:.4f}" for k, v in last.items()))
-    log(f"[training] {len(checked)} dec.resblocks.*.weight_v / dec.ups.* "
-        f"tensors all changed; export {os.path.basename(resp.data['model_path'])} "
-        f"loads strict=True and decodes a finite wav (|wav| max "
-        f"{float(wav.abs().max()):.3f}); launches {launches}")
+    log(f"[training] bf16 run: {len(checked)} dec.resblocks.*.weight_v / "
+        f"dec.ups.* tensors all changed, every parameter fp32; export "
+        f"{os.path.basename(resp.data['model_path'])} loads strict=True and "
+        f"decodes a finite wav (|wav| max {float(wav.abs().max()):.3f})")
     profile_train_step(torch, trainer, norm)
 
 
@@ -3645,6 +4057,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
         trainer.step_fn(batch, gen)
         torch.cuda.synchronize()
     groups = {"K3": 0.0, "K4-dx": 0.0, "K4-dW": 0.0, "other": 0.0}
+    others = {}
     launches = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(
@@ -3658,6 +4071,9 @@ def profile_train_step(torch, trainer, norm: str) -> None:
             groups["K4-dW"] += us  # not cuDNN's own *wgrad_* kernels
         else:
             groups["other"] += us
+            n_us = others.setdefault(e.name[:70], [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += us
     if not launches:
         log("[training] torch.profiler recorded no CUDA activity for the "
             "profiled step: no breakdown this run")
@@ -3666,6 +4082,9 @@ def profile_train_step(torch, trainer, norm: str) -> None:
     log(f"[training] one more step under torch.profiler: device time "
         f"{total / 1000:.2f} ms in {launches} kernels and copies; "
         + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items()))
+    top = sorted(others.items(), key=lambda kv: -kv[1][1])[:6]
+    log("[training] the step's largest other kernels (launches, ms): "
+        + "; ".join(f"{n} ({c}, {us / 1000:.2f})" for n, (c, us) in top))
 
 
 # ---------------------------------------------------------------------------
@@ -3682,10 +4101,19 @@ TINY_SOVITS = dict(
 def reference_train_step(torch):
     """One S2TrainStep at a small Generator width (the full MPD) on the card
     and on the CPU (plain twins) from the same weights and batch, with the
-    slice starts and posterior noise given and dropout off.  Losses within
-    1e-4 x max(1, |CPU|); every dec.resblocks.* gradient within 1e-3 x its
-    largest CPU magnitude + 1e-6 x the largest Generator gradient (the
-    rounding floor of gradients that are zero in exact arithmetic)."""
+    slice starts and posterior noise given and dropout off, in fp32 and in
+    bf16 (both models with dtype bfloat16: the card's bf16 instances
+    against the CPU's bf16 twins).  fp32: losses within 1e-4 x max(1,
+    |CPU|), every dec.resblocks.* gradient within 1e-3 x its largest CPU
+    magnitude + 1e-6 x the largest Generator gradient (the rounding floor of
+    gradients that are zero in exact arithmetic).  bf16: cuDNN and the CPU
+    sum in other orders, so bf16 roundings flip (one step is 2^-8 of a
+    value) and the flips travel through the step.  A tensor's own maximum
+    is no bf16 measure there: a bias's or weight_g's gradient is a sum that
+    cancels, and the flips move it by its own size (bf16 against fp32 on
+    the CPU: up to 2.1x per tensor, 2.0 % over all of them).  So: losses
+    within 1e-2 x max(1, |CPU|), and the dec.resblocks.* gradients, taken
+    together, within 5e-2 of the CPU's in L2 norm."""
     from easevoice_trainer_tpu_torch import convert
     from easevoice_trainer_tpu_torch.models.sovits import \
         MultiPeriodDiscriminator, SovitsConfig, SynthesizerTrn
@@ -3704,39 +4132,49 @@ def reference_train_step(torch):
              "text_lengths": torch.tensor([8, 5])}
     ids = torch.tensor([5, 2])
     eps = torch.randn((b, frames, 32), generator=gen)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        net_g = SynthesizerTrn(cfg, with_enc_q=True)
-        net_d = MultiPeriodDiscriminator()
-        for net, seed in ((net_g, 1), (net_d, 2)):
-            net.load_state_dict(convert.random_state_dict(
-                net, torch.Generator().manual_seed(seed)))
-            net.to(dev)
-        step = S2TrainStep(net_g, net_d, S2TrainHP(segment_size=2560,
-                                                   learning_rate=2e-4),
-                           MelConfig(), steps_per_epoch=1)
-        metrics = step({k: v.to(dev) for k, v in batch.items()},
-                       ids_slice=ids.to(dev), eps=eps.to(dev))
-        grads = {k: p.grad.cpu() for k, p in net_g.named_parameters()
-                 if p.grad is not None}
-        runs[dev] = ({k: float(v) for k, v in metrics.items()}, grads)
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = runs["cuda"], runs["cpu"]
-    worst_loss = max(abs(m_gpu[k] - v) / max(1.0, abs(v))
-                     for k, v in m_cpu.items() if k.startswith("loss/"))
-    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
-    worst_grad, names = 0.0, 0
-    for k, want in g_cpu.items():
-        if not k.startswith("dec.resblocks."):
-            continue
-        err = float((g_gpu[k] - want).abs().max())
-        worst_grad = max(worst_grad, err / (float(want.abs().max()) + floor))
-        names += 1
-    log(f"[reference] S2TrainStep card vs CPU (G at width 32, full MPD, B=2, "
-        f"2560 samples): losses relative max|d|={worst_loss:.3g} (tol "
-        f"1e-4); {names} dec.resblocks.* gradients max|d| / (max|CPU| + "
-        f"floor)={worst_grad:.3g} (tol 1e-3); loss/g/total "
-        f"{m_gpu['loss/g/total']:.4f} vs {m_cpu['loss/g/total']:.4f}")
-    assert worst_loss <= 1e-4 and worst_grad <= 1e-3 and names == 15 * 6 * 3
+    for dtype, tol_loss, tol_grad in ((None, 1e-4, 1e-3),
+                                      (torch.bfloat16, 1e-2, 5e-2)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            net_g = SynthesizerTrn(cfg, with_enc_q=True, dtype=dtype)
+            net_d = MultiPeriodDiscriminator(dtype=dtype)
+            for net, seed in ((net_g, 1), (net_d, 2)):
+                net.load_state_dict(convert.random_state_dict(
+                    net, torch.Generator().manual_seed(seed)))
+                net.to(dev)
+            step = S2TrainStep(net_g, net_d, S2TrainHP(
+                segment_size=2560, learning_rate=2e-4), MelConfig(),
+                steps_per_epoch=1)
+            metrics = step({k: v.to(dev) for k, v in batch.items()},
+                           ids_slice=ids.to(dev), eps=eps.to(dev))
+            grads = {k: p.grad.cpu() for k, p in net_g.named_parameters()
+                     if p.grad is not None}
+            runs[dev] = ({k: float(v) for k, v in metrics.items()}, grads)
+        (m_gpu, g_gpu), (m_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+        worst_loss = max(abs(m_gpu[k] - v) / max(1.0, abs(v))
+                         for k, v in m_cpu.items() if k.startswith("loss/"))
+        floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values())
+        keys = [k for k in g_cpu if k.startswith("dec.resblocks.")]
+        names = len(keys)
+        if dtype is None:   # each tensor against its own largest magnitude
+            worst_grad = max(float((g_gpu[k] - g_cpu[k]).abs().max())
+                             / (float(g_cpu[k].abs().max()) + floor)
+                             for k in keys)
+            measure = "max|d| / (max|CPU| + floor), worst tensor"
+        else:               # all of them together, in L2 norm
+            got = torch.cat([g_gpu[k].flatten() for k in keys])
+            want = torch.cat([g_cpu[k].flatten() for k in keys])
+            worst_grad = float((got - want).norm() / want.norm())
+            measure = "|d| / |CPU| over all of them (L2)"
+        label = "bf16" if dtype is not None else "fp32"
+        log(f"[reference] S2TrainStep {label} card vs CPU (G at width 32, "
+            f"full MPD, B=2, 2560 samples): losses relative "
+            f"max|d|={worst_loss:.3g} (tol {tol_loss}); {names} "
+            f"dec.resblocks.* gradients {measure} = {worst_grad:.3g} (tol "
+            f"{tol_grad}); loss/g/total {m_gpu['loss/g/total']:.4f} vs "
+            f"{m_cpu['loss/g/total']:.4f}")
+        assert worst_loss <= tol_loss and worst_grad <= tol_grad \
+            and names == 15 * 6 * 3, label
 
 
 # ---------------------------------------------------------------------------
@@ -3771,7 +4209,9 @@ def train_s1(torch, tmp: str, results):
     configs/gpt.yaml (through the port's own YAML reader), a seeded random
     pretrained .ckpt in the export format, 8 utterances replicated to 96
     items: 12 micro-batches of B=8 at T = 716 and 1776, 3 ScaledAdam
-    updates.  Returns the trainer."""
+    updates; run with is_half at its default (bf16 compute, K1 / K5's bf16
+    instances) and with is_half=False (fp32).  Returns the bf16 run's
+    trainer."""
     import numpy as np
 
     from easevoice_trainer_tpu_torch import convert, ops
@@ -3796,59 +4236,106 @@ def train_s1(torch, tmp: str, results):
     del init
     data = os.path.join(tmp, "s1_data")
     write_s1_dir(data, seed=7)
-    trainer = GPTTrain(GPTTrainParams(
-        batch_size=S1_B, total_epochs=1, save_every_epoch=1,
-        model_path=pretrained, train_input_dir=data,
-        output_model_name="chip_smoke_s1",
-        project_dir=os.path.join(tmp, "s1_project")))
-    assert trainer.device.type == "cuda"
     assert (cfg.n_layers, cfg.hidden_dim, cfg.n_heads) == (24, 512, 16)
     log(f"[s1 training] configs/gpt.yaml read: {cfg}; random pretrained "
         f".ckpt and 8 utterances written in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    history = []
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    resp = trainer.train(on_step=lambda step, m: history.append(
-        {k: float(v) for k, v in m.items()}))
-    wall = time.perf_counter() - t1
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    assert resp.ok, resp.message
+    layers = cfg.n_layers
+    k5_per_call = ops.prefill_attention_bwd.launches_per_call
+    runs = {}
+    for tag, is_half in TRAIN_RUNS:
+        with _is_half(is_half):
+            trainer = GPTTrain(GPTTrainParams(
+                batch_size=S1_B, total_epochs=1, save_every_epoch=1,
+                model_path=pretrained, train_input_dir=data,
+                output_model_name=f"chip_smoke_s1_{tag}",
+                project_dir=os.path.join(tmp, f"s1_project_{tag}")))
+        assert trainer.device.type == "cuda"
+        want_dtype = torch.bfloat16 if tag == "bf16" else None
+        assert trainer.compute_dtype == want_dtype, trainer.compute_dtype
+        history = []
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        resp = trainer.train(on_step=lambda step, m: history.append(
+            {k: float(v) for k, v in m.items()}))
+        wall = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert resp.ok, resp.message
+        secs, tokens = trainer.step_seconds, trainer.step_tokens
+        n = len(secs)
+        assert n == len(history) == 12, (n, len(history))
+        assert sorted(set(tokens)) == list(S1_Y_LENS), tokens
+        for i, m in enumerate(history):
+            bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+            assert not bad, f"{tag} micro-batch {i + 1}: non-finite {bad}"
+        sfx, other = ("_bf16", "") if tag == "bf16" else ("", "_bf16")
+        assert launches["prefill_attention" + sfx] == layers * n, launches
+        assert launches["prefill_attention_bwd" + sfx] == \
+            k5_per_call * layers * n, launches
+        for name in S1_KERNELS:
+            assert launches[name + other] == 0, (name + other, launches)
+        for name in results:
+            if name.endswith("_bf16") != (tag == "bf16"):
+                continue
+            per_path = results[name].setdefault("per_path", {})
+            for path in ("serving_clone", "s2_step"):
+                per_path.setdefault(path, 0)
+            per_path["s1_micro_batch"] = launches[name] / n
+            results[name]["launches"] = results[name].get("launches", 0) \
+                + launches[name]
+        by_bucket = {}
+        for i in range(2, n):
+            by_bucket.setdefault(tokens[i], []).append(secs[i])
+        medians = {t: float(np.median(v)) for t, v in by_bucket.items()}
+        runs[tag] = dict(trainer=trainer, history=history, secs=secs,
+                         peak=peak, medians=medians, resp=resp,
+                         tokens=tokens)
+        log(f"[s1 training] {tag} (is_half={is_half or 'default'}): "
+            f"GPTTrain.train(): {n} micro-batches of B={S1_B} "
+            f"({n // 4} ScaledAdam updates) in {wall:.2f} s wall (data, "
+            f"model and pretrained load included); first micro-batch "
+            f"{secs[0]:.3f} s (T={S1_X_LEN + tokens[0]}); median "
+            f"s/micro-batch over micro-batches 3-{n} by bucket: " + ", ".join(
+                f"T={S1_X_LEN + t} {medians[t]:.4f} s ({len(v)})"
+                for t, v in sorted(by_bucket.items()))
+            + f"; peak memory {peak / 2 ** 30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); launches {launches}")
+        log(f"[s1 training] {tag} micro-batch losses " + ", ".join(
+            f"{m['loss']:.1f}" for m in history) + "; grad norms "
+            + ", ".join(f"{m['grad_norm']:.3g}" for m in history))
+        if tag != "bf16":
+            del trainer
+            runs[tag].pop("trainer")
+            gc.collect()
+            torch.cuda.empty_cache()
+    k5 = results["prefill_attention_bwd"]
+    k5["launches_per_call"] = k5_per_call
+    k5["calls"] = k5["launches"] // k5_per_call
+    bf, fp = runs["bf16"], runs["fp32"]
+    log("[s1 training] bf16 against fp32: median s/micro-batch " + ", ".join(
+        f"T={S1_X_LEN + t} {bf['medians'][t]:.4f} vs {fp['medians'][t]:.4f} "
+        f"({fp['medians'][t] / bf['medians'][t]:.2f}x)"
+        for t in sorted(bf["medians"]))
+        + f"; first micro-batch {bf['secs'][0]:.3f} vs {fp['secs'][0]:.3f} "
+        f"s; peak {bf['peak'] / 2 ** 30:.2f} vs {fp['peak'] / 2 ** 30:.2f} "
+        f"GiB; loss at micro-batch 12 {bf['history'][-1]['loss']:.1f} vs "
+        f"{fp['history'][-1]['loss']:.1f}")
 
-    secs, tokens = trainer.step_seconds, trainer.step_tokens
-    n = len(secs)
-    assert n == len(history) == 12, (n, len(history))
-    assert sorted(set(tokens)) == list(S1_Y_LENS), tokens
-    for i, m in enumerate(history):
-        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
-        assert not bad, f"micro-batch {i + 1}: non-finite {bad}"
+    trainer, resp = bf["trainer"], bf["resp"]
     step_fn = trainer.step_fn
     model = step_fn.model
     for pname, p in list(model.named_parameters()) + list(
             model.named_buffers()):
         assert p.device.type == "cuda", f"{pname} on {p.device}"
+        assert p.dtype == torch.float32, f"{pname} is {p.dtype}"
     for st in step_fn.optimizer.state.values():
         assert all(t.device.type == "cuda" for t in st.values())
     group = step_fn.optimizer.param_groups[0]
+    n = len(bf["secs"])
     assert group["step"] == n // 4 and group["norm_buffer"].is_cuda
-    layers = cfg.n_layers
-    assert launches["prefill_attention"] == layers * n, launches
-    k5_per_call = ops.prefill_attention_bwd.launches_per_call
-    assert launches["prefill_attention_bwd"] == k5_per_call * layers * n, \
-        launches
-    for name in results:
-        per_path = results[name].setdefault("per_path", {})
-        for path in ("serving_clone", "s2_step"):
-            per_path.setdefault(path, 0)
-        per_path["s1_micro_batch"] = launches[name] / n
-        results[name]["launches"] = results[name].get("launches", 0) \
-            + launches[name]
-    k5 = results["prefill_attention_bwd"]
-    k5["launches_per_call"] = k5_per_call
-    k5["calls"] = k5["launches"] // k5_per_call
     # fault 1: every layer's qkv projection moved, so attention passed a
     # gradient back to it
     trained = model.state_dict()
@@ -3874,25 +4361,10 @@ def train_s1(torch, tmp: str, results):
         DecodeParams(top_k=1, max_new_tokens=8, min_tokens=8),
         torch.Generator(device="cuda").manual_seed(0))
     assert tok.shape[0] == 2 and int(lens.min()) > 0
-
-    by_bucket = {}
-    for i in range(2, n):
-        by_bucket.setdefault(tokens[i], []).append(secs[i])
-    log(f"[s1 training] GPTTrain.train(): {n} micro-batches of B={S1_B} "
-        f"({n // 4} ScaledAdam updates) in {wall:.2f} s wall (data, model "
-        f"and pretrained load included); first micro-batch {secs[0]:.3f} s "
-        f"(T={S1_X_LEN + tokens[0]}); median s/micro-batch over "
-        f"micro-batches 3-{n} by bucket: " + ", ".join(
-            f"T={S1_X_LEN + t} {float(np.median(v)):.4f} s ({len(v)})"
-            for t, v in sorted(by_bucket.items()))
-        + f"; peak memory {peak / 2 ** 30:.2f} GiB "
-        f"(torch.cuda.max_memory_allocated)")
-    log("[s1 training] micro-batch losses " + ", ".join(
-        f"{m['loss']:.1f}" for m in history) + "; grad norms " + ", ".join(
-        f"{m['grad_norm']:.3g}" for m in history))
-    log(f"[s1 training] all {layers} in_proj_weight tensors changed; export "
+    log(f"[s1 training] bf16 run: all {layers} in_proj_weight tensors "
+        f"changed, every parameter fp32; export "
         f"{os.path.basename(resp.data['model_path'])} loads strict=True and "
-        f"greedy-decodes 8 tokens a row; launches {launches}")
+        f"greedy-decodes 8 tokens a row")
     return trainer
 
 
@@ -3947,11 +4419,11 @@ def profile_s1_window(torch, trainer) -> None:
         name = e.name.lower()
         if "prefill_attention_kernel" in name:
             groups["K1"] += us
-        elif any(k in name for k in ("dkdv_kernel(", "dq_kernel(",
-                                     "dsum_kernel(")):
+        elif any(k in name for k in ("dkdv_kernel<", "dq_kernel<",
+                                     "dsum_kernel<")):
             groups["K5"] += us
             k5_launches += 1
-        elif any(k in name for k in ("gemm", "xmma", "cutlass")):
+        elif any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
             groups["GEMMs"] += us
         else:
             groups["other"] += us
@@ -3984,9 +4456,14 @@ def profile_s1_window(torch, trainer) -> None:
 def reference_s1_step(torch):
     """The training forward and backward of a GPT at a small width (2
     layers, width 64, 2 heads of dk 32) on the card (K1, K5) and on the CPU
-    (the twins) from the same weights and batch: loss within 1e-5 x
-    max(1, |CPU|), every layer's qkv gradient (in_proj weight and bias)
-    within 1e-4 of its largest CPU magnitude."""
+    (the twins) from the same weights and batch, in fp32 and in bf16 (the
+    model with dtype bfloat16: K1 / K5's bf16 instances against the bf16
+    twins).  fp32: loss within 1e-5 x max(1, |CPU|), every layer's qkv
+    gradient (in_proj weight and bias) within 1e-4 of its largest CPU
+    magnitude.  bf16: cuBLAS and the CPU sum in other orders and K5 takes
+    the softmax's D from the bf16 o, so bf16 roundings flip (2^-8 of a
+    value) and travel through two layers: loss within 1e-2, gradients
+    within 5e-2."""
     from easevoice_trainer_tpu_torch import convert
     from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
         Text2SemanticDecoder
@@ -4002,26 +4479,31 @@ def reference_s1_step(torch):
              torch.randn((b, x_len, 1024), generator=gen))
     state = convert.random_state_dict(Text2SemanticDecoder(cfg),
                                       torch.Generator().manual_seed(18))
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        model = Text2SemanticDecoder(cfg)
-        model.load_state_dict(state)
-        model.to(dev)
-        out = model(*(t.to(dev) for t in batch))
-        out["loss"].backward()
-        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
-                 if "self_attn.in_proj" in k}
-        runs[dev] = (float(out["loss"].detach()), grads)
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
-    loss_err = abs(l_gpu - l_cpu) / max(1.0, abs(l_cpu))
-    grad_err = max(float((g_gpu[k] - w).abs().max())
-                   / max(float(w.abs().max()), 1e-30)
-                   for k, w in g_cpu.items())
-    log(f"[reference] s1 micro-batch card vs CPU (GPT width 64, 2 layers, "
-        f"B={b}, T={x_len + y_len}): loss {l_gpu:.4f} vs {l_cpu:.4f}, "
-        f"relative {loss_err:.3g} (tol 1e-5); {len(g_cpu)} qkv gradients "
-        f"max|d| / max|CPU| = {grad_err:.3g} (tol 1e-4)")
-    assert loss_err <= 1e-5 and grad_err <= 1e-4 and len(g_cpu) == 4
+    for dtype, tol_loss, tol_grad in ((None, 1e-5, 1e-4),
+                                      (torch.bfloat16, 1e-2, 5e-2)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = Text2SemanticDecoder(cfg, dtype=dtype)
+            model.load_state_dict(state)
+            model.to(dev)
+            out = model(*(t.to(dev) for t in batch))
+            out["loss"].backward()
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                     if "self_attn.in_proj" in k}
+            runs[dev] = (float(out["loss"].detach()), grads)
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+        loss_err = abs(l_gpu - l_cpu) / max(1.0, abs(l_cpu))
+        grad_err = max(float((g_gpu[k] - w).abs().max())
+                       / max(float(w.abs().max()), 1e-30)
+                       for k, w in g_cpu.items())
+        label = "bf16" if dtype is not None else "fp32"
+        log(f"[reference] s1 micro-batch {label} card vs CPU (GPT width 64, "
+            f"2 layers, B={b}, T={x_len + y_len}): loss {l_gpu:.4f} vs "
+            f"{l_cpu:.4f}, relative {loss_err:.3g} (tol {tol_loss}); "
+            f"{len(g_cpu)} qkv gradients max|d| / max|CPU| = {grad_err:.3g} "
+            f"(tol {tol_grad})")
+        assert loss_err <= tol_loss and grad_err <= tol_grad \
+            and len(g_cpu) == 4, label
 
 
 # ---------------------------------------------------------------------------
@@ -4543,8 +5025,8 @@ def trace_kernels(path: str) -> dict:
 
 # the REST path's kernels by the symbol in their device records: K1's
 # GPT instance (dk 32), its dk-64 instance (the clone's HuBERT), K2, K3
-TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32>"),
-                 ("encoder_attention", "prefill_attention_kernel<64>"),
+TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32, float>"),
+                 ("encoder_attention", "prefill_attention_kernel<64, float>"),
                  ("decode_attention", "decode_attention_kernel"),
                  ("mrf_conv", "conv_mma_kernel"))
 
@@ -5018,6 +5500,8 @@ def main() -> int:
         check_encoder_roformer(torch, results)
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
+        phase = "bf16 kernels"
+        check_bf16(torch, results)
         if parent is not None:
             phase = "mrf a/b"
             ab_mrf(torch, parent)
@@ -5075,7 +5559,8 @@ def main() -> int:
             f"config.yaml files read by the port's reader, Whisper's "
             f"tokenizer the port's own), the three normalization stages, "
             f"2 + 2 training steps on it), "
-            f"12 s2 training steps and 12 s1 micro-batches, and driving "
+            f"12 s2 training steps and 12 s1 micro-batches in bf16 and "
+            f"again in fp32, and driving "
             f"the REST server (whose processes ran under a hook refusing "
             f"the same modules), modules of {', '.join(FOREIGN)} loaded "
             f"here: {foreign}")
@@ -5100,7 +5585,8 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
-                      "whisper_T1500", "roformer"):
+                      "whisper_T1500", "roformer", "fp32_ms",
+                      "max_rel_err"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

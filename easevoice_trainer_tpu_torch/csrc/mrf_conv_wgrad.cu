@@ -61,10 +61,24 @@
 // Measured (chip_smoke.py check_k4, NVIDIA H100 80GB HBM3, 700 W): 2.7 ms
 // over the 45 shapes, 4.2x the bound, against 6.1 ms for the chunked SIMT
 // kernel it replaced and 8.2 ms for cuDNN's wgrad; PERF.md has the calls.
+//
+// The bf16 instance (ev_mrf_conv_bwd_weight_bf16), the s2 fine-tune's under
+// is_half: dy and x bf16, dW and db written as bf16, as jax.vjp of the bf16
+// Generator rounds the conv's weight gradient (generator.py:31-44; the
+// transpose of the fp32 -> bf16 weight cast then hands the fp32 parameters
+// those bf16 values).  It is route 2 at every shape (ops/mrf.py wgrad_plan
+// picks it for bf16; route 1 stays fp32): dy and x widened from bf16 into
+// the fp32 stages by plain loads and stores, the leaky relu rounded to bf16
+// as JAX rounds it (x * bf16(0.1)), so both operands are exact in TF32 and
+// each product is one TF32 mma; the partial sums stay fp32 and are rounded
+// once, as they are written.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_io.cuh"
 #include "warp_mma.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -121,17 +135,18 @@ struct OutTile {
   int o0, i0, to, ti, tq;
   bool db;
   __device__ int floats() const { return to * ti * tq + to; }
-  __device__ void put(int e, float v, float* dw, float* db_out, int Cin,
+  template <typename O>
+  __device__ void put(int e, float v, O* dw, O* db_out, int Cin,
                       int Cout, int K) const {
     const int body = to * ti * tq;
     if (e < body) {
       const int ol = e / (ti * tq), rem = e - ol * ti * tq;
       const int il = rem / tq, ql = rem - il * tq;
       const int o = o0 + ol, i = i0 + il;
-      if (o < Cout && i < Cin) dw[((long long)o * Cin + i) * K + ql] = v;
+      if (o < Cout && i < Cin) ev::put(dw + ((long long)o * Cin + i) * K + ql, v);
     } else if (db) {
       const int o = o0 + e - body;
-      if (o < Cout) db_out[o] = v;
+      if (o < Cout) ev::put(db_out + o, v);
     }
   }
 };
@@ -184,9 +199,9 @@ struct WgTile {
 // The block's partial sums are in `part` (out.floats() floats).  Adds them
 // over the blocks of the cluster (blockIdx.x / cs) in rank order, then over
 // the clusters in cluster order, and writes dW and db.
-template <class Tile>
+template <class Tile, typename O>
 __device__ void reduce_partials(const float* part, const Tile& out,
-                                float* dw, float* db, float* scratch, int Cin,
+                                O* dw, O* db, float* scratch, int Cin,
                                 int Cout, int K, int cs, int nc) {
   const int L = out.floats();
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -445,12 +460,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad_wgmma_kernel(
 // of output channels; the pair rows are cut into pair groups of MT tiles
 // and the eight warps into (pair group, sample group): warp w takes pair
 // group w % pgp and the k-steps w / pgp, w / pgp + 8 / pgp, ... of a stage.
-template <int MT, int NT>
+// E: the element type of dy, x, dw and db in device memory.
+template <int MT, int NT, typename E>
 __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
-    const float* __restrict__ dy, const float* __restrict__ x,
-    float* __restrict__ dw, float* __restrict__ db,
+    const E* __restrict__ dy, const E* __restrict__ x,
+    E* __restrict__ dw, E* __restrict__ db,
     float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
     int dil, float slope, int ci, int cs, int nc, int vec) {
+  constexpr bool LOW = !std::is_same<E, float>::value;  // bf16 operands
   if (B == 0) return;  // a probe launch (ev_mrf_conv_bwd_weight_max_clusters)
   constexpr int MO = 8 * NT;     // output channels a tile
   constexpr int DYT = NTH / MO;  // threads a dy row
@@ -494,9 +511,36 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
       const int u0 = (t0 - win.pad) & ~3;
       float* ys = smem + slot * stage;
       float* xs = ys + MO * LDY;
-      const float* dyr = dy + ((long long)b * Cout + o0 + dyo) * T;
-      const float* xrow = x + ((long long)b * Cin + i0 + xr) * T;
-      if (vec) {
+      const E* dyr = dy + ((long long)b * Cout + o0 + dyo) * T;
+      const E* xrow = x + ((long long)b * Cin + i0 + xr) * T;
+      if constexpr (LOW) {
+        // the same pieces, widened into the fp32 stages by plain loads
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (vec) {
+          for (int c = tid % DYT; c < MTS / 4; c += DYT) {
+            const int t = t0 + 4 * c;
+            const bool ok = dy_ok && t < T;
+            *reinterpret_cast<float4*>(ys + dyo * LDY + 4 * c) =
+                ok ? widen4(dyr + t) : zero;
+          }
+          for (int c = tid % xt; c < rx / 4; c += xt) {
+            const int t = u0 + 4 * c;
+            const bool ok = x_ok && t >= 0 && t < T;
+            *reinterpret_cast<float4*>(xs + xr * ldx + 4 * c) =
+                ok ? widen4(xrow + t) : zero;
+          }
+        } else {
+          for (int u = tid % DYT; u < MTS; u += DYT) {
+            const int t = t0 + u;
+            ys[dyo * LDY + u] = dy_ok && t < T ? widen(dyr[t]) : 0.f;
+          }
+          for (int c = tid % xt; c < rx; c += xt) {
+            const int t = u0 + c;
+            xs[xr * ldx + c] =
+                x_ok && t >= 0 && t < T ? widen(xrow[t]) : 0.f;
+          }
+        }
+      } else if (vec) {
         for (int c = tid % DYT; c < MTS / 4; c += DYT) {
           const int t = t0 + 4 * c;
           const bool ok = dy_ok && t < T;
@@ -550,6 +594,10 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
       for (int nt = 0; nt < NT; ++nt) {
         if (nt >= nlive) continue;
         const float* yr = ys + (nt * 8 + gid) * LDY + 8 * ks + tig;
+        if constexpr (LOW) {  // bf16 dy: exact in TF32
+          bh[nt][0] = __float_as_uint(yr[0]);
+          bh[nt][1] = __float_as_uint(yr[4]);
+        } else {
         float h, l;
         split_tf32(yr[0], h, l);
         bh[nt][0] = __float_as_uint(h);
@@ -557,6 +605,7 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
         split_tf32(yr[4], h, l);
         bh[nt][1] = __float_as_uint(h);
         bl[nt][1] = __float_as_uint(l);
+        }
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
@@ -566,6 +615,18 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
         const int r0 = x_at(base + gid) + c, r1 = x_at(base + gid + 8) + c;
         const float v[4] = {xs[r0], xs[r1], xs[r0 + 4], xs[r1 + 4]};
         uint32_t ah[4], al[4];
+        if constexpr (LOW) {
+          // JAX's bf16 leaky relu: x * bf16(0.1) rounded to bf16
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ah[e] = __float_as_uint(v[e] >= 0.f ? v[e]
+                                                : round_bf16(v[e] * slope));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (nt >= nlive) continue;
+            mma_tf32(acc[mi][nt], ah, bh[nt][0], bh[nt][1]);
+          }
+        } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float h, l;
@@ -579,6 +640,7 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
           mma_tf32(acc[mi][nt], al, bh[nt][0], bh[nt][1]);
           mma_tf32(acc[mi][nt], ah, bl[nt][0], bl[nt][1]);
           mma_tf32(acc[mi][nt], ah, bh[nt][0], bh[nt][1]);
+        }
         }
       }
     }
@@ -643,18 +705,36 @@ size_t smem_bytes(int bn, int bi, int taps, int k, int dil) {
   return sizeof(float) * (stages > part ? stages : part);
 }
 
-typedef void (*Kernel)(const float*, const float*, float*, float*, float*,
-                       int, int, int, int, int, int, float, int, int, int,
-                       int);
+template <typename E>
+using KernelT = void (*)(const E*, const E*, E*, E*, float*, int, int, int,
+                         int, int, int, float, int, int, int, int);
+typedef KernelT<float> Kernel;
 
 Kernel kernel_for(int bn) {
   switch (bn) {
-    case 16: return wgrad_mma_kernel<8, 2>;
-    case 32: return wgrad_mma_kernel<4, 4>;
+    case 16: return wgrad_mma_kernel<8, 2, float>;
+    case 32: return wgrad_mma_kernel<4, 4, float>;
     case 64: return wgrad_wgmma_kernel<64>;
     case 128: return wgrad_wgmma_kernel<128>;
     default: return nullptr;
   }
+}
+
+// the bf16 instance has route 2 (mma.sync) alone
+KernelT<bf16> kernel_for_bf16(int bn) {
+  switch (bn) {
+    case 16: return wgrad_mma_kernel<8, 2, bf16>;
+    case 32: return wgrad_mma_kernel<4, 4, bf16>;
+    default: return nullptr;
+  }
+}
+
+template <typename E>
+KernelT<E> kernel_of(int bn) {
+  if constexpr (std::is_same<E, float>::value)
+    return kernel_for(bn);
+  else
+    return kernel_for_bf16(bn);
 }
 
 // the route's tile sizes: bn = 16 / 32 (mma.sync, bi in {16, 32} input
@@ -671,7 +751,8 @@ int threads_for(int bn) {
   return bn > 32 ? WG_THREADS : NTH;
 }
 
-cudaError_t prepare(Kernel kern, size_t smem) {
+template <typename Kern>
+cudaError_t prepare(Kern kern, size_t smem) {
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(
       (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -684,7 +765,9 @@ cudaError_t prepare(Kernel kern, size_t smem) {
 // the launch as too large (the occupancy query can promise more clusters
 // than a cooperative launch takes).  A negative CUDA error code on any
 // other error.
-int accepted_clusters(Kernel kern, int bn, size_t smem, int cluster, int n) {
+template <typename E>
+int accepted_clusters(KernelT<E> kern, int bn, size_t smem, int cluster,
+                      int n) {
   for (; n > 0; --n) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cluster * n);
@@ -705,9 +788,9 @@ int accepted_clusters(Kernel kern, int bn, size_t smem, int cluster, int n) {
     cfg.attrs = attr;
     cfg.numAttrs = na;
     const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, kern, (const float*)nullptr, (const float*)nullptr,
-        (float*)nullptr, (float*)nullptr, (float*)nullptr, 0, 1, 1, 1, 1, 1,
-        0.f, 1, cluster, n, 0);
+        &cfg, kern, (const E*)nullptr, (const E*)nullptr, (E*)nullptr,
+        (E*)nullptr, (float*)nullptr, 0, 1, 1, 1, 1, 1, 0.f, 1, cluster, n,
+        0);
     if (e == cudaSuccess) return n;
     (void)cudaGetLastError();
     if (e != cudaErrorCooperativeLaunchTooLarge) return -(int)e;
@@ -715,19 +798,18 @@ int accepted_clusters(Kernel kern, int bn, size_t smem, int cluster, int n) {
   return 0;
 }
 
-}  // namespace
-
 // The most clusters of `cluster` blocks of this route that the card holds
 // at once (a negative CUDA error code on failure): the occupancy query's
 // answer, or with `probe` the largest count of them that a cooperative
 // launch accepts (accepted_clusters).  The planner sizes the grid to the
 // probed count, since a cooperative launch must be co-resident.
-extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
-                                                   int k, int dil,
-                                                   int cluster, int probe) {
+template <typename E>
+int max_clusters(int bn, int bi, int taps, int k, int dil, int cluster,
+                 int probe) {
   if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8)
     return -(int)cudaErrorInvalidValue;
-  const Kernel kern = kernel_for(bn);
+  const KernelT<E> kern = kernel_of<E>(bn);
+  if (kern == nullptr) return -(int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(bn, bi, taps, k, dil);
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return -(int)e;
@@ -739,7 +821,7 @@ extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return -(int)e;
-    return probe ? accepted_clusters(kern, bn, smem, 1, per_sm * sms)
+    return probe ? accepted_clusters<E>(kern, bn, smem, 1, per_sm * sms)
                  : per_sm * sms;
   }
   cudaLaunchConfig_t cfg = {};
@@ -756,24 +838,23 @@ extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
   if (e != cudaSuccess) return -(int)e;
-  return probe ? accepted_clusters(kern, bn, smem, cluster, n) : n;
+  return probe ? accepted_clusters<E>(kern, bn, smem, cluster, n) : n;
 }
 
 // dy: (B, Cout, T), x: (B, Cin, T) -> dw: (Cout, Cin, k), db: (Cout,).
 // The plan (ops/mrf.py wgrad_plan): route and tile (bn, bi, taps), the
 // B*T split into `clusters` clusters of `cluster` blocks; scratch holds
 // clusters x tiles x (bn * bi * taps + bn) floats when clusters > 1.
-extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
-                                          void* dw, void* db, void* scratch,
-                                          int B, int Cin, int Cout, int T,
-                                          int k, int dil, float slope, int bn,
-                                          int bi, int taps, int cluster,
-                                          int clusters, void* stream) {
+template <typename E>
+int wgrad(const E* dy, const E* x, E* dw, E* db, float* scratch, int B,
+          int Cin, int Cout, int T, int k, int dil, float slope, int bn,
+          int bi, int taps, int cluster, int clusters, cudaStream_t stream) {
   if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8 ||
       clusters < 1 || B < 1 || T < 1 || Cin < 1 || Cout < 1 ||
       (clusters > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Kernel kern = kernel_for(bn);
+  const KernelT<E> kern = kernel_of<E>(bn);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(bn, bi, taps, k, dil);
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
@@ -783,14 +864,16 @@ extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
   else
     tiles = ((Cin + BM - 1) / BM) * ((Cout + bn - 1) / bn) *
             ((k + taps - 1) / taps);
-  // 16-byte copies need 16-byte aligned rows of T samples
-  const int vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // 16-byte copies (8-byte loads of the bf16 instance) need aligned rows
+  // of T samples
+  const int vec = T % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(E)) == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % (4 * sizeof(E)) == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster * clusters, tiles);
   cfg.blockDim = dim3(threads_for(bn));
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   int na = 0;
   if (cluster > 1) {
@@ -808,10 +891,48 @@ extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
   cfg.attrs = attr;
   cfg.numAttrs = na;
   const int tile_arg = bn <= 32 ? bi : taps;
-  e = cudaLaunchKernelEx(&cfg, kern, (const float*)dy, (const float*)x,
-                         (float*)dw, (float*)db, (float*)scratch, B, Cin,
-                         Cout, T, k, dil, slope, tile_arg, cluster, clusters,
-                         vec);
+  e = cudaLaunchKernelEx(&cfg, kern, dy, x, dw, db, scratch, B, Cin, Cout,
+                         T, k, dil, slope, tile_arg, cluster, clusters, vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
+                                                   int k, int dil,
+                                                   int cluster, int probe) {
+  return max_clusters<float>(bn, bi, taps, k, dil, cluster, probe);
+}
+
+// the bf16 instance's clusters (route 2 only: bn 16 or 32)
+extern "C" int ev_mrf_conv_bwd_weight_max_clusters_bf16(
+    int bn, int bi, int taps, int k, int dil, int cluster, int probe) {
+  return max_clusters<bf16>(bn, bi, taps, k, dil, cluster, probe);
+}
+
+extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
+                                          void* dw, void* db, void* scratch,
+                                          int B, int Cin, int Cout, int T,
+                                          int k, int dil, float slope, int bn,
+                                          int bi, int taps, int cluster,
+                                          int clusters, void* stream) {
+  return wgrad<float>((const float*)dy, (const float*)x, (float*)dw,
+                      (float*)db, (float*)scratch, B, Cin, Cout, T, k, dil,
+                      slope, bn, bi, taps, cluster, clusters,
+                      (cudaStream_t)stream);
+}
+
+// The bf16 instance: dy, x, dw, db bf16 (scratch fp32), a route-2 plan
+// (bn 16 or 32); slope = bf16(0.1).
+extern "C" int ev_mrf_conv_bwd_weight_bf16(const void* dy, const void* x,
+                                           void* dw, void* db, void* scratch,
+                                           int B, int Cin, int Cout, int T,
+                                           int k, int dil, float slope,
+                                           int bn, int bi, int taps,
+                                           int cluster, int clusters,
+                                           void* stream) {
+  return wgrad<bf16>((const bf16*)dy, (const bf16*)x, (bf16*)dw, (bf16*)db,
+                     (float*)scratch, B, Cin, Cout, T, k, dil, slope, bn, bi,
+                     taps, cluster, clusters, (cudaStream_t)stream);
 }

@@ -102,7 +102,8 @@ class TTSConfig:
         # defaults: the JAX package's GlobalCFG env vars and pretrained layout
         glob = GlobalCFG()
         self.device = merged.get("device", "cuda")
-        self.is_half = bool(merged.get("is_half", False))
+        # recorded only, as in JAX: serving computes in fp32
+        self.is_half = bool(merged.get("is_half", glob.is_half))
         self.t2s_weights_path = merged.get("t2s_weights_path", glob.gpt_path)
         self.vits_weights_path = merged.get("vits_weights_path",
                                             glob.sovits_path)

@@ -17,17 +17,30 @@ parity tests hold the port to.
 ``ops.attention.self_attention``, K1 forward and K5 backward on the card.
 Dropout is not supported (``configs/gpt.yaml`` and ``T2SConfig`` both say
 0, and K1 takes no dropout mask): a config with ``dropout > 0`` raises.
+
+``dtype`` (the JAX module's): None computes in fp32; bfloat16 is the s1
+fine-tune under ``is_half`` (JAX ``train/gpt.py:162-163``).  Parameters stay
+fp32.  As flax computes the JAX module then: the dense layers (``bert_proj``,
+``qkv``, ``out``, ``linear1`` / ``linear2``, ``ar_predict_layer``) cast their
+input and weight to bf16 and return bf16; the embeddings and LayerNorms
+return fp32, so every layer boundary and residual sum (fp32 + bf16) is
+fp32; the attention is K1 / K5's bf16 instances (``ops/attention.py``); the
+loss and accuracy take the logits in fp32.  The serving passes
+(``prefill``, ``decode_step``) are fp32, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...nn.layers import compute_dtype, linear_in, set_compute_dtype
 from ...ops import decode_attention, prefill_attention, self_attention
 
 LN_EPS = 1e-6
@@ -113,7 +126,8 @@ class TransformerLayer(nn.Module):
     """Post-norm encoder layer for the full (prefill) and incremental
     (decode) passes."""
 
-    def __init__(self, d_model: int, n_heads: int, ffn_dim: int):
+    def __init__(self, d_model: int, n_heads: int, ffn_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
@@ -122,6 +136,7 @@ class TransformerLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        set_compute_dtype(self, dtype)
 
     def qkv(self, x: torch.Tensor):
         """(B, T, D) -> q, k, v as (B, T, H, dk) views of one projection."""
@@ -150,12 +165,22 @@ class TransformerLayer(nn.Module):
 
     def train_forward(self, x, x_len: int, x_lens, y_lens):
         """The layer under autograd: attention on the fused projection
-        through ``self_attention`` (K1 forward, K5 backward)."""
-        qkv = F.linear(x, self.self_attn.in_proj_weight,
-                       self.self_attn.in_proj_bias)
+        through ``self_attention`` (K1 forward, K5 backward), in the compute
+        dtype (the layer's input and output stay fp32)."""
+        dtype = compute_dtype(self)
+        if dtype is None:
+            qkv = F.linear(x, self.self_attn.in_proj_weight,
+                           self.self_attn.in_proj_bias)
+        else:   # flax DenseGeneral(dtype=bf16): bf16 product, bf16 bias add
+            qkv = F.linear(x.to(dtype),
+                           self.self_attn.in_proj_weight.to(dtype)) \
+                + self.self_attn.in_proj_bias.to(dtype)
         o = self_attention(qkv, self.n_heads, x_len, x_lens, y_lens)
-        x = self.norm1(x + self.self_attn.out_proj(o.reshape(x.shape)))
-        return self.norm2(x + self.ffn(x))
+        x = self.norm1(x + linear_in(self.self_attn.out_proj,
+                                     o.reshape(x.shape), dtype))
+        ffn = linear_in(self.linear2, torch.relu(
+            linear_in(self.linear1, x, dtype)), dtype)
+        return self.norm2(x + ffn)
 
 
 class _Layers(nn.Module):
@@ -167,7 +192,8 @@ class _Layers(nn.Module):
 
 
 class Text2SemanticDecoder(nn.Module):
-    def __init__(self, cfg: T2SConfig = T2SConfig()):
+    def __init__(self, cfg: T2SConfig = T2SConfig(),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = self.cfg = cfg
         self.bert_proj = nn.Linear(1024, c.embedding_dim)
@@ -182,10 +208,12 @@ class Text2SemanticDecoder(nn.Module):
         self.h = _Layers(c)
         self.ar_predict_layer = nn.Linear(c.hidden_dim, c.vocab_size,
                                           bias=False)
+        set_compute_dtype(self, dtype)
 
     def embed_text(self, x, bert_feature):
         """x: (B, Tx) phoneme ids; bert_feature: (B, Tx, 1024)."""
-        h = self.ar_text_embedding(x) + self.bert_proj(bert_feature)
+        h = self.ar_text_embedding(x) + linear_in(
+            self.bert_proj, bert_feature, compute_dtype(self))
         return self.ar_text_position(h)
 
     def embed_audio(self, y, offset: int = 0):
@@ -223,7 +251,8 @@ class Text2SemanticDecoder(nn.Module):
         for layer in self.h.layers:
             h = layer.train_forward(h, x_len, x_lens, y_lens)
 
-        logits = self.ar_predict_layer(h[:, x_len:])      # (B, Ty, V)
+        logits = linear_in(self.ar_predict_layer, h[:, x_len:],
+                           compute_dtype(self))           # (B, Ty, V)
         logp = torch.log_softmax(logits.float(), dim=-1)
         loss = -logp.gather(-1, targets[..., None].long())[..., 0].sum()
         with torch.no_grad():

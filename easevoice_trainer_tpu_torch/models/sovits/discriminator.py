@@ -6,17 +6,20 @@ weight-normed Conv1d), ``discriminators.1..5`` the period discriminators
 (time / period, period) view).  Every conv is plain torch: the JAX package's
 space-to-depth folds (``_PConv`` / ``_SConv``) lay data out for the TPU and
 are not ported.  Inputs are waveforms (B, 1, T); the leaky relus use the JAX
-convention (derivative 1 at 0).
+convention (derivative 1 at 0).  ``dtype`` bfloat16 (the s2 fine-tune under
+``is_half``, JAX ``train/sovits.py:206``) runs every conv in bf16 as the JAX
+discriminators do: input, weight-normed weight and bias in bf16, cuDNN's
+convs (XLA computes them in JAX), the logits and feature maps in bf16.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import WNConv1d, WNConv2d, leaky_relu
+from ...nn.layers import WNConv1d, WNConv2d, leaky_relu, set_compute_dtype
 
 
 class DiscriminatorP(nn.Module):
@@ -73,10 +76,12 @@ class DiscriminatorS(nn.Module):
 
 
 class MultiPeriodDiscriminator(nn.Module):
-    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.discriminators = nn.ModuleList(
             [DiscriminatorS()] + [DiscriminatorP(p) for p in periods])
+        set_compute_dtype(self, dtype)
 
     def run(self, x: torch.Tensor) -> Tuple[list, list]:
         """One waveform batch (B, 1, T) -> (logits per discriminator,

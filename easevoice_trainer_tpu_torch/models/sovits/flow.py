@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...nn.layers import compute_dtype, conv_in
 from ...nn.wavenet import WaveNet
 
 
@@ -27,10 +28,11 @@ class ResidualCouplingLayer(nn.Module):
         nn.init.zeros_(self.post.bias)
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
+        dtype = compute_dtype(self)
         x0, x1 = x[:, :self.half], x[:, self.half:]
-        h = self.pre(x0) * x_mask
+        h = conv_in(self.pre, x0, dtype) * x_mask
         h = self.enc(h, x_mask, g=g)
-        m = self.post(h) * x_mask
+        m = conv_in(self.post, h, dtype) * x_mask
         x1 = (m + x1) * x_mask if not reverse else (x1 - m) * x_mask
         return torch.cat([x0, x1], dim=1)
 

@@ -13,7 +13,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...nn.layers import WNConv1d, WNConvTranspose1d, leaky_relu
+from ...nn.layers import WNConv1d, WNConvTranspose1d, compute_dtype, \
+    conv_in, leaky_relu
 from ...ops import mrf_conv
 
 
@@ -29,9 +30,11 @@ class ResBlock1(nn.Module):
             WNConv1d(channels, channels, kernel_size) for _ in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = compute_dtype(self)
         for c1, c2, d in zip(self.convs1, self.convs2, self.dilations):
-            xt = mrf_conv(x, c1.weight, c1.bias, d)
-            x = mrf_conv(xt, c2.weight, c2.bias, 1, residual=x)
+            xt = mrf_conv(x, c1.weight_as(dtype), c1.bias_as(dtype), d)
+            x = mrf_conv(xt, c2.weight_as(dtype), c2.bias_as(dtype), 1,
+                         residual=x)
         return x
 
 
@@ -45,8 +48,10 @@ class ResBlock2(nn.Module):
             for d in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = compute_dtype(self)
         for c, d in zip(self.convs, self.dilations):
-            x = mrf_conv(x, c.weight, c.bias, d, residual=x)
+            x = mrf_conv(x, c.weight_as(dtype), c.bias_as(dtype), d,
+                         residual=x)
         return x
 
 
@@ -83,9 +88,10 @@ class Generator(nn.Module):
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, initial_channel, T) latent; g: (B, gin, 1).
         Returns (B, 1, T * prod(upsample_rates))."""
-        x = self.conv_pre(x)
+        dtype = compute_dtype(self)
+        x = conv_in(self.conv_pre, x, dtype)
         if g is not None and self.cond is not None:
-            x = x + self.cond(g)
+            x = x + conv_in(self.cond, g, dtype)
         n = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
@@ -94,5 +100,5 @@ class Generator(nn.Module):
                 y = block(x)
                 xs = y if xs is None else xs + y
             x = xs / n
-        x = self.conv_post(leaky_relu(x, 0.01))
+        x = conv_in(self.conv_post, leaky_relu(x, 0.01), dtype)
         return torch.tanh(x)

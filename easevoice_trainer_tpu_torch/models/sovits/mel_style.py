@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...nn.layers import cast, compute_dtype, conv_in, linear_in, wide
+
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
@@ -26,7 +28,7 @@ class _LinearNorm(nn.Module):
         self.fc = nn.Linear(in_dim, out_dim)
 
     def forward(self, x):
-        return self.fc(x)
+        return linear_in(self.fc, x, compute_dtype(self))
 
 
 class _ConvNorm(nn.Module):
@@ -36,7 +38,7 @@ class _ConvNorm(nn.Module):
         self.conv = nn.Conv1d(in_channels, out_channels, kernel_size)
 
     def forward(self, x):
-        return self.conv(F.pad(x, self.pads))
+        return conv_in(self.conv, F.pad(x, self.pads), compute_dtype(self))
 
 
 class Conv1dGLU(nn.Module):
@@ -65,15 +67,20 @@ class _SelfAttention(nn.Module):
 
     def forward(self, y: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
         """y: (B, T, d); x_mask: (B, T, 1)."""
+        dtype = compute_dtype(self)
         b, t, d = y.shape
         h = self.n_heads
         split = lambda z: z.view(b, t, h, d // h).transpose(1, 2)
-        q, k, v = split(self.w_qs(y)), split(self.w_ks(y)), split(self.w_vs(y))
-        scores = q @ k.transpose(2, 3) / math.sqrt(self.d_model)
+        q, k, v = (split(linear_in(lin, y, dtype))
+                   for lin in (self.w_qs, self.w_ks, self.w_vs))
+        # bf16 products in fp32, the probabilities and P V rounded back
+        scores = wide(q) @ wide(k).transpose(2, 3) / math.sqrt(self.d_model)
         valid = x_mask[:, None, None, :, 0] > 0
         scores = scores.masked_fill(~valid, -math.inf)
-        attn = torch.softmax(scores, dim=-1) @ v
-        return self.fc(attn.transpose(1, 2).reshape(b, t, d))
+        probs = cast(torch.softmax(scores, dim=-1), dtype)
+        attn = (wide(probs) @ wide(v)).to(probs.dtype)
+        return linear_in(self.fc, attn.transpose(1, 2).reshape(b, t, d),
+                         dtype)
 
 
 class MelStyleEncoder(nn.Module):

@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...nn.layers import sequence_mask
+from ...nn.layers import compute_dtype, conv_in, sequence_mask
 from ...nn.wavenet import WaveNet
 
 
@@ -32,12 +32,14 @@ class PosteriorEncoder(nn.Module):
         """x: (B, in, T); g: (B, gin, 1).  The noise ``eps`` (B, out, T) is
         given, or drawn from ``generator``.  Returns (z, m, logs, x_mask
         (B, 1, T))."""
-        x_mask = sequence_mask(x_lengths, x.shape[2])[:, None].to(x.dtype)
+        dtype = compute_dtype(self)
+        x_mask = sequence_mask(x_lengths, x.shape[2])[:, None].to(
+            dtype or x.dtype)
         if g is not None:
             g = g.detach()  # the reference detaches the style vector here
-        h = self.pre(x) * x_mask
+        h = conv_in(self.pre, x, dtype) * x_mask
         h = self.enc(h, x_mask, g=g)
-        stats = self.proj(h) * x_mask
+        stats = conv_in(self.proj, h, dtype) * x_mask
         m, logs = stats[:, :self.out_channels], stats[:, self.out_channels:]
         if eps is None:
             if generator is None:
@@ -45,5 +47,6 @@ class PosteriorEncoder(nn.Module):
                                  "torch.Generator to draw it from")
             eps = torch.randn(m.shape, generator=generator, device=m.device,
                               dtype=m.dtype)
-        z = (m + eps * torch.exp(logs)) * x_mask
+        # JAX draws the noise in the compute dtype
+        z = (m + eps.to(m.dtype) * torch.exp(logs)) * x_mask
         return z, m, logs, x_mask

@@ -15,7 +15,7 @@ from torch import nn
 
 def nearest_code(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """argmin_k ||x - c_k||^2 for x (..., D), codebook (K, D) -> (...,)."""
-    flat = x.reshape(-1, x.shape[-1])
+    flat = x.reshape(-1, x.shape[-1]).float()   # in fp32, as in JAX
     scores = 2.0 * flat @ codebook.T - (codebook * codebook).sum(-1)[None, :]
     return scores.argmax(dim=-1).reshape(x.shape[:-1])
 
@@ -54,11 +54,11 @@ class ResidualVectorQuantizer(nn.Module):
         residual = x
         quantized = torch.zeros_like(x)
         codes = []
-        commit = x.new_zeros(())
+        commit = x.new_zeros((), dtype=torch.float32)
         for q in range(n_layers or self.n_q):
             cb = self.codebook(q)
             idx = nearest_code(residual.detach(), cb)
-            quant = cb[idx].detach()
+            quant = cb[idx].detach().to(x.dtype)
             codes.append(idx)
             commit = commit + ((residual - quant).float() ** 2).mean()
             quantized = quantized + residual + (quant - residual).detach()

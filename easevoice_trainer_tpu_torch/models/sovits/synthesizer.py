@@ -17,7 +17,8 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
-from ...nn.layers import rand_slice_starts, sequence_mask, slice_segments
+from ...nn.layers import compute_dtype, conv_in, rand_slice_starts, \
+    sequence_mask, set_compute_dtype, slice_segments
 from .flow import ResidualCouplingBlock
 from .generator import Generator
 from .mel_style import MelStyleEncoder
@@ -85,7 +86,10 @@ class SovitsConfig:
 
 class SynthesizerTrn(nn.Module):
     def __init__(self, cfg: SovitsConfig = SovitsConfig(),
-                 with_enc_q: bool = False):
+                 with_enc_q: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        """``dtype``: the JAX module's compute dtype (None: fp32; bf16: the
+        s2 fine-tune under ``is_half``, parameters still fp32)."""
         super().__init__()
         c = self.cfg = cfg
         self.enc_p = TextEncoder(
@@ -115,6 +119,7 @@ class SynthesizerTrn(nn.Module):
             # as the reference: the frozen projection gets no gradient and
             # no optimizer state (the codebook is a buffer)
             self.ssl_proj.requires_grad_(False)
+        set_compute_dtype(self, dtype)
 
     def _style(self, spec: torch.Tensor,
                spec_mask: torch.Tensor) -> torch.Tensor:
@@ -141,11 +146,11 @@ class SynthesizerTrn(nn.Module):
         (B, T, inter_channels)).
         """
         c = self.cfg
+        dtype = compute_dtype(self)     # JAX: self.dtype or spec.dtype
         spec_mask = sequence_mask(spec_lengths, spec.shape[1])[
-            :, :, None].to(spec.dtype)
+            :, :, None].to(dtype or spec.dtype)
         ge = self._style(spec, spec_mask).transpose(1, 2)   # (B, gin, 1)
-
-        h = self.ssl_proj(ssl.transpose(1, 2)).transpose(1, 2)
+        h = conv_in(self.ssl_proj, ssl.transpose(1, 2), dtype).transpose(1, 2)
         if c.freeze_quantizer:
             h = h.detach()
         quantized, _, commit_loss = self.quantizer(h, n_layers=1)

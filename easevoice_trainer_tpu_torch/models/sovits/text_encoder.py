@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ...nn.attention import MultiHeadAttention, RelPosEncoder
-from ...nn.layers import sequence_mask
+from ...nn.layers import cast, compute_dtype, conv_in, sequence_mask
 
 
 class MRTE(nn.Module):
@@ -30,12 +30,13 @@ class MRTE(nn.Module):
     def forward(self, ssl_enc, ssl_mask, text, text_mask, ge):
         """ssl_enc: (B, C, Ts); text: (B, C, Tt); masks (B, 1, T);
         ge: (B|1, hidden, 1)."""
+        dtype = compute_dtype(self)
         attn_mask = ssl_mask.unsqueeze(-1) * text_mask.unsqueeze(2)
-        c = self.c_pre(ssl_enc * ssl_mask)
-        t = self.text_pre(text * text_mask)
+        c = conv_in(self.c_pre, ssl_enc * ssl_mask, dtype)
+        t = conv_in(self.text_pre, text * text_mask, dtype)
         x = self.cross_attention(c * ssl_mask, t * text_mask, attn_mask)
         x = x + c + ge
-        return self.c_post(x * ssl_mask)
+        return conv_in(self.c_post, x * ssl_mask, dtype)
 
 
 class TextEncoder(nn.Module):
@@ -66,13 +67,14 @@ class TextEncoder(nn.Module):
         """y: quantized SSL (B, ssl_dim, Ts); text: (B, Tt) int;
         ge: (B, gin, 1); ``generator`` draws the dropout masks in training.
         Returns (encoded (B, C, Ts), m_p, logs_p, y_mask (B, 1, Ts))."""
-        y_mask = sequence_mask(y_lengths, y.shape[2])[:, None].to(y.dtype)
+        dtype = compute_dtype(self)
+        mask_dtype = dtype or y.dtype
+        y_mask = sequence_mask(y_lengths, y.shape[2])[:, None].to(mask_dtype)
         text_mask = sequence_mask(text_lengths, text.shape[1])[:, None].to(
-            y.dtype)
-
-        y = self.ssl_proj(y * y_mask) * y_mask
+            mask_dtype)
+        y = conv_in(self.ssl_proj, y * y_mask, dtype) * y_mask
         y = self.encoder_ssl(y * y_mask, y_mask, generator)
-        t = self.text_embedding(text).transpose(1, 2)
+        t = cast(self.text_embedding(text), dtype).transpose(1, 2)
         t = self.encoder_text(t * text_mask, text_mask, generator)
         y = self.mrte(y, y_mask, t, text_mask, ge)
         y = self.encoder2(y * y_mask, y_mask, generator)
@@ -82,7 +84,7 @@ class TextEncoder(nn.Module):
             y = _linear_resize_time(y, new_len)
             y_mask = _nearest_resize_time(y_mask, new_len)
 
-        stats = self.proj(y) * y_mask
+        stats = conv_in(self.proj, y, dtype) * y_mask
         m, logs = stats[:, :self.out_channels], stats[:, self.out_channels:]
         return y, m, logs, y_mask
 

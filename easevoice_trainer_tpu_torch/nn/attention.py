@@ -8,6 +8,12 @@ reference (``conv_q`` ... ``conv_o``).  In training, dropout applies where
 the JAX modules apply it (attention probabilities, the FFN's hidden
 activation, each sub-block's output), with masks from the ``generator``
 passed to ``forward``.
+
+In a bf16 compute dtype (``nn/layers.py set_compute_dtype``) they follow the
+JAX modules (nn/attention.py:89-144, :159-166): bf16 projections, the
+scores in fp32 from the bf16 q and k (and the bf16 relative embeddings),
+the softmax in fp32 with the probabilities rounded to bf16, P V in fp32
+rounded to bf16, and the relative-value term added in bf16.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LayerNorm, dropout
+from .layers import LayerNorm, cast, compute_dtype, conv_in, dropout, \
+    weak_scalar, wide
 
 MASK_VALUE = -1e4
 
@@ -76,7 +83,10 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        q, k, v = self.conv_q(x), self.conv_k(c), self.conv_v(c)
+        dtype = compute_dtype(self)
+        q = conv_in(self.conv_q, x, dtype)
+        k = conv_in(self.conv_k, c, dtype)
+        v = conv_in(self.conv_v, c, dtype)
         b, d, t_t = q.shape
         t_s = k.shape[2]
         h = self.n_heads
@@ -85,25 +95,31 @@ class MultiHeadAttention(nn.Module):
         k = k.view(b, h, dk, t_s).transpose(2, 3)
         v = v.view(b, h, dk, t_s).transpose(2, 3)
 
-        qs = q * (1.0 / math.sqrt(dk))
-        scores = qs @ k.transpose(2, 3)
+        # products of bf16 operands are taken in fp32 and rounded back to
+        # the compute dtype where JAX rounds
+        qs = q * weak_scalar(1.0 / math.sqrt(dk), q.dtype)
+        scores = wide(qs) @ wide(k).transpose(2, 3)
         if self.window_size is not None:
             if t_s != t_t:
                 raise ValueError("relative attention requires self-attention")
-            rel_k = _window_embeddings(self.emb_rel_k, t_s, self.window_size)
-            rel_logits = torch.einsum("bhqd,xmd->bhqm", qs, rel_k)
+            rel_k = _window_embeddings(cast(self.emb_rel_k, dtype), t_s,
+                                       self.window_size)
+            rel_logits = torch.einsum("bhqd,xmd->bhqm", wide(qs),
+                                      wide(rel_k))
             scores = scores + _rel_to_abs(rel_logits)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, MASK_VALUE)
-        probs = dropout(torch.softmax(scores, dim=-1), self.p_dropout,
-                        self.training, generator)
-        out = probs @ v
+        probs = dropout(cast(torch.softmax(scores, dim=-1), dtype),
+                        self.p_dropout, self.training, generator)
+        out = (wide(probs) @ wide(v)).to(probs.dtype)
         if self.window_size is not None:
-            rel_v = _window_embeddings(self.emb_rel_v, t_s, self.window_size)
-            out = out + torch.einsum("bhqm,xmd->bhqd", _abs_to_rel(probs),
-                                     rel_v)
+            rel_v = _window_embeddings(cast(self.emb_rel_v, dtype), t_s,
+                                       self.window_size)
+            out = out + torch.einsum("bhqm,xmd->bhqd",
+                                     wide(_abs_to_rel(probs)),
+                                     wide(rel_v)).to(out.dtype)
         out = out.transpose(2, 3).reshape(b, d, t_t)
-        return self.conv_o(out)
+        return conv_in(self.conv_o, out, dtype)
 
 
 class ConvFFN(nn.Module):
@@ -120,9 +136,11 @@ class ConvFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = torch.relu(self.conv_1(F.pad(x * x_mask, self.pads)))
+        dtype = compute_dtype(self)
+        y = torch.relu(conv_in(self.conv_1, F.pad(x * x_mask, self.pads),
+                               dtype))
         y = dropout(y, self.p_dropout, self.training, generator)
-        y = self.conv_2(F.pad(y * x_mask, self.pads))
+        y = conv_in(self.conv_2, F.pad(y * x_mask, self.pads), dtype)
         return y * x_mask
 
 

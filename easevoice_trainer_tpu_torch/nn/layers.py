@@ -14,16 +14,85 @@ buffer is not part of the state dict.  An in-place edit of ``weight_g`` /
 
 Dropout draws its masks from an explicit ``torch.Generator`` that the caller
 passes down (:func:`dropout`); the global RNG is never used.
+
+Compute dtype (the JAX modules' ``dtype``): a module computes in fp32 unless
+:func:`set_compute_dtype` gave it bfloat16, which the fine-tunes do under
+``is_half``.  Parameters stay fp32 either way.  In bf16 these layers follow
+flax's rules as the JAX package's layers use them: a conv or dense layer
+casts its input, weight and bias to bf16, returns bf16 and adds the bias as
+a second bf16 rounding; the weight norm's multiply runs in bf16
+(``bf16(v) * bf16(g / ||v||)``, the norm in fp32); the channel LayerNorm
+takes its statistics in fp32 and returns its input's dtype; a Python
+scalar meets a bf16 tensor as a bf16 value (JAX's weak typing,
+:func:`weak_scalar`).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 LRELU_SLOPE = 0.1
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]
+                      ) -> None:
+    """Give ``module`` and every submodule the compute dtype ``dtype``
+    (None: fp32, the default)."""
+    for m in module.modules():
+        m.compute_dtype = dtype
+
+
+def compute_dtype(module: nn.Module) -> Optional[torch.dtype]:
+    """The compute dtype :func:`set_compute_dtype` gave ``module`` (None:
+    fp32)."""
+    return getattr(module, "compute_dtype", None)
+
+
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of ``dtype`` (a weakly
+    typed constant, rounded to that dtype first): the value itself for fp32,
+    its nearest bf16 for bf16 (0.1 -> 0.10009765625)."""
+    if dtype == torch.float32:
+        return value
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor in fp32 (where JAX takes a product of bf16 operands
+    with ``preferred_element_type=float32``: the products are exact there);
+    any other tensor as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``t`` in the compute dtype (unchanged for None)."""
+    return t if dtype is None else t.to(dtype)
+
+
+def conv_in(conv: nn.Conv1d, x: torch.Tensor,
+            dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A plain ``nn.Conv1d`` (or a JAX ``nn.Dense`` stored as a 1x1 conv)
+    in the compute dtype: ``conv(x)`` for None; in bf16 the input and weight
+    cast, the conv's bf16 result, and then the bias added in bf16, as flax
+    computes ``nn.Conv(dtype=bf16)``."""
+    if dtype is None:
+        return conv(x)
+    y = F.conv1d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+                 conv.padding, conv.dilation, conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(dtype)[:, None]
+
+
+def linear_in(lin: nn.Linear, x: torch.Tensor,
+              dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``nn.Linear`` in the compute dtype, as :func:`conv_in`."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -33,7 +102,9 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
 
 
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * slope)
+    """JAX's ``where(x >= 0, x, x * slope)``, the slope rounded to x's dtype
+    as JAX rounds the constant."""
+    return torch.where(x >= 0, x, x * weak_scalar(slope, x.dtype))
 
 
 def weight_norm_key(key: str) -> str:
@@ -75,6 +146,19 @@ class _WeightNorm(nn.Module):
     def weight(self) -> torch.Tensor:
         return self._compute() if self.training else self.folded_weight
 
+    def weight_as(self, dtype: Optional[torch.dtype]) -> torch.Tensor:
+        """The weight in the compute dtype: :attr:`weight` for None; in bf16
+        the JAX package's low-precision multiply (nn/layers.py:102-105),
+        ``bf16(v) * bf16(g / max(||v||, 1e-12))`` with the norm in fp32."""
+        if dtype is None:
+            return self.weight
+        v = self.weight_v
+        scale = self.weight_g / _norm_except(v, self.wn_dim).clamp_min(1e-12)
+        return v.to(dtype) * scale.to(dtype)
+
+    def bias_as(self, dtype: Optional[torch.dtype]):
+        return None if self.bias is None else cast(self.bias, dtype)
+
     @torch.no_grad()
     def fold(self) -> None:
         self.folded_weight = self._compute().detach()
@@ -104,8 +188,13 @@ class WNConv1d(_WeightNorm):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.weight, self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        dtype = compute_dtype(self)
+        if dtype is None:
+            return F.conv1d(x, self.weight, self.bias, self.stride,
+                            self.padding, self.dilation, self.groups)
+        y = F.conv1d(x.to(dtype), self.weight_as(dtype), None, self.stride,
+                     self.padding, self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias_as(dtype)[:, None]
 
 
 class WNConvTranspose1d(_WeightNorm):
@@ -120,8 +209,13 @@ class WNConvTranspose1d(_WeightNorm):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight, self.bias, self.stride,
-                                  self.padding)
+        dtype = compute_dtype(self)
+        if dtype is None:
+            return F.conv_transpose1d(x, self.weight, self.bias, self.stride,
+                                      self.padding)
+        y = F.conv_transpose1d(x.to(dtype), self.weight_as(dtype), None,
+                               self.stride, self.padding)
+        return y if self.bias is None else y + self.bias_as(dtype)[:, None]
 
 
 class WNConv2d(_WeightNorm):
@@ -135,7 +229,13 @@ class WNConv2d(_WeightNorm):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        dtype = compute_dtype(self)
+        if dtype is None:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            self.padding)
+        y = F.conv2d(x.to(dtype), self.weight_as(dtype), None, self.stride,
+                     self.padding)
+        return y + self.bias_as(dtype)[:, None, None]
 
 
 class LayerNorm(nn.Module):
@@ -148,10 +248,13 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype       # a bf16 input is normalized in fp32
+        x = wide(x)
         mean = x.mean(dim=1, keepdim=True)
         var = x.var(dim=1, keepdim=True, unbiased=False)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.gamma[None, :, None] + self.beta[None, :, None]
+        return (y * self.gamma[None, :, None]
+                + self.beta[None, :, None]).to(dtype)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -166,7 +269,7 @@ def dropout(x: torch.Tensor, p: float, training: bool,
                          "torch.Generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=x.dtype) >= p
-    return x * keep / (1.0 - p)
+    return x * keep / weak_scalar(1.0 - p, x.dtype)
 
 
 def slice_segments(x: torch.Tensor, starts: torch.Tensor,

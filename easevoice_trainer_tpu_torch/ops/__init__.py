@@ -5,17 +5,26 @@ from .mrf import mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight
 
 KERNELS = (prefill_attention, decode_attention, mrf_conv, mrf_conv_bwd_data,
            mrf_conv_bwd_weight, prefill_attention_bwd, encoder_attention)
+# the kernels with a bf16 instance (the fine-tunes under is_half), which
+# counts its launches in ``launches_bf16``
+BF16_KERNELS = (prefill_attention, prefill_attention_bwd, mrf_conv,
+                mrf_conv_bwd_data, mrf_conv_bwd_weight)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BF16_KERNELS:
+        fn.launches_bf16 = 0
     encoder_attention.launches_dk32 = 0
 
 
 def launch_counts() -> dict:
     """Launches of each kernel; K1's dk-32 encoder instance (CT-punc) is
-    ``encoder_attention_dk32``, apart from the dk-64 ``encoder_attention``."""
+    ``encoder_attention_dk32``, apart from the dk-64 ``encoder_attention``,
+    and each bf16 instance ``<name>_bf16``."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts["encoder_attention_dk32"] = encoder_attention.launches_dk32
+    for fn in BF16_KERNELS:
+        counts[fn.__name__ + "_bf16"] = fn.launches_bf16
     return counts

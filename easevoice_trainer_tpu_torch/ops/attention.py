@@ -13,6 +13,15 @@ them).
 :func:`self_attention` is the training entry: the fused qkv projection in,
 o out, differentiable on both devices (K1 forward and K5 backward through
 one autograd Function on the card; autograd of the dense twin on the CPU).
+
+K1 (with or without its lse) and K5 take fp32 or bf16 q / k / v; bf16 is the
+s1 fine-tune under ``is_half`` and launches their bf16 instances, counted in
+``launches_bf16``.  The bf16 math is the JAX package's TransformerLayer with
+dtype bfloat16 (t2s.py:118-131), whose layer input, and so its ``x.dtype``,
+is fp32: scores in fp32 from the bf16 q and k, the softmax in fp32, P V in
+fp32 from the fp32 probabilities and the bf16 v, o rounded to bf16 (the out
+projection's cast); the gradients dq, dk, dv in fp32, rounded to bf16.  A
+CUDA tensor of another dtype raises; nothing is cast to reach an instance.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import math
 
 import torch
 
+from ..nn.layers import wide
 from . import build
 
 DK = 32  # the GPT kernels are written for the 512/16 GPT's head width
@@ -51,10 +61,14 @@ def build_hybrid_mask_bias(x_len: int, y_len: int, x_lens: torch.Tensor,
 
 
 def _dense_attention(q, k, v, bias):
+    """Dense attention; bf16 q / k / v are taken in fp32 (their products are
+    exact there) and o is rounded back to their dtype."""
+    dtype = q.dtype
+    q, k, v = wide(q), wide(k), wide(v)
     dk = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dk)
     probs = torch.softmax(scores + bias, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(dtype)
 
 
 def prefill_attention_reference(q, k, v, x_len: int, x_lens, y_lens):
@@ -66,7 +80,8 @@ def prefill_attention_reference(q, k, v, x_len: int, x_lens, y_lens):
 def _masked_scores(q, k, x_len: int, x_lens, y_lens) -> torch.Tensor:
     """Scaled scores under the hybrid mask, (B, H, T, T), -inf hidden."""
     bias = build_hybrid_mask_bias(x_len, q.shape[1] - x_len, x_lens, y_lens)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k)) / \
+        math.sqrt(q.shape[-1])
     return scores + bias
 
 
@@ -82,7 +97,10 @@ def prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len: int, x_lens,
     P = exp(S - lse) (0 where the mask hides the pair or the row sees no
     key), D = rowsum(dO * O) (0 for such a row), dV = P^T dO,
     dS = P (dO V^T - D), dQ = dS K / sqrt(dk), dK = dS^T Q / sqrt(dk).
-    All (B, T, H, dk)."""
+    All (B, T, H, dk).  bf16 inputs are taken in fp32 and the gradients
+    rounded to their dtype, as K5's bf16 instance does."""
+    dtype = q.dtype
+    q, k, v, o, do = (wide(z) for z in (q, k, v, o, do))
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = _masked_scores(q, k, x_len, x_lens, y_lens)
     lse = lse[..., None]
@@ -96,50 +114,61 @@ def prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len: int, x_lens,
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - dsum)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
-    return dq, dk, dv
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype not in (torch.float32, torch.int32):
+        if t.dtype not in (torch.float32, torch.bfloat16, torch.int32):
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
 
 
 def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, want_dk: int = DK) -> None:
-    """q/k/v as the kernels read them: fp32 (B, T, H, dk) with head stride dk
-    and unit stride in dk (views of the fused qkv projection are fine), batch
-    and time strides in whole 16-byte units, 16-byte aligned."""
+                 v: torch.Tensor, want_dk: int = DK,
+                 dtypes=(torch.float32,)) -> None:
+    """q/k/v as the kernels read them: (B, T, H, dk) of one of ``dtypes``
+    with head stride dk and unit stride in dk (views of the fused qkv
+    projection are fine), batch and time strides in whole 16-byte units,
+    16-byte aligned."""
     dk = q.shape[-1]
-    if q.dtype != torch.float32 or dk != want_dk:
-        raise ValueError(f"{name}: needs fp32 and dk={want_dk}, got "
-                         f"{q.dtype} dk={dk}")
+    if q.dtype not in dtypes or dk != want_dk:
+        raise ValueError(f"{name}: needs {' or '.join(map(str, dtypes))} and "
+                         f"dk={want_dk}, got {q.dtype} dk={dk}")
+    unit = 16 // q.element_size()
     for z in (q, k, v):
-        if (z.shape != q.shape or z.stride(2) != dk or z.stride(3) != 1
-                or z.stride(0) % 4 or z.stride(1) % 4
-                or z.data_ptr() % 16):
+        if (z.shape != q.shape or z.dtype != q.dtype or z.stride(2) != dk
+                or z.stride(3) != 1 or z.stride(0) % unit
+                or z.stride(1) % unit or z.data_ptr() % 16):
             raise ValueError(f"{name}: q/k/v must be {tuple(q.shape)} "
-                             f"fp32 with head stride dk, unit stride in dk, "
-                             f"and 16-byte aligned rows")
+                             f"{q.dtype} with head stride dk, unit stride in "
+                             f"dk, and 16-byte aligned rows")
+
+
+# K1 and K5 have fp32 and bf16 instances (the s1 fine-tune under is_half)
+GPT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
 def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool):
     """K1 on the card: o (B, T, H, dk), and the row logsumexp (B, H, T)
     when ``with_lse`` (else None, and K1 writes no lse)."""
     _check_cuda("prefill_attention", q, k, v, x_lens, y_lens)
-    _check_heads("prefill_attention", q, k, v)
+    _check_heads("prefill_attention", q, k, v, dtypes=GPT_DTYPES)
     b, t, h, dk = q.shape
     if not 0 <= x_len <= t:
         raise ValueError(f"prefill_attention: x_len {x_len} outside [0, {t}]")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
-    o = torch.empty((b, t, h, dk), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, t, h, dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = build.build()
-    rc = lib.ev_prefill_attention_f32(
+    rc = getattr(lib, "ev_prefill_attention_" + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -147,15 +176,19 @@ def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool):
         b, t, h, int(x_len), 1.0 / math.sqrt(dk),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "prefill_attention")
-    prefill_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        prefill_attention.launches_bf16 += 1
+    else:
+        prefill_attention.launches += 1
     return o, lse
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       x_len: int, x_lens: torch.Tensor,
                       y_lens: torch.Tensor) -> torch.Tensor:
-    """K1. q/k/v: (B, T, H, dk) fp32 (strided views of the fused qkv output
-    are fine); x_lens/y_lens: (B,) int32.  Returns o (B, T, H, dk)."""
+    """K1. q/k/v: (B, T, H, dk) fp32 or bf16 (strided views of the fused qkv
+    output are fine); x_lens/y_lens: (B,) int32.  Returns o (B, T, H, dk)
+    in q's dtype."""
     if q.device.type == "cpu":
         return prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
     return _prefill_cuda(q, k, v, x_len, x_lens, y_lens, False)[0]
@@ -173,6 +206,7 @@ def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 prefill_attention.launches = 0
+prefill_attention.launches_bf16 = 0
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -242,7 +276,8 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     (dq, dk, dv) views to write, sharing one batch / time stride (the three
     slices of the fused projection's gradient); new tensors when None.  On
     the CPU the plain twin runs.  One K5 call is three launches (D, dK/dV,
-    dQ), and counts three."""
+    dQ), and counts three.  fp32 or bf16 (then o, do and the outputs are
+    bf16, lse fp32; ``launches_bf16`` counts them)."""
     if q.device.type == "cpu":
         grads = prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len,
                                                 x_lens, y_lens)
@@ -253,16 +288,21 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
         return out
     _check_cuda("prefill_attention_bwd", q, k, v, o, lse, do, x_lens,
                 y_lens)
-    _check_heads("prefill_attention_bwd", q, k, v)
+    _check_heads("prefill_attention_bwd", q, k, v, dtypes=GPT_DTYPES)
+    if (o.dtype != q.dtype or do.dtype != q.dtype
+            or lse.dtype != torch.float32):
+        raise ValueError(f"prefill_attention_bwd: o and do must be "
+                         f"{q.dtype} like q, lse fp32; got {o.dtype}, "
+                         f"{do.dtype}, {lse.dtype}")
     b, t, h, dk = q.shape
     if not 0 <= x_len <= t:
         raise ValueError(f"prefill_attention_bwd: x_len {x_len} outside "
                          f"[0, {t}]")
     if out is None:
-        dqkv = torch.empty((b, t, 3 * h * dk), dtype=torch.float32,
+        dqkv = torch.empty((b, t, 3 * h * dk), dtype=q.dtype,
                            device=q.device)
         out = [z.view(b, t, h, dk) for z in dqkv.split(h * dk, dim=-1)]
-    _check_heads("prefill_attention_bwd", *out)
+    _check_heads("prefill_attention_bwd", *out, dtypes=(q.dtype,))
     strided = (q, k, v), tuple(out)
     if any(z.stride()[:2] != zs[0].stride()[:2] for zs in strided
            for z in zs):
@@ -280,7 +320,8 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     y_lens = y_lens.to(torch.int32).contiguous()
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk_, dv = out
-    rc = build.build().ev_prefill_attention_bwd_f32(
+    rc = getattr(build.build(),
+                 "ev_prefill_attention_bwd_" + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk_.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1),
@@ -288,11 +329,16 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
         b, t, h, int(x_len), 1.0 / math.sqrt(dk),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "prefill_attention_bwd")
-    prefill_attention_bwd.launches += prefill_attention_bwd.launches_per_call
+    n = prefill_attention_bwd.launches_per_call
+    if q.dtype == torch.bfloat16:
+        prefill_attention_bwd.launches_bf16 += n
+    else:
+        prefill_attention_bwd.launches += n
     return tuple(out)
 
 
 prefill_attention_bwd.launches = 0
+prefill_attention_bwd.launches_bf16 = 0
 prefill_attention_bwd.launches_per_call = 3    # dsum, dkdv, dq
 
 
@@ -330,10 +376,11 @@ def self_attention(qkv: torch.Tensor, n_heads: int, x_len: int,
                    ) -> torch.Tensor:
     """Training attention over [text; audio] under the hybrid mask.
 
-    qkv: (B, T, 3 * D) fp32, the fused projection (q, k, v along the last
-    axis, each H heads of dk); returns o (B, T, H, dk), differentiable in
-    qkv.  On the card: K1 forward, K5 backward, or a raise.  On the CPU: the
-    dense twin, which autograd differentiates."""
+    qkv: (B, T, 3 * D) fp32 or bf16, the fused projection (q, k, v along
+    the last axis, each H heads of dk); returns o (B, T, H, dk) in qkv's
+    dtype, differentiable in qkv.  On the card: K1 forward, K5 backward
+    (their bf16 instances for bf16), or a raise.  On the CPU: the dense
+    twin, which autograd differentiates."""
     if qkv.device.type == "cpu":
         q, k, v = _split_heads(qkv, n_heads)
         return prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
@@ -389,11 +436,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, _, h, dk = k_cache.shape
     _check_heads("decode_attention", q, k, v)
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()
+            and k_cache.dtype == v_cache.dtype == torch.float32
             and v_cache.shape == k_cache.shape
             and q.shape == (b, 1, h, dk)
             and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0):
         raise ValueError("decode_attention: caches must be contiguous, "
-                         "16-byte aligned (B, cache_len, H, dk) matching q")
+                         "16-byte aligned fp32 (B, cache_len, H, dk) "
+                         "matching q")
     x_lens = x_lens.to(torch.int32).contiguous()
     o = torch.empty((b, 1, h, dk), dtype=torch.float32, device=q.device)
     lib = build.build()

@@ -48,6 +48,11 @@ SIGNATURES = {
     + [_P],
     "ev_mrf_conv_bwd_weight_max_clusters": [_I] * 7,
 }
+# the bf16 instances take the fp32 ones' arguments
+for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd", "ev_mrf_conv",
+              "ev_mrf_conv_bwd_data", "ev_mrf_conv_bwd_weight"):
+    SIGNATURES[_name + "_bf16"] = SIGNATURES[_name + "_f32"]
+SIGNATURES["ev_mrf_conv_bwd_weight_max_clusters_bf16"] = [_I] * 7
 
 
 class KernelLibrary:

@@ -18,6 +18,18 @@ The backward twins are written as explicit formulas, not as autograd of
 * ``dx = lrelu'(x) * conv_transpose1d(dy, w, dilation)`` (lrelu'(0) = 1);
 * ``dw = conv1d_weight(lrelu(x), dy)``, ``db = sum dy``;
 * ``d residual = dy``.
+
+Every tensor may be fp32 or bf16, all of one dtype; bf16 (the s2 fine-tune
+under ``is_half``) launches the kernels' bf16 instances, counted in
+``launches_bf16``, and the twins round where the JAX Generator in bf16
+rounds (generator.py:31-44; nn/layers.py ``leaky_relu``, WNConv1d): the
+leaky relu to bf16 (``x * bf16(0.1)``), the conv (taken in fp32 from the
+bf16 operands) to bf16, then the bias add and the residual add, each in
+bf16; the data gradient's transposed conv to bf16, then ``da * bf16(0.1)``;
+dW and db summed in fp32 and rounded to bf16 (XLA's bf16 reduction on the
+CPU rounds its running sum, so the JAX package's db lands a few bf16 steps
+off that exact sum).  A CUDA tensor of another dtype, or of mixed dtypes,
+raises; nothing is cast to reach an instance.
 """
 from __future__ import annotations
 
@@ -28,7 +40,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..nn.layers import LRELU_SLOPE, leaky_relu
+from ..nn.layers import LRELU_SLOPE, leaky_relu, weak_scalar, wide
 from . import build
 
 # K4's weight gradient (csrc/mrf_conv_wgrad.cu): the card it plans for
@@ -52,9 +64,15 @@ def mrf_conv_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        residual: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Plain twin: conv1d(leaky_relu(x), w, dilation, same padding) + b
-    (+ residual), the JAX ResBlock math (models/sovits/generator.py:31-44)."""
-    y = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), w, b,
-                 padding=_pad(w.shape[-1], dilation), dilation=dilation)
+    (+ residual), the JAX ResBlock math (models/sovits/generator.py:31-44);
+    in bf16 with its roundings."""
+    if x.dtype != torch.bfloat16:
+        y = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), w, b,
+                     padding=_pad(w.shape[-1], dilation), dilation=dilation)
+        return y if residual is None else y + residual
+    y = F.conv1d(leaky_relu(x).float(), w.float(),
+                 padding=_pad(w.shape[-1], dilation),
+                 dilation=dilation).to(x.dtype) + b[:, None]
     return y if residual is None else y + residual
 
 
@@ -63,30 +81,51 @@ def mrf_conv_bwd_data_reference(dy: torch.Tensor, x: torch.Tensor,
                                 dilation: int) -> torch.Tensor:
     """Plain twin of K4's data gradient:
     dx = lrelu'(x) * conv_transpose1d(dy, w, dilation, same padding)."""
-    da = F.conv_transpose1d(dy, w, padding=_pad(w.shape[-1], dilation),
-                            dilation=dilation)
-    return torch.where(x >= 0, da, da * LRELU_SLOPE)
+    da = F.conv_transpose1d(wide(dy), wide(w),
+                            padding=_pad(w.shape[-1], dilation),
+                            dilation=dilation).to(dy.dtype)
+    return torch.where(x >= 0, da, da * weak_scalar(LRELU_SLOPE, da.dtype))
 
 
 def mrf_conv_bwd_weight_reference(dy: torch.Tensor, x: torch.Tensor,
                                   w_shape, dilation: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K4's weight gradient: (dw, db) with
-    dw = conv1d_weight(lrelu(x), dy) and db = sum of dy over batch and time."""
+    dw = conv1d_weight(lrelu(x), dy) and db = sum of dy over batch and time
+    (bf16: summed in fp32, rounded)."""
     dw = torch.nn.grad.conv1d_weight(
-        leaky_relu(x), tuple(w_shape), dy,
+        wide(leaky_relu(x)), tuple(w_shape), wide(dy),
         padding=_pad(w_shape[-1], dilation), dilation=dilation)
-    return dw, dy.sum(dim=(0, 2))
+    return dw.to(dy.dtype), wide(dy).sum(dim=(0, 2)).to(dy.dtype)
+
+
+# the kernels' instances: fp32, and bf16 (the s2 fine-tune under is_half)
+MRF_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
+    dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     for t in tensors:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name}: all tensors must be fp32 on one CUDA "
-                             "device")
+        if t.device != dev or t.dtype != dtype or dtype not in MRF_DTYPES:
+            raise ValueError(f"{name}: all tensors must be fp32, or all "
+                             f"bf16, on one CUDA device")
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The library's entry point of ``name`` for ``dtype``, and the slope it
+    takes: the leaky relu's, as JAX rounds it to the compute dtype."""
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    return (getattr(build.build(), f"{name}_{suffix}"),
+            weak_scalar(LRELU_SLOPE, dtype))
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _check_shapes(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
@@ -115,14 +154,14 @@ def _mrf_conv_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError("mrf_conv: residual must be (B, Cout, T)")
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     residual = residual.contiguous() if residual is not None else None
-    y = torch.empty((bsz, cout, t_len), dtype=torch.float32, device=x.device)
-    lib = build.build()
-    rc = lib.ev_mrf_conv_f32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        residual.data_ptr() if residual is not None else None, y.data_ptr(),
-        bsz, cin, cout, t_len, k, int(dilation), LRELU_SLOPE, _stream(x))
+    y = torch.empty((bsz, cout, t_len), dtype=x.dtype, device=x.device)
+    fn, slope = _entry("ev_mrf_conv", x.dtype)
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            y.data_ptr(), bsz, cin, cout, t_len, k, int(dilation), slope,
+            _stream(x))
     build.check(rc, "mrf_conv")
-    mrf_conv.launches += 1
+    _count(mrf_conv, x.dtype)
     return y
 
 
@@ -140,11 +179,11 @@ def mrf_conv_bwd_data(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         raise ValueError("mrf_conv_bwd_data: dy must be (B, Cout, T)")
     dy, x, w = dy.contiguous(), x.contiguous(), w.contiguous()
     dx = torch.empty_like(x)
-    rc = build.build().ev_mrf_conv_bwd_data_f32(
-        dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), bsz, cin,
-        cout, t_len, k, int(dilation), LRELU_SLOPE, _stream(x))
+    fn, slope = _entry("ev_mrf_conv_bwd_data", x.dtype)
+    rc = fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), bsz,
+            cin, cout, t_len, k, int(dilation), slope, _stream(x))
     build.check(rc, "mrf_conv_bwd_data")
-    mrf_conv_bwd_data.launches += 1
+    _count(mrf_conv_bwd_data, x.dtype)
     return dx
 
 
@@ -209,8 +248,10 @@ def nominal_clusters(bn: int, cluster: int) -> int:
 def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
                dilation: int,
                max_clusters: Optional[Callable[[int, int, int, int], int]]
-               = None) -> WgradPlan:
-    """The tile and the split of the B*T sum for one shape.
+               = None, mma_only: bool = False) -> WgradPlan:
+    """The tile and the split of the B*T sum for one shape (``mma_only``:
+    the mma.sync route at every width, the one route of the bf16
+    instance).
     ``max_clusters(bn, bi, taps, cluster)`` is the number of such clusters
     the card holds at once (default :func:`nominal_clusters`).  The grid
     must fit on the card at once (a grid-wide barrier needs every block
@@ -221,7 +262,7 @@ def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
     if k % 2 == 0 or not 1 <= k <= WGRAD_MAX_K or dilation < 1:
         raise ValueError(f"mrf_conv_bwd_weight: k={k} d={dilation}: the "
                          f"kernel takes odd k <= {WGRAD_MAX_K}, d >= 1")
-    if cin >= 64 and cout >= 64:
+    if cin >= 64 and cout >= 64 and not mma_only:
         bn, bi, ts = (64 if cout <= 64 else 128), 64, 64
         groups = -(-k // (WGRAD_WGMMA_THREADS // 128))
         taps = -(-k // groups)
@@ -260,14 +301,18 @@ def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
 
 
 def card_clusters(device: int, bn: int, bi: int, taps: int, k: int,
-                  dilation: int, cluster: int, probe: bool = True) -> int:
+                  dilation: int, cluster: int, probe: bool = True,
+                  bf16: bool = False) -> int:
     """Clusters of ``cluster`` blocks of this tile that CUDA ``device``
     holds at once: what a cooperative launch accepts (``probe``; the kernel
     is launched with no work while the runtime refuses the count as too
-    large), or what ``cudaOccupancyMaxActiveClusters`` promises."""
+    large), or what ``cudaOccupancyMaxActiveClusters`` promises; of the
+    bf16 instance with ``bf16``."""
+    lib = build.build()
+    query = (lib.ev_mrf_conv_bwd_weight_max_clusters_bf16 if bf16
+             else lib.ev_mrf_conv_bwd_weight_max_clusters)
     with torch.cuda.device(device):
-        n = build.build().ev_mrf_conv_bwd_weight_max_clusters(
-            bn, bi, taps, k, dilation, cluster, int(probe))
+        n = query(bn, bi, taps, k, dilation, cluster, int(probe))
     if n < 0:
         raise RuntimeError(f"mrf_conv_bwd_weight: cluster query failed "
                            f"(CUDA error {-n}: {build.error_string(-n)})")
@@ -278,14 +323,17 @@ _card_clusters = functools.lru_cache(maxsize=None)(card_clusters)
 
 
 def wgrad_card_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
-                    dilation: int, device: torch.device) -> WgradPlan:
+                    dilation: int, device: torch.device,
+                    bf16: bool = False) -> WgradPlan:
     """:func:`wgrad_plan` with the clusters that a cooperative launch on
-    CUDA ``device`` accepts (:func:`card_clusters`)."""
+    CUDA ``device`` accepts (:func:`card_clusters`); the bf16 instance's
+    plan (the mma.sync route) with ``bf16``."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return wgrad_plan(bsz, cin, cout, t_len, k, dilation,
                       lambda bn, bi, taps, cluster: _card_clusters(
-                          index, bn, bi, taps, k, dilation, cluster))
+                          index, bn, bi, taps, k, dilation, cluster, True,
+                          bf16), mma_only=bf16)
 
 
 def mrf_conv_bwd_weight(dy: torch.Tensor, x: torch.Tensor, w_shape,
@@ -304,19 +352,20 @@ def mrf_conv_bwd_weight(dy: torch.Tensor, x: torch.Tensor, w_shape,
                          f"{tuple(x.shape)} dy{tuple(dy.shape)} w{w_shape}")
     dev = x.device
     d = int(dilation)
-    plan = wgrad_card_plan(bsz, cin, cout, t_len, k, d, dev)
+    bf16 = x.dtype == torch.bfloat16
+    plan = wgrad_card_plan(bsz, cin, cout, t_len, k, d, dev, bf16)
     dy, x = dy.contiguous(), x.contiguous()
-    dw = torch.empty((cout, cin, k), dtype=torch.float32, device=dev)
-    db = torch.empty((cout,), dtype=torch.float32, device=dev)
+    dw = torch.empty((cout, cin, k), dtype=x.dtype, device=dev)
+    db = torch.empty((cout,), dtype=x.dtype, device=dev)
     scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32,
                            device=dev) if plan.scratch_floats else None)
-    rc = build.build().ev_mrf_conv_bwd_weight_f32(
-        dy.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, bsz, cin, cout,
-        t_len, k, d, LRELU_SLOPE, plan.bn, plan.bi, plan.taps, plan.cluster,
-        plan.clusters, _stream(x))
+    fn, slope = _entry("ev_mrf_conv_bwd_weight", x.dtype)
+    rc = fn(dy.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, bsz, cin,
+            cout, t_len, k, d, slope, plan.bn, plan.bi, plan.taps,
+            plan.cluster, plan.clusters, _stream(x))
     build.check(rc, "mrf_conv_bwd_weight")
-    mrf_conv_bwd_weight.launches += 1
+    _count(mrf_conv_bwd_weight, x.dtype)
     return dw, db
 
 
@@ -346,14 +395,15 @@ class _MRFConv(torch.autograd.Function):
 def mrf_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              dilation: int,
              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (B, Cin, T) fp32; w: (Cout, Cin, k) with k odd; b: (Cout,);
-    residual: (B, Cout, T) or None.  Returns (B, Cout, T), differentiable in
-    x, w, b and residual on both devices."""
+    """x: (B, Cin, T) fp32 or bf16; w: (Cout, Cin, k) with k odd; b:
+    (Cout,); residual: (B, Cout, T) or None, all of x's dtype.  Returns
+    (B, Cout, T) in that dtype, differentiable in x, w, b and residual on
+    both devices."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mrf_conv: no kernel for device {x.device}")
     return _MRFConv.apply(x, w, b, int(dilation), residual)
 
 
-mrf_conv.launches = 0
-mrf_conv_bwd_data.launches = 0
-mrf_conv_bwd_weight.launches = 0
+for _fn in (mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight):
+    _fn.launches = 0
+    _fn.launches_bf16 = 0

@@ -18,10 +18,15 @@
   ``{name}-e{E}.ckpt`` in ``export_gpt_weights``' format (half precision,
   ``model.``-prefixed reference names).
 
-fp32 on ``GPTTrainParams.device``: the first CUDA card by default, which
-must exist (no silent move to the host); ``"cpu"`` runs the kernels' plain
-twins.  The JAX package computes in bf16 on an accelerator by default
-(``is_half``); the port trains in fp32.
+On ``GPTTrainParams.device``: the first CUDA card by default, which must
+exist (no silent move to the host); ``"cpu"`` runs the kernels' plain twins.
+On the card the model computes in bf16 when ``GlobalCFG().is_half`` (env
+``is_half``, default True), as the JAX package does on an accelerator
+(JAX ``train/gpt.py:162-163``: ``Text2SemanticDecoder(dtype=bfloat16)``),
+through the bf16 instances of K1 and K5; ``is_half=False`` gives fp32.  A
+"cpu" device computes in fp32 whatever ``is_half`` says, as the JAX package
+does on its CPU platform.  Parameters, the optimizer state
+(``EASEVOICE_OPT_STATE``), resume files and exports are the same either way.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from ..utils.response import EaseVoiceResponse, ResponseStatus
 from . import ckpt as ckpt_io
 from . import data as data_mod
 from .gpt_step import GPTTrainHP, GPTTrainStep
-from .sovits import _round_up, _tb_writer, merge_matching
+from .sovits import _round_up, _tb_writer, merge_matching, training_dtype
 
 
 @dataclasses.dataclass
@@ -112,6 +117,7 @@ class GPTTrain:
             raise RuntimeError("GPTTrain: device 'cuda' asked for and no "
                                "CUDA card is available; pass device='cpu' to "
                                "train on the host")
+        self.compute_dtype = training_dtype(self.device)
 
         self.output_dir = get_gpt_train_dir(params.project_dir,
                                             params.output_model_name)
@@ -197,7 +203,8 @@ class GPTTrain:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)    # the modules' initial values
-            model = Text2SemanticDecoder(self.model_cfg)
+            model = Text2SemanticDecoder(self.model_cfg,
+                                         dtype=self.compute_dtype)
         model.to(self.device)
         # the optimizer's state comes from the initial values, as JAX's
         # create_train_state takes it before the pretrained merge

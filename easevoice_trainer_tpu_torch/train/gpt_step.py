@@ -17,6 +17,11 @@
 
 Metrics are 0-d tensors on the model's device: ``loss``, ``acc`` and
 ``grad_norm``, the global norm of the micro-batch's raw gradients.
+
+The forward runs in the model's compute dtype (bf16 under ``is_half``, JAX
+``train/gpt.py:162-163``); the loss and accuracy come from fp32 logits, and
+the gradients of the fp32 parameters reach the accumulator and ScaledAdam
+in fp32, as with an fp32 model.
 """
 from __future__ import annotations
 

@@ -13,10 +13,16 @@
 * per ``save_every_epoch``: resume files + the half-precision deployable
   ``{name}_e{E}_s{S}.pth`` (``{"weight", "config", "info"}``, no ``enc_q``).
 
-fp32 on ``SovitsTrainParams.device``: the first CUDA card by default, which
+On ``SovitsTrainParams.device``: the first CUDA card by default, which
 must exist (no silent move to the host); ``"cpu"`` runs the kernels' plain
-twins.  Defaults (pretrained paths, output dirs) come from the port's own
-``utils/paths.py`` and ``utils/config.py`` (the environment).
+twins.  On the card both models compute in bf16 when ``GlobalCFG().is_half``
+(env ``is_half``, default True), as the JAX package does on an accelerator
+(JAX ``train/sovits.py:204-206``), the ResBlocks through the bf16 instances
+of K3 and K4; ``is_half=False`` gives fp32, and so does a "cpu" device
+whatever ``is_half`` says (the JAX package on its CPU platform).
+Parameters, the optimizer state, resume files and exports are the same
+either way.  Defaults (pretrained paths, output dirs) come from the port's
+own ``utils/paths.py`` and ``utils/config.py`` (the environment).
 """
 from __future__ import annotations
 
@@ -129,6 +135,15 @@ def _tb_writer(log_dir: str):
             return None
 
 
+def training_dtype(device: torch.device) -> Optional[torch.dtype]:
+    """The fine-tunes' compute dtype: bf16 on a CUDA device when
+    ``GlobalCFG().is_half``, else None (fp32), as the JAX trainers take
+    ``jnp.bfloat16 if GlobalCFG().is_half else None``."""
+    if device.type == "cuda" and GlobalCFG().is_half:
+        return torch.bfloat16
+    return None
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -166,6 +181,7 @@ class SovitsTrain:
         self.log_interval = train_cfg.get("log_interval", 10)
         self.seed = train_cfg.get("seed", 1234)
         self.device = torch.device(params.device)
+        self.compute_dtype = training_dtype(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SovitsTrain: device 'cuda' asked for and no "
                                "CUDA card is available; pass device='cpu' to "
@@ -265,8 +281,9 @@ class SovitsTrain:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)    # the modules' initial values
-            net_g = SynthesizerTrn(self.model_cfg, with_enc_q=True)
-            net_d = MultiPeriodDiscriminator()
+            net_g = SynthesizerTrn(self.model_cfg, with_enc_q=True,
+                                   dtype=self.compute_dtype)
+            net_d = MultiPeriodDiscriminator(dtype=self.compute_dtype)
         net_g.to(self.device)
         net_d.to(self.device)
         step_fn = self.step_fn = S2TrainStep(

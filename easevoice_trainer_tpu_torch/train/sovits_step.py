@@ -11,6 +11,11 @@ One step is, in the order of the reference loop:
    computed without a graph and D's parameters are frozen meanwhile, so D
    gets no gradient from it.  The backward through the ResBlocks runs on K4.
 
+Both models compute in their compute dtype (bf16 under ``is_half``, JAX
+``train/sovits.py:204-206``); the mel spectrogram of ``y_hat``, the mel L1
+and every loss reduction are fp32 (JAX ``sovits_step.py:233``,
+``losses.py``), and the parameters and their gradients stay fp32.
+
 The generator has two LR groups: ``enc_p.text_embedding``,
 ``enc_p.encoder_text`` and ``enc_p.mrte`` at ``text_low_lr_rate``, the rest
 at the base rate, ``lr * decay ** (step // steps_per_epoch)``.

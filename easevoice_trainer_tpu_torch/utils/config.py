@@ -1,15 +1,21 @@
 """Pretrained-model paths and switches from the environment (JAX:
-utils/config.py GlobalCFG, its path fields).
+utils/config.py GlobalCFG, its path fields and ``is_half``).
 
 The same environment variables and defaults under
-``paths.pretrained_root()``.  The JAX class also detects the XLA platform,
-keeps a persistent compile cache and is a process-wide singleton; the port
-has no use for the first two, and reads the environment anew on every
-construction, so a changed environment takes effect without a reset hook.
+``paths.pretrained_root()``.  ``is_half`` (env ``is_half``, default True)
+asks for bf16 compute in the two fine-tunes; as the JAX class turns it off
+on its CPU platform, this one turns it off where torch sees no CUDA card
+(``platform`` "cpu"), and the trainers keep fp32 on a "cpu" device whatever
+it says.  The JAX class also keeps a persistent compile cache and is a
+process-wide singleton; the port has no use for the cache, and reads the
+environment anew on every construction, so a changed environment takes
+effect without a reset hook.
 """
 from __future__ import annotations
 
 import os
+
+import torch
 
 from . import paths
 
@@ -22,6 +28,10 @@ def str2bool(v: str | bool) -> bool:
 
 class GlobalCFG:
     def __init__(self) -> None:
+        self.is_half: bool = str2bool(os.environ.get("is_half", "True"))
+        self.platform = "cuda" if torch.cuda.is_available() else "cpu"
+        if self.platform == "cpu":
+            self.is_half = False
         self.is_g2pw: bool = str2bool(os.environ.get("is_g2pw", "True"))
         pretrained = paths.pretrained_root()
         self.gpt_path: str = os.environ.get(

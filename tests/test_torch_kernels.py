@@ -804,6 +804,302 @@ def test_wgrad_plan_refuses_what_the_kernel_does_not_take():
     assert plan.taps * -(-15 // plan.taps) >= 15
 
 
+# ---- the bf16 instances (the fine-tunes under is_half) ----------------------
+#
+# Each is held against its bf16 twin.  Both round an fp32 result to bf16;
+# the fp32 sums differ in order only, so they round alike except near a
+# rounding boundary, where they differ by one bf16 step (2^-7 of the value
+# at most) or, for K3's chain of three roundings, by a step of a larger
+# intermediate.  Tolerance: every element within 2^-6 x max(1, max|twin|)
+# (a wrong tap, key or index is off by order 1), and at most 2 % of the
+# elements (``share``) off by more than one step of their own value.
+
+
+def _close_bf16(got, want, share=0.02):
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    assert float(err.max()) <= 2.0 ** -6 * max(1.0, float(w.abs().max())), \
+        float(err.max())
+    off = float((err > 2.0 ** -7 * w.abs() + 1e-6).float().mean())
+    assert off <= share, off
+
+
+def _bf16_heads(qkv, h):
+    return att._split_heads(qkv.to(torch.bfloat16), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
+def test_prefill_attention_bf16_matches_twin(x_len, x_lens, y_len, y_lens):
+    """K1's bf16 instance with its lse at the s1 shapes and K1 / K5's tile
+    edges (x_len 15 / 16 / 17, T < 16, a batch row of pads, rows with no
+    visible key): o against the bf16 twin (rows with no key are 0 in the
+    kernel, NaN in the twin), lse within 1e-4 (fp32); one bf16 launch
+    counted, none fp32; two calls bit-identical."""
+    gen = _card()
+    b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    q, k, v = _bf16_heads(torch.randn((b, t, 3 * h * dk), generator=gen,
+                                      device="cuda"), h)
+    before = (prefill_attention.launches, prefill_attention.launches_bf16)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    assert (prefill_attention.launches,
+            prefill_attention.launches_bf16) == (before[0], before[1] + 1)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want = torch.nan_to_num(att.prefill_attention_reference(
+        q, k, v, x_len, xl, yl), nan=0.0)
+    _close_bf16(o, want)
+    want_lse = att.prefill_attention_lse_reference(q, k, x_len, xl, yl)
+    hidden = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), hidden)
+    torch.testing.assert_close(lse[~hidden], want_lse[~hidden], rtol=0,
+                               atol=1e-4)
+    o2, lse2 = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
+def test_prefill_attention_bwd_bf16_matches_twin(x_len, x_lens, y_len,
+                                                 y_lens):
+    """K5's bf16 instance on K1's bf16 o and lse, at the same cases: dq,
+    dk, dv against the bf16 twin, finite, zero where nothing is visible,
+    three bf16 launches counted, repeated launches bit-identical."""
+    gen = _card()
+    b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    q, k, v = _bf16_heads(torch.randn((b, t, 3 * h * dk), generator=gen,
+                                      device="cuda"), h)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    do = torch.randn((b, t, h, dk), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    before = (prefill_attention_bwd.launches,
+              prefill_attention_bwd.launches_bf16)
+    got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+    assert (prefill_attention_bwd.launches,
+            prefill_attention_bwd.launches_bf16) == (
+        before[0], before[1] + prefill_attention_bwd.launches_per_call)
+    want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len,
+                                               xl, yl)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        _close_bf16(g, w)
+    again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for row, (xl_b, yl_b) in enumerate(zip(x_lens, y_lens)):
+        if xl_b == 0 and yl_b == 0:
+            assert not any(g[row].any() for g in got)
+
+
+@pytest.mark.cuda
+def test_self_attention_bf16_autograd_on_the_card():
+    """The training attention in bf16: K1's and K5's bf16 instances through
+    the autograd Function against autograd of the bf16 dense twin; o and
+    d(qkv) bf16.  Autograd of the twin takes the softmax's D from the fp32
+    o, as JAX does, where K5 reads the bf16 o that K1 wrote: the gradient
+    may differ by one step in up to 5 % of its elements."""
+    gen = _card()
+    b, h, dk, x_len, y_len = 3, 16, 32, 37, 90
+    xl = torch.tensor([37, 20, 5], dtype=torch.int32, device="cuda")
+    yl = torch.tensor([90, 71, 2], dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, x_len + y_len, 3 * h * dk), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, x_len + y_len, h, dk), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    outs, grads = [], []
+    for card in (True, False):
+        x = qkv.clone().requires_grad_()
+        if card:
+            o = self_attention(x, h, x_len, xl, yl)
+        else:
+            o = att.prefill_attention_reference(*att._split_heads(x, h),
+                                                x_len, xl, yl)
+        o.backward(do)
+        outs.append(o.detach())
+        grads.append(x.grad)
+    assert grads[0].dtype == torch.bfloat16
+    _close_bf16(outs[0], outs[1])
+    _close_bf16(grads[0], grads[1], share=0.05)
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_other_dtypes():
+    """A CUDA tensor of a dtype the kernels have no instance for (fp16), or
+    of mixed dtypes, raises before any launch; nothing is cast."""
+    gen = _card()
+    lens = torch.tensor([8, 5], dtype=torch.int32, device="cuda")
+    qkv = torch.randn((2, 16, 3 * 2 * 32), generator=gen, device="cuda")
+    for dtype in (torch.float16, torch.float64):
+        q, k, v = att._split_heads(qkv.to(dtype), 2)
+        with pytest.raises(ValueError):
+            prefill_attention(q, k, v, 8, lens, lens)
+        with pytest.raises(ValueError):
+            self_attention(qkv.to(dtype), 2, 8, lens, lens)
+    x = torch.randn((2, 16, 40), generator=gen, device="cuda")
+    w = torch.randn((16, 16, 3), generator=gen, device="cuda")
+    b = torch.randn((16,), generator=gen, device="cuda")
+    counts = [fn.launches + fn.launches_bf16 for fn in (
+        mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight)]
+    for args in ((x.half(), w.half(), b.half()),
+                 (x.to(torch.bfloat16), w, b),
+                 (x, w.to(torch.bfloat16), b.to(torch.bfloat16))):
+        with pytest.raises(ValueError):
+            mrf_conv(*args, 1)
+        with pytest.raises(ValueError):
+            mrf_conv_bwd_data(args[0], args[0], args[1], 1)
+        with pytest.raises(ValueError):
+            mrf_conv_bwd_weight(args[0], args[0].to(args[1].dtype),
+                                (16, 16, 3), 1)
+    assert counts == [fn.launches + fn.launches_bf16 for fn in (
+        mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight)]
+
+
+def _bf16_conv_inputs(gen, b, cin, cout, t_len, k):
+    bf = torch.bfloat16
+    x = torch.randn((b, cin, t_len), generator=gen, device="cuda")
+    x[0, :, : max(1, t_len // 3)] = 0.0     # lrelu(0) = 0, lrelu'(0) = 1
+    w = torch.randn((cout, cin, k), generator=gen, device="cuda") \
+        / (cin * k) ** 0.5
+    bias = torch.randn((cout,), generator=gen, device="cuda")
+    r = torch.randn((b, cout, t_len), generator=gen, device="cuda")
+    dy = torch.randn((b, cout, t_len), generator=gen, device="cuda")
+    return (t.to(bf) for t in (x, w, bias, r, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,t_len,k,d", [
+    (256, 256, 320, 11, 5),  # the s2 stages' shapes
+    (128, 128, 2560, 7, 3),
+    (64, 64, 5120, 3, 1),
+    (32, 32, 10240, 11, 5),
+    (16, 16, 20480, 7, 3),
+    (24, 24, 5, 11, 5),      # T below one tile; the halo passes both edges
+    (16, 72, 1, 3, 1),       # a single sample
+    (24, 40, 37, 3, 1),      # T % 4 != 0: element loads; Cin != Cout
+    (72, 24, 301, 7, 3),     # channels off the tiles
+    (40, 24, 260, 5, 5),     # generic tap count
+    (200, 128, 300, 7, 1),   # a channel split with uneven shares
+])
+def test_mrf_conv_bf16_kernels_match_twins(cin, cout, t_len, k, d):
+    """K3's and K4-dx's bf16 instances at the s2 shapes and the tile edges
+    of the fp32 tests: K3 with and without the residual, dx with exact
+    zeros in x; each against its bf16 twin, one bf16 launch counted a
+    call."""
+    gen = _card()
+    x, w, b, r, dy = _bf16_conv_inputs(gen, 3, cin, cout, t_len, k)
+    for res in (None, r):
+        before = (mrf_conv.launches, mrf_conv.launches_bf16)
+        got = mrf_conv(x, w, b, d, residual=res)
+        assert (mrf_conv.launches, mrf_conv.launches_bf16) == (
+            before[0], before[1] + 1)
+        _close_bf16(got, mrf_conv_reference(x, w, b, d, residual=res))
+    before = mrf_conv_bwd_data.launches_bf16
+    dx = mrf_conv_bwd_data(dy, x, w, d)
+    assert mrf_conv_bwd_data.launches_bf16 == before + 1
+    _close_bf16(dx, mrf.mrf_conv_bwd_data_reference(dy, x, w, d))
+
+
+BF16_WGRAD_CASES = [
+    (24, 24, 3, 5, 11, 5),      # T below the halo
+    (16, 72, 3, 1, 3, 1),       # a single sample; three output tiles
+    (24, 40, 3, 37, 3, 1),      # T % 4 != 0: element loads
+    (72, 24, 3, 301, 7, 3),     # three input-channel tiles
+    (40, 24, 3, 260, 5, 5),     # k = 5
+    (32, 32, 1, 1, 15, 5),      # k = 15, B = 1
+    (256, 256, 8, 320, 11, 5),  # the widest s2 stage, the mma.sync route
+    (128, 128, 8, 2560, 7, 3),
+    (16, 16, 2, 40001, 3, 1),   # the long reduction
+]
+
+
+@pytest.mark.cuda
+def test_mrf_conv_wgrad_bf16_tile_edges():
+    """K4-dW's bf16 instance (the mma.sync route at every width) at the
+    fp32 tests' edges and two s2 shapes, covering both splits of the B*T
+    sum (inside one cluster, and across clusters through the scratch): dW
+    and db against the bf16 twin, a second call bit-identical."""
+    gen = _card()
+    kinds = set()
+    for cin, cout, b, t_len, k, d in BF16_WGRAD_CASES:
+        x, _, _, _, _ = _bf16_conv_inputs(gen, b, cin, cout, t_len, k)
+        dy = torch.randn((b, cout, t_len), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        plan = mrf.wgrad_card_plan(b, cin, cout, t_len, k, d,
+                                   torch.device("cuda"), bf16=True)
+        assert plan.bn <= 32
+        kinds.add(plan.clusters > 1)
+        before = mrf_conv_bwd_weight.launches_bf16
+        dw, db = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
+        assert mrf_conv_bwd_weight.launches_bf16 == before + 1
+        ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, (cout, cin, k), d)
+        _close_bf16(dw, ww)
+        _close_bf16(db, wb)
+        dw2, db2 = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert kinds == {False, True}, kinds
+
+
+@pytest.mark.cuda
+def test_mrf_conv_bf16_autograd_on_the_card():
+    """K3 forward and K4 backward in bf16 through the autograd Function
+    against autograd of the bf16 twin."""
+    gen = _card()
+    x, w, b, r, dy = _bf16_conv_inputs(gen, 2, 64, 64, 900, 7)
+    grads = []
+    for fn in (mrf_conv, mrf_conv_reference):
+        ins = [t.clone().requires_grad_() for t in (x, w, b, r)]
+        y = fn(ins[0], ins[1], ins[2], 3, residual=ins[3])
+        y.backward(dy)
+        grads.append([t.grad for t in ins])
+    for got, want in zip(*grads):
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("c,t_len", S2_STAGES)
+def test_wgrad_plan_bf16_is_the_mma_route(c, t_len):
+    """The bf16 instance's plans at the s2 shapes: the mma.sync route (16 or
+    32 output channels a tile) at every width, every sample summed by one
+    split, the grid within one wave of two blocks an SM."""
+    for k in (3, 7, 11):
+        for d in (1, 3, 5):
+            plan = mrf.wgrad_plan(8, c, c, t_len, k, d, mma_only=True)
+            assert plan.bn == min(max(c, 16), 32) and plan.taps == k
+            assert sum(e - f for f, e in map(plan.time_range,
+                                             range(plan.splits))) == \
+                plan.time_tiles
+            assert plan.blocks <= 2 * mrf.WGRAD_SMS
+
+
+def test_bf16_twins_round_as_jax():
+    """The bf16 twins on the CPU: leaky relu with bf16(0.1), the conv
+    rounded before the bias add, the data gradient rounded before the leaky
+    relu's derivative, dW / db rounded once; the outputs are bf16 and no
+    kernel launch is counted."""
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 8, 30), generator=gen).to(bf)
+    w = (torch.randn((8, 8, 3), generator=gen) * 0.3).to(bf)
+    b = torch.randn((8,), generator=gen).to(bf)
+    counts = [fn.launches_bf16 for fn in (mrf_conv, mrf_conv_bwd_data,
+                                          mrf_conv_bwd_weight)]
+    y = mrf_conv_reference(x, w, b, 3)
+    act = torch.where(x >= 0, x, x * 0.10009765625)
+    conv = torch.nn.functional.conv1d(act.float(), w.float(), padding=3,
+                                      dilation=3).to(bf)
+    assert y.dtype == bf and torch.equal(y, conv + b[:, None])
+    dx = mrf.mrf_conv_bwd_data_reference(x, x, w, 3)
+    da = torch.nn.functional.conv_transpose1d(x.float(), w.float(),
+                                              padding=3, dilation=3).to(bf)
+    assert torch.equal(dx, torch.where(x >= 0, da, da * 0.10009765625))
+    dw, db = mrf.mrf_conv_bwd_weight_reference(x, x, w.shape, 3)
+    assert dw.dtype == db.dtype == bf
+    assert counts == [fn.launches_bf16 for fn in (
+        mrf_conv, mrf_conv_bwd_data, mrf_conv_bwd_weight)]
+
+
 def _frcrn_checkpoint(path, cfg):
     """Seeded random FRCRN weights with positive running variances."""
     from easevoice_trainer_tpu_torch import convert
