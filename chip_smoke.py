@@ -314,16 +314,20 @@ class NoDeviceActivity(RuntimeError):
     """torch.profiler recorded no CUDA activity in any session."""
 
 
-def device_events(torch, fn, attempts: int = 3):
+def device_events(torch, fn, attempts: int = 3, expect=None):
     """The CUDA kernels and copies torch.profiler records over one call of
     ``fn`` (synchronised at its end).  Now and then a profiler session comes
     back with no device activity at all (seen once in ~150 sessions on an
-    H100, and three sessions in a row once); ``fn`` is then profiled again,
-    up to ``attempts`` sessions in all, and it raises NoDeviceActivity
-    after that."""
+    H100, and three sessions in a row once), or, with ``expect`` (the
+    count of kernels the call launches), short of some of them (about one
+    in 18 or 90, session after session, on the bf16 K3 / K4-dx timings);
+    ``fn`` is then profiled again, up to ``attempts`` sessions in all.
+    Short sessions give the longest of them; with none recorded it raises
+    NoDeviceActivity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    best = []
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -332,24 +336,34 @@ def device_events(torch, fn, attempts: int = 3):
         device = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
-        if device:
+        if device and (expect is None or len(device) >= expect):
             return device
+        best = max(best, device, key=len)
         log(f"[timer] torch.profiler session {attempt} of {attempts} "
-            f"recorded no CUDA activity")
+            f"recorded {len(device)} CUDA events"
+            + (f" of the call's {expect}" if expect is not None else ""))
+    if best:
+        return best
     raise NoDeviceActivity("torch.profiler recorded no CUDA activity")
 
 
-def device_ms(torch, fn, name=None, reps: int = 20) -> float:
+def device_ms(torch, fn, name=None, reps: int = 20, launches=None) -> float:
     """Mean device time of one call of ``fn``: the CUDA kernels and copies
     torch.profiler records over ``reps`` calls after a warm-up, divided by
-    ``reps``; with ``name``, only the kernels whose name holds it.  Where
-    the profiler records nothing in any of its sessions, the ``reps`` calls
-    are timed between two CUDA events instead (all their device work, and
-    the gaps between launches), and a "[timer]" line says so."""
+    ``reps``; with ``name``, only the kernels whose name holds it.  With
+    ``launches``, the kernels one call launches, a session short of some
+    is taken again, and the longest of three short sessions is scaled up
+    to the count, its missing kernels taken as long as its mean (a
+    "[timer]" line says so).  Where the profiler records nothing in any of
+    its sessions, the ``reps`` calls are timed between two CUDA events
+    instead (all their device work, and the gaps between launches), and a
+    "[timer]" line says so."""
     fn()
     torch.cuda.synchronize()
     try:
-        device = device_events(torch, lambda: [fn() for _ in range(reps)])
+        device = device_events(
+            torch, lambda: [fn() for _ in range(reps)],
+            expect=None if launches is None else launches * reps)
     except NoDeviceActivity:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
@@ -365,18 +379,28 @@ def device_ms(torch, fn, name=None, reps: int = 20) -> float:
         if not device:
             raise RuntimeError(f"torch.profiler recorded no kernel named "
                                f"*{name}*")
-    return sum(e.time_range.elapsed_us() for e in device) / 1000.0 / reps
+    scale = 1.0
+    if launches is not None and len(device) < launches * reps:
+        scale = launches * reps / len(device)
+        log(f"[timer] scaled {len(device)} recorded kernels to the call's "
+            f"{launches * reps} ({name or 'the call'})")
+    return scale * sum(e.time_range.elapsed_us()
+                       for e in device) / 1000.0 / reps
 
 
-def in_turns(torch, fn, old, name=None):
+def in_turns(torch, fn, old, name=None, launches=None):
     """Device ms of ``fn`` and of ``old``, the same call on the parent
     commit's package, timed in turns (old, new, new, old), each the mean of
-    its two sessions; (ms, None) without ``old``."""
+    its two sessions; (ms, None) without ``old``.  ``launches``: as for
+    device_ms."""
+    def ms(f):
+        return device_ms(torch, f, name, launches=launches)
+
     if old is None:
-        return device_ms(torch, fn, name), None
-    first = device_ms(torch, old, name)
-    new = device_ms(torch, fn, name) + device_ms(torch, fn, name)
-    return new / 2, (first + device_ms(torch, old, name)) / 2
+        return ms(fn), None
+    first = ms(old)
+    new = ms(fn) + ms(fn)
+    return new / 2, (first + ms(old)) / 2
 
 
 class Bound:
@@ -479,10 +503,10 @@ def check_kernels(torch, results, parent=None):
                     for path in (build.build().path,
                                  parent.build.build().path))
         for width in ("Li32E", "Li64E"):
-            # this tree's fp32 instances (the bf16 one is new)
-            mine = [b for n, bs in new.items()
-                    if width in n and "bfloat16" not in n for b in bs]
-            theirs = [b for n, bs in old.items() if width in n for b in bs]
+            # the fp32 instances of the two trees (not the bf16 one)
+            mine, theirs = ([b for n, bs in lib.items()
+                             if width in n and "bfloat16" not in n
+                             for b in bs] for lib in (new, old))
             log(f"[a/b] K1's dk-{width[2:4]} fp32 SASS: {len(mine)} copy in "
                 f"this tree's library ({len(mine[0])} instructions), "
                 f"{len(theirs)} in the parent's; identical: "
@@ -1319,11 +1343,16 @@ BF16_ATTN_EDGES = ((15, [15, 1, 14], 17, [17, 8, 9]),
                    (8, [0, 8, 3], 24, [0, 0, 24]))
 # K3 / K4 tile edges (Cin, Cout, B, T, k, d): T below a tile and its halo, a
 # single sample, T % 4 != 0, channels off the tiles, k = 5, k = 15, a
-# channel split with uneven shares
+# channel split with uneven shares; then the bf16 loop's own: reductions
+# shorter than one 16-channel chunk (Cin 8 and 12, K4-dx's Cout 12), T % 8
+# of 6 and 2 with the halo across both tile edges, Cout off the 64-row tile
 BF16_CONV_EDGES = ((24, 24, 3, 5, 11, 5), (16, 72, 3, 1, 3, 1),
                    (24, 40, 3, 37, 3, 1), (72, 24, 3, 301, 7, 3),
                    (40, 24, 3, 260, 5, 5), (32, 32, 1, 1, 15, 5),
-                   (200, 128, 2, 300, 7, 1))
+                   (200, 128, 2, 300, 7, 1), (8, 24, 3, 40, 3, 1),
+                   (12, 40, 3, 96, 7, 3), (40, 12, 3, 64, 5, 1),
+                   (24, 40, 3, 262, 11, 5), (40, 24, 3, 250, 3, 3),
+                   (96, 80, 3, 512, 7, 1))
 
 
 def check_bf16(torch, results):
@@ -1338,8 +1367,10 @@ def check_bf16(torch, results):
     inputs in fp32), the bf16 library call's (SDPA forward and backward;
     cuDNN conv, dgrad, wgrad) and the bf16 twin's; the bound in bf16 (the
     bytes of bf16 operands over 3.35 TB/s against the operations over 989
-    TFLOP/s dense bf16).  No instance is held to be faster than its library
-    call: they are first, simple instances."""
+    TFLOP/s dense bf16), and per Generator stage for K3, K4-dx and K4-dW
+    beside cuDNN's bf16 call.  No instance is held to be faster than its
+    library call: K1, K5 and K4-dW are first, simple instances, and K3 /
+    K4-dx's bf16 loop is timed against the parent's in ab_mrf."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
@@ -1527,12 +1558,18 @@ def check_bf16(torch, results):
         }
         stage = {}
         for key, fns in runs.items():
-            stage[key] = [device_ms(torch, fn, reps=reps)
-                          for fn, reps in zip(fns, (10, 10, 10, 3))]
+            # K3 and K4-dx, bf16 and fp32: one kernel a shape
+            stage[key] = [device_ms(torch, fn, reps=reps, launches=(
+                              len(shapes) if key != "dw" and j < 2
+                              else None))
+                          for j, (fn, reps) in enumerate(
+                              zip(fns, (10, 10, 10, 3)))]
             sums[key] = [a + c for a, c in zip(sums[key], stage[key])]
         log(f"[kernels] bf16 stage {i} (C={ch}, T={t_len}), 9 shapes, device "
-            f"ms (bf16 instance / fp32 instance / cuDNN bf16 / bf16 twin): "
+            f"ms (bf16 instance / fp32 instance / cuDNN bf16 / bf16 twin; "
+            f"cuDNN bf16 over the instance): "
             + "; ".join(f"{label} " + " / ".join(f"{t:.3f}" for t in stage[k])
+                        + f" ({stage[k][2] / stage[k][0]:.2f}x)"
                         for k, label in (("k3", "K3"), ("dx", "K4-dx"),
                                          ("dw", "K4-dW"))))
         del x, dy, x32, dy32, act, shapes, runs
@@ -1619,22 +1656,42 @@ def same_sass(new: dict, old: dict):
 
 
 def ab_mrf(torch, parent):
-    """K3 and K4 of this tree against the parent's (``--parent``).  K3 and
-    K4-dx run the same loop (conv_mma_kernel): its SASS in the two kernel
-    libraries, its outputs on the same inputs bit for bit, and its device
-    time summed over check_kernels' 45 K3 shapes (B=4) and check_k4's 45 K4
-    shapes (B=8), timed in turns.  K4-dW: the largest difference between
-    the two trees' dW / db relative to the parent's largest magnitude, and
-    the device time of each Generator stage's 9 shapes, timed in turns."""
+    """K3 and K4 of this tree against the parent's (``--parent``).  The fp32
+    K3 and K4-dx run one loop (conv_mma_kernel): every fp32 body of it in
+    the parent's library must be in this tree's instruction for
+    instruction, its outputs on the same inputs are compared bit for bit,
+    and its device time summed over check_kernels' 45 K3 shapes (B=4) and
+    check_k4's 45 K4 shapes (B=8), timed in turns.  The bf16 K3 and K4-dx
+    (conv_bf16_kernel here): their SASS must hold bf16 m16n8k16 HMMAs and
+    no TF32 HMMA; at the 45 s2 shapes in bf16 their outputs are held to the
+    parent's within BF16_TOL / BF16_SHARE (the summation order changed) and
+    their device time is taken in turns with the parent's.  K4-dW: the
+    largest difference between the two trees' dW / db relative to the
+    parent's largest magnitude, and the device time of each Generator
+    stage's 9 shapes, timed in turns."""
     from easevoice_trainer_tpu_torch.ops import build, mrf
 
     new, old = (sass_functions(lib.path, ("conv_mma_kernel",))
                 for lib in (build.build(), parent.ops.build.build()))
+    old = {n: b for n, b in old.items() if "bfloat16" not in n}
     same, total = same_sass(new, old)
-    log(f"[a/b] SASS of the K3/K4-dx loop (conv_mma_kernel): {len(new)} "
-        f"functions in this tree's library, {len(old)} in the parent's; "
-        f"{same} of the parent's {total} bodies found here instruction for "
-        f"instruction")
+    log(f"[a/b] SASS of the fp32 K3/K4-dx loop (conv_mma_kernel): "
+        f"{len(new)} functions in this tree's library, {len(old)} fp32 ones "
+        f"in the parent's; {same} of the parent's {total} fp32 bodies found "
+        f"here instruction for instruction")
+    assert total and same == total, f"fp32 conv_mma_kernel: {same} / {total}"
+    hmma = {}
+    for name, bodies in sass_functions(build.build().path,
+                                       ("conv_bf16_kernel",)).items():
+        for body in bodies:
+            for ln in body:
+                op = opcode(ln)
+                if op.startswith("HMMA"):
+                    hmma[op] = hmma.get(op, 0) + 1
+    log(f"[a/b] SASS of the bf16 K3/K4-dx loop (conv_bf16_kernel): HMMA "
+        f"opcodes {hmma}")
+    assert hmma and all(op.startswith("HMMA.16816.F32.BF16") for op in hmma), \
+        f"the bf16 loop is not on bf16 m16n8k16: {hmma}"
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     k3, k4 = [], []
@@ -1648,13 +1705,22 @@ def ab_mrf(torch, parent):
                 / math.sqrt(ch * kk)
             bias = torch.randn((ch,), generator=gen, device="cuda") * 0.1
             k3 += [(x, w, bias, d, x if d == 1 else None) for d in (1, 3, 5)]
+    bf = torch.bfloat16
+    k3_bf, k4_bf = [], []
     for ch, t_len in S2_STAGES:
         x, dy = (torch.randn((8, ch, t_len), generator=gen, device="cuda")
                  for _ in range(2))
+        xb, dyb = x.to(bf), dy.to(bf)
         for kk in (3, 7, 11):
             w = torch.randn((ch, ch, kk), generator=gen, device="cuda") \
                 / math.sqrt(ch * kk)
+            wb = w.to(bf)
+            bias = (torch.randn((ch,), generator=gen, device="cuda")
+                    * 0.1).to(bf)
             k4 += [(dy, x, w, d) for d in (1, 3, 5)]
+            k4_bf += [(dyb, xb, wb, d) for d in (1, 3, 5)]
+            k3_bf += [(xb, wb, bias, d, xb if d == 1 else None)
+                      for d in (1, 3, 5)]
     runs = {
         "K3 mrf_conv": lambda m: [m.mrf_conv(x, w, bias, d, residual=r)
                                   for x, w, bias, d, r in k3],
@@ -1669,6 +1735,25 @@ def ab_mrf(torch, parent):
         log(f"[a/b] {label}, 45 shapes, same inputs: outputs bit-identical: "
             f"{equal}; device ms summed over the shapes, in turns: parent "
             f"{parent_ms:.3f} -> this tree {ms:.3f}")
+        assert equal, f"{label}: the fp32 outputs changed"
+    bf16_runs = {
+        "K3 mrf_conv bf16": lambda m: [m.mrf_conv(x, w, bias, d, residual=r)
+                                       for x, w, bias, d, r in k3_bf],
+        "K4 mrf_conv_bwd_data bf16": lambda m: [
+            m.mrf_conv_bwd_data(dy, x, w, d) for dy, x, w, d in k4_bf],
+    }
+    for label, run in bf16_runs.items():
+        worst = _Worst()
+        for a, b in zip(run(mrf), run(parent.ops.mrf)):
+            worst.add(bf16_err(torch, a, b))
+        ms, parent_ms = in_turns(torch, lambda: run(mrf),
+                                 lambda: run(parent.ops.mrf),
+                                 launches=len(k4_bf))
+        log(f"[a/b] {label}, the 45 s2 shapes (B=8), same inputs: against "
+            f"the parent's {worst}; device ms summed over the shapes, in "
+            f"turns: parent {parent_ms:.3f} -> this tree {ms:.3f} "
+            f"({parent_ms / ms:.2f}x)")
+        assert worst.ok(), f"{label} disagrees with the parent's: {worst}"
 
     def dw_run(m, shapes):
         return lambda: [g for dy, x, w, d in shapes
@@ -4030,8 +4115,9 @@ def train(torch, tmp: str, results):
 def profile_train_step(torch, trainer, norm: str) -> None:
     """One more step of the trained S2TrainStep on a batch of the run's data,
     under torch.profiler: the step's device time and the MRF kernels' part
-    of it (K3 and K4-dx share conv_mma_kernel, told apart by its BWD
-    template argument; K4-dW is wgrad_wgmma_kernel / wgrad_mma_kernel)."""
+    of it (K3 and K4-dx share conv_mma_kernel, and in bf16
+    conv_bf16_kernel, told apart by the BWD template argument; K4-dW is
+    wgrad_wgmma_kernel / wgrad_mma_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4065,7 +4151,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
             continue
         launches += 1
         us = e.time_range.elapsed_us()
-        if "conv_mma_kernel" in e.name:
+        if "conv_mma_kernel" in e.name or "conv_bf16_kernel" in e.name:
             groups["K4-dx" if "true" in e.name else "K3"] += us
         elif "wgrad_wgmma_kernel" in e.name or "wgrad_mma_kernel" in e.name:
             groups["K4-dW"] += us  # not cuDNN's own *wgrad_* kernels

@@ -1,4 +1,5 @@
-// Device-memory access of the bf16 instances of K1, K5, K3 and K4: bf16
+// Device-memory access of the bf16 instances of K1, K5 and K4-dW (K3 and
+// K4-dx keep bf16 in shared memory: mrf_conv_tile_bf16.cuh): bf16
 // elements widened to fp32 (exactly, by a shift of their bits) on the way in,
 // fp32 results rounded to the nearest even bf16 on the way out.
 //

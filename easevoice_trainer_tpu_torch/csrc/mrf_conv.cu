@@ -40,7 +40,7 @@ extern "C" int ev_mrf_conv_f32(const void* x, const void* w, const void* bias,
                                const void* residual, void* y, int B, int Cin,
                                int Cout, int T, int k, int dil, float slope,
                                void* stream) {
-  return mrf::conv_tile<false, float>((const float*)x, (const float*)w,
+  return mrf::conv_tile<false>((const float*)x, (const float*)w,
                                (const float*)bias, (const float*)residual,
                                (float*)y, B, Cin, Cout, T, k, dil, slope,
                                (cudaStream_t)stream);

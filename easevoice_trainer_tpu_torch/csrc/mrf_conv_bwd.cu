@@ -45,7 +45,7 @@ extern "C" int ev_mrf_conv_bwd_data_f32(const void* dy, const void* x,
                                         const void* w, void* dx, int B,
                                         int Cin, int Cout, int T, int k,
                                         int dil, float slope, void* stream) {
-  return mrf::conv_tile<true, float>((const float*)dy, (const float*)w, nullptr,
+  return mrf::conv_tile<true>((const float*)dy, (const float*)w, nullptr,
                               (const float*)x, (float*)dx, B, Cout, Cin, T, k,
                               dil, slope, (cudaStream_t)stream);
 }

@@ -57,29 +57,15 @@
 // would restage the tile per tap (or per tap residue); that is left for a
 // later change.
 //
-// bf16 instances (E = bf16: mrf_conv_bf16.cu, mrf_conv_bwd_bf16.cu), the s2
-// fine-tune's under is_half.  The JAX Generator in bf16 (generator.py:31-44,
-// nn/layers.py WNConv1d) rounds the leaky relu to bf16 (x * bf16(0.1)),
-// takes the conv in fp32 from bf16 operands and rounds it to bf16, then
-// adds the bias in bf16 and the residual in bf16, each add rounded; its
-// gradient rounds the transposed conv to bf16 and then the leaky relu's
-// derivative (da * bf16(0.1), rounded).  These instances read x (or dy), w,
-// the bias and the residual (or the saved x) as bf16, widen them exactly
-// into the same fp32 stages (plain loads and stores in place of cp.async),
-// round the leaky relu where JAX does, so every operand is exact in TF32
-// and each product is one TF32 mma (the lo planes stay unused), and round
-// the epilogue's steps as JAX does; y (or dx) is written as bf16.  The
-// caller passes slope = bf16(0.1).  A first, simple instance: bf16
-// mma.sync tiles (m16n8k16) are the faster design.
+// The bf16 instances (the s2 fine-tune under is_half) have a loop of their
+// own, on bf16 m16n8k16 tiles: mrf_conv_tile_bf16.cuh.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
-#include "bf16_io.cuh"
 #include "warp_mma.cuh"
 
 namespace mrf {
@@ -126,15 +112,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 // KT > 0 fixes the tap count at compile time; KT = 0 reads it from ksize.
 // vec: x rows 16-byte aligned (T % 4 == 0); vecw: weight rows too.
 // split: blocks per cluster along z (grid z = batch x split), each summing
-// its share of the input-channel chunks.  E: the element type of x, w,
-// bias, res and y in device memory (float or bf16).
-template <int WARPS_M, int MT, int NT, int KT, bool BWD, typename E>
+// its share of the input-channel chunks.
+template <int WARPS_M, int MT, int NT, int KT, bool BWD>
 __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
-    const E* __restrict__ x, const E* __restrict__ w,
-    const E* __restrict__ bias, const E* __restrict__ res,
-    E* __restrict__ y, int Cin, int Cout, int T, int ksize, int dil,
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ res,
+    float* __restrict__ y, int Cin, int Cout, int T, int ksize, int dil,
     float slope, int vec, int vecw, int split) {
-  constexpr bool LOW = !std::is_same<E, float>::value;  // bf16 operands
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int BM = WARPS_M * MT * 16;
   constexpr int BN = WARPS_N * NT * 8;
@@ -157,7 +141,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
   const int start = t0 - g.pad;
   const int u0 = start & ~3;  // first staged sample, 16-byte aligned
   const int shift = start - u0;
-  const E* xb = x + (long long)b * Cin * T;
+  const float* xb = x + (long long)b * Cin * T;
   const int nchunks = (Cin + BK - 1) / BK;
   const int cbegin = rank * nchunks / split;
   const int nloc = (rank + 1) * nchunks / split - cbegin;
@@ -167,49 +151,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
   const int wrows = BWD ? BK : BM, wlen = BWD ? BM * K : BK * K;
 
   auto issue = [&](int i, int slot) {
-    if constexpr (LOW) {
-      // the same pieces, widened from bf16 into the fp32 stage by plain
-      // loads and stores (each thread converts its own pieces later)
-      if (i < nloc) {
-        const int ci0 = (cbegin + i) * BK;
-        float* rxs = raw + slot * stage;
-        if (vec) {
-          const int per_row = rx / 4;
-          for (int p = tid; p < BK * per_row; p += NTHREADS) {
-            const int c = p / per_row, q = (p - c * per_row) * 4;
-            const int ci = ci0 + c, t = u0 + q;
-            const bool ok = ci < Cin && t >= 0 && t < T;
-            *reinterpret_cast<float4*>(rxs + c * ldx + q) =
-                ok ? widen4(xb + (long long)ci * T + t)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-        } else {
-          for (int p = tid; p < BK * rx; p += NTHREADS) {
-            const int c = p / rx, q = p - c * rx;
-            const int ci = ci0 + c, t = u0 + q;
-            const bool ok = ci < Cin && t >= 0 && t < T;
-            rxs[c * ldx + q] = ok ? widen(xb[(long long)ci * T + t]) : 0.f;
-          }
-        }
-        float* rws = rxs + xstage;
-        const int step = vecw ? 4 : 1;
-        const int per_row = wlen / step;
-        for (int p = tid; p < wrows * per_row; p += NTHREADS) {
-          const int r = p / per_row, q = (p - r * per_row) * step;
-          const int inner = q / K;
-          const bool ok = BWD ? (ci0 + r < Cin && co0 + inner < Cout)
-                              : (co0 + r < Cout && ci0 + inner < Cin);
-          const E* src =
-              BWD ? w + ((long long)(ci0 + r) * Cout + co0) * K + q
-                  : w + ((long long)(co0 + r) * Cin + ci0) * K + q;
-          if (vecw)
-            *reinterpret_cast<float4*>(rws + r * ldw + q) =
-                ok ? widen4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-          else
-            rws[r * ldw + q] = ok ? widen(*src) : 0.f;
-        }
-      }
-    } else {
     if (i < nloc) {
       const int ci0 = (cbegin + i) * BK;
       float* rxs = raw + slot * stage;
@@ -242,7 +183,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
         const int inner = q / K;
         const bool ok = BWD ? (ci0 + r < Cin && co0 + inner < Cout)
                             : (co0 + r < Cout && ci0 + inner < Cin);
-        const E* src =
+        const float* src =
             BWD ? w + ((long long)(ci0 + r) * Cout + co0) * K + q
                 : w + ((long long)(co0 + r) * Cin + ci0) * K + q;
         if (vecw)
@@ -250,7 +191,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
         else
           cp_async4(rws + r * ldw + q, ok ? src : w, ok);
       }
-    }
     }
     cp_async_commit();
   };
@@ -262,27 +202,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
     const float* rxs = raw + slot * stage;
     float* hx = cx + buf * 2 * xstage;
     float* lx = hx + xstage;
-    if constexpr (LOW) {
-      // bf16 values, exact in TF32: the hi plane alone; K3's leaky relu is
-      // rounded to bf16 as JAX rounds it
-      auto act = [&](float v) {
-        return BWD || v >= 0.f ? v : round_bf16(v * slope);
-      };
-      if (vec) {
-        const int per_row = rx / 4;
-        for (int p = tid; p < BK * per_row; p += NTHREADS) {
-          const int c = p / per_row, o = c * ldx + (p - c * per_row) * 4;
-          float4 v = *reinterpret_cast<const float4*>(rxs + o);
-          v = make_float4(act(v.x), act(v.y), act(v.z), act(v.w));
-          *reinterpret_cast<float4*>(hx + o) = v;
-        }
-      } else {
-        for (int p = tid; p < BK * rx; p += NTHREADS) {
-          const int c = p / rx, o = c * ldx + (p - c * rx);
-          hx[o] = act(rxs[o]);
-        }
-      }
-    } else {
     if (vec) {
       const int per_row = rx / 4;
       for (int p = tid; p < BK * per_row; p += NTHREADS) {
@@ -310,7 +229,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
         split_tf32(v, hx[o], lx[o]);
       }
     }
-    }
   };
 
   float acc[MT][NT][4];
@@ -337,27 +255,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       uint32_t ah[MT][4], al[MT][4];
-      if constexpr (LOW) {
-        // bf16 weights and activations: one TF32 product a tap
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const float* wa =
-              ws + abase + mt * 16 * (BWD ? K : ldw) + j * jstep;
-          ah[mt][0] = __float_as_uint(wa[0]);
-          ah[mt][1] = __float_as_uint(wa[a_m8]);
-          ah[mt][2] = __float_as_uint(wa[a_k4]);
-          ah[mt][3] = __float_as_uint(wa[a_m8 + a_k4]);
-        }
-        const int o0 = tig * ldx + col0 + j * dil;
-        const int o1 = o0 + 4 * ldx;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t b0 = __float_as_uint(hx[o0 + nt * 8]);
-          const uint32_t b1 = __float_as_uint(hx[o1 + nt * 8]);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ah[mt], b0, b1);
-        }
-      } else {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const float* wa = ws + abase + mt * 16 * (BWD ? K : ldw) + j * jstep;
@@ -397,7 +294,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
           mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
-      }
     }
   };
 
@@ -453,11 +349,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
     for (int half = 0; half < 2; ++half) {
       const int co = co0 + (wm * MT + mt) * 16 + gid + 8 * half;
       if (co >= Cout) continue;
-      float bv;
-      if constexpr (LOW)
-        bv = (!BWD && bias) ? widen(bias[co]) : 0.f;
-      else
-        bv = (!BWD && bias) ? bias[co] : 0.f;
+      const float bv = (!BWD && bias) ? bias[co] : 0.f;
       const long long row = ((long long)b * Cout + co) * T;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -467,18 +359,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
           if (t >= T) continue;
           const float a = acc[mt][nt][2 * half + e];
           float out;
-          if constexpr (LOW) {
-            // JAX's bf16 roundings: the conv, then each add (K3), or the
-            // transposed conv, then the leaky relu's derivative (K4)
-            const float ar = round_bf16(a);
-            if (BWD) {
-              out = widen(res[row + t]) >= 0.f ? ar : ar * slope;
-            } else {
-              out = round_bf16(ar + bv);
-              if (res) out = out + widen(res[row + t]);
-            }
-            put(y + row + t, out);
-          } else {
           if (BWD) {
             out = res[row + t] >= 0.f ? a : a * slope;
           } else {
@@ -486,7 +366,6 @@ __global__ void __launch_bounds__(NTHREADS) conv_mma_kernel(
             if (res) out += res[row + t];
           }
           y[row + t] = out;
-          }
         }
       }
     }
@@ -503,10 +382,10 @@ inline int channel_split(long long blocks, int Cin) {
   return split;
 }
 
-template <int WARPS_M, int MT, int NT, int KT, bool BWD, typename E>
-int launch_mma(const E* x, const E* w, const E* bias, const E* res, E* y,
-               int B, int Cin, int Cout, int T, int k, int dil, float slope,
-               cudaStream_t stream) {
+template <int WARPS_M, int MT, int NT, int KT, bool BWD>
+int launch_mma(const float* x, const float* w, const float* bias,
+               const float* res, float* y, int B, int Cin, int Cout, int T,
+               int k, int dil, float slope, cudaStream_t stream) {
   constexpr int BM = WARPS_M * MT * 16;
   constexpr int BN = (8 / WARPS_M) * NT * 8;
   const Geom g(BM, BN, k, dil, BWD);
@@ -517,7 +396,7 @@ int launch_mma(const E* x, const E* w, const E* bias, const E* res, E* y,
   if (split > 1)  // the partial sums reuse the stages
     smem = std::max(smem, sizeof(float) * MT * NT * 4 * NTHREADS);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kern = conv_mma_kernel<WARPS_M, MT, NT, KT, BWD, E>;
+  auto kern = conv_mma_kernel<WARPS_M, MT, NT, KT, BWD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -525,12 +404,10 @@ int launch_mma(const E* x, const E* w, const E* bias, const E* res, E* y,
   }
   // 16-byte copies need 16-byte aligned rows: x rows of T samples, weight
   // rows that start at a multiple of 4 floats and whose channel edge does
-  // too (Cin % 4 == 0 in K3, Cout % 4 == 0 in K4: the dim spanned by a row);
-  // the bf16 instances' 4-element loads need 8-byte alignment the same way
-  const int vec = (T % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(E)) == 0);
+  // too (Cin % 4 == 0 in K3, Cout % 4 == 0 in K4: the dim spanned by a row)
+  const int vec = (T % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const int vecw = ((BWD ? Cout : Cin) % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(w) % (4 * sizeof(E)) == 0);
+                   (reinterpret_cast<uintptr_t>(w) % 16 == 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid.x, grid.y, grid.z * split);
   cfg.blockDim = dim3(NTHREADS);
@@ -550,36 +427,36 @@ int launch_mma(const E* x, const E* w, const E* bias, const E* res, E* y,
   return (int)cudaGetLastError();
 }
 
-template <int WARPS_M, int MT, int NT, bool BWD, typename E>
-int dispatch_k(const E* x, const E* w, const E* bias, const E* res, E* y,
-               int B, int Cin, int Cout, int T, int k, int dil, float slope,
-               cudaStream_t s) {
+template <int WARPS_M, int MT, int NT, bool BWD>
+int dispatch_k(const float* x, const float* w, const float* bias,
+               const float* res, float* y, int B, int Cin, int Cout, int T,
+               int k, int dil, float slope, cudaStream_t s) {
   switch (k) {
-    case 3: return launch_mma<WARPS_M, MT, NT, 3, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
-    case 7: return launch_mma<WARPS_M, MT, NT, 7, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
-    case 11: return launch_mma<WARPS_M, MT, NT, 11, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
-    default: return launch_mma<WARPS_M, MT, NT, 0, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    case 3: return launch_mma<WARPS_M, MT, NT, 3, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    case 7: return launch_mma<WARPS_M, MT, NT, 7, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    case 11: return launch_mma<WARPS_M, MT, NT, 11, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    default: return launch_mma<WARPS_M, MT, NT, 0, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
   }
 }
 
 // Cin / Cout are the channels of the tensor read and of the tensor written.
 // The largest block that still gives two blocks per SM; launch_mma then
 // splits a grid short of four per SM along the channels.
-template <bool BWD, typename E>
-int conv_tile(const E* x, const E* w, const E* bias, const E* res, E* y,
-              int B, int Cin, int Cout, int T, int k, int dil, float slope,
-              cudaStream_t s) {
+template <bool BWD>
+int conv_tile(const float* x, const float* w, const float* bias,
+              const float* res, float* y, int B, int Cin, int Cout, int T,
+              int k, int dil, float slope, cudaStream_t s) {
   if (k < 1 || k % 2 == 0 || dil < 1) return (int)cudaErrorInvalidValue;
   auto blocks = [&](int bm, int bn) {
     return (long long)((T + bn - 1) / bn) * ((Cout + bm - 1) / bm) * B;
   };
   if (Cout >= 64 && blocks(64, 256) >= 2 * SMS)
-    return dispatch_k<1, 4, 4, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    return dispatch_k<1, 4, 4, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
   if (Cout >= 64)
-    return dispatch_k<2, 2, 2, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    return dispatch_k<2, 2, 2, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
   if (Cout >= 32)
-    return dispatch_k<1, 2, 4, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
-  return dispatch_k<1, 1, 4, BWD, E>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+    return dispatch_k<1, 2, 4, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
+  return dispatch_k<1, 1, 4, BWD>(x, w, bias, res, y, B, Cin, Cout, T, k, dil, slope, s);
 }
 
 }  // namespace mrf

@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy pieces shared by K1
-// (prefill_attention.cu) and the K3/K4 loop (mrf_conv_tile.cuh).
+// (prefill_attention.cu) and the K3/K4 loops (mrf_conv_tile.cuh, and the
+// async-copy pieces in mrf_conv_tile_bf16.cuh).
 //
 // fp32 accuracy from TF32 tensor cores ("3xTF32"): every operand v is split
 // as v = hi + lo, both TF32 (split_tf32), and each product is taken as

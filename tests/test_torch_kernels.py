@@ -982,10 +982,18 @@ def _bf16_conv_inputs(gen, b, cin, cout, t_len, k):
     (72, 24, 301, 7, 3),     # channels off the tiles
     (40, 24, 260, 5, 5),     # generic tap count
     (200, 128, 300, 7, 1),   # a channel split with uneven shares
+    (8, 24, 40, 3, 1),       # K3 reduces over less than one 16-channel chunk
+    (12, 40, 96, 7, 3),      # the same, Cin % 8 != 0: element weight loads
+    (40, 12, 64, 5, 1),      # K4-dx reduces over Cout = 12
+    (24, 40, 262, 11, 5),    # T % 8 == 6, 4-byte copies; the halo crosses
+                             # both edges of the 256-sample tiles
+    (40, 24, 250, 3, 3),     # T % 8 == 2
+    (96, 80, 512, 7, 1),     # Cout (and dx's Cin) off the 64-row tiles
 ])
 def test_mrf_conv_bf16_kernels_match_twins(cin, cout, t_len, k, d):
-    """K3's and K4-dx's bf16 instances at the s2 shapes and the tile edges
-    of the fp32 tests: K3 with and without the residual, dx with exact
+    """K3's and K4-dx's bf16 instances at the s2 shapes, the tile edges of
+    the fp32 tests and those of the bf16 loop (16-channel chunks, 8-sample
+    copies, 64-row tiles): K3 with and without the residual, dx with exact
     zeros in x; each against its bf16 twin, one bf16 launch counted a
     call."""
     gen = _card()
@@ -1000,6 +1008,21 @@ def test_mrf_conv_bf16_kernels_match_twins(cin, cout, t_len, k, d):
     dx = mrf_conv_bwd_data(dy, x, w, d)
     assert mrf_conv_bwd_data.launches_bf16 == before + 1
     _close_bf16(dx, mrf.mrf_conv_bwd_data_reference(dy, x, w, d))
+
+
+@pytest.mark.cuda
+def test_mrf_conv_bf16_kernels_repeat_bit_for_bit():
+    """K3's and K4-dx's bf16 instances launched ten times each on a shape
+    whose grid is split along the channels into clusters (the partial sums
+    added in rank order through distributed shared memory): every output
+    bit-identical to the first."""
+    gen = _card()
+    x, w, b, r, dy = _bf16_conv_inputs(gen, 3, 200, 128, 300, 7)
+    first = (mrf_conv(x, w, b, 1, residual=r),
+             mrf_conv_bwd_data(dy, x, w, 1))
+    for _ in range(9):
+        assert torch.equal(mrf_conv(x, w, b, 1, residual=r), first[0])
+        assert torch.equal(mrf_conv_bwd_data(dy, x, w, 1), first[1])
 
 
 BF16_WGRAD_CASES = [
