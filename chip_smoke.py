@@ -9,7 +9,10 @@ with ``git archive`` into a git-ignored directory); its package is imported
 beside this one as ``ev_parent`` and its K1-K5 and GPT decode are timed in
 turns with this tree's on the same inputs (lines "[a/b]"; K1's serving
 output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
-per Generator stage, K5 over the two s1 shapes).
+per Generator stage, K5 over the two s1 shapes, its fp32 gradients bit for
+bit and its bf16 instance held to the twin beside the parent's); then
+``bench/sass_diff.py`` must find every kernel body of the parent's library
+in this tree's, the parent's bf16 K5 bodies excepted (K5_BF16_REPLACED).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -49,7 +52,9 @@ Phases, one summary line each; any failure exits non-zero:
    K3, K4-dx and K4-dW at the 45 s2 shapes, each against its bf16 twin
    and at the card tests' tile edges, with its device time beside the fp32
    instance's, the bf16 library call's and the twin's, and its bound in
-   bf16 (989 TFLOP/s dense);
+   bf16 (989 TFLOP/s dense); K5 bf16 also as a CUDA graph in turns with
+   SDPA's bf16 backward captured the same way, and the HMMA opcodes of its
+   kernels' SASS (bf16 m16n8k16 alone);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -145,9 +150,10 @@ Phases, one summary line each; any failure exits non-zero:
    calls (72 launches) a micro-batch of the run's instances and none of
    the other's, every layer's ``in_proj_weight`` changed, the export loads
    ``strict=True`` into the inference build and decodes; s/micro-batch by
-   bucket, first micro-batch, peak memory of each run, and one bf16
-   accumulation window under torch.profiler by group (K1, K5, GEMMs,
-   optimizer, other);
+   bucket, first micro-batch, peak memory of each run; one bf16 DPO
+   micro-batch (``if_dpo``, B=4 at T = 1776: finite, 2 x 24 K1 and K5 bf16
+   calls); and one bf16 accumulation window under torch.profiler by group
+   (K1, K5, GEMMs, optimizer, other);
 12. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient), in fp32 and in bf16;
 13. rest: the port's REST server as a user drives it, every process of it
@@ -261,7 +267,7 @@ KERNEL_INFO = {
         "(_kernel, git 0ec4461), as TransformerLayer.attention computes it "
         "with dtype bfloat16 (models/gpt/t2s.py:118-131)"),
     "prefill_attention_bwd_bf16": (
-        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd_bf16.cu",
         "easevoice_trainer_tpu/models/gpt/t2s.py:118 (TransformerLayer."
         "attention with dtype bfloat16 under jax.value_and_grad, "
         "train/gpt_step.py:143; no Pallas ancestor)"),
@@ -386,6 +392,34 @@ def device_ms(torch, fn, name=None, reps: int = 20, launches=None) -> float:
             f"{launches * reps} ({name or 'the call'})")
     return scale * sum(e.time_range.elapsed_us()
                        for e in device) / 1000.0 / reps
+
+
+def graph_timer(torch, fn, stream, reps: int = 20):
+    """``reps`` calls of ``fn`` captured as one CUDA graph on ``stream``
+    (after a warm-up call there); returns a function that replays the graph
+    between two CUDA events and gives the device ms of one call (every
+    kernel of it and the gaps between them, with no host launch cost).  An
+    autograd backward is captured on the stream its forward ran on."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+
+    def ms() -> float:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    return ms
 
 
 def in_turns(torch, fn, old, name=None, launches=None):
@@ -1143,7 +1177,8 @@ def check_k5(torch, results, parent=None):
     dk, dv written once.  The count of HMMA (mma.sync) instructions in each
     K5 kernel's SASS; its dq and dkdv kernels must have some.  ``parent``:
     the parent commit's ``ops.attention``, whose K5 is then timed in turns
-    with this tree's on the same inputs."""
+    with this tree's on the same inputs; the two trees' gradients must be
+    bit-identical."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
@@ -1166,7 +1201,7 @@ def check_k5(torch, results, parent=None):
     worst = {"k1": 0.0, "k5": 0.0}
     worst_rel = 0.0
     ab = [0.0, 0.0]   # K5 in turns: this tree, the parent
-    ab_rel = 0.0
+    ab_rel, ab_same = 0.0, True
     for y_len in S1_Y_LENS:
         t = x_len + y_len
         x_lens, y_lens = s1_lens(torch, gen, b, x_len, y_len)
@@ -1235,6 +1270,8 @@ def check_k5(torch, results, parent=None):
             ab_rel = max(ab_rel, max(
                 max_err(torch, g, w) / max(1.0, float(w.abs().max()))
                 for g, w in zip(got, old_g)))
+            ab_same = ab_same and all(
+                torch.equal(g, w) for g, w in zip(got, old_g))
             del old_g
         pairs = int((bias == 0).sum()) * h
         elems = b * t * h * dk
@@ -1277,7 +1314,9 @@ def check_k5(torch, results, parent=None):
         log(f"[a/b] K5 prefill_attention_bwd, the two s1 shapes, same "
             f"inputs, in turns: parent {ab[1]:.4f} ms -> this tree "
             f"{ab[0]:.4f} ms ({ab[1] / ab[0]:.2f}x); largest |this - parent| "
-            f"/ max(1, max|parent|) {ab_rel:.3g}")
+            f"/ max(1, max|parent|) {ab_rel:.3g}; gradients bit-identical "
+            f"{ab_same}")
+        assert ab_same, "the fp32 K5's gradients differ from the parent's"
     kern, lib = sums["k5"][0], sums["k5"][2]
     assert kern <= lib, (f"K5 ({kern:.4f} ms) is slower than SDPA's "
                          f"backward ({lib:.4f} ms)")
@@ -1340,7 +1379,16 @@ BF16_ATTN_EDGES = ((15, [15, 1, 14], 17, [17, 8, 9]),
                    (16, [16, 7, 16], 15, [15, 1, 7]),
                    (17, [17, 16, 9], 40, [40, 17, 15]),
                    (5, [5, 2], 9, [9, 1]),
-                   (8, [0, 8, 3], 24, [0, 0, 24]))
+                   (8, [0, 8, 3], 24, [0, 0, 24]),
+                   # K5 bf16's own tiles (the card tests' K5_BF16_EDGES):
+                   # 64-key / 64-row / 32-key tiles one off, T < 16, rows
+                   # that see no key
+                   (63, [63, 31, 33], 66, [66, 1, 65]),
+                   (64, [64, 48, 16], 65, [65, 64, 0]),
+                   (65, [65, 33, 32], 127, [127, 16, 17]),
+                   (1, [1, 0], 14, [14, 0]),
+                   (31, [0, 31], 33, [33, 32]),
+                   (33, [32, 1], 95, [64, 95]))
 # K3 / K4 tile edges (Cin, Cout, B, T, k, d): T below a tile and its halo, a
 # single sample, T % 4 != 0, channels off the tiles, k = 5, k = 15, a
 # channel split with uneven shares; then the bf16 loop's own: reductions
@@ -1355,7 +1403,7 @@ BF16_CONV_EDGES = ((24, 24, 3, 5, 11, 5), (16, 72, 3, 1, 3, 1),
                    (96, 80, 3, 512, 7, 1))
 
 
-def check_bf16(torch, results):
+def check_bf16(torch, results, parent=None):
     """The bf16 instances of the s1 and s2 fine-tunes under is_half, each
     against its bf16 twin on the same inputs (BF16_TOL, BF16_SHARE): K1 with
     its lse and K5 at the two s1 micro-batch shapes and at their tile edges
@@ -1368,9 +1416,16 @@ def check_bf16(torch, results):
     cuDNN conv, dgrad, wgrad) and the bf16 twin's; the bound in bf16 (the
     bytes of bf16 operands over 3.35 TB/s against the operations over 989
     TFLOP/s dense bf16), and per Generator stage for K3, K4-dx and K4-dW
-    beside cuDNN's bf16 call.  No instance is held to be faster than its
-    library call: K1, K5 and K4-dW are first, simple instances, and K3 /
+    beside cuDNN's bf16 call.  K5 is timed with its kernel count (3 a call)
+    and, at the s1 shapes, also as a CUDA graph in turns with SDPA's bf16
+    backward captured the same way (its library time); its kernels' SASS
+    must hold bf16 m16n8k16 HMMAs and no other.  ``parent``: the parent
+    commit's ``ops.attention``, whose bf16 K5 is then held to the twin
+    beside this tree's, compared with it, and timed in turns with it (by
+    kernel count and as a graph).  No instance is held to be faster than
+    its library call: K1 and K4-dW are first, simple instances, and K3 /
     K4-dx's bf16 loop is timed against the parent's in ab_mrf."""
+    from easevoice_trainer_tpu_torch.ops import build
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
@@ -1387,6 +1442,25 @@ def check_bf16(torch, results):
     bounds = {key: Bound(BF16_OPS_PER_S) for key in names}
     worst = {key: _Worst() for key in names}
     lse_err = 0.0
+    hmma = {}
+    for name, bodies in sass_functions(
+            build.build().path, ("dkdv_bf16_kernel", "dq_bf16_kernel")).items():
+        counts = hmma.setdefault(short_name(name), {})
+        for ln in (ln for body in bodies for ln in body):
+            if opcode(ln).startswith("HMMA"):
+                counts[opcode(ln)] = counts.get(opcode(ln), 0) + 1
+    log(f"[kernels] K5 bf16 tensor-core instructions in the SASS: {hmma}")
+    assert len(hmma) == 2 and all(
+        c and set(c) == {"HMMA.16816.F32.BF16"} for c in hmma.values()), \
+        f"K5's bf16 kernels are not on bf16 m16n8k16 alone: {hmma}"
+    # K5 bf16 over the s1 shapes as CUDA graphs in turns: this tree, the
+    # parent's, SDPA's bf16 backward
+    graph_sums = {"k5": 0.0, "parent": 0.0, "sdpa": 0.0}
+    ab = [0.0, 0.0]   # by kernel count, in turns: this tree, the parent
+    parent_worst, vs_parent = _Worst(), _Worst()
+
+    def k5_call(mod, *args):
+        return lambda: mod.prefill_attention_bwd(*args)
 
     def attention_case(x_len, x_lens, y_len, y_lens, timed):
         nonlocal lse_err
@@ -1411,10 +1485,18 @@ def check_bf16(torch, results):
         for g, w in zip(got, want):
             assert g.dtype == bf and torch.isfinite(g.float()).all()
             worst["k5"].add(bf16_err(torch, g, w))
-        again = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl,
-                                          yl)
-        assert all(torch.equal(a, c) for a, c in zip(got, again)), \
-            "K5's bf16 instance does not repeat"
+        for _ in range(2):
+            again = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len,
+                                              xl, yl)
+            assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                "K5's bf16 instance does not repeat"
+        k5_args = (q, k, v, o, lse, do, x_len, xl, yl)
+        if parent is not None:
+            old = parent.prefill_attention_bwd(*k5_args)
+            for g, w, c in zip(old, want, got):
+                parent_worst.add(bf16_err(torch, g, w))
+                vs_parent.add(bf16_err(torch, c, g))
+            del old
         del want, again
         if not timed:
             return
@@ -1423,11 +1505,30 @@ def check_bf16(torch, results):
         bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
         qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
                       for z in (q, k, v))
-        out = F.scaled_dot_product_attention(qh, kh, vh,
-                                             attn_mask=bias.to(bf))
+        doh = do.transpose(1, 2).contiguous()
+        # the forward on the graphs' stream, so that its backward runs there
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                 attn_mask=bias.to(bf))
+        torch.cuda.current_stream().wait_stream(stream)
         lib_bwd = functools.partial(torch.autograd.grad, out, (qh, kh, vh),
-                                    do.transpose(1, 2).contiguous(),
-                                    retain_graph=True)
+                                    doh, retain_graph=True)
+        graphs = {"sdpa": graph_timer(torch, lib_bwd, stream),
+                  "k5": graph_timer(torch, k5_call(att, *k5_args), stream)}
+        order = ["sdpa", "k5", "k5", "sdpa"]
+        if parent is not None:
+            graphs["parent"] = graph_timer(
+                torch, k5_call(parent, *k5_args), stream)
+            order = ["sdpa", "parent", "k5", "k5", "parent", "sdpa"]
+        gms = {}
+        for key in order:
+            gms.setdefault(key, []).append(graphs[key]())
+        gms = {key: sum(ms) / len(ms) for key, ms in gms.items()}
+        for key, ms in gms.items():
+            graph_sums[key] += ms
+        del graphs
         times = {
             "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
                        q, k, v, x_len, xl, yl)),
@@ -1441,14 +1542,20 @@ def check_bf16(torch, results):
                            q, k, v, x_len, xl, yl),
                        att.prefill_attention_lse_reference(
                            q, k, x_len, xl, yl)), reps=5)),
-            "k5": (device_ms(torch, lambda: att.prefill_attention_bwd(
-                       q, k, v, o, lse, do, x_len, xl, yl)),
+            "k5": (device_ms(torch, k5_call(att, *k5_args),
+                             launches=3),
                    device_ms(torch, lambda: att.prefill_attention_bwd(
-                       q32, k32, v32, o32, lse32, do32, x_len, xl, yl)),
-                   device_ms(torch, lib_bwd, reps=5),
+                       q32, k32, v32, o32, lse32, do32, x_len, xl, yl),
+                       launches=3),
+                   gms["sdpa"],
                    device_ms(torch, lambda: att.prefill_attention_bwd_reference(
                        q, k, v, o, lse, do, x_len, xl, yl), reps=5)),
         }
+        if parent is not None:
+            ms, parent_ms = in_turns(torch, k5_call(att, *k5_args),
+                                     k5_call(parent, *k5_args), launches=3)
+            ab[0] += ms
+            ab[1] += parent_ms
         pairs = int((bias == 0).sum()) * h
         elems = b * t * h * dk
         # K1: q, k, v read, o written (bf16), lse written (fp32); QK, PV.
@@ -1462,9 +1569,12 @@ def check_bf16(torch, results):
             f"y_len={y_len} (T={t}): device ms K1 bf16 {times['k1'][0]:.4f}, "
             f"fp32 {times['k1'][1]:.4f}, SDPA bf16 {times['k1'][2]:.4f}, twin "
             f"{times['k1'][3]:.4f}; K5 bf16 {times['k5'][0]:.4f}, fp32 "
-            f"{times['k5'][1]:.4f}, SDPA backward bf16 {times['k5'][2]:.4f}, "
-            f"twin {times['k5'][3]:.4f}")
-        del qh, kh, vh, out, lib_bwd, bias, o32, lse32
+            f"{times['k5'][1]:.4f}, twin {times['k5'][3]:.4f}; as CUDA "
+            f"graphs in turns: " + ", ".join(
+                f"{label} {gms[key]:.4f}" for key, label in (
+                    ("k5", "K5 bf16"), ("parent", "the parent's K5 bf16"),
+                    ("sdpa", "SDPA backward bf16")) if key in gms))
+        del qh, kh, vh, out, lib_bwd, bias, o32, lse32, doh
 
     for y_len in S1_Y_LENS:
         xl, yl = s1_lens(torch, gen, S1_B, S1_X_LEN, y_len)
@@ -1597,6 +1707,24 @@ def check_bf16(torch, results):
                              plain_ms=plain, library_ms=lib, fp32_ms=fp32,
                              max_rel_err=worst[key].rel, **bd.result())
     assert lse_err <= 1e-4, f"K1's bf16 lse disagrees: {lse_err}"
+    results["prefill_attention_bwd_bf16"]["graph_ms"] = graph_sums["k5"]
+    log(f"[kernels] K5 bf16 over the two s1 shapes as CUDA graphs, in turns "
+        f"with SDPA's bf16 backward captured the same way: K5 "
+        f"{graph_sums['k5']:.4f} ms, SDPA backward {graph_sums['sdpa']:.4f} "
+        f"ms (SDPA / K5 {graph_sums['sdpa'] / graph_sums['k5']:.2f}x)")
+    if parent is not None:
+        log(f"[a/b] K5 prefill_attention_bwd bf16, the two s1 shapes, same "
+            f"inputs, in turns: by kernel count parent {ab[1]:.4f} ms -> this "
+            f"tree {ab[0]:.4f} ms ({ab[1] / ab[0]:.2f}x); as CUDA graphs "
+            f"parent {graph_sums['parent']:.4f} -> this tree "
+            f"{graph_sums['k5']:.4f} ms "
+            f"({graph_sums['parent'] / graph_sums['k5']:.2f}x); against the "
+            f"bf16 twin at the s1 shapes and BF16_ATTN_EDGES: this tree "
+            f"{worst['k5']}; the parent's {parent_worst}; this tree against "
+            f"the parent's: {vs_parent}")
+        assert parent_worst.ok() and vs_parent.ok(), \
+            (f"the parent's bf16 K5 against the twin {parent_worst}, this "
+             f"tree's against it {vs_parent}")
 
 
 def sass_functions(path: str, keys) -> dict:
@@ -1636,8 +1764,9 @@ def short_name(mangled: str) -> str:
     arguments (e.g. wgrad_wgmma_kernel<256>)."""
     import re
 
-    m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel|dsum_kernel|"
-                  r"dkdv_kernel|dq_kernel)((?:I?Li-?\d+E)*)", mangled)
+    m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel|"
+                  r"(?:dsum|dkdv|dq)(?:_bf16)?_kernel)((?:I?Li-?\d+E)*)",
+                  mangled)
     if not m:
         return mangled
     args = re.findall(r"Li(-?\d+)E", m.group(2))
@@ -1773,6 +1902,20 @@ def ab_mrf(torch, parent):
     log(f"[a/b] K4 mrf_conv_bwd_weight, 45 shapes: parent {totals[1]:.3f} -> "
         f"this tree {totals[0]:.3f} ms ({totals[1] / totals[0]:.2f}x); "
         f"largest |this - parent| / max(1, max|parent|) {rel:.3g}")
+
+
+# the parent's bf16 K5 bodies, which this tree's own bf16 kernels replace
+K5_BF16_REPLACED = r"(dsum|dkdv|dq)_kernelI13__nv_bfloat16"
+
+
+def ab_sass(parent_root: str) -> None:
+    """``bench/sass_diff.py`` against the parent's library: every kernel
+    body of the parent but its bf16 K5 ones (K5_BF16_REPLACED) must be in
+    this tree's library instruction for instruction."""
+    from easevoice_trainer_tpu_torch.bench import sass_diff
+
+    rc = sass_diff.main([parent_root, "--replaced", K5_BF16_REPLACED])
+    assert rc == 0, "a kernel body of the parent changed (bench/sass_diff.py)"
 
 
 # ---------------------------------------------------------------------------
@@ -4408,7 +4551,10 @@ def train_s1(torch, tmp: str, results):
         + f"; first micro-batch {bf['secs'][0]:.3f} vs {fp['secs'][0]:.3f} "
         f"s; peak {bf['peak'] / 2 ** 30:.2f} vs {fp['peak'] / 2 ** 30:.2f} "
         f"GiB; loss at micro-batch 12 {bf['history'][-1]['loss']:.1f} vs "
-        f"{fp['history'][-1]['loss']:.1f}")
+        f"{fp['history'][-1]['loss']:.1f}; largest |bf16 - fp32| / |fp32| of "
+        f"the losses over the {len(fp['history'])} micro-batches "
+        + "{:.3%}".format(max(abs(a['loss'] - c['loss']) / abs(c['loss'])
+                              for a, c in zip(bf['history'], fp['history']))))
 
     trainer, resp = bf["trainer"], bf["resp"]
     step_fn = trainer.step_fn
@@ -4452,6 +4598,58 @@ def train_s1(torch, tmp: str, results):
         f"{os.path.basename(resp.data['model_path'])} loads strict=True and "
         f"greedy-decodes 8 tokens a row")
     return trainer
+
+
+def s1_dpo_micro_batch(torch, trainer) -> None:
+    """One micro-batch of the DPO objective (``GPTTrainHP(if_dpo=True)``)
+    on the bf16 model the s1 run trained: B = 4 (GPTTrain halves the batch
+    under DPO) at T = 1776, the rejected sequences from ``make_reject_y``;
+    its chosen and rejected forwards and their backward run K1 and K5's
+    bf16 instances, 2 x 24 calls each.  Finite loss and gradient norm, no
+    fp32 instance launched."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.models.gpt.dpo import make_reject_y
+    from easevoice_trainer_tpu_torch.train import data as data_mod
+    from easevoice_trainer_tpu_torch.train.gpt import GPT_BOUNDARIES
+    from easevoice_trainer_tpu_torch.train.gpt_step import GPTTrainHP, \
+        GPTTrainStep
+
+    dataset = data_mod.GPTDataset(trainer.params.train_input_dir,
+                                  max_sec=trainer.max_sec)
+    long_items = [i for i, n in enumerate(dataset.lengths) if n > 1100]
+    batch = data_mod.collate_gpt(
+        [dataset.load_item(i) for i in long_items[:S1_B // 2]], S1_X_LEN,
+        GPT_BOUNDARIES[-1])
+    rej, rej_lens = make_reject_y(
+        batch["semantic_ids"], batch["semantic_ids_len"],
+        np.random.default_rng(16), max_len=batch["semantic_ids"].shape[1])
+    batch["reject_semantic_ids"] = rej
+    batch["reject_semantic_ids_len"] = rej_lens
+    model = trainer.step_fn.model
+    step = GPTTrainStep(model, GPTTrainHP(if_dpo=True))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in step(trainer._to_device(batch)).items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    per_call = ops.prefill_attention_bwd.launches_per_call
+    layers = model.cfg.n_layers
+    log(f"[s1 training] one bf16 DPO micro-batch (B={S1_B // 2}, "
+        f"T={S1_X_LEN + batch['semantic_ids'].shape[1]}, chosen and "
+        f"rejected): {wall:.3f} s, metrics {metrics}; launches {launches}")
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    assert launches["prefill_attention_bf16"] == 2 * layers, launches
+    assert launches["prefill_attention_bwd_bf16"] == \
+        2 * layers * per_call, launches
+    assert launches["prefill_attention"] == 0 == \
+        launches["prefill_attention_bwd"], launches
+
+
+# K5's kernels by name in a trace, either instance
+K5_KERNEL = re.compile(r"\b(dsum|dkdv|dq)(_bf16)?_kernel\b")
 
 
 def profile_s1_window(torch, trainer) -> None:
@@ -4505,8 +4703,7 @@ def profile_s1_window(torch, trainer) -> None:
         name = e.name.lower()
         if "prefill_attention_kernel" in name:
             groups["K1"] += us
-        elif any(k in name for k in ("dkdv_kernel<", "dq_kernel<",
-                                     "dsum_kernel<")):
+        elif K5_KERNEL.search(name):
             groups["K5"] += us
             k5_launches += 1
         elif any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -5587,10 +5784,12 @@ def main() -> int:
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
         phase = "bf16 kernels"
-        check_bf16(torch, results)
+        check_bf16(torch, results, parent and parent.ops.attention)
         if parent is not None:
             phase = "mrf a/b"
             ab_mrf(torch, parent)
+            phase = "sass a/b"
+            ab_sass(args.parent)
         phase = "serving"
         tts = serve(torch, tmp, results)
         phase = "serving profile"
@@ -5620,6 +5819,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "s1 training"
         trainer = train_s1(torch, tmp, results)
+        phase = "s1 dpo"
+        s1_dpo_micro_batch(torch, trainer)
         phase = "s1 profile"
         profile_s1_window(torch, trainer)
         del trainer
@@ -5672,7 +5873,7 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
                       "whisper_T1500", "roformer", "fp32_ms",
-                      "max_rel_err"):
+                      "max_rel_err", "graph_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

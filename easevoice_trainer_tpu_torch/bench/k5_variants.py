@@ -1,21 +1,35 @@
 """K5's design choices, each taken back in turn, timed on the card.
 
-    python3 -m easevoice_trainer_tpu_torch.bench.k5_variants
+    python3 -m easevoice_trainer_tpu_torch.bench.k5_variants [--dtype D]
 
-Writes variants of ``csrc/prefill_attention_bwd.cu`` under
-``build/k5_variants/`` (git-ignored), each with one choice undone, builds
-each with nvcc into its own library beside the tree's, and times K5's
-three kernels (dsum, dkdv, dq) of every build on the s1 micro-batch shapes
-of ``chip_smoke.py`` (B = 8, H = 16, 416 phonemes, 300 and 1360 tokens,
-ragged lengths): torch.profiler device time, mean of 20 calls, the tree's
-build timed first and last.  Each build's gradients are held against the
-plain twin (relative error, 1e-4 x max(1, max|twin|) each).  Variants:
+Writes variants of K5's sources under ``build/k5_variants/`` (git-ignored),
+each with one choice undone, builds each with nvcc into its own library
+beside the tree's, and times K5's three kernels (dsum, dkdv, dq) of every
+build on the s1 micro-batch shapes of ``chip_smoke.py`` (B = 8, H = 16,
+416 phonemes, 300 and 1360 tokens, ragged lengths): torch.profiler device
+time, mean of 20 calls, the tree's build timed first and last.  Each
+build's gradients are held against the plain twin.  ``--dtype`` fp32, bf16
+or both (the default).
+
+fp32 (``csrc/prefill_attention_bwd.cu``; gradients within 1e-4 x
+max(1, max|twin|) each):
 
 - ``q8``: dkdv through a query tile 8 queries (one accumulator tile per
   product) a step, not 16;
 - ``exp2f``: libm's ``exp2f`` in place of ``ex2.approx.ftz``;
 - ``no_cap``: launch bounds of 128 threads alone, no 3-blocks-an-SM cap;
 - ``cvt``: the TF32 rounding of the split by ``cvt.rna.tf32.f32``.
+
+bf16 (``csrc/prefill_attention_bwd_bf16.cu``, whose choices are the
+constants at its top; gradients within chip_smoke's bf16 tolerance of the
+bf16 twin: every element within 2^-6 x max(1, max|twin|), at most 2 % off
+by more than one bf16 step, both printed):
+
+- ``terms3``: P and dS in three bf16 terms, not hi + lo;
+- ``sync``: Q / dO and K / V staged by plain loads and stores, not
+  cp.async;
+- ``q8``: dkdv 8 queries a step (m16n8k8), not 16 (m16n8k16);
+- ``no_cap`` / ``cap<n>``: no blocks-an-SM cap, or one block fewer.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -24,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -80,7 +95,7 @@ def _swap(src: str, old: str, new: str, count: int = 1) -> str:
 
 
 def variants(src: str) -> dict:
-    """The tree's K5 source with each design choice undone, by name."""
+    """The tree's fp32 K5 source with each design choice undone, by name."""
     begin = src.index("#pragma unroll\n    for (int j = 0; j < BQ / 16;")
     end = src.index("    __syncthreads();  // every warp is done with this "
                     "slot\n    issue(i + 2, slot);\n  }\n\n  const long long "
@@ -94,6 +109,30 @@ def variants(src: str) -> dict:
     }
 
 
+def _const(src: str, name: str) -> str:
+    m = re.search(rf"constexpr \w+ {name} = (\w+);", src)
+    if not m:
+        raise ValueError(f"variant: no constant {name}")
+    return m.group(0)
+
+
+def variants_bf16(src: str) -> dict:
+    """The tree's bf16 K5 source with each design choice undone, by name."""
+    def const(name, value):
+        line = _const(src, name)
+        return _swap(src, line, line.rsplit("=", 1)[0] + f"= {value};")
+
+    blocks = int(_const(src, "MIN_BLOCKS").rsplit("=", 1)[1].strip(" ;"))
+    return {
+        "terms3": const("TERMS", 3),
+        "sync": const("ASYNC", "false"),
+        "q8": const("QSTEP", 8),
+        "no_cap": _swap(src, "__launch_bounds__(NT, MIN_BLOCKS)",
+                        "__launch_bounds__(NT)", 2),
+        f"cap{blocks - 1}": const("MIN_BLOCKS", blocks - 1),
+    }
+
+
 def _build(src_path: str, so_path: str):
     from ..ops import build
 
@@ -103,11 +142,11 @@ def _build(src_path: str, so_path: str):
         stderr=subprocess.STDOUT, text=True)
 
 
-def _entry(so_path: str):
+def _entry(so_path: str, name: str):
     from ..ops import build
 
-    fn = ctypes.CDLL(os.path.abspath(so_path)).ev_prefill_attention_bwd_f32
-    fn.argtypes = build.SIGNATURES["ev_prefill_attention_bwd_f32"]
+    fn = getattr(ctypes.CDLL(os.path.abspath(so_path)), name)
+    fn.argtypes = build.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,31 +169,36 @@ def _kernel_ms(torch, run, name: str, reps: int = 20) -> float:
     raise RuntimeError(f"torch.profiler recorded no kernel named *{name}*")
 
 
-def main() -> int:
-    import torch
+def bf16_err(got, want):
+    """(max |got - want| / max(1, max|want|), the share of elements off by
+    more than one bf16 step of their own value): chip_smoke's bf16 rule."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rel = float(err.max()) / max(1.0, float(w.abs().max()))
+    return rel, float((err > 2.0 ** -7 * w.abs() + 1e-6).float().mean())
 
+
+def run_set(torch, dtype, out: str) -> None:
+    """Build and time one instance's variants (``dtype`` torch.float32 or
+    torch.bfloat16) beside the tree's library."""
     from ..ops import attention as att
     from ..ops import build
 
-    if not torch.cuda.is_available():
-        print("k5_variants: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
-    out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k5_variants")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(build.CSRC, "prefill_attention_bwd.cu")) as f:
-        srcs = variants(f.read())
+    bf16 = dtype == torch.bfloat16
+    source = "prefill_attention_bwd_bf16.cu" if bf16 else \
+        "prefill_attention_bwd.cu"
+    entry = "ev_prefill_attention_bwd_" + ("bf16" if bf16 else "f32")
+    tag = "_bf16" if bf16 else ""
+    kernels = tuple(f"{k}{tag}_kernel" for k in ("dsum", "dkdv", "dq"))
+    with open(os.path.join(build.CSRC, source)) as f:
+        srcs = (variants_bf16 if bf16 else variants)(f.read())
     procs = {}
     for name, src in srcs.items():
-        path = os.path.join(out, f"{name}.cu")
+        path = os.path.join(out, f"{name}{tag}.cu")
         with open(path, "w") as f:
             f.write(src)
-        procs[name] = _build(path, os.path.join(out, f"{name}.so"))
-    fns = {"tree": build.build().ev_prefill_attention_bwd_f32}
+        procs[name] = _build(path, os.path.join(out, f"{name}{tag}.so"))
+    fns = {"tree": getattr(build.build(), entry)}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
@@ -162,17 +206,16 @@ def main() -> int:
         kernel = ""
         for line in log.splitlines():
             if "entry function" in line:
-                kernel = next((k for k in ("dsum", "dkdv", "dq")
-                               if f"{k}_kernel" in line), "")
+                kernel = next((k for k in kernels if k in line), "")
             elif "registers" in line or "spill" in line:
-                print(f"[ptxas {name} {kernel}] {line.strip()}")
-        fns[name] = _entry(os.path.join(out, f"{name}.so"))
+                print(f"[ptxas {name}{tag} {kernel}] {line.strip()}")
+        fns[name] = _entry(os.path.join(out, f"{name}{tag}.so"), entry)
     order = ["tree", *srcs, "tree"]   # the tree first and last
 
     gen = torch.Generator(device="cuda").manual_seed(6006)
     b, h, dk, x_len = 8, 16, 32, 416
-    kernels = ("dsum_kernel", "dkdv_kernel", "dq_kernel")
     totals = {name: [0.0] * 3 for name in fns}
+    worst = {name: [0.0, 0.0] for name in fns}
     for y_len in (300, 1360):
         t = x_len + y_len
         x_lens = torch.randint(1, x_len + 1, (b,), generator=gen,
@@ -180,14 +223,16 @@ def main() -> int:
         y_lens = torch.randint(1, y_len + 1, (b,), generator=gen,
                                device="cuda").to(torch.int32)
         x_lens[0], y_lens[-1] = x_len, y_len
-        qkv = torch.randn((b, t, 3 * h * dk), generator=gen, device="cuda")
+        qkv = torch.randn((b, t, 3 * h * dk), generator=gen,
+                          device="cuda").to(dtype)
         q, k, v = att._split_heads(qkv, h)
-        do = torch.randn((b, t, h, dk), generator=gen, device="cuda")
+        do = torch.randn((b, t, h, dk), generator=gen,
+                         device="cuda").to(dtype)
         o, lse = att.prefill_attention_lse(q, k, v, x_len, x_lens, y_lens)
         want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
                                                    x_len, x_lens, y_lens)
         dsum = torch.empty((b, h, t), device="cuda")
-        dqkv = torch.empty((b, t, 3 * h * dk), device="cuda")
+        dqkv = torch.empty((b, t, 3 * h * dk), device="cuda", dtype=dtype)
         grads = att._split_heads(dqkv, h)
         stream = torch.cuda.current_stream().cuda_stream
         args = [z.data_ptr() for z in (q, k, v, o, do, lse, dsum, *grads)]
@@ -202,20 +247,56 @@ def main() -> int:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
             run()
             torch.cuda.synchronize()
-            rel = max(float((g - w).abs().max()) / max(1.0, float(
-                w.abs().max())) for g, w in zip(grads, want))
-            assert rel <= 1e-4, f"{name} disagrees with the twin: {rel}"
+            if bf16:
+                errs = [bf16_err(g, w) for g, w in zip(grads, want)]
+                err = [max(e[0] for e in errs), max(e[1] for e in errs)]
+                ok = err[0] <= 2.0 ** -6 and err[1] <= 0.02
+            else:
+                err = [max(float((g - w).abs().max()) / max(1.0, float(
+                    w.abs().max())) for g, w in zip(grads, want)), 0.0]
+                ok = err[0] <= 1e-4
+            assert ok, f"{name}{tag} disagrees with the twin: {err}"
+            worst[name] = [max(a, c) for a, c in zip(worst[name], err)]
             runs.setdefault(name, []).append(
                 [_kernel_ms(torch, run, kn) for kn in kernels])
         for name, ms in runs.items():
             m = [sum(z) / len(ms) for z in zip(*ms)]
             totals[name] = [a + c for a, c in zip(totals[name], m)]
-            print(f"T={t} {name}: dsum {m[0]:.4f} dkdv {m[1]:.4f} dq "
+            print(f"T={t} {name}{tag}: dsum {m[0]:.4f} dkdv {m[1]:.4f} dq "
                   f"{m[2]:.4f}, K5 {sum(m):.4f} ms", flush=True)
     for name, m in totals.items():
-        print(f"two s1 shapes, {name}: dsum {m[0]:.4f} dkdv {m[1]:.4f} dq "
-              f"{m[2]:.4f}, K5 {sum(m):.4f} ms ({sum(m) / sum(totals['tree']):.3f}"
-              f" x the tree)")
+        print(f"two s1 shapes, {name}{tag}: dsum {m[0]:.4f} dkdv {m[1]:.4f} "
+              f"dq {m[2]:.4f}, K5 {sum(m):.4f} ms "
+              f"({sum(m) / sum(totals['tree']):.3f} x the tree); against the "
+              f"twin: relative {worst[name][0]:.3g}"
+              + (f", share off by more than a step {worst[name][1]:.3g}"
+                 if bf16 else ""), flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    from ..ops import build
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("fp32", "bf16", "both"),
+                    default="both")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("k5_variants: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k5_variants")
+    os.makedirs(out, exist_ok=True)
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        if args.dtype in (name, "both"):
+            run_set(torch, dtype, out)
     return 0
 
 

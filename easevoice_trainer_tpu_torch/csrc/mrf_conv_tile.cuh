@@ -99,15 +99,6 @@ struct Geom {
   }
 };
 
-// 4-byte copy for rows that are not 16-byte aligned; ok = false writes zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
 // Block = WARPS_M x (8 / WARPS_M) warps; a warp owns MT m16 x NT n8 tiles.
 // KT > 0 fixes the tap count at compile time; KT = 0 reads it from ksize.
 // vec: x rows 16-byte aligned (T % 4 == 0); vecw: weight rows too.

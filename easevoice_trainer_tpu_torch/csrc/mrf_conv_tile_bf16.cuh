@@ -100,8 +100,13 @@
 
 namespace mrf_bf16 {
 
+using ev::cp_async16;
+using ev::cp_async4;
 using ev::cp_async_commit;
 using ev::cp_async_wait;
+using ev::ldsm4;
+using ev::ldsm4_trans;
+using ev::mma_bf16;
 using ev::smem_addr;
 using u16 = unsigned short;
 
@@ -143,36 +148,6 @@ struct Geom {
   }
 };
 
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm4_trans(uint32_t (&d)[4],
-                                            uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ void stsm4(uint32_t addr,
                                       const uint32_t (&d)[4]) {
   asm volatile(
@@ -180,19 +155,6 @@ __device__ __forceinline__ void stsm4(uint32_t addr,
           addr),
       "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3])
       : "memory");
-}
-
-// d += a * b on one m16n8k16 bf16 tile, fp32 accumulators.  A fragment:
-// a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..) for
-// row g = lane / 4, t = lane % 4; B: b0 (k = 2t..2t+1, n = g), b1 (k =
-// 2t+8.., n = g); C: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // leaky relu of two bf16: max(v, v * slope rounded once), which is JAX's
@@ -273,9 +235,9 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_bf16_kernel(
         const bool ok = ci < Cin && t >= 0 && t < T;
         const u16* src = ok ? xb + (long long)ci * T + t : x;
         if (xvec == 8)
-          cp16(xr + c * g.ldr + q, src, ok);
+          cp_async16(xr + c * g.ldr + q, src, ok);
         else if (xvec == 2)
-          cp4(xr + c * g.ldr + q, src, ok);
+          cp_async4(xr + c * g.ldr + q, src, ok);
         else
           xr[c * g.ldr + q] = ok ? *src : (u16)0;
       }
@@ -296,7 +258,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_bf16_kernel(
                       : w + ((long long)(co0 + r) * Cin + ci0) * K + q)
                : w;
         if (wvec)
-          cp16(wr + r * g.ldw + q, src, ok);
+          cp_async16(wr + r * g.ldw + q, src, ok);
         else
           wr[r * g.ldw + q] = ok ? *src : (u16)0;
       }

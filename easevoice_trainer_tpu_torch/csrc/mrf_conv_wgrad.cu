@@ -115,15 +115,6 @@ struct Window {
   }
 };
 
-// 4-byte copy for rows that are not 16-byte aligned; ok = false writes zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : v * slope;
 }

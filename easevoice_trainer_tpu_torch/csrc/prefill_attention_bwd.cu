@@ -75,25 +75,12 @@
 // projection.  Strides are multiples of 4 floats and the pointers 16-byte
 // aligned (the wrapper checks).
 //
-// The bf16 instance (E = bf16, ev_prefill_attention_bwd_bf16) is the s1
-// fine-tune's under is_half.  The JAX package's gradient of its bf16
-// attention (t2s.py:118-131 under jax.value_and_grad) takes dP = dO V^T, dS
-// and the three products in fp32 from the bf16 q, k, v and dO and the fp32
-// probabilities, and rounds dq, dk and dv to bf16.  This instance reads q,
-// k, v, o and dO as bf16, widens them exactly into the same fp32 tiles and
-// fragments (plain loads and stores where the fp32 kernels use cp.async),
-// keeps lse and D in fp32, and writes dq, dk and dv rounded to bf16.  S and
-// dP are one TF32 product (both operands exact in TF32), dV, dK and dQ two
-// (P or dS split hi/lo, the other operand exact).  D = rowsum(dO * O) reads
-// the bf16 o of K1's bf16 instance, where JAX's rowsum(dP * P) is the same
-// sum over the unrounded o: the two differ by o's rounding (2^-9 of |o|).
+// The bf16 instance (the s1 fine-tune under is_half) has kernels of its
+// own: prefill_attention_bwd_bf16.cu.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16_io.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -125,21 +112,10 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// 4-byte global -> shared copy; ok = false writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
 // Rows r0 + g and r0 + g + 8 of a view (time stride st, `base` at dim 0 of
 // the head) as hi/lo A fragments over the head dims: k-step s reads dims
 // 8t+2s (slots t) and 8t+2s+1 (slots t+4).  Rows at or past `end` are 0.
-// A bf16 view gives zero lo fragments.
-template <typename E>
-__device__ __forceinline__ void load_a(const E* base, long long st,
+__device__ __forceinline__ void load_a(const float* base, long long st,
                                        int r0, int end, int g, int t,
                                        uint32_t (&hi)[4][4],
                                        uint32_t (&lo)[4][4]) {
@@ -148,12 +124,6 @@ __device__ __forceinline__ void load_a(const E* base, long long st,
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + g + 8 * half;
     float* dst = half ? rc : ra;
-    if constexpr (!std::is_same<E, float>::value) {
-      float e8[8] = {};
-      if (row < end) widen8(base + row * st + 8 * t, e8);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = e8[e];
-    } else {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
     if (row < end) {
       a = *reinterpret_cast<const float4*>(base + row * st + 8 * t);
@@ -161,7 +131,6 @@ __device__ __forceinline__ void load_a(const E* base, long long st,
     }
     dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
     dst[4] = c.x; dst[5] = c.y; dst[6] = c.z; dst[7] = c.w;
-    }
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -174,8 +143,8 @@ __device__ __forceinline__ void load_a(const E* base, long long st,
 
 // acc = A X^T over the 32 head dims, in 3xTF32: A the warp's 16 rows (hi/lo
 // fragments of load_a), X the N * 8 rows of a shared tile from `x` (n8
-// tile n column g is row 8n + g).  LOW: both operands bf16, one product.
-template <int N, bool LOW>
+// tile n column g is row 8n + g).
+template <int N>
 __device__ __forceinline__ void mma_dims(float (&acc)[N][4],
                                          const uint32_t (&ah)[4][4],
                                          const uint32_t (&al)[4][4],
@@ -199,12 +168,10 @@ __device__ __forceinline__ void mma_dims(float (&acc)[N][4],
       split2(xr[n][2 * s], bh[n][0], bl[n][0]);
       split2(xr[n][2 * s + 1], bh[n][1], bl[n][1]);
     }
-    if constexpr (!LOW) {
 #pragma unroll
     for (int n = 0; n < N; ++n) mma_tf32(acc[n], al[s], bh[n][0], bh[n][1]);
 #pragma unroll
     for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah[s], bl[n][0], bl[n][1]);
-    }
 #pragma unroll
     for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah[s], bh[n][0], bh[n][1]);
   }
@@ -213,8 +180,7 @@ __device__ __forceinline__ void mma_dims(float (&acc)[N][4],
 // acc += W X for one k-step of 8 rows of a shared tile from `x`: W a 16 x 8
 // accumulator tile (c0/c1 its columns 2t and 2t+1) taken as the A fragment
 // (slot t = column 2t, slot t+4 = column 2t+1), X's rows 2t and 2t+1 as B
-// (n8 tile n column g is dim 4g+n), in 3xTF32; LOW: X bf16, two products
-template <bool LOW>
+// (n8 tile n column g is dim 4g+n), in 3xTF32
 __device__ __forceinline__ void mma_rows(float (&acc)[4][4],
                                          const float (&w)[4], const float* x,
                                          int g, int t) {
@@ -236,66 +202,42 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4][4],
   }
 #pragma unroll
   for (int n = 0; n < 4; ++n) mma_tf32(acc[n], al, bh[n][0], bh[n][1]);
-  if constexpr (!LOW) {
 #pragma unroll
   for (int n = 0; n < 4; ++n) mma_tf32(acc[n], ah, bl[n][0], bl[n][1]);
-  }
 #pragma unroll
   for (int n = 0; n < 4; ++n) mma_tf32(acc[n], ah, bh[n][0], bh[n][1]);
 }
 
 // a 16 x 32 accumulator of mma_rows (tile n: c0 = row g dim 8t+n, c1 = row
 // g dim 8t+4+n, c2 / c3 the same for row g+8) times `mul` into rows r0 + g
-// and r0 + g + 8 below `end` of a view (time stride st, `base` at dim 0),
-// rounded to bf16 for a bf16 view
-template <typename E>
-__device__ __forceinline__ void store_rows(E* base, long long st, int r0,
+// and r0 + g + 8 below `end` of a view (time stride st, `base` at dim 0)
+__device__ __forceinline__ void store_rows(float* base, long long st, int r0,
                                            int end, const float (&acc)[4][4],
                                            float mul, int g, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
     if (row >= end) continue;
-    E* p = base + row * st + 8 * t;
-    if constexpr (!std::is_same<E, float>::value) {
-      const float d[8] = {
-          acc[0][2 * r] * mul,     acc[1][2 * r] * mul,
-          acc[2][2 * r] * mul,     acc[3][2 * r] * mul,
-          acc[0][2 * r + 1] * mul, acc[1][2 * r + 1] * mul,
-          acc[2][2 * r + 1] * mul, acc[3][2 * r + 1] * mul};
-      narrow8(p, d);
-    } else {
+    float* p = base + row * st + 8 * t;
     *reinterpret_cast<float4*>(p) =
         make_float4(acc[0][2 * r] * mul, acc[1][2 * r] * mul,
                     acc[2][2 * r] * mul, acc[3][2 * r] * mul);
     *reinterpret_cast<float4*>(p + 4) =
         make_float4(acc[0][2 * r + 1] * mul, acc[1][2 * r + 1] * mul,
                     acc[2][2 * r + 1] * mul, acc[3][2 * r + 1] * mul);
-    }
   }
 }
 
-template <typename E>
 __global__ void __launch_bounds__(DSUM_NT) dsum_kernel(
-    const E* __restrict__ o, const E* __restrict__ dout,
+    const float* __restrict__ o, const float* __restrict__ dout,
     float* __restrict__ dsum, int T, int H) {
   const int b = blockIdx.y;
   const int idx = blockIdx.x * DSUM_NT + threadIdx.x;  // row * H + head
   if (idx >= T * H) return;
   const int row = idx / H, h = idx - row * H;
-  const E* op = o + ((long long)b * T * H + idx) * DK;
-  const E* gp = dout + ((long long)b * T * H + idx) * DK;
+  const float* op = o + ((long long)b * T * H + idx) * DK;
+  const float* gp = dout + ((long long)b * T * H + idx) * DK;
   float acc = 0.f;
-  if constexpr (!std::is_same<E, float>::value) {
-#pragma unroll
-    for (int c = 0; c < DK; c += 8) {
-      float a[8], g[8];
-      widen8(op + c, a);
-      widen8(gp + c, g);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc = fmaf(a[e], g[e], acc);
-    }
-  } else {
 #pragma unroll
   for (int c = 0; c < DK; c += 4) {
     const float4 a = *reinterpret_cast<const float4*>(op + c);
@@ -305,20 +247,17 @@ __global__ void __launch_bounds__(DSUM_NT) dsum_kernel(
     acc = fmaf(a.z, g.z, acc);
     acc = fmaf(a.w, g.w, acc);
   }
-  }
   dsum[((long long)b * H + h) * T + row] = acc;
 }
 
-template <typename E>
 __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const E* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
-    E* __restrict__ dk, E* __restrict__ dv, long long in_sb,
+    float* __restrict__ dk, float* __restrict__ dv, long long in_sb,
     long long in_st, long long out_sb, long long out_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
     int H, int x_len, float scale) {
-  constexpr bool LOW = !std::is_same<E, float>::value;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -340,38 +279,18 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
   __shared__ __align__(16) float sd[2][BQ];
 
   const long long head = (long long)b * in_sb + h * DK;
-  const E* qb = q + head;
-  const E* gb = dout + (long long)b * T * H * DK + h * DK;
+  const float* qb = q + head;
+  const float* gb = dout + (long long)b * T * H * DK + h * DK;
   const long long lrow = ((long long)b * H + h) * T;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int q0 = q_begin + i * BQ;
-      if constexpr (LOW) {
-        for (int p = tid; p < BQ * DK / 8; p += NT) {
-          const int r = p >> 2, c = (p & 3) * 8;
-          const int row = q0 + r;
-          float qr[8] = {}, gr[8] = {};
-          if (row < T) {
-            widen8(qb + row * in_st + c, qr);
-            widen8(gb + row * (H * DK) + c, gr);
-          }
-          *reinterpret_cast<float4*>(&sq[slot][r][c]) =
-              make_float4(qr[0], qr[1], qr[2], qr[3]);
-          *reinterpret_cast<float4*>(&sq[slot][r][c + 4]) =
-              make_float4(qr[4], qr[5], qr[6], qr[7]);
-          *reinterpret_cast<float4*>(&sdo[slot][r][c]) =
-              make_float4(gr[0], gr[1], gr[2], gr[3]);
-          *reinterpret_cast<float4*>(&sdo[slot][r][c + 4]) =
-              make_float4(gr[4], gr[5], gr[6], gr[7]);
-        }
-      } else {
       for (int p = tid; p < BQ * DK / 4; p += NT) {
         const int r = p >> 3, c = (p & 7) * 4;
         const int row = q0 + r;
         const bool ok = row < T;
         cp_async16(&sq[slot][r][c], ok ? qb + row * in_st + c : qb, ok);
         cp_async16(&sdo[slot][r][c], ok ? gb + row * (H * DK) + c : gb, ok);
-      }
       }
       if (tid < BQ) {
         const int row = q0 + tid;
@@ -418,8 +337,8 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
       // S^T = K Q^T, dP^T = V dO^T: tile n element c0 = (key g, query
       // qc + 8n + 2t), c1 = (key g, query + 1), c2 / c3 key g + 8
       float st[2][4], dpt[2][4];
-      mma_dims<2, LOW>(st, kh, kl, &sq[slot][16 * j][0], g, t);
-      mma_dims<2, LOW>(dpt, vh, vl, &sdo[slot][16 * j][0], g, t);
+      mma_dims<2>(st, kh, kl, &sq[slot][16 * j][0], g, t);
+      mma_dims<2>(dpt, vh, vl, &sdo[slot][16 * j][0], g, t);
       float p[2][4], ds[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -445,8 +364,8 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
       // dV += P^T dO, dK += dS^T Q, one k-step of 8 queries per tile n
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        mma_rows<LOW>(acc_dv, p[n], &sdo[slot][16 * j + 8 * n][0], g, t);
-        mma_rows<LOW>(acc_dk, ds[n], &sq[slot][16 * j + 8 * n][0], g, t);
+        mma_rows(acc_dv, p[n], &sdo[slot][16 * j + 8 * n][0], g, t);
+        mma_rows(acc_dk, ds[n], &sq[slot][16 * j + 8 * n][0], g, t);
       }
     }
     __syncthreads();  // every warp is done with this slot
@@ -458,15 +377,13 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
   store_rows(dk + out, out_st, kw, k_write, acc_dk, scale, g, t);
 }
 
-template <typename E>
 __global__ void __launch_bounds__(NT, 3) dq_kernel(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const E* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
-    E* __restrict__ dq, long long in_sb, long long in_st,
+    float* __restrict__ dq, long long in_sb, long long in_st,
     long long out_sb, long long out_st, const int* __restrict__ x_lens,
     const int* __restrict__ y_lens, int T, int H, int x_len, float scale) {
-  constexpr bool LOW = !std::is_same<E, float>::value;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -486,38 +403,18 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
   __shared__ __align__(16) float sv[2][BKT][LDS];
 
   const long long head = (long long)b * in_sb + h * DK;
-  const E* kb = k + head;
-  const E* vb = v + head;
+  const float* kb = k + head;
+  const float* vb = v + head;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int k0 = i < n_text ? i * BKT : x_len + (i - n_text) * BKT;
       const int kend = i < n_text ? xv : a_end;
-      if constexpr (LOW) {
-        for (int p = tid; p < BKT * DK / 8; p += NT) {
-          const int r = p >> 2, c = (p & 3) * 8;
-          const int key = k0 + r;
-          float kr[8] = {}, vr[8] = {};
-          if (key < kend) {
-            widen8(kb + key * in_st + c, kr);
-            widen8(vb + key * in_st + c, vr);
-          }
-          *reinterpret_cast<float4*>(&sk[slot][r][c]) =
-              make_float4(kr[0], kr[1], kr[2], kr[3]);
-          *reinterpret_cast<float4*>(&sk[slot][r][c + 4]) =
-              make_float4(kr[4], kr[5], kr[6], kr[7]);
-          *reinterpret_cast<float4*>(&sv[slot][r][c]) =
-              make_float4(vr[0], vr[1], vr[2], vr[3]);
-          *reinterpret_cast<float4*>(&sv[slot][r][c + 4]) =
-              make_float4(vr[4], vr[5], vr[6], vr[7]);
-        }
-      } else {
       for (int p = tid; p < BKT * DK / 4; p += NT) {
         const int r = p >> 3, c = (p & 7) * 4;
         const int key = k0 + r;
         const bool ok = key < kend;
         cp_async16(&sk[slot][r][c], ok ? kb + key * in_st + c : kb, ok);
         cp_async16(&sv[slot][r][c], ok ? vb + key * in_st + c : vb, ok);
-      }
       }
     }
     cp_async_commit();
@@ -564,8 +461,8 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
       // S = Q K^T, dP = dO V^T: tile n holds keys k0 + 8n + g (B column
       // g); element e is row rows[e >> 1], key k0 + 8n + 2t + (e & 1)
       float s[4][4], dp[4][4];
-      mma_dims<4, LOW>(s, qh, ql, &sk[slot][0][0], g, t);
-      mma_dims<4, LOW>(dp, gh, gl, &sv[slot][0][0], g, t);
+      mma_dims<4>(s, qh, ql, &sk[slot][0][0], g, t);
+      mma_dims<4>(dp, gh, gl, &sv[slot][0][0], g, t);
       // dS = P (dP - D) in place of S
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -585,7 +482,7 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
       // 8j + 2t + 1 from the same staged tile
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        mma_rows<LOW>(acc, s[j], &sk[slot][8 * j][0], g, t);
+        mma_rows(acc, s[j], &sk[slot][8 * j][0], g, t);
     }
     __syncthreads();  // every warp is done with this slot
     issue(i + 2, slot);
@@ -596,25 +493,25 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
 }
 
 // The three launches of one call, on `s`; the first CUDA error.
-template <typename E>
-int launch_bwd(const E* q, const E* k, const E* v, const E* o, const E* dout,
-               const float* lse, float* dsum, E* dq, E* dk, E* dv,
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* o, const float* dout, const float* lse,
+               float* dsum, float* dq, float* dk, float* dv,
                long long in_sb, long long in_st, long long out_sb,
                long long out_st, const int* x_lens, const int* y_lens, int B,
                int T, int H, int x_len, float scale, cudaStream_t s) {
   if (B < 1 || T < 1 || H < 1 || x_len < 0 || x_len > T)
     return (int)cudaErrorInvalidValue;
-  dsum_kernel<E><<<dim3((T * H + DSUM_NT - 1) / DSUM_NT, B), DSUM_NT, 0, s>>>(
+  dsum_kernel<<<dim3((T * H + DSUM_NT - 1) / DSUM_NT, B), DSUM_NT, 0, s>>>(
       o, dout, dsum, T, H);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int key_tiles = (x_len + BK - 1) / BK + (T - x_len + BK - 1) / BK;
-  dkdv_kernel<E><<<dim3(key_tiles, H, B), NT, 0, s>>>(
+  dkdv_kernel<<<dim3(key_tiles, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dk, dv, in_sb, in_st, out_sb, out_st, x_lens,
       y_lens, T, H, x_len, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<E><<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
+  dq_kernel<<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dq, in_sb, in_st, out_sb, out_st, x_lens,
       y_lens, T, H, x_len, scale);
   return (int)cudaGetLastError();
@@ -631,26 +528,10 @@ extern "C" int ev_prefill_attention_bwd_f32(
     void* dv, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens, const void* y_lens, int B, int T,
     int H, int x_len, float scale, void* stream) {
-  return launch_bwd<float>(
+  return launch_bwd(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o,
       (const float*)dout, (const float*)lse, (float*)dsum, (float*)dq,
       (float*)dk, (float*)dv, in_sb, in_st, out_sb, out_st,
-      (const int*)x_lens, (const int*)y_lens, B, T, H, x_len, scale,
-      (cudaStream_t)stream);
-}
-
-// The bf16 instance: q, k, v, o, dout, dq, dk, dv bf16 (strides multiples
-// of 8 elements, pointers 16-byte aligned), lse and dsum fp32.
-extern "C" int ev_prefill_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-    void* dv, long long in_sb, long long in_st, long long out_sb,
-    long long out_st, const void* x_lens, const void* y_lens, int B, int T,
-    int H, int x_len, float scale, void* stream) {
-  return launch_bwd<bf16>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, (const float*)lse, (float*)dsum, (bf16*)dq,
-      (bf16*)dk, (bf16*)dv, in_sb, in_st, out_sb, out_st,
       (const int*)x_lens, (const int*)y_lens, B, T, H, x_len, scale,
       (cudaStream_t)stream);
 }

@@ -860,15 +860,24 @@ def test_prefill_attention_bf16_matches_twin(x_len, x_lens, y_len, y_lens):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
-def test_prefill_attention_bwd_bf16_matches_twin(x_len, x_lens, y_len,
-                                                 y_lens):
-    """K5's bf16 instance on K1's bf16 o and lse, at the same cases: dq,
-    dk, dv against the bf16 twin, finite, zero where nothing is visible,
-    three bf16 launches counted, repeated launches bit-identical."""
-    gen = _card()
-    b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
+# K5's bf16 kernels at the edges of their own tiles: 16-row MMA fragments,
+# 64-key dkdv blocks, 64-row query tiles and 32-key dq tiles (x_len and T
+# one off each), T < 16 with a batch row that is all pads, text rows that
+# see no key (lse = -inf), an audio bucket with y_lens 0
+K5_BF16_EDGES = [
+    (63, [63, 31, 33], 66, [66, 1, 65]),     # T = 129
+    (64, [64, 48, 16], 65, [65, 64, 0]),     # T = 129, y_lens 0
+    (65, [65, 33, 32], 127, [127, 16, 17]),  # T = 192
+    (1, [1, 0], 14, [14, 0]),                # T = 15, row 1 all pads
+    (31, [0, 31], 33, [33, 32]),             # row 0's text sees nothing
+    (33, [32, 1], 95, [64, 95]),
+]
+
+
+def _k5_bf16(gen, x_len, x_lens, y_len, y_lens, h=16, dk=32):
+    """K1's bf16 inputs, its bf16 o and fp32 lse, and a bf16 gradient of o
+    on every row."""
+    b, t = len(x_lens), x_len + y_len
     xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
     yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
     q, k, v = _bf16_heads(torch.randn((b, t, 3 * h * dk), generator=gen,
@@ -876,6 +885,22 @@ def test_prefill_attention_bwd_bf16_matches_twin(x_len, x_lens, y_len,
     o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
     do = torch.randn((b, t, h, dk), generator=gen,
                      device="cuda").to(torch.bfloat16)
+    return q, k, v, o, lse, do, xl, yl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
+                         K5_CASES + K5_BF16_EDGES)
+def test_prefill_attention_bwd_bf16_matches_twin(x_len, x_lens, y_len,
+                                                 y_lens):
+    """K5's bf16 instance on K1's bf16 o and lse, at the same cases and at
+    the edges of its own tiles: dq, dk, dv against the bf16 twin, finite,
+    zero for every query row whose lse is -inf (it sees no key) and for
+    every key no row sees, three bf16 launches counted and no fp32 one,
+    repeated launches bit-identical."""
+    gen = _card()
+    q, k, v, o, lse, do, xl, yl = _k5_bf16(gen, x_len, x_lens, y_len,
+                                           y_lens)
     before = (prefill_attention_bwd.launches,
               prefill_attention_bwd.launches_bf16)
     got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
@@ -887,11 +912,51 @@ def test_prefill_attention_bwd_bf16_matches_twin(x_len, x_lens, y_len,
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(g.float()).all(), name
         _close_bf16(g, w)
-    again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    for _ in range(2):
+        again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+    blind = torch.isinf(lse).permute(0, 2, 1)   # (B, T, H): sees no key
+    assert not got[0][blind].any()
     for row, (xl_b, yl_b) in enumerate(zip(x_lens, y_lens)):
+        unseen = list(range(xl_b, x_len)) + list(range(x_len + yl_b,
+                                                       x_len + y_len))
+        assert not got[1][row, unseen].any() and \
+            not got[2][row, unseen].any()
         if xl_b == 0 and yl_b == 0:
             assert not any(g[row].any() for g in got)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_bwd_bf16_strided_views():
+    """K5's bf16 instance on a fused qkv that is itself a strided view (a
+    column slice of a wider tensor, with batch rows apart by more than T
+    time steps) writing into (dq, dk, dv) views of a wider gradient: the
+    same bits as on contiguous copies, and nothing written outside the
+    views."""
+    gen = _card()
+    b, h, dk, x_len, y_len = 3, 16, 32, 29, 70
+    t, d3 = x_len + y_len, 3 * 16 * 32
+    xl = torch.tensor([29, 12, 3], dtype=torch.int32, device="cuda")
+    yl = torch.tensor([70, 41, 9], dtype=torch.int32, device="cuda")
+    wide = torch.randn((b, t + 5, d3 + 64), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    qkv = wide[:, 2:t + 2, 32:32 + d3]
+    q, k, v = att._split_heads(qkv, h)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+    do = torch.randn((b, t, h, dk), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    out = torch.full((b, t + 3, d3 + 32), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    views = att._split_heads(out[:, 1:t + 1, 16:16 + d3], h)
+    got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                out=views)
+    flat = att._split_heads(qkv.contiguous(), h)
+    want = prefill_attention_bwd(*flat, o, lse, do, x_len, xl, yl)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    inside = torch.zeros(out.shape, dtype=torch.bool, device="cuda")
+    inside[:, 1:t + 1, 16:16 + d3] = True
+    assert torch.isnan(out.float()[~inside]).all()
+    assert not torch.isnan(out.float()[inside]).any()
 
 
 @pytest.mark.cuda
