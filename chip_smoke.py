@@ -10,9 +10,10 @@ beside this one as ``ev_parent`` and its K1-K5 and GPT decode are timed in
 turns with this tree's on the same inputs (lines "[a/b]"; K1's serving
 output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
 per Generator stage, K5 over the two s1 shapes, its fp32 gradients bit for
-bit and its bf16 instance held to the twin beside the parent's); then
-``bench/sass_diff.py`` must find every kernel body of the parent's library
-in this tree's, the parent's bf16 K5 bodies excepted (K5_BF16_REPLACED).
+bit and its bf16 instance held to the twin beside the parent's; the bf16
+K4-dW per stage held to the parent's); then ``bench/sass_diff.py`` must
+find every kernel body of the parent's library in this tree's, the
+parent's bf16 K4-dW bodies excepted (K4DW_BF16_REPLACED).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -54,7 +55,9 @@ Phases, one summary line each; any failure exits non-zero:
    instance's, the bf16 library call's and the twin's, and its bound in
    bf16 (989 TFLOP/s dense); K5 bf16 also as a CUDA graph in turns with
    SDPA's bf16 backward captured the same way, and the HMMA opcodes of its
-   kernels' SASS (bf16 m16n8k16 alone);
+   kernels' SASS (bf16 m16n8k16 alone); K4-dW bf16 with its plan per stage
+   and the tensor-core opcodes of its wgmma route's SASS (bf16 HGMMA
+   alone);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -1422,9 +1425,12 @@ def check_bf16(torch, results, parent=None):
     must hold bf16 m16n8k16 HMMAs and no other.  ``parent``: the parent
     commit's ``ops.attention``, whose bf16 K5 is then held to the twin
     beside this tree's, compared with it, and timed in turns with it (by
-    kernel count and as a graph).  No instance is held to be faster than
-    its library call: K1 and K4-dW are first, simple instances, and K3 /
-    K4-dx's bf16 loop is timed against the parent's in ab_mrf."""
+    kernel count and as a graph).  The K3, K4-dx and K4-dW instances are
+    timed with their kernel count (one a shape); K4-dW's plan is logged per
+    stage, and its bf16 wgmma route's SASS must hold bf16 HGMMAs and no
+    other tensor-core instruction.  No instance is held to be faster than
+    its library call: K1 is a first, simple instance, and the bf16 K3,
+    K4-dx and K4-dW are timed against the parent's in ab_mrf."""
     from easevoice_trainer_tpu_torch.ops import build
     import torch.nn.functional as F
 
@@ -1453,6 +1459,20 @@ def check_bf16(torch, results, parent=None):
     assert len(hmma) == 2 and all(
         c and set(c) == {"HMMA.16816.F32.BF16"} for c in hmma.values()), \
         f"K5's bf16 kernels are not on bf16 m16n8k16 alone: {hmma}"
+    # K4-dW's bf16 wgmma route: bf16 HGMMAs, no TF32 HGMMA, no HMMA
+    hgmma = {}
+    for name, bodies in sass_functions(
+            build.build().path, ("wgrad_wgmma_bf16_kernel",)).items():
+        counts = hgmma.setdefault(short_name(name), {})
+        for ln in (ln for body in bodies for ln in body):
+            if opcode(ln).startswith(("HGMMA", "HMMA")):
+                counts[opcode(ln)] = counts.get(opcode(ln), 0) + 1
+    log(f"[kernels] K4-dW bf16 wgmma route, tensor-core instructions in the "
+        f"SASS: {hgmma}")
+    assert len(hgmma) == 2 and all(
+        c and all(op.startswith("HGMMA") and ".BF16" in op for op in c)
+        for c in hgmma.values()), \
+        f"K4-dW's bf16 wgmma route is not on bf16 HGMMA alone: {hgmma}"
     # K5 bf16 over the s1 shapes as CUDA graphs in turns: this tree, the
     # parent's, SDPA's bf16 backward
     graph_sums = {"k5": 0.0, "parent": 0.0, "sdpa": 0.0}
@@ -1668,13 +1688,22 @@ def check_bf16(torch, results, parent=None):
         }
         stage = {}
         for key, fns in runs.items():
-            # K3 and K4-dx, bf16 and fp32: one kernel a shape
+            # the bf16 and fp32 instances of K3, K4-dx, K4-dW: one kernel a
+            # shape
             stage[key] = [device_ms(torch, fn, reps=reps, launches=(
-                              len(shapes) if key != "dw" and j < 2
-                              else None))
+                              len(shapes) if j < 2 else None))
                           for j, (fn, reps) in enumerate(
                               zip(fns, (10, 10, 10, 3)))]
             sums[key] = [a + c for a, c in zip(sums[key], stage[key])]
+        plans = [mrf.wgrad_card_plan(b, ch, ch, t_len, s[-1], s[4], dev, bf)
+                 for s in shapes]
+        log(f"[kernels] bf16 K4-dW stage {i} plans (k, d: tile bn x bi x "
+            f"taps, stage samples, clusters of cluster = blocks, scratch "
+            f"MB): " + "; ".join(
+                f"{s[-1]}, {s[4]}: {p.bn} x {p.bi} x {p.taps}, {p.ts}, "
+                f"{p.clusters} of {p.cluster} = {p.blocks}, "
+                f"{p.scratch_floats * 4 / 1e6:.2f}"
+                for s, p in zip(shapes, plans)))
         log(f"[kernels] bf16 stage {i} (C={ch}, T={t_len}), 9 shapes, device "
             f"ms (bf16 instance / fp32 instance / cuDNN bf16 / bf16 twin; "
             f"cuDNN bf16 over the instance): "
@@ -1794,10 +1823,11 @@ def ab_mrf(torch, parent):
     (conv_bf16_kernel here): their SASS must hold bf16 m16n8k16 HMMAs and
     no TF32 HMMA; at the 45 s2 shapes in bf16 their outputs are held to the
     parent's within BF16_TOL / BF16_SHARE (the summation order changed) and
-    their device time is taken in turns with the parent's.  K4-dW: the
-    largest difference between the two trees' dW / db relative to the
-    parent's largest magnitude, and the device time of each Generator
-    stage's 9 shapes, timed in turns."""
+    their device time is taken in turns with the parent's.  K4-dW in fp32:
+    dW / db bit for bit, and the device time of each Generator stage's 9
+    shapes, timed in turns; in bf16 at the 45 s2 shapes: held to the
+    parent's within BF16_TOL / BF16_SHARE, and each stage timed in turns
+    with the parent's by kernel count."""
     from easevoice_trainer_tpu_torch.ops import build, mrf
 
     new, old = (sass_functions(lib.path, ("conv_mma_kernel",))
@@ -1888,8 +1918,8 @@ def ab_mrf(torch, parent):
         return lambda: [g for dy, x, w, d in shapes
                         for g in m.mrf_conv_bwd_weight(dy, x, w.shape, d)]
 
-    rel = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-              for a, b in zip(dw_run(mrf, k4)(), dw_run(parent.ops.mrf, k4)()))
+    equal = all(torch.equal(a, b) for a, b in zip(
+        dw_run(mrf, k4)(), dw_run(parent.ops.mrf, k4)()))
     totals = [0.0, 0.0]
     for i, (ch, t_len) in enumerate(S2_STAGES):
         shapes = k4[9 * i:9 * i + 9]
@@ -1900,21 +1930,46 @@ def ab_mrf(torch, parent):
             f"shapes, same inputs, in turns: parent {parent_ms:.3f} -> this "
             f"tree {ms:.3f} ms ({parent_ms / ms:.2f}x)")
     log(f"[a/b] K4 mrf_conv_bwd_weight, 45 shapes: parent {totals[1]:.3f} -> "
-        f"this tree {totals[0]:.3f} ms ({totals[1] / totals[0]:.2f}x); "
-        f"largest |this - parent| / max(1, max|parent|) {rel:.3g}")
+        f"this tree {totals[0]:.3f} ms ({totals[1] / totals[0]:.2f}x); dW / "
+        f"db bit-identical: {equal}")
+    assert equal, "K4 mrf_conv_bwd_weight: the fp32 dW / db changed"
+    # the bf16 instance, by kernel count (one a shape), in turns with the
+    # parent's on the same inputs, and held to it: the summation order may
+    # change, so within the bf16 tolerance
+    worst, totals = _Worst(), [0.0, 0.0]
+    for i, (ch, t_len) in enumerate(S2_STAGES):
+        shapes = k4_bf[9 * i:9 * i + 9]
+        stage = _Worst()
+        for a, b in zip(dw_run(mrf, shapes)(),
+                        dw_run(parent.ops.mrf, shapes)()):
+            stage.add(bf16_err(torch, a, b))
+        worst.add((stage.abs, stage.rel, stage.share))
+        ms, parent_ms = in_turns(torch, dw_run(mrf, shapes),
+                                 dw_run(parent.ops.mrf, shapes),
+                                 launches=len(shapes))
+        totals = [totals[0] + ms, totals[1] + parent_ms]
+        log(f"[a/b] K4 mrf_conv_bwd_weight bf16 stage {i} (C={ch}, "
+            f"T={t_len}), 9 shapes, same inputs, in turns: parent "
+            f"{parent_ms:.3f} -> this tree {ms:.3f} ms "
+            f"({parent_ms / ms:.2f}x); against the parent's {stage}")
+    log(f"[a/b] K4 mrf_conv_bwd_weight bf16, 45 shapes: parent "
+        f"{totals[1]:.3f} -> this tree {totals[0]:.3f} ms "
+        f"({totals[1] / totals[0]:.2f}x); against the parent's {worst}")
+    assert worst.ok(), f"K4-dW bf16 disagrees with the parent's: {worst}"
 
 
-# the parent's bf16 K5 bodies, which this tree's own bf16 kernels replace
-K5_BF16_REPLACED = r"(dsum|dkdv|dq)_kernelI13__nv_bfloat16"
+# the parent's bf16 K4-dW bodies (the mma.sync route's bf16 instances),
+# which this tree's bf16 wgmma route replaces at 64 channels and more
+K4DW_BF16_REPLACED = r"wgrad_mma_kernelILi\d+ELi\d+E13__nv_bfloat16"
 
 
 def ab_sass(parent_root: str) -> None:
     """``bench/sass_diff.py`` against the parent's library: every kernel
-    body of the parent but its bf16 K5 ones (K5_BF16_REPLACED) must be in
-    this tree's library instruction for instruction."""
+    body of the parent but its bf16 K4-dW ones (K4DW_BF16_REPLACED) must be
+    in this tree's library instruction for instruction."""
     from easevoice_trainer_tpu_torch.bench import sass_diff
 
-    rc = sass_diff.main([parent_root, "--replaced", K5_BF16_REPLACED])
+    rc = sass_diff.main([parent_root, "--replaced", K4DW_BF16_REPLACED])
     assert rc == 0, "a kernel body of the parent changed (bench/sass_diff.py)"
 
 
@@ -4203,7 +4258,12 @@ def train(torch, tmp: str, results):
         f"step {bf['secs'][0]:.3f} vs {fp['secs'][0]:.3f} s, peak "
         f"{bf['peak'] / 2 ** 30:.2f} vs {fp['peak'] / 2 ** 30:.2f} GiB; "
         f"loss/g/total at step 12 {bf['history'][-1]['loss/g/total']:.3f} "
-        f"vs {fp['history'][-1]['loss/g/total']:.3f}")
+        f"vs {fp['history'][-1]['loss/g/total']:.3f}; largest |bf16 - fp32| "
+        f"/ |fp32| of loss/g/total and loss/d/total over the "
+        f"{len(fp['history'])} steps "
+        + "{:.3%}".format(max(abs(a[key] - c[key]) / abs(c[key])
+                              for a, c in zip(bf['history'], fp['history'])
+                              for key in ("loss/g/total", "loss/d/total"))))
 
     trainer, resp = bf["trainer"], bf["resp"]
     step_fn = trainer.step_fn
@@ -4260,7 +4320,9 @@ def profile_train_step(torch, trainer, norm: str) -> None:
     under torch.profiler: the step's device time and the MRF kernels' part
     of it (K3 and K4-dx share conv_mma_kernel, and in bf16
     conv_bf16_kernel, told apart by the BWD template argument; K4-dW is
-    wgrad_wgmma_kernel / wgrad_mma_kernel)."""
+    wgrad_wgmma_kernel / wgrad_mma_kernel, in bf16 wgrad_wgmma_bf16_kernel
+    / wgrad_mma_kernel), with the K4-dW group's ms a step on a line of its
+    own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4296,7 +4358,7 @@ def profile_train_step(torch, trainer, norm: str) -> None:
         us = e.time_range.elapsed_us()
         if "conv_mma_kernel" in e.name or "conv_bf16_kernel" in e.name:
             groups["K4-dx" if "true" in e.name else "K3"] += us
-        elif "wgrad_wgmma_kernel" in e.name or "wgrad_mma_kernel" in e.name:
+        elif re.search(r"wgrad_(wgmma|wgmma_bf16|mma)_kernel", e.name):
             groups["K4-dW"] += us  # not cuDNN's own *wgrad_* kernels
         else:
             groups["other"] += us
@@ -4311,6 +4373,8 @@ def profile_train_step(torch, trainer, norm: str) -> None:
     log(f"[training] one more step under torch.profiler: device time "
         f"{total / 1000:.2f} ms in {launches} kernels and copies; "
         + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items()))
+    log(f"[training] the profiled step's K4-dW group: "
+        f"{groups['K4-dW'] / 1000:.3f} ms a step")
     top = sorted(others.items(), key=lambda kv: -kv[1][1])[:6]
     log("[training] the step's largest other kernels (launches, ms): "
         + "; ".join(f"{n} ({c}, {us / 1000:.2f})" for n, (c, us) in top))

@@ -66,13 +66,35 @@
 // is_half: dy and x bf16, dW and db written as bf16, as jax.vjp of the bf16
 // Generator rounds the conv's weight gradient (generator.py:31-44; the
 // transpose of the fp32 -> bf16 weight cast then hands the fp32 parameters
-// those bf16 values).  It is route 2 at every shape (ops/mrf.py wgrad_plan
-// picks it for bf16; route 1 stays fp32): dy and x widened from bf16 into
-// the fp32 stages by plain loads and stores, the leaky relu rounded to bf16
-// as JAX rounds it (x * bf16(0.1)), so both operands are exact in TF32 and
-// each product is one TF32 mma; the partial sums stay fp32 and are rounded
-// once, as they are written.
+// those bf16 values).  The leaky relu is rounded to bf16 as JAX rounds it
+// (x * bf16(0.1)), so both operands are exact bf16 and every product is
+// exact in fp32; the partial sums stay fp32 and are rounded once, as they
+// are written.
+//
+// Route 3, bf16 wgmma (Cin >= 64 and Cout >= 64; wgrad_wgmma_bf16_kernel):
+// the block of route 1 (three warpgroups, a tap each, 64 input channels x
+// BN output channels, the same Share of the time tiles and the same fixed
+// order of partial sums), with both operands read by descriptor from bf16
+// tiles in shared memory, one wgmma.m64nBNk16.f32.bf16.bf16 per 16 samples
+// and tap (wgmma_bf16.cuh), no hi/lo split.  dy is operand B, K-major: 8
+// samples of one channel make a 16-byte core-matrix row.  lrelu(x) is
+// operand A, M-major: one 16-byte row is 8 input channels at one sample, so
+// the tap shift of q*d samples is q*d whole rows and each tap's operand is
+// the same tile with the descriptor's start moved by q*d*16 bytes.  One
+// thread copies a 128-sample stage of dy and the raw x window by two TMA
+// boxes whose tensor maps (tile_map) land them as [8-sample chunk][channel]
+// [8 samples], dy directly in the K-major core-matrix layout, counted on an
+// mbarrier, zeros past the edges of T and of the channels; the warps then
+// transpose the raw x window (ldmatrix.trans into stmatrix), applying the
+// bf16 leaky relu on the way, once per element.  Stage i + 2 is copied and
+// stage i + 1 transposed while the wgmmas of stage i run (three dy stages,
+// two of x).  Rows that are not 16-byte aligned (T % 8 != 0) are copied by
+// plain loads instead.  Below 64 channels the bf16 instance takes route 2,
+// dy and x widened from bf16 into its fp32 stages by plain loads, one TF32
+// mma a product.
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +102,7 @@
 
 #include "bf16_io.cuh"
 #include "warp_mma.cuh"
+#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -170,8 +193,9 @@ struct WgTile {
   int o0, i0, q0, taps;
   bool db;
   __device__ int floats() const { return BODY + BN; }
-  __device__ void put(int e, float v, float* dw, float* db_out, int Cin,
-                      int Cout, int K) const {
+  template <typename O>
+  __device__ void put(int e, float v, O* dw, O* db_out, int Cin, int Cout,
+                      int K) const {
     if (e < BODY) {
       const int t = e % THREADS, r = e / THREADS;
       const int ql = t / 128, lane = t % 32;
@@ -179,10 +203,10 @@ struct WgTile {
       const int ol = (r >> 2) * 8 + 2 * (lane % 4) + (r & 1);
       const int o = o0 + ol, i = i0 + il, q = q0 + ql;
       if (ql < taps && o < Cout && i < Cin && q < K)
-        dw[((long long)o * Cin + i) * K + q] = v;
+        ev::put(dw + ((long long)o * Cin + i) * K + q, v);
     } else if (db) {
       const int o = o0 + e - BODY;
-      if (o < Cout) db_out[o] = v;
+      if (o < Cout) ev::put(db_out + o, v);
     }
   }
 };
@@ -235,6 +259,91 @@ __device__ void reduce_partials(const float* part, const Tile& out,
     const float* base = scratch + (long long)blockIdx.y * L;
     for (int e = s * L / S + tid; e < (s + 1) * L / S; e += nth)
       out.put(e, ordered_sum(base + e, stride, nc), dw, db, Cin, Cout, K);
+  }
+}
+
+// reduce_partials four floats at a time, for the bf16 wgmma route (the
+// fp32 routes keep reduce_partials, so their code stays as it was): the
+// same sums in the same order, with 16-byte loads and stores.  The tile's
+// floats() and the scratch slots are multiples of 4.
+template <class Tile, typename O>
+__device__ void reduce_partials4(const float* part, const Tile& out, O* dw,
+                                 O* db, float* scratch, int Cin, int Cout,
+                                 int K, int cs, int nc) {
+  const int L = out.floats(), L4 = L / 4;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int s = blockIdx.x, S = gridDim.x;
+  const long long slot = ((long long)(s / cs) * gridDim.y + blockIdx.y) * L;
+  auto keep = [&](int e4, const float4& v) {
+    if (nc == 1) {
+      out.put(4 * e4, v.x, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 1, v.y, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 2, v.z, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 3, v.w, dw, db, Cin, Cout, K);
+    } else {
+      reinterpret_cast<float4*>(scratch + slot)[e4] = v;
+    }
+  };
+  if (cs > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = (int)cluster.block_rank();
+    const float4* remote[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      remote[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(
+          const_cast<float*>(part), r < cs ? r : 0));
+    for (int e4 = rank * L4 / cs + tid; e4 < (rank + 1) * L4 / cs;
+         e4 += nth) {
+      float4 t[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        t[r] = r < cs ? remote[r][e4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (r < cs) {
+          v.x += t[r].x;
+          v.y += t[r].y;
+          v.z += t[r].z;
+          v.w += t[r].w;
+        }
+      keep(e4, v);
+    }
+    cluster.sync();  // the others' shared memory lives until it is read
+  } else {
+    __syncthreads();
+    for (int e4 = tid; e4 < L4; e4 += nth)
+      keep(e4, reinterpret_cast<const float4*>(part)[e4]);
+  }
+  if (nc > 1) {
+    __threadfence();
+    cg::this_grid().sync();
+    const long long stride = (long long)gridDim.y * L / 4;
+    const float4* base =
+        reinterpret_cast<const float4*>(scratch + (long long)blockIdx.y * L);
+    for (int e4 = s * L4 / S + tid; e4 < (s + 1) * L4 / S; e4 += nth) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c0 = 0; c0 < nc; c0 += 8) {
+        float4 t[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          t[u] = c0 + u < nc ? base[e4 + (c0 + u) * stride]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (c0 + u < nc) {
+            v.x += t[u].x;
+            v.y += t[u].y;
+            v.z += t[u].z;
+            v.w += t[u].w;
+          }
+      }
+      out.put(4 * e4, v.x, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 1, v.y, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 2, v.z, dw, db, Cin, Cout, K);
+      out.put(4 * e4 + 3, v.w, dw, db, Cin, Cout, K);
+    }
   }
 }
 
@@ -442,6 +551,226 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad_wgmma_kernel(
     part[body + tid] = v;
   }
   reduce_partials(part, out, dw, db, scratch, Cin, Cout, K, cs, nc);
+}
+
+// ----------------------------------------------------------- bf16 wgmma --
+
+constexpr int TSB = 128;     // samples a stage on the bf16 wgmma route
+constexpr int DY_SLOTS = 3;  // dy stages: in the wgmmas, landed, in flight
+constexpr int X_SLOTS = 2;   // lrelu(x) stages, and raw x tiles
+
+// The bf16 route's x window of a stage: samples [u0, u0 + rx) with u0 the
+// 8-sample aligned one at or before t0 - pad; rx a multiple of 32 (a warp
+// transposes 8 channels x 32 samples at a time).
+struct WindowBf16 {
+  int pad, rx;
+  __host__ __device__ WindowBf16(int k, int dil) {
+    const int halo = (k - 1) * dil;
+    pad = halo / 2;
+    rx = (TSB + halo + 7 + 31) & ~31;
+  }
+};
+
+// lrelu of two bf16 as JAX's bf16 leaky relu: max(v, bf16(v * slope)), the
+// same as v >= 0 ? v : bf16(v * slope) for slope < 1
+__device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t v, uint32_t s2) {
+  uint32_t m, r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(m) : "r"(v), "r"(s2));
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(m));
+  return r;
+}
+
+// the 8 samples t .. t + 7 of a bf16 row into 16 bytes of shared memory by
+// plain loads, zero outside [0, T) or where !ok (the path for rows that are
+// not 16-byte aligned, which a tensor map cannot describe)
+__device__ __forceinline__ void copy8_narrow(bf16* dst, const bf16* row,
+                                             int t, bool ok, int T) {
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int a = t + 2 * e, b = a + 1;
+    const uint32_t lo = ok && a >= 0 && a < T ? r[a] : 0u;
+    const uint32_t hi = ok && b >= 0 && b < T ? r[b] : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// grid: (S, m tiles x n tiles x tap groups), as wgrad_wgmma_kernel.  Shared
+// memory: DY_SLOTS dy stages and X_SLOTS raw x tiles, both laid out
+// [8-sample chunk][channel][8 samples] (for dy, the K-major core-matrix
+// columns of BN rows), and X_SLOTS lrelu(x) stages (8 planes of rx rows x
+// 16 bytes, 8 channels a row).  With `tma`, one thread copies a tile's dy
+// and raw x with two TMA boxes (map_dy, map_x: tile_map) counted against
+// the tile's mbarrier; else every thread copies pieces by plain loads.
+// Tile i + 2 is copied while the wgmmas of tile i run and tile i + 1 is
+// transposed.
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1) wgrad_wgmma_bf16_kernel(
+    const bf16* __restrict__ dy, const bf16* __restrict__ x,
+    bf16* __restrict__ dw, bf16* __restrict__ db,
+    float* __restrict__ scratch, int B, int Cin, int Cout, int T, int K,
+    int dil, float slope, int taps, int cs, int nc, int tma,
+    const __grid_constant__ CUtensorMap map_dy,
+    const __grid_constant__ CUtensorMap map_x) {
+  if (B == 0) return;  // a probe launch (ev_mrf_conv_bwd_weight_max_clusters)
+  constexpr int NTHR = WG_THREADS;
+  constexpr int NWARP = NTHR / 32;
+  constexpr int DYS = BN * TSB;  // bf16 of a dy stage
+  const WindowBf16 win(K, dil);
+  const int rx = win.rx, xsize = BM * rx;  // bf16 of an x stage or tile
+  const int x_units = 8 * (rx / 32);  // 8-channel x 32-sample pieces
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t bars[DY_SLOTS];
+  bf16* const dys = reinterpret_cast<bf16*>(smem);
+  bf16* const xss = dys + DY_SLOTS * DYS;
+  bf16* const raws = xss + X_SLOTS * xsize;
+
+  const int groups = (K + taps - 1) / taps;
+  const int ntiles = (Cout + BN - 1) / BN;
+  const int g = blockIdx.y % groups;
+  const int n0 = (blockIdx.y / groups % ntiles) * BN;
+  const int m0 = blockIdx.y / groups / ntiles * BM;
+  const WgTile<BN> out{n0, m0, g * taps, taps, m0 == 0 && g == 0};
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the warpgroup index, read from lane 0 so that the compiler sees it is
+  // the same across the warp: the branches on it around wgmma are uniform
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const Share share(B, T, TSB);
+  const uint32_t slope2 = narrow2(slope, slope);
+
+  auto tile_t0 = [&](int i, int& b) {
+    const int tt = share.first + i;
+    b = tt / share.per_row;
+    return (tt - b * share.per_row) * TSB;
+  };
+
+  if (tma && tid == 0) {
+    for (int s = 0; s < DY_SLOTS; ++s) mbar_init(&bars[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // dy of tile i into its dy slot, its raw x window into its raw slot
+  auto issue = [&](int i) {
+    if (i >= share.n) return;
+    int b;
+    const int t0 = tile_t0(i, b);
+    const int u0 = (t0 - win.pad) & ~7;
+    bf16* ys = dys + i % DY_SLOTS * DYS;
+    bf16* raw = raws + i % X_SLOTS * xsize;
+    if (tma) {
+      if (tid == 0) {
+        uint64_t* bar = &bars[i % DY_SLOTS];
+        mbar_expect(bar, 2 * (DYS + xsize));
+        tma_load_4d(ys, &map_dy, bar, 0, n0, t0 / 8, b);
+        tma_load_4d(raw, &map_x, bar, 0, m0, u0 / 8, b);
+      }
+      return;
+    }
+    const bf16* dyb = dy + (long long)b * Cout * T;
+    for (int p = tid; p < BN * (TSB / 8); p += NTHR) {
+      const int o = p % BN, c = p / BN;
+      copy8_narrow(ys + (c * BN + o) * 8, dyb + (long long)(n0 + o) * T,
+                   t0 + 8 * c, n0 + o < Cout, T);
+    }
+    const bf16* xb = x + (long long)b * Cin * T;
+    for (int p = tid; p < BM * (rx / 8); p += NTHR) {
+      const int r = p % BM, c = p / BM;
+      copy8_narrow(raw + (c * BM + r) * 8, xb + (long long)(m0 + r) * T,
+                   u0 + 8 * c, m0 + r < Cin, T);
+    }
+  };
+
+  // raw x of tile i -> lrelu(x), M-major: matrix j of a warp's piece is 8
+  // channels x the samples of chunk 4 (piece / 8) + j, transposed by
+  // ldmatrix.trans into stmatrix, the bf16 leaky relu applied on the way
+  auto convert = [&](int i) {
+    const bf16* raw = raws + i % X_SLOTS * xsize;
+    bf16* xs = xss + i % X_SLOTS * xsize;
+    for (int un = warp; un < x_units; un += NWARP) {
+      const int cg = un & 7, c = (un >> 3) * 4 + (lane >> 3);
+      uint32_t v[4];
+      ldsm4_trans(v, smem_addr(raw + (c * BM + cg * 8 + (lane & 7)) * 8));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = lrelu_bf16x2(v[j], slope2);
+      stsm4(smem_addr(xs + (cg * rx + 8 * c + (lane & 7)) * 8), v);
+    }
+  };
+  auto landed = [&](int i) {  // tile i's copies: a TMA's, or every thread's
+    if (tma)
+      mbar_wait(&bars[i % DY_SLOTS], (i / DY_SLOTS) & 1);
+    else if (i == 0)  // later tiles' plain loads precede a loop barrier
+      __syncthreads();
+  };
+
+  // warpgroup wgi holds tap q0 + wgi of the block; thread tid < BN sums db
+  // of output channel n0 + tid over the staged dy, when this block writes db
+  float acc[BN / 2];
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+  float db_acc = 0.f;
+  const bool live = wgi < taps && out.q0 + wgi < K;
+  const int qrow = (out.q0 + wgi) * dil;  // the tap's shift, in x rows
+
+  issue(0);
+  issue(1);
+  if (share.n > 0) {
+    landed(0);
+    convert(0);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  for (int i = 0; i < share.n; ++i) {
+    const bf16* ys = dys + i % DY_SLOTS * DYS;
+    const bf16* xs = xss + i % X_SLOTS * xsize;
+    int b;
+    const int start = tile_t0(i, b) - win.pad;
+    const int shift = start - (start & ~7);
+    if (live) {
+      // A: rows shift + q*d + 16 ks .. of every plane (LBO: the next 8
+      // rows; SBO: the next plane); B: the 2 ks-th and (2 ks + 1)-th
+      // core-matrix columns (LBO: one column; SBO: the next 8 channels)
+      const uint64_t da = interleave_desc(xs + (shift + qrow) * 8, 128,
+                                          rx * 16);
+      const uint64_t dd = interleave_desc(ys, BN * 16, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < TSB / 16; ++ks)
+        WgmmaBf16<BN>::mma(acc, da + (uint64_t)(16 * ks),
+                           dd + (uint64_t)(2 * BN * ks));
+      wgmma_commit();
+    }
+    // into the slots of tile i - 1 (whose wgmmas, db and transpose ended
+    // at the last barrier) and the raw slot of tile i (transposed)
+    issue(i + 2);
+    if (out.db && tid < BN) {
+#pragma unroll 4
+      for (int c = 0; c < TSB / 8; ++c) {
+        float f[8];
+        widen8(ys + (c * BN + tid) * 8, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) db_acc += f[e];
+      }
+    }
+    if (i + 1 < share.n) {
+      landed(i + 1);
+      convert(i + 1);
+    }
+    fence_proxy_async();
+    wgmma_wait<0>();
+    __syncthreads();
+  }
+
+  // the stages are free: park the partial sums there in the WgTile order,
+  // then db
+  float* part = smem;
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) part[r * NTHR + tid] = acc[r];
+  if (tid < BN) part[WgTile<BN>::BODY + tid] = db_acc;
+  reduce_partials4(part, out, dw, db, scratch, Cin, Cout, K, cs, nc);
 }
 
 // -------------------------------------------------------------- mma.sync --
@@ -679,27 +1008,38 @@ __global__ void __launch_bounds__(NTH, 2) wgrad_mma_kernel(
 
 // ------------------------------------------------------------------ host --
 
-// shared memory of a launch (bytes): two stages, or the parked partial sums
-// (ops/mrf.py wgrad_plan computes the same, and the scratch from the same
-// partial-sum sizes)
-size_t smem_bytes(int bn, int bi, int taps, int k, int dil) {
+// shared memory of a launch (bytes): the stages (and the bf16 route's raw x
+// tiles), or the parked partial sums (ops/mrf.py wgrad_plan computes the
+// same, and the scratch from the same partial-sum sizes); `low`: the bf16
+// instance
+size_t smem_bytes(int bn, int bi, int taps, int k, int dil, bool low) {
   size_t stages, part;
   if (bn <= 32) {
     const Window win(MTS, k, dil);
-    stages = 2 * ((size_t)bn * LDY + (size_t)bi * win.ldx);
+    stages = sizeof(float) * 2 * ((size_t)bn * LDY + (size_t)bi * win.ldx);
     part = (size_t)bn * bi * k + bn;
+  } else if (low) {
+    const WindowBf16 win(k, dil);
+    stages = sizeof(bf16) * (DY_SLOTS * (size_t)bn * TSB +
+                             2 * X_SLOTS * (size_t)BM * win.rx);
+    part = (size_t)bn / 2 * WG_THREADS + bn;
   } else {
     const Window win(TS, k, dil);
-    stages = 2 * (2 * (size_t)bn * TS + (size_t)BM * win.ldx);
+    stages = sizeof(float) * 2 * (2 * (size_t)bn * TS + (size_t)BM * win.ldx);
     part = (size_t)bn / 2 * WG_THREADS + bn + WG_THREADS;
   }
-  return sizeof(float) * (stages > part ? stages : part);
+  part *= sizeof(float);
+  return stages > part ? stages : part;
 }
 
 template <typename E>
 using KernelT = void (*)(const E*, const E*, E*, E*, float*, int, int, int,
                          int, int, int, float, int, int, int, int);
 typedef KernelT<float> Kernel;
+// route 3 takes the tensor maps of dy and x besides
+typedef void (*KernelB)(const bf16*, const bf16*, bf16*, bf16*, float*, int,
+                        int, int, int, int, int, float, int, int, int, int,
+                        CUtensorMap, CUtensorMap);
 
 Kernel kernel_for(int bn) {
   switch (bn) {
@@ -711,11 +1051,20 @@ Kernel kernel_for(int bn) {
   }
 }
 
-// the bf16 instance has route 2 (mma.sync) alone
+// the bf16 instance: route 2 (mma.sync) ...
 KernelT<bf16> kernel_for_bf16(int bn) {
   switch (bn) {
     case 16: return wgrad_mma_kernel<8, 2, bf16>;
     case 32: return wgrad_mma_kernel<4, 4, bf16>;
+    default: return nullptr;
+  }
+}
+
+// ... and route 3 (bf16 wgmma)
+KernelB kernel_for_bf16_wgmma(int bn) {
+  switch (bn) {
+    case 64: return wgrad_wgmma_bf16_kernel<64>;
+    case 128: return wgrad_wgmma_bf16_kernel<128>;
     default: return nullptr;
   }
 }
@@ -729,8 +1078,8 @@ KernelT<E> kernel_of(int bn) {
 }
 
 // the route's tile sizes: bn = 16 / 32 (mma.sync, bi in {16, 32} input
-// channels and all k taps a tile) or 64 / 128 (wgmma, bi = 64, taps <= its
-// three warpgroups)
+// channels and all k taps a tile) or 64 / 128 (wgmma, in fp32 or bf16: bi =
+// 64, taps <= its three warpgroups)
 bool valid(int bn, int bi, int taps, int k) {
   if (k < 1 || k > MAX_K || k % 2 == 0) return false;
   if (bn <= 32) return (bn == 16 || bn == 32) && (bi == 16 || bi == 32) &&
@@ -750,38 +1099,52 @@ cudaError_t prepare(Kern kern, size_t smem) {
       (int)smem);
 }
 
+// One launch of `kern` on a grid of (cluster * clusters, tiles) blocks, in
+// clusters of `cluster` along x, cooperative when clusters > 1 (the
+// grid-wide barrier before the cross-cluster sum), with `args`.
+template <typename Kern, typename... Args>
+cudaError_t launch(Kern kern, int bn, size_t smem, int cluster, int clusters,
+                   int tiles, bool cooperative, cudaStream_t stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters, tiles);
+  cfg.blockDim = dim3(threads_for(bn));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  int na = 0;
+  if (cluster > 1) {
+    attr[na].id = cudaLaunchAttributeClusterDimension;
+    attr[na].val.clusterDim.x = cluster;
+    attr[na].val.clusterDim.y = 1;
+    attr[na].val.clusterDim.z = 1;
+    ++na;
+  }
+  if (cooperative) {
+    attr[na].id = cudaLaunchAttributeCooperative;
+    attr[na].val.cooperative = 1;
+    ++na;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = na;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 // The largest n <= `n` for which a cooperative launch of n clusters of
-// `cluster` blocks is accepted: the kernel is launched with B = 0, so every
+// `cluster` blocks is accepted: the kernel is launched with B = 0 (and
+// `extra`, route 3's tensor maps, after the common arguments), so every
 // block returns at once, and n is stepped down while the runtime refuses
 // the launch as too large (the occupancy query can promise more clusters
 // than a cooperative launch takes).  A negative CUDA error code on any
 // other error.
-template <typename E>
-int accepted_clusters(KernelT<E> kern, int bn, size_t smem, int cluster,
-                      int n) {
+template <typename E, typename Kern, typename... Extra>
+int accepted_clusters(Kern kern, int bn, size_t smem, int cluster, int n,
+                      Extra... extra) {
   for (; n > 0; --n) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster * n);
-    cfg.blockDim = dim3(threads_for(bn));
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr[2];
-    int na = 0;
-    if (cluster > 1) {
-      attr[na].id = cudaLaunchAttributeClusterDimension;
-      attr[na].val.clusterDim.x = cluster;
-      attr[na].val.clusterDim.y = 1;
-      attr[na].val.clusterDim.z = 1;
-      ++na;
-    }
-    attr[na].id = cudaLaunchAttributeCooperative;
-    attr[na].val.cooperative = 1;
-    ++na;
-    cfg.attrs = attr;
-    cfg.numAttrs = na;
-    const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, kern, (const E*)nullptr, (const E*)nullptr, (E*)nullptr,
-        (E*)nullptr, (float*)nullptr, 0, 1, 1, 1, 1, 1, 0.f, 1, cluster, n,
-        0);
+    const cudaError_t e = launch(
+        kern, bn, smem, cluster, n, 1, true, (cudaStream_t)0,
+        (const E*)nullptr, (const E*)nullptr, (E*)nullptr, (E*)nullptr,
+        (float*)nullptr, 0, 1, 1, 1, 1, 1, 0.f, 1, cluster, n, 0, extra...);
     if (e == cudaSuccess) return n;
     (void)cudaGetLastError();
     if (e != cudaErrorCooperativeLaunchTooLarge) return -(int)e;
@@ -789,19 +1152,14 @@ int accepted_clusters(KernelT<E> kern, int bn, size_t smem, int cluster,
   return 0;
 }
 
-// The most clusters of `cluster` blocks of this route that the card holds
-// at once (a negative CUDA error code on failure): the occupancy query's
+// The most clusters of `cluster` blocks of `kern` that the card holds at
+// once (a negative CUDA error code on failure): the occupancy query's
 // answer, or with `probe` the largest count of them that a cooperative
-// launch accepts (accepted_clusters).  The planner sizes the grid to the
-// probed count, since a cooperative launch must be co-resident.
-template <typename E>
-int max_clusters(int bn, int bi, int taps, int k, int dil, int cluster,
-                 int probe) {
-  if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8)
-    return -(int)cudaErrorInvalidValue;
-  const KernelT<E> kern = kernel_of<E>(bn);
+// launch accepts (accepted_clusters).
+template <typename E, typename Kern, typename... Extra>
+int clusters_held(Kern kern, int bn, size_t smem, int cluster, int probe,
+                  Extra... extra) {
   if (kern == nullptr) return -(int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(bn, bi, taps, k, dil);
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return -(int)e;
   if (cluster == 1) {
@@ -812,7 +1170,8 @@ int max_clusters(int bn, int bi, int taps, int k, int dil, int cluster,
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return -(int)e;
-    return probe ? accepted_clusters<E>(kern, bn, smem, 1, per_sm * sms)
+    return probe ? accepted_clusters<E>(kern, bn, smem, 1, per_sm * sms,
+                                        extra...)
                  : per_sm * sms;
   }
   cudaLaunchConfig_t cfg = {};
@@ -829,7 +1188,58 @@ int max_clusters(int bn, int bi, int taps, int k, int dil, int cluster,
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
   if (e != cudaSuccess) return -(int)e;
-  return probe ? accepted_clusters<E>(kern, bn, smem, cluster, n) : n;
+  return probe ? accepted_clusters<E>(kern, bn, smem, cluster, n, extra...)
+               : n;
+}
+
+// The most clusters of `cluster` blocks of this route that the card holds
+// at once.  The planner sizes the grid to the probed count, since a
+// cooperative launch must be co-resident.
+template <typename E>
+int max_clusters(int bn, int bi, int taps, int k, int dil, int cluster,
+                 int probe) {
+  constexpr bool LOW = !std::is_same<E, float>::value;
+  if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8)
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(bn, bi, taps, k, dil, LOW);
+  if constexpr (LOW) {
+    if (bn > 32)
+      return clusters_held<E>(kernel_for_bf16_wgmma(bn), bn, smem, cluster,
+                              probe, CUtensorMap{}, CUtensorMap{});
+  }
+  return clusters_held<E>(kernel_of<E>(bn), bn, smem, cluster, probe);
+}
+
+// The tensor map of a (B, C, T) bf16 tensor (T % 8 == 0, 16-byte aligned)
+// whose box is `rows` channels x `chunks` 8-sample chunks of one batch row,
+// laid out [chunk][channel][8 samples] in shared memory: dimensions (8
+// samples, C channels T * 2 bytes apart, T / 8 chunks 16 bytes apart, B
+// rows C * T * 2 bytes apart).  The box may start before sample 0 or end
+// past the last sample or channel: those elements are zero.
+cudaError_t tile_map(CUtensorMap* map, const bf16* p, int C, int T, int B,
+                     int rows, int chunks) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", (void**)&encode, cudaEnableDefault, &found);
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return e != cudaSuccess ? e : cudaErrorNotSupported;
+    }
+  }
+  const cuuint64_t dims[4] = {8, (cuuint64_t)C, (cuuint64_t)T / 8,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)T * 2, 16,
+                                 (cuuint64_t)C * T * 2};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)chunks, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // dy: (B, Cout, T), x: (B, Cin, T) -> dw: (Cout, Cin, k), db: (Cout,).
@@ -840,50 +1250,50 @@ template <typename E>
 int wgrad(const E* dy, const E* x, E* dw, E* db, float* scratch, int B,
           int Cin, int Cout, int T, int k, int dil, float slope, int bn,
           int bi, int taps, int cluster, int clusters, cudaStream_t stream) {
+  constexpr bool LOW = !std::is_same<E, float>::value;
   if (!valid(bn, bi, taps, k) || dil < 1 || cluster < 1 || cluster > 8 ||
       clusters < 1 || B < 1 || T < 1 || Cin < 1 || Cout < 1 ||
       (clusters > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const KernelT<E> kern = kernel_of<E>(bn);
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(bn, bi, taps, k, dil);
-  cudaError_t e = prepare(kern, smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_bytes(bn, bi, taps, k, dil, LOW);
   int tiles;
   if (bn <= 32)
     tiles = ((Cin + bi - 1) / bi) * ((Cout + bn - 1) / bn);
   else
     tiles = ((Cin + BM - 1) / BM) * ((Cout + bn - 1) / bn) *
             ((k + taps - 1) / taps);
-  // 16-byte copies (8-byte loads of the bf16 instance) need aligned rows
-  // of T samples
-  const int vec = T % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(E)) == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % (4 * sizeof(E)) == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * clusters, tiles);
-  cfg.blockDim = dim3(threads_for(bn));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[2];
-  int na = 0;
-  if (cluster > 1) {
-    attr[na].id = cudaLaunchAttributeClusterDimension;
-    attr[na].val.clusterDim.x = cluster;
-    attr[na].val.clusterDim.y = 1;
-    attr[na].val.clusterDim.z = 1;
-    ++na;
+  // 16-byte copies (8-byte loads on route 2 of the bf16 instance, tensor
+  // maps on route 3) need aligned rows of T samples
+  const int per = LOW && bn > 32 ? 8 : 4;  // samples a copy
+  const int vec = T % per == 0 &&
+                  reinterpret_cast<uintptr_t>(dy) % (per * sizeof(E)) == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % (per * sizeof(E)) == 0;
+  cudaError_t e;
+  if constexpr (LOW) {
+    if (bn > 32) {
+      const KernelB kern = kernel_for_bf16_wgmma(bn);
+      e = prepare(kern, smem);
+      CUtensorMap map_dy = {}, map_x = {};
+      if (e == cudaSuccess && vec)
+        e = tile_map(&map_dy, dy, Cout, T, B, bn, TSB / 8);
+      if (e == cudaSuccess && vec)
+        e = tile_map(&map_x, x, Cin, T, B, BM, WindowBf16(k, dil).rx / 8);
+      if (e == cudaSuccess)
+        e = launch(kern, bn, smem, cluster, clusters, tiles, clusters > 1,
+                   stream, dy, x, dw, db, scratch, B, Cin, Cout, T, k, dil,
+                   slope, taps, cluster, clusters, vec, map_dy, map_x);
+      if (e != cudaSuccess) return (int)e;
+      return (int)cudaGetLastError();
+    }
   }
-  if (clusters > 1) {  // the grid-wide barrier before the cross-cluster sum
-    attr[na].id = cudaLaunchAttributeCooperative;
-    attr[na].val.cooperative = 1;
-    ++na;
-  }
-  cfg.attrs = attr;
-  cfg.numAttrs = na;
+  const KernelT<E> kern = kernel_of<E>(bn);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
   const int tile_arg = bn <= 32 ? bi : taps;
-  e = cudaLaunchKernelEx(&cfg, kern, dy, x, dw, db, scratch, B, Cin, Cout,
-                         T, k, dil, slope, tile_arg, cluster, clusters, vec);
+  e = launch(kern, bn, smem, cluster, clusters, tiles, clusters > 1, stream,
+             dy, x, dw, db, scratch, B, Cin, Cout, T, k, dil, slope,
+             tile_arg, cluster, clusters, vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -896,7 +1306,7 @@ extern "C" int ev_mrf_conv_bwd_weight_max_clusters(int bn, int bi, int taps,
   return max_clusters<float>(bn, bi, taps, k, dil, cluster, probe);
 }
 
-// the bf16 instance's clusters (route 2 only: bn 16 or 32)
+// the bf16 instance's clusters (route 2: bn 16 or 32; route 3: 64 or 128)
 extern "C" int ev_mrf_conv_bwd_weight_max_clusters_bf16(
     int bn, int bi, int taps, int k, int dil, int cluster, int probe) {
   return max_clusters<bf16>(bn, bi, taps, k, dil, cluster, probe);
@@ -915,7 +1325,7 @@ extern "C" int ev_mrf_conv_bwd_weight_f32(const void* dy, const void* x,
 }
 
 // The bf16 instance: dy, x, dw, db bf16 (scratch fp32), a route-2 plan
-// (bn 16 or 32); slope = bf16(0.1).
+// (bn 16 or 32) or a route-3 one (bn 64 or 128); slope = bf16(0.1).
 extern "C" int ev_mrf_conv_bwd_weight_bf16(const void* dy, const void* x,
                                            void* dw, void* db, void* scratch,
                                            int B, int Cin, int Cout, int T,

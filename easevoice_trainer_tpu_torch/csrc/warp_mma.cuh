@@ -87,6 +87,18 @@ __device__ __forceinline__ void ldsm4_trans(uint32_t (&d)[4],
       : "r"(addr));
 }
 
+// The inverse of ldsm4: lanes 8i to 8i+7 give the addresses of matrix i's
+// eight 16-byte rows, and s[i] of lane l is written to its row l / 4,
+// elements 2(l % 4) and 2(l % 4)+1.  After ldsm4_trans of the same kind of
+// rows, it writes the four 8 x 8 matrices transposed.
+__device__ __forceinline__ void stsm4(uint32_t addr, const uint32_t (&s)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+          addr),
+      "r"(s[0]), "r"(s[1]), "r"(s[2]), "r"(s[3])
+      : "memory");
+}
+
 // d += a * b on one m16n8k16 bf16 tile, fp32 accumulators.  A fragment:
 // a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..) for
 // row g = lane / 4, t = lane % 4; B: b0 (k = 2t..2t+1, n = g), b1 (k =

@@ -50,6 +50,8 @@ WGRAD_MAX_K = 15
 WGRAD_SMEM = 227 * 1024
 # threads of a wgmma block: three warpgroups, one tap each
 WGRAD_WGMMA_THREADS = 384
+# samples a stage on the bf16 wgmma route (csrc/mrf_conv_wgrad.cu TSB)
+WGRAD_TS_BF16 = 128
 # a larger cluster (fewer partial sums through scratch) is taken while its
 # grid keeps this share of the largest grid that fits
 WGRAD_FILL = 0.9
@@ -191,12 +193,13 @@ def mrf_conv_bwd_data(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 class WgradPlan:
     """How K4's weight gradient cuts one shape.  An output tile is ``bn``
     output channels x ``bi`` input channels x ``taps`` taps: wgmma for
-    ``bn`` in {64, 128} (``bi`` = 64, one tap a warpgroup), mma.sync
-    for ``bn`` in {16, 32} (``bi`` in {16, 32}, all k taps).  The
-    B * ceil(T / ts) time tiles are cut into ``splits`` = cluster x clusters
-    contiguous ranges; each tile's partial sums are added in rank order
-    inside a cluster, then, when ``clusters`` > 1, in cluster order through
-    ``scratch_floats`` floats of scratch."""
+    ``bn`` in {64, 128} (``bi`` = 64, one tap a warpgroup; fp32 in 3xTF32,
+    bf16 on bf16 tiles, ``ts`` samples a stage), mma.sync for ``bn`` in
+    {16, 32} (``bi`` in {16, 32}, all k taps).  The B * ceil(T / ts) time
+    tiles are cut into ``splits`` = cluster x clusters contiguous ranges;
+    each tile's partial sums are added in rank order inside a cluster, then,
+    when ``clusters`` > 1, in cluster order through ``scratch_floats``
+    floats of scratch."""
     bn: int
     bi: int
     taps: int
@@ -248,10 +251,12 @@ def nominal_clusters(bn: int, cluster: int) -> int:
 def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
                dilation: int,
                max_clusters: Optional[Callable[[int, int, int, int], int]]
-               = None, mma_only: bool = False) -> WgradPlan:
-    """The tile and the split of the B*T sum for one shape (``mma_only``:
-    the mma.sync route at every width, the one route of the bf16
-    instance).
+               = None, dtype: torch.dtype = torch.float32,
+               bn: Optional[int] = None) -> WgradPlan:
+    """The tile and the split of the B*T sum for one shape, for the
+    ``dtype`` instance (fp32 or bf16).  The tile is wgmma's where Cin and
+    Cout are >= 64, else mma.sync's; ``bn`` (16 or 32: mma.sync, 64 or 128:
+    wgmma) overrides the planner's width, as the design benches do.
     ``max_clusters(bn, bi, taps, cluster)`` is the number of such clusters
     the card holds at once (default :func:`nominal_clusters`).  The grid
     must fit on the card at once (a grid-wide barrier needs every block
@@ -262,24 +267,34 @@ def wgrad_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
     if k % 2 == 0 or not 1 <= k <= WGRAD_MAX_K or dilation < 1:
         raise ValueError(f"mrf_conv_bwd_weight: k={k} d={dilation}: the "
                          f"kernel takes odd k <= {WGRAD_MAX_K}, d >= 1")
-    if cin >= 64 and cout >= 64 and not mma_only:
-        bn, bi, ts = (64 if cout <= 64 else 128), 64, 64
-        groups = -(-k // (WGRAD_WGMMA_THREADS // 128))
+    if bn is None:
+        bn = (64 if cout <= 64 else 128) if cin >= 64 and cout >= 64 else \
+            (16 if cout <= 16 else 32)
+    if bn not in (16, 32, 64, 128):
+        raise ValueError(f"mrf_conv_bwd_weight: no tile {bn} wide")
+    low = dtype == torch.bfloat16
+    halo = (k - 1) * dilation
+    threads = WGRAD_WGMMA_THREADS
+    if bn > 32:
+        bi, ts = 64, (WGRAD_TS_BF16 if low else 64)
+        groups = -(-k // (threads // 128))
         taps = -(-k // groups)
         tiles = -(-cin // bi) * -(-cout // bn) * groups
-    else:
-        bn, bi = (16 if cout <= 16 else 32), (16 if cin <= 16 else 32)
+        part = 4 * (bn // 2 * threads + bn)
+        if low:  # three dy stages, two of lrelu(x) and of raw x (bf16)
+            rx = (ts + halo + 7 + 31) & ~31
+            smem = max(2 * (3 * bn * ts + 4 * bi * rx), part)
+        else:  # two stages of dy hi, lo and x (fp32), + db shares
+            rx = (ts + halo + 6) & ~3
+            ldx = rx + (4 - rx % 32) % 32
+            smem = max(4 * 2 * (2 * bn * ts + bi * ldx), part + 4 * threads)
+    else:  # two stages of dy and x (fp32, bf16 widened), or the partial sums
+        bi = 16 if cin <= 16 else 32
         ts, taps = 128, k
         tiles = -(-cin // bi) * -(-cout // bn)
-    halo = (k - 1) * dilation
-    rx = (ts + halo + 6) & ~3
-    ldx = rx + (4 - rx % 32) % 32
-    if bn <= 32:  # two stages of dy and x, or the partial sums
+        rx = (ts + halo + 6) & ~3
+        ldx = rx + (4 - rx % 32) % 32
         smem = 4 * max(2 * (bn * (ts + 4) + bi * ldx), bn * bi * k + bn)
-    else:  # two stages of dy hi, lo and x, or the partial sums + db shares
-        threads = WGRAD_WGMMA_THREADS
-        smem = 4 * max(2 * (2 * bn * ts + bi * ldx),
-                       bn // 2 * threads + bn + threads)
     if smem > WGRAD_SMEM:
         raise ValueError(f"mrf_conv_bwd_weight: a halo of {halo} samples "
                          f"needs {smem} B of shared memory")
@@ -324,16 +339,17 @@ _card_clusters = functools.lru_cache(maxsize=None)(card_clusters)
 
 def wgrad_card_plan(bsz: int, cin: int, cout: int, t_len: int, k: int,
                     dilation: int, device: torch.device,
-                    bf16: bool = False) -> WgradPlan:
-    """:func:`wgrad_plan` with the clusters that a cooperative launch on
-    CUDA ``device`` accepts (:func:`card_clusters`); the bf16 instance's
-    plan (the mma.sync route) with ``bf16``."""
+                    dtype: torch.dtype = torch.float32) -> WgradPlan:
+    """:func:`wgrad_plan` of the ``dtype`` instance with the clusters that
+    a cooperative launch on CUDA ``device`` accepts
+    (:func:`card_clusters`)."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
+    bf16 = dtype == torch.bfloat16
     return wgrad_plan(bsz, cin, cout, t_len, k, dilation,
                       lambda bn, bi, taps, cluster: _card_clusters(
                           index, bn, bi, taps, k, dilation, cluster, True,
-                          bf16), mma_only=bf16)
+                          bf16), dtype=dtype)
 
 
 def mrf_conv_bwd_weight(dy: torch.Tensor, x: torch.Tensor, w_shape,
@@ -352,8 +368,7 @@ def mrf_conv_bwd_weight(dy: torch.Tensor, x: torch.Tensor, w_shape,
                          f"{tuple(x.shape)} dy{tuple(dy.shape)} w{w_shape}")
     dev = x.device
     d = int(dilation)
-    bf16 = x.dtype == torch.bfloat16
-    plan = wgrad_card_plan(bsz, cin, cout, t_len, k, d, dev, bf16)
+    plan = wgrad_card_plan(bsz, cin, cout, t_len, k, d, dev, x.dtype)
     dy, x = dy.contiguous(), x.contiguous()
     dw = torch.empty((cout, cin, k), dtype=x.dtype, device=dev)
     db = torch.empty((cout,), dtype=x.dtype, device=dev)

@@ -757,18 +757,24 @@ def test_wgrad_plan_covers_the_s2_shapes(c, t_len):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0.9, 1.0])
-def test_wgrad_plans_launch_repeatedly(fill, monkeypatch):
-    """Each of the 45 s2 shapes' plans at the cluster threshold ``fill``
-    launched 50 times: every launch accepted (the planner sizes a
-    cooperative grid to what the runtime accepts, not to the occupancy
-    query) and every result equal to the twin's."""
+def test_wgrad_plans_launch_repeatedly(fill, dtype, monkeypatch):
+    """Each of the 45 s2 shapes' plans of the ``dtype`` instance at the
+    cluster threshold ``fill`` launched 50 times: every launch accepted (the
+    planner sizes a cooperative grid to what the runtime accepts, not to the
+    occupancy query) and every result equal to the twin's (fp32 within
+    1e-3, bf16 as the bf16 tests hold it)."""
     gen = _card()
     monkeypatch.setattr(mrf, "WGRAD_FILL", fill)
     b = 8
+    close = (lambda g, w: _close_rel(g, w, 1e-3)) \
+        if dtype == torch.float32 else _close_bf16
     for c, t_len in S2_STAGES:
-        x = torch.randn((b, c, t_len), generator=gen, device="cuda")
-        dy = torch.randn((b, c, t_len), generator=gen, device="cuda")
+        x = torch.randn((b, c, t_len), generator=gen,
+                        device="cuda").to(dtype)
+        dy = torch.randn((b, c, t_len), generator=gen,
+                         device="cuda").to(dtype)
         for k in (3, 7, 11):
             for d in (1, 3, 5):
                 ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, (c, c, k),
@@ -777,8 +783,8 @@ def test_wgrad_plans_launch_repeatedly(fill, monkeypatch):
                 for _ in range(50):
                     gw, gb = mrf_conv_bwd_weight(dy, x, (c, c, k), d)
                     if first is None:
-                        _close_rel(gw, ww, 1e-3)
-                        _close_rel(gb, wb, 1e-3)
+                        close(gw, ww)
+                        close(gb, wb)
                         first = (gw, gb)
                     else:
                         assert torch.equal(gw, first[0])
@@ -1091,24 +1097,41 @@ def test_mrf_conv_bf16_kernels_repeat_bit_for_bit():
 
 
 BF16_WGRAD_CASES = [
+    # the mma.sync route (Cin or Cout < 64)
     (24, 24, 3, 5, 11, 5),      # T below the halo
     (16, 72, 3, 1, 3, 1),       # a single sample; three output tiles
     (24, 40, 3, 37, 3, 1),      # T % 4 != 0: element loads
     (72, 24, 3, 301, 7, 3),     # three input-channel tiles
     (40, 24, 3, 260, 5, 5),     # k = 5
     (32, 32, 1, 1, 15, 5),      # k = 15, B = 1
-    (256, 256, 8, 320, 11, 5),  # the widest s2 stage, the mma.sync route
-    (128, 128, 8, 2560, 7, 3),
     (16, 16, 2, 40001, 3, 1),   # the long reduction
+    # the bf16 wgmma route (Cin and Cout >= 64): 128-sample stages, x
+    # shifted by pad = (k - 1) d / 2 samples, odd or even
+    (256, 256, 8, 320, 11, 5),  # s2 stage 0: N = 128, four tap groups of
+                                # three, pad 25, T off the stage
+    (128, 128, 8, 2560, 7, 3),  # s2 stage 1: three tap groups, pad 9
+    (64, 64, 8, 5120, 3, 1),    # s2 stage 2: N = 64, one tap group, pad 1
+    (64, 64, 1, 4100, 15, 5),   # k = 15 at d = 5 (halo 70), five tap
+                                # groups, B = 1; T % 8 = 4: 2-byte loads
+    (200, 128, 2, 300, 7, 1),   # Cin off the 64-row tile; T % 8 = 4
+    (72, 200, 2, 777, 3, 3),    # two N tiles, the second 72 of 128 wide
+    (96, 80, 3, 1000, 5, 2),    # pad 4; Cout 80 of a 128-wide N tile;
+                                # T off the stage, 16-byte copies
+    (128, 64, 2, 2048, 9, 2),   # pad 8 (no shift), three tap groups
+    (256, 256, 1, 1537, 15, 3), # B = 1, T odd, five tap groups
+    (256, 256, 1, 256, 15, 3),  # two time tiles: one cluster, no scratch
+    (64, 64, 8, 40000, 3, 5),   # the long reduction, through the scratch
 ]
 
 
 @pytest.mark.cuda
 def test_mrf_conv_wgrad_bf16_tile_edges():
-    """K4-dW's bf16 instance (the mma.sync route at every width) at the
-    fp32 tests' edges and two s2 shapes, covering both splits of the B*T
-    sum (inside one cluster, and across clusters through the scratch): dW
-    and db against the bf16 twin, a second call bit-identical."""
+    """K4-dW's bf16 instance at the edges of both of its routes' tiles
+    (mma.sync below 64 channels, bf16 wgmma at 64 and more) and of both
+    splits of the B*T sum (inside one cluster, and across clusters through
+    the scratch): the planner's route for each case, one bf16 launch
+    counted a call, dW and db against the bf16 twin, a second call
+    bit-identical."""
     gen = _card()
     kinds = set()
     for cin, cout, b, t_len, k, d in BF16_WGRAD_CASES:
@@ -1116,18 +1139,23 @@ def test_mrf_conv_wgrad_bf16_tile_edges():
         dy = torch.randn((b, cout, t_len), generator=gen,
                          device="cuda").to(torch.bfloat16)
         plan = mrf.wgrad_card_plan(b, cin, cout, t_len, k, d,
-                                   torch.device("cuda"), bf16=True)
-        assert plan.bn <= 32
-        kinds.add(plan.clusters > 1)
-        before = mrf_conv_bwd_weight.launches_bf16
+                                   torch.device("cuda"), torch.bfloat16)
+        wgmma = cin >= 64 and cout >= 64
+        assert (plan.bn > 32) == wgmma, (cin, cout, plan)
+        kinds.add((wgmma, plan.clusters > 1))
+        before = (mrf_conv_bwd_weight.launches,
+                  mrf_conv_bwd_weight.launches_bf16)
         dw, db = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
-        assert mrf_conv_bwd_weight.launches_bf16 == before + 1
+        assert (mrf_conv_bwd_weight.launches,
+                mrf_conv_bwd_weight.launches_bf16) == (before[0],
+                                                       before[1] + 1)
         ww, wb = mrf.mrf_conv_bwd_weight_reference(dy, x, (cout, cin, k), d)
         _close_bf16(dw, ww)
         _close_bf16(db, wb)
         dw2, db2 = mrf_conv_bwd_weight(dy, x, (cout, cin, k), d)
         assert torch.equal(dw, dw2) and torch.equal(db, db2)
-    assert kinds == {False, True}, kinds
+    assert kinds == {(False, False), (False, True), (True, False),
+                     (True, True)}, kinds
 
 
 @pytest.mark.cuda
@@ -1148,17 +1176,65 @@ def test_mrf_conv_bf16_autograd_on_the_card():
 
 @pytest.mark.parametrize("c,t_len", S2_STAGES)
 def test_wgrad_plan_bf16_is_the_mma_route(c, t_len):
-    """The bf16 instance's plans at the s2 shapes: the mma.sync route (16 or
-    32 output channels a tile) at every width, every sample summed by one
-    split, the grid within one wave of two blocks an SM."""
+    """The bf16 instance's plans at the s2 shapes: the bf16 wgmma route
+    (64 input x 64 or 128 output channels a tile, taps in groups of at most
+    three, 128-sample stages) at C >= 64 and the mma.sync route (16 or 32
+    output channels, all k taps) below; every sample of every row summed
+    by exactly one split; the grid within one wave (one wgmma block or two
+    mma.sync blocks an SM); the shared memory within a block's."""
+    b = 8
     for k in (3, 7, 11):
         for d in (1, 3, 5):
-            plan = mrf.wgrad_plan(8, c, c, t_len, k, d, mma_only=True)
-            assert plan.bn == min(max(c, 16), 32) and plan.taps == k
-            assert sum(e - f for f, e in map(plan.time_range,
-                                             range(plan.splits))) == \
-                plan.time_tiles
-            assert plan.blocks <= 2 * mrf.WGRAD_SMS
+            plan = mrf.wgrad_plan(b, c, c, t_len, k, d,
+                                  dtype=torch.bfloat16)
+            if c >= 64:
+                assert (plan.bn, plan.bi, plan.ts) == (
+                    min(c, 128), 64, mrf.WGRAD_TS_BF16)
+                assert plan.taps <= 3 and plan.taps * -(-k // plan.taps) >= k
+            else:
+                assert (plan.bn, plan.taps, plan.ts) == (max(c, 16), k, 128)
+            per_row = -(-t_len // plan.ts)
+            assert plan.time_tiles == b * per_row
+            seen = np.zeros((b, per_row * plan.ts), np.int64)
+            for s in range(plan.splits):
+                first, end = plan.time_range(s)
+                assert end > first
+                for tile in range(first, end):
+                    t0 = tile % per_row * plan.ts
+                    seen[tile // per_row, t0:t0 + plan.ts] += 1
+            assert (seen == 1).all()
+            assert plan.blocks <= mrf.WGRAD_SMS * (2 if plan.bn <= 32 else 1)
+            assert plan.smem_bytes <= mrf.WGRAD_SMEM
+
+
+def test_wgrad_plan_takes_a_tile_width():
+    """``bn`` overrides the planner's tile width (what the design benches
+    time): 64 at C = 128 doubles the output-channel tiles, 32 at C = 64
+    takes the mma.sync route; a width no kernel has raises.  The bf16
+    wgmma route's shared memory counts 2-byte tiles and no lo plane (three
+    dy stages, two lrelu(x) stages and two raw x tiles), the fp32 route's
+    its two stages of dy hi, lo and x."""
+    wide = mrf.wgrad_plan(8, 128, 128, 2560, 7, 3, dtype=torch.bfloat16)
+    narrow = mrf.wgrad_plan(8, 128, 128, 2560, 7, 3, dtype=torch.bfloat16,
+                            bn=64)
+    assert (wide.bn, narrow.bn) == (128, 64)
+    assert narrow.tiles == 2 * wide.tiles
+    mma = mrf.wgrad_plan(8, 64, 64, 5120, 3, 1, dtype=torch.bfloat16,
+                         bn=32)
+    assert (mma.bn, mma.bi, mma.taps, mma.ts) == (32, 32, 3, 128)
+    with pytest.raises(ValueError):
+        mrf.wgrad_plan(8, 128, 128, 2560, 7, 3, bn=48)
+    fp32 = mrf.wgrad_plan(8, 256, 256, 320, 11, 5)
+    bf16 = mrf.wgrad_plan(8, 256, 256, 320, 11, 5, dtype=torch.bfloat16)
+    assert (fp32.ts, bf16.ts) == (64, mrf.WGRAD_TS_BF16)
+    halo = 10 * 5
+    rx = (mrf.WGRAD_TS_BF16 + halo + 7 + 31) // 32 * 32
+    stages = 2 * (3 * 128 * mrf.WGRAD_TS_BF16 + 4 * 64 * rx)
+    assert bf16.smem_bytes == max(stages, 4 * (64 * 384 + 128))
+    assert fp32.smem_bytes == 4 * max(2 * (2 * 128 * 64 + 64 * 132),
+                                      64 * 384 + 128 + 384)
+    assert fp32.smem_bytes == 4 * max(2 * (2 * 128 * 64 + 64 * 132),
+                                      64 * 384 + 128 + 384)
 
 
 def test_bf16_twins_round_as_jax():
