@@ -11,9 +11,10 @@ turns with this tree's on the same inputs (lines "[a/b]"; K1's serving
 output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
 per Generator stage, K5 over the two s1 shapes, its fp32 gradients bit for
 bit and its bf16 instance held to the twin beside the parent's; the bf16
-K4-dW per stage held to the parent's); then ``bench/sass_diff.py`` must
-find every kernel body of the parent's library in this tree's, the
-parent's bf16 K4-dW bodies excepted (K4DW_BF16_REPLACED).
+K1 over the two s1 shapes, held to the twin and to the parent's, also as
+CUDA graphs; the bf16 K4-dW per stage held to the parent's); then
+``bench/sass_diff.py`` must find every kernel body of the parent's library
+in this tree's, the parent's bf16 K1 body excepted (K1_BF16_REPLACED).
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -53,9 +54,10 @@ Phases, one summary line each; any failure exits non-zero:
    K3, K4-dx and K4-dW at the 45 s2 shapes, each against its bf16 twin
    and at the card tests' tile edges, with its device time beside the fp32
    instance's, the bf16 library call's and the twin's, and its bound in
-   bf16 (989 TFLOP/s dense); K5 bf16 also as a CUDA graph in turns with
-   SDPA's bf16 backward captured the same way, and the HMMA opcodes of its
-   kernels' SASS (bf16 m16n8k16 alone); K4-dW bf16 with its plan per stage
+   bf16 (989 TFLOP/s dense); K1 and K5 bf16 also as CUDA graphs in turns
+   with SDPA's bf16 forward and backward captured the same way, and the
+   HMMA opcodes of their kernels' SASS (bf16 m16n8k16 alone; no ptxas
+   spill in K1's); K4-dW bf16 with its plan per stage
    and the tensor-core opcodes of its wgmma route's SASS (bf16 HGMMA
    alone);
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
@@ -265,7 +267,7 @@ KERNEL_INFO = {
         "0ec4461, with no audio part)"),
     # the bf16 instances of the fine-tunes under is_half
     "prefill_attention_bf16": (
-        "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bf16.cu",
         "easevoice_trainer_tpu/ops/pallas/flash_prefill.py:35 "
         "(_kernel, git 0ec4461), as TransformerLayer.attention computes it "
         "with dtype bfloat16 (models/gpt/t2s.py:118-131)"),
@@ -1391,7 +1393,16 @@ BF16_ATTN_EDGES = ((15, [15, 1, 14], 17, [17, 8, 9]),
                    (65, [65, 33, 32], 127, [127, 16, 17]),
                    (1, [1, 0], 14, [14, 0]),
                    (31, [0, 31], 33, [33, 32]),
-                   (33, [32, 1], 95, [64, 95]))
+                   (33, [32, 1], 95, [64, 95]),
+                   # K1 bf16's own (the card tests' K1_BF16_EDGES): its
+                   # 128-row query tiles and 64-key staged tiles one off, a
+                   # one-row T, rows that see no key
+                   (64, [64, 63, 1], 63, [63, 62, 1]),
+                   (63, [63, 0, 17], 65, [65, 64, 0]),
+                   (65, [65, 64, 63], 64, [64, 1, 0]),
+                   (128, [0, 128], 1, [0, 1]),
+                   (0, [0, 0], 1, [1, 0]),
+                   (1, [1, 0], 0, [0, 0]))
 # K3 / K4 tile edges (Cin, Cout, B, T, k, d): T below a tile and its halo, a
 # single sample, T % 4 != 0, channels off the tiles, k = 5, k = 15, a
 # channel split with uneven shares; then the bf16 loop's own: reductions
@@ -1419,18 +1430,21 @@ def check_bf16(torch, results, parent=None):
     cuDNN conv, dgrad, wgrad) and the bf16 twin's; the bound in bf16 (the
     bytes of bf16 operands over 3.35 TB/s against the operations over 989
     TFLOP/s dense bf16), and per Generator stage for K3, K4-dx and K4-dW
-    beside cuDNN's bf16 call.  K5 is timed with its kernel count (3 a call)
-    and, at the s1 shapes, also as a CUDA graph in turns with SDPA's bf16
-    backward captured the same way (its library time); its kernels' SASS
-    must hold bf16 m16n8k16 HMMAs and no other.  ``parent``: the parent
-    commit's ``ops.attention``, whose bf16 K5 is then held to the twin
-    beside this tree's, compared with it, and timed in turns with it (by
-    kernel count and as a graph).  The K3, K4-dx and K4-dW instances are
+    beside cuDNN's bf16 call.  K1 and K5 are timed with their kernel count
+    (1 and 3 a call) and, at the s1 shapes, also as CUDA graphs in turns
+    with SDPA's bf16 forward and backward captured the same way (their
+    library times); repeated launches of each are bit-identical; the SASS
+    of K1's bf16 kernel and K5's dkdv and dq must hold bf16 m16n8k16 HMMAs
+    and no other tensor-core instruction, and ptxas must report no spill
+    for K1's.  ``parent``: the parent commit's ``ops.attention``, whose
+    bf16 K1 and K5 are then held to the twin beside this tree's, compared
+    with them (K1's lse within 1e-4), and timed in turns with them (by
+    kernel count and as graphs).  The K3, K4-dx and K4-dW instances are
     timed with their kernel count (one a shape); K4-dW's plan is logged per
     stage, and its bf16 wgmma route's SASS must hold bf16 HGMMAs and no
     other tensor-core instruction.  No instance is held to be faster than
-    its library call: K1 is a first, simple instance, and the bf16 K3,
-    K4-dx and K4-dW are timed against the parent's in ab_mrf."""
+    its library call: the bf16 K3, K4-dx and K4-dW are timed against the
+    parent's in ab_mrf."""
     from easevoice_trainer_tpu_torch.ops import build
     import torch.nn.functional as F
 
@@ -1450,15 +1464,23 @@ def check_bf16(torch, results, parent=None):
     lse_err = 0.0
     hmma = {}
     for name, bodies in sass_functions(
-            build.build().path, ("dkdv_bf16_kernel", "dq_bf16_kernel")).items():
+            build.build().path, ("prefill_attention_bf16_kernel",
+                                 "dkdv_bf16_kernel",
+                                 "dq_bf16_kernel")).items():
         counts = hmma.setdefault(short_name(name), {})
         for ln in (ln for body in bodies for ln in body):
-            if opcode(ln).startswith("HMMA"):
+            if opcode(ln).startswith(("HMMA", "HGMMA")):
                 counts[opcode(ln)] = counts.get(opcode(ln), 0) + 1
-    log(f"[kernels] K5 bf16 tensor-core instructions in the SASS: {hmma}")
-    assert len(hmma) == 2 and all(
+    log(f"[kernels] K1 and K5 bf16 tensor-core instructions in the SASS: "
+        f"{hmma}")
+    assert len(hmma) == 3 and all(
         c and set(c) == {"HMMA.16816.F32.BF16"} for c in hmma.values()), \
-        f"K5's bf16 kernels are not on bf16 m16n8k16 alone: {hmma}"
+        f"K1 / K5's bf16 kernels are not on bf16 m16n8k16 alone: {hmma}"
+    spills = ptxas_spills(build.build().build_log,
+                          "prefill_attention_bf16_kernel")
+    log(f"[kernels] K1 bf16, ptxas: {spills or 'library reused, no report'}")
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills.values()), f"K1 bf16 spills: {spills}"
     # K4-dW's bf16 wgmma route: bf16 HGMMAs, no TF32 HGMMA, no HMMA
     hgmma = {}
     for name, bodies in sass_functions(
@@ -1473,11 +1495,18 @@ def check_bf16(torch, results, parent=None):
         c and all(op.startswith("HGMMA") and ".BF16" in op for op in c)
         for c in hgmma.values()), \
         f"K4-dW's bf16 wgmma route is not on bf16 HGMMA alone: {hgmma}"
-    # K5 bf16 over the s1 shapes as CUDA graphs in turns: this tree, the
-    # parent's, SDPA's bf16 backward
-    graph_sums = {"k5": 0.0, "parent": 0.0, "sdpa": 0.0}
-    ab = [0.0, 0.0]   # by kernel count, in turns: this tree, the parent
-    parent_worst, vs_parent = _Worst(), _Worst()
+    # K1 and K5 bf16 over the s1 shapes as CUDA graphs in turns: this
+    # tree's, the parent's, SDPA's bf16 forward and backward
+    graph_sums = dict.fromkeys(("k1", "k1_parent", "sdpa_fwd", "k5",
+                                "parent", "sdpa"), 0.0)
+    # by kernel count, in turns: this tree, the parent
+    ab = {"k1": [0.0, 0.0], "k5": [0.0, 0.0]}
+    parent_worst, vs_parent = _Worst(), _Worst()   # K5
+    k1_parent_worst, k1_vs_parent = _Worst(), _Worst()
+    lse_parent = [0.0, 0.0]   # the parent's lse against the twin, this one's
+
+    def k1_call(mod, *args):
+        return lambda: mod.prefill_attention_lse(*args)
 
     def k5_call(mod, *args):
         return lambda: mod.prefill_attention_bwd(*args)
@@ -1491,14 +1520,31 @@ def check_bf16(torch, results, parent=None):
         do32 = torch.randn((b, t, h, dk), generator=gen, device=dev)
         qkv, do = qkv32.to(bf), do32.to(bf)
         q, k, v = att._split_heads(qkv, h)
-        o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+        k1_args = (q, k, v, x_len, xl, yl)
+        o, lse = att.prefill_attention_lse(*k1_args)
         want_o = torch.nan_to_num(att.prefill_attention_reference(
             q, k, v, x_len, xl, yl), nan=0.0)
         worst["k1"].add(bf16_err(torch, o, want_o))
         want_lse = att.prefill_attention_lse_reference(q, k, x_len, xl, yl)
         seen = torch.isfinite(want_lse)
         assert torch.equal(torch.isfinite(lse), seen)
+        assert not o[~seen.transpose(1, 2)].any(), \
+            "K1 bf16: a row that sees no key is not 0"
         lse_err = max(lse_err, max_err(torch, lse[seen], want_lse[seen]))
+        for _ in range(2):
+            again = att.prefill_attention_lse(*k1_args)
+            assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), \
+                "K1's bf16 instance does not repeat"
+        if parent is not None:
+            old_o, old_lse = parent.prefill_attention_lse(*k1_args)
+            k1_parent_worst.add(bf16_err(torch, old_o, want_o))
+            k1_vs_parent.add(bf16_err(torch, o, old_o))
+            assert torch.equal(torch.isfinite(old_lse), seen)
+            lse_parent[0] = max(lse_parent[0], max_err(
+                torch, old_lse[seen], want_lse[seen]))
+            lse_parent[1] = max(lse_parent[1], max_err(
+                torch, lse[seen], old_lse[seen]))
+            del old_o, old_lse
         got = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl)
         want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
                                                    x_len, xl, yl)
@@ -1523,6 +1569,7 @@ def check_bf16(torch, results, parent=None):
         q32, k32, v32 = att._split_heads(qkv32, h)
         o32, lse32 = att.prefill_attention_lse(q32, k32, v32, x_len, xl, yl)
         bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
+        mask = bias.to(bf)
         qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
                       for z in (q, k, v))
         doh = do.transpose(1, 2).contiguous()
@@ -1530,18 +1577,25 @@ def check_bf16(torch, results, parent=None):
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            out = F.scaled_dot_product_attention(qh, kh, vh,
-                                                 attn_mask=bias.to(bf))
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
         torch.cuda.current_stream().wait_stream(stream)
         lib_bwd = functools.partial(torch.autograd.grad, out, (qh, kh, vh),
                                     doh, retain_graph=True)
+        lib_fwd = functools.partial(F.scaled_dot_product_attention,
+                                    qh.detach(), kh.detach(), vh.detach(),
+                                    attn_mask=mask)
         graphs = {"sdpa": graph_timer(torch, lib_bwd, stream),
-                  "k5": graph_timer(torch, k5_call(att, *k5_args), stream)}
-        order = ["sdpa", "k5", "k5", "sdpa"]
+                  "sdpa_fwd": graph_timer(torch, lib_fwd, stream),
+                  "k5": graph_timer(torch, k5_call(att, *k5_args), stream),
+                  "k1": graph_timer(torch, k1_call(att, *k1_args), stream)}
+        ends, middle = ["sdpa", "sdpa_fwd"], ["k5", "k1"]
         if parent is not None:
             graphs["parent"] = graph_timer(
                 torch, k5_call(parent, *k5_args), stream)
-            order = ["sdpa", "parent", "k5", "k5", "parent", "sdpa"]
+            graphs["k1_parent"] = graph_timer(
+                torch, k1_call(parent, *k1_args), stream)
+            ends += ["parent", "k1_parent"]
+        order = ends + middle + middle[::-1] + ends[::-1]
         gms = {}
         for key in order:
             gms.setdefault(key, []).append(graphs[key]())
@@ -1550,13 +1604,10 @@ def check_bf16(torch, results, parent=None):
             graph_sums[key] += ms
         del graphs
         times = {
-            "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
-                       q, k, v, x_len, xl, yl)),
+            "k1": (device_ms(torch, k1_call(att, *k1_args), launches=1),
                    device_ms(torch, lambda: att.prefill_attention_lse(
                        q32, k32, v32, x_len, xl, yl)),
-                   device_ms(torch, lambda: F.scaled_dot_product_attention(
-                       qh.detach(), kh.detach(), vh.detach(),
-                       attn_mask=bias.to(bf))),
+                   gms["sdpa_fwd"],
                    device_ms(torch, lambda: (
                        att.prefill_attention_reference(
                            q, k, v, x_len, xl, yl),
@@ -1572,10 +1623,11 @@ def check_bf16(torch, results, parent=None):
                        q, k, v, o, lse, do, x_len, xl, yl), reps=5)),
         }
         if parent is not None:
-            ms, parent_ms = in_turns(torch, k5_call(att, *k5_args),
-                                     k5_call(parent, *k5_args), launches=3)
-            ab[0] += ms
-            ab[1] += parent_ms
+            for key, call, args, n in (("k1", k1_call, k1_args, 1),
+                                       ("k5", k5_call, k5_args, 3)):
+                ms, parent_ms = in_turns(torch, call(att, *args),
+                                         call(parent, *args), launches=n)
+                ab[key] = [ab[key][0] + ms, ab[key][1] + parent_ms]
         pairs = int((bias == 0).sum()) * h
         elems = b * t * h * dk
         # K1: q, k, v read, o written (bf16), lse written (fp32); QK, PV.
@@ -1587,14 +1639,16 @@ def check_bf16(torch, results, parent=None):
             sums[key] = [a + c for a, c in zip(sums[key], times[key])]
         log(f"[kernels] bf16 K1 + lse / K5 B={b} H={h} x_len={x_len} "
             f"y_len={y_len} (T={t}): device ms K1 bf16 {times['k1'][0]:.4f}, "
-            f"fp32 {times['k1'][1]:.4f}, SDPA bf16 {times['k1'][2]:.4f}, twin "
+            f"fp32 {times['k1'][1]:.4f}, twin "
             f"{times['k1'][3]:.4f}; K5 bf16 {times['k5'][0]:.4f}, fp32 "
             f"{times['k5'][1]:.4f}, twin {times['k5'][3]:.4f}; as CUDA "
             f"graphs in turns: " + ", ".join(
                 f"{label} {gms[key]:.4f}" for key, label in (
-                    ("k5", "K5 bf16"), ("parent", "the parent's K5 bf16"),
+                    ("k1", "K1 bf16"), ("k1_parent", "the parent's K1 bf16"),
+                    ("sdpa_fwd", "SDPA forward bf16"), ("k5", "K5 bf16"),
+                    ("parent", "the parent's K5 bf16"),
                     ("sdpa", "SDPA backward bf16")) if key in gms))
-        del qh, kh, vh, out, lib_bwd, bias, o32, lse32, doh
+        del qh, kh, vh, out, lib_bwd, lib_fwd, bias, mask, o32, lse32, doh
 
     for y_len in S1_Y_LENS:
         xl, yl = s1_lens(torch, gen, S1_B, S1_X_LEN, y_len)
@@ -1736,15 +1790,42 @@ def check_bf16(torch, results, parent=None):
                              plain_ms=plain, library_ms=lib, fp32_ms=fp32,
                              max_rel_err=worst[key].rel, **bd.result())
     assert lse_err <= 1e-4, f"K1's bf16 lse disagrees: {lse_err}"
+    results["prefill_attention_bf16"]["graph_ms"] = graph_sums["k1"]
     results["prefill_attention_bwd_bf16"]["graph_ms"] = graph_sums["k5"]
+    k1_bound = bounds["k1"].ms
+    log(f"[kernels] K1 bf16 over the two s1 shapes as CUDA graphs, in turns "
+        f"with SDPA's bf16 forward captured the same way: K1 "
+        f"{graph_sums['k1']:.4f} ms ({100 * k1_bound / graph_sums['k1']:.1f} "
+        f"% of its {k1_bound:.4f} ms bound), SDPA forward "
+        f"{graph_sums['sdpa_fwd']:.4f} ms (SDPA / K1 "
+        f"{graph_sums['sdpa_fwd'] / graph_sums['k1']:.2f}x)")
     log(f"[kernels] K5 bf16 over the two s1 shapes as CUDA graphs, in turns "
         f"with SDPA's bf16 backward captured the same way: K5 "
         f"{graph_sums['k5']:.4f} ms, SDPA backward {graph_sums['sdpa']:.4f} "
         f"ms (SDPA / K5 {graph_sums['sdpa'] / graph_sums['k5']:.2f}x)")
     if parent is not None:
+        k1_ab = ab["k1"]
+        log(f"[a/b] K1 prefill_attention bf16 with lse, the two s1 shapes, "
+            f"same inputs, in turns: by kernel count parent {k1_ab[1]:.4f} "
+            f"ms -> this tree {k1_ab[0]:.4f} ms "
+            f"({k1_ab[1] / k1_ab[0]:.2f}x); as CUDA graphs parent "
+            f"{graph_sums['k1_parent']:.4f} -> this tree "
+            f"{graph_sums['k1']:.4f} ms "
+            f"({graph_sums['k1_parent'] / graph_sums['k1']:.2f}x); against "
+            f"the bf16 twin at the s1 shapes and BF16_ATTN_EDGES: this tree "
+            f"{worst['k1']}, lse max|d|={lse_err:.3g}; the parent's "
+            f"{k1_parent_worst}, lse max|d|={lse_parent[0]:.3g}; this tree "
+            f"against the parent's: {k1_vs_parent}, lse max|d|="
+            f"{lse_parent[1]:.3g} (tol 1e-4)")
+        assert k1_parent_worst.ok() and k1_vs_parent.ok() and \
+            max(lse_parent) <= 1e-4, \
+            (f"the parent's bf16 K1 against the twin {k1_parent_worst}, "
+             f"this tree's against it {k1_vs_parent}, lse {lse_parent}")
+        k5_ab = ab["k5"]
         log(f"[a/b] K5 prefill_attention_bwd bf16, the two s1 shapes, same "
-            f"inputs, in turns: by kernel count parent {ab[1]:.4f} ms -> this "
-            f"tree {ab[0]:.4f} ms ({ab[1] / ab[0]:.2f}x); as CUDA graphs "
+            f"inputs, in turns: by kernel count parent {k5_ab[1]:.4f} ms -> "
+            f"this tree {k5_ab[0]:.4f} ms ({k5_ab[1] / k5_ab[0]:.2f}x); as "
+            f"CUDA graphs "
             f"parent {graph_sums['parent']:.4f} -> this tree "
             f"{graph_sums['k5']:.4f} ms "
             f"({graph_sums['parent'] / graph_sums['k5']:.2f}x); against the "
@@ -1780,6 +1861,21 @@ def sass_functions(path: str, keys) -> dict:
     return funcs
 
 
+def ptxas_spills(build_log: str, key: str) -> dict:
+    """The ptxas spill line ("0 bytes stack frame, 0 bytes spill stores, 0
+    bytes spill loads") of each kernel whose mangled name holds ``key``, by
+    name, from a build log (none from a library reused, not built)."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+        elif name is not None and "spill stores" in line:
+            if key in name:
+                out[name] = line.strip()
+            name = None
+    return out
+
+
 def opcode(line: str) -> str:
     """The opcode of a SASS line ("/*0040*/ @P0 HGMMA.64x256x8... ;")."""
     words = line.split("*/", 1)[-1].split()
@@ -1794,6 +1890,7 @@ def short_name(mangled: str) -> str:
     import re
 
     m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel|"
+                  r"prefill_attention_bf16_kernel|"
                   r"(?:dsum|dkdv|dq)(?:_bf16)?_kernel)((?:I?Li-?\d+E)*)",
                   mangled)
     if not m:
@@ -1958,18 +2055,18 @@ def ab_mrf(torch, parent):
     assert worst.ok(), f"K4-dW bf16 disagrees with the parent's: {worst}"
 
 
-# the parent's bf16 K4-dW bodies (the mma.sync route's bf16 instances),
-# which this tree's bf16 wgmma route replaces at 64 channels and more
-K4DW_BF16_REPLACED = r"wgrad_mma_kernelILi\d+ELi\d+E13__nv_bfloat16"
+# the parent's bf16 K1 body (the instance of the fp32 loop with bf16
+# widened in), which prefill_attention_bf16_kernel replaces
+K1_BF16_REPLACED = r"prefill_attention_kernelILi32E13__nv_bfloat16"
 
 
 def ab_sass(parent_root: str) -> None:
     """``bench/sass_diff.py`` against the parent's library: every kernel
-    body of the parent but its bf16 K4-dW ones (K4DW_BF16_REPLACED) must be
-    in this tree's library instruction for instruction."""
+    body of the parent but its bf16 K1 (K1_BF16_REPLACED) must be in this
+    tree's library instruction for instruction."""
     from easevoice_trainer_tpu_torch.bench import sass_diff
 
-    rc = sass_diff.main([parent_root, "--replaced", K4DW_BF16_REPLACED])
+    rc = sass_diff.main([parent_root, "--replaced", K1_BF16_REPLACED])
     assert rc == 0, "a kernel body of the parent changed (bench/sass_diff.py)"
 
 
@@ -4712,20 +4809,29 @@ def s1_dpo_micro_batch(torch, trainer) -> None:
         launches["prefill_attention_bwd"], launches
 
 
-# K5's kernels by name in a trace, either instance
+# K1's and K5's kernels by name in a trace, either instance
+K1_KERNEL = re.compile(r"\bprefill_attention(_bf16)?_kernel\b")
 K5_KERNEL = re.compile(r"\b(dsum|dkdv|dq)(_bf16)?_kernel\b")
 
 
-def profile_s1_window(torch, trainer) -> None:
+def profile_s1_window(torch, trainer, attempts: int = 3) -> None:
     """One accumulation window (4 micro-batches at T = 1776, the fourth
     ending with the ScaledAdam step) of the trained GPTTrainStep under
-    torch.profiler: device time by group, K1 (prefill_attention_kernel),
-    K5 (its dsum / dkdv / dq kernels), GEMMs (cuBLAS / CUTLASS kernels),
-    the optimizer (the kernels inside the step's ScaledAdam.step range on
-    the device timeline) and the rest."""
+    torch.profiler: device time by group, K1 (K1_KERNEL: either instance's
+    kernel), K5 (K5_KERNEL: its dsum / dkdv / dq kernels), GEMMs (cuBLAS /
+    CUTLASS kernels), the optimizer (the kernels inside the step's
+    ScaledAdam.step range on the device timeline) and the rest.  The window
+    launches 4 x n_layers K1 kernels and 4 x n_layers x 3 K5 kernels (the
+    wrappers' counts must say so), and its K1 and K5 groups must hold them
+    all.  Each session first traces a window it discards (the profiler's
+    warm-up: late in a long run, the first records of a session went
+    missing, the window's first K1 among them), then the window it keeps;
+    a session still short of some kernel records is taken again, up to
+    ``attempts``, each logged."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    from easevoice_trainer_tpu_torch import ops
     from easevoice_trainer_tpu_torch.train import data as data_mod
     from easevoice_trainer_tpu_torch.train.gpt import GPT_BOUNDARIES
     from easevoice_trainer_tpu_torch.train.gpt_step import OPTIMIZER_RANGE
@@ -4741,39 +4847,63 @@ def profile_s1_window(torch, trainer) -> None:
     for _ in range(4):   # warm-up window
         step_fn(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            step_fn(batch)
-        torch.cuda.synchronize()
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    # the optimizer: the device time of the kernels launched inside the
-    # step's ScaledAdam.step range on the host (the profiler links each
-    # kernel to the host op that launched it)
-    opt_ranges = [e for e in events if e.name == OPTIMIZER_RANGE
-                  and e.device_type == DeviceType.CPU]
-    opt_us = sum(e.device_time_total for e in opt_ranges)
-    if not kernels:
-        log("[s1 training] torch.profiler recorded no CUDA activity for the "
-            "profiled window: no breakdown this run")
-        return
-    groups = {"K1": 0.0, "K5": 0.0, "GEMMs": 0.0, "optimizer": 0.0,
-              "other": 0.0}
-    k5_launches = 0
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        name = e.name.lower()
-        if "prefill_attention_kernel" in name:
-            groups["K1"] += us
-        elif K5_KERNEL.search(name):
-            groups["K5"] += us
-            k5_launches += 1
-        elif any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")):
-            groups["GEMMs"] += us
-        else:
-            groups["other"] += us
+    layers = 4 * step_fn.model.cfg.n_layers
+    want = {"K1": layers,
+            "K5": layers * ops.prefill_attention_bwd.launches_per_call}
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):   # warm-up, then the window kept
+                ops.reset_launch_counts()
+                for _ in range(4):
+                    step_fn(batch)
+                torch.cuda.synchronize()
+                prof.step()
+        launches = ops.launch_counts()
+        launched = {"K1": launches["prefill_attention"]
+                    + launches["prefill_attention_bf16"],
+                    "K5": launches["prefill_attention_bwd"]
+                    + launches["prefill_attention_bwd_bf16"]}
+        assert launched == want, (launched, want)
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        # the optimizer: the device time of the kernels launched inside the
+        # step's ScaledAdam.step range on the host (the profiler links each
+        # kernel to the host op that launched it)
+        opt_ranges = [e for e in events if e.name == OPTIMIZER_RANGE
+                      and e.device_type == DeviceType.CPU]
+        opt_us = sum(e.device_time_total for e in opt_ranges)
+        if not kernels:
+            log("[s1 training] torch.profiler recorded no CUDA activity for "
+                "the profiled window: no breakdown this run")
+            return
+        groups = {"K1": 0.0, "K5": 0.0, "GEMMs": 0.0, "optimizer": 0.0,
+                  "other": 0.0}
+        seen = {"K1": 0, "K5": 0}
+        for e in kernels:
+            us = e.time_range.elapsed_us()
+            name = e.name.lower()
+            if K1_KERNEL.search(name):
+                key = "K1"
+                seen[key] += 1
+            elif K5_KERNEL.search(name):
+                key = "K5"
+                seen[key] += 1
+            elif any(k in name for k in ("gemm", "xmma", "cutlass",
+                                         "nvjet")):
+                key = "GEMMs"
+            else:
+                key = "other"
+            groups[key] += us
+        if seen == want:
+            break
+        log(f"[timer] torch.profiler session {attempt} of {attempts} of the "
+            f"s1 window recorded {seen['K1']} K1 and {seen['K5']} K5 "
+            f"kernels of the window's {want['K1']} and {want['K5']} "
+            f"({len(kernels)} kernels and copies in all)")
     # the optimizer's kernels are elementwise work and reductions
     groups["optimizer"] = min(opt_us, groups["other"])
     groups["other"] -= groups["optimizer"]
@@ -4786,13 +4916,10 @@ def profile_s1_window(torch, trainer) -> None:
         f"ms in {len(kernels)} kernels and copies, "
         f"{total / 4000:.2f} ms a micro-batch; "
         + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in groups.items())
-        + f"; {k5_launches} K5 kernels in the K5 group" + note)
-    from easevoice_trainer_tpu_torch.ops import prefill_attention_bwd
-
-    want = 4 * step_fn.model.cfg.n_layers \
-        * prefill_attention_bwd.launches_per_call
-    assert k5_launches == want, (f"{k5_launches} K5 kernels in the window's "
-                                 f"K5 group, not {want}")
+        + f"; {seen['K1']} K1 and {seen['K5']} K5 kernels in their groups"
+        + note)
+    assert seen == want, (f"the window's K1 and K5 groups hold {seen} "
+                          f"kernels, not {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -5372,8 +5499,8 @@ def trace_kernels(path: str) -> dict:
 
 # the REST path's kernels by the symbol in their device records: K1's
 # GPT instance (dk 32), its dk-64 instance (the clone's HuBERT), K2, K3
-TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32, float>"),
-                 ("encoder_attention", "prefill_attention_kernel<64, float>"),
+TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32>"),
+                 ("encoder_attention", "prefill_attention_kernel<64>"),
                  ("decode_attention", "decode_attention_kernel"),
                  ("mrf_conv", "conv_mma_kernel"))
 

@@ -56,25 +56,10 @@
 // key (its o is 0); the training backward (K5, prefill_attention_bwd.cu)
 // recomputes P = exp(S - lse) from it.  The row state it is written from is
 // the online softmax's own, so o is the same with or without it.
-//
-// The bf16 instance (E = bf16, dk 32, ev_prefill_attention_bf16) is the s1
-// fine-tune's under is_half: the JAX package's TransformerLayer.attention
-// with dtype bfloat16 (t2s.py:118-131) computes the scores in fp32 from
-// bf16 q and k, the softmax in fp32, and P V in fp32 from the fp32
-// probabilities (the layer's input, and so x.dtype, is fp32) and bf16 v;
-// the out projection then rounds o to bf16.  This instance reads q, k and v
-// as bf16 (half the bytes), widens them exactly into the same fp32 tiles
-// and fragments (plain loads and stores in place of cp.async), and keeps
-// the loop: Q K^T is one TF32 product (both operands exact in TF32), P V
-// two (P split hi/lo, V exact); o is written rounded to bf16, lse in fp32.
-// A first, simple instance: bf16 mma.sync tiles are the faster design.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "bf16_io.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -95,18 +80,16 @@ __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(l);
 }
 
-// DK: 32 (the 512/16 GPT) or 64 (the encoders: 1024/16, 768/12); E: the
-// element type of q, k, v and o in device memory (float, or bf16 at dk 32)
-template <int DK, typename E>
+// DK: 32 (the 512/16 GPT) or 64 (the encoders: 1024/16, 768/12)
+template <int DK>
 __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, E* __restrict__ o,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
     int H, int x_len, float scale) {
   static_assert(DK == 32 || DK == 64, "K1 is written for dk 32 and 64");
-  constexpr bool LOW = !std::is_same<E, float>::value;  // bf16 operands
   constexpr int LDS = DK + 4;   // shared row stride in floats, 4 mod 32
   constexpr int NS = DK / 8;    // k-steps of Q K^T, n8 tiles of P V
   constexpr int HALVES = DK / 32;
@@ -128,39 +111,18 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
   __shared__ __align__(16) float sk[2][BKT][LDS];
   __shared__ __align__(16) float sv[2][BKT][LDS];
 
-  const E* kb = k + b * k_sb + h * DK;
-  const E* vb = v + b * v_sb + h * DK;
+  const float* kb = k + b * k_sb + h * DK;
+  const float* vb = v + b * v_sb + h * DK;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int k0 = i < n_text ? i * BKT : x_len + (i - n_text) * BKT;
       const int kend = i < n_text ? xv : a_end;
-      if constexpr (LOW) {
-        // 8 elements a piece, widened into the fp32 tiles
-        for (int p = tid; p < BKT * DK / 8; p += NTHREADS) {
-          const int r = p / (DK / 8), c = (p % (DK / 8)) * 8;
-          const int key = k0 + r;
-          float kr[8] = {}, vr[8] = {};
-          if (key < kend) {
-            widen8(kb + key * k_st + c, kr);
-            widen8(vb + key * v_st + c, vr);
-          }
-          *reinterpret_cast<float4*>(&sk[slot][r][c]) =
-              make_float4(kr[0], kr[1], kr[2], kr[3]);
-          *reinterpret_cast<float4*>(&sk[slot][r][c + 4]) =
-              make_float4(kr[4], kr[5], kr[6], kr[7]);
-          *reinterpret_cast<float4*>(&sv[slot][r][c]) =
-              make_float4(vr[0], vr[1], vr[2], vr[3]);
-          *reinterpret_cast<float4*>(&sv[slot][r][c + 4]) =
-              make_float4(vr[4], vr[5], vr[6], vr[7]);
-        }
-      } else {
       for (int p = tid; p < BKT * DK / 4; p += NTHREADS) {
         const int r = p >> (DK == 64 ? 4 : 3), c = (p & (DK / 4 - 1)) * 4;
         const int key = k0 + r;
         const bool ok = key < kend;
         cp_async16(&sk[slot][r][c], ok ? kb + key * k_st + c : kb, ok);
         cp_async16(&sv[slot][r][c], ok ? vb + key * v_st + c : vb, ok);
-      }
       }
     }
     cp_async_commit();
@@ -173,7 +135,7 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
   uint32_t qh[NS][4], ql[NS][4];
   {
     float qa[2 * NS], qc[2 * NS];
-    const E* qb = q + b * q_sb + h * DK + 8 * t;
+    const float* qb = q + b * q_sb + h * DK + 8 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = r0 + g + 8 * half;
@@ -185,16 +147,9 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
       if (row < T) {
 #pragma unroll
         for (int f = 0; f < HALVES; ++f) {
-          if constexpr (LOW) {
-            float e8[8];
-            widen8(qb + row * q_st + 32 * f, e8);
-            lo4[f] = make_float4(e8[0], e8[1], e8[2], e8[3]);
-            hi4[f] = make_float4(e8[4], e8[5], e8[6], e8[7]);
-          } else {
           lo4[f] = *reinterpret_cast<const float4*>(qb + row * q_st + 32 * f);
           hi4[f] =
               *reinterpret_cast<const float4*>(qb + row * q_st + 32 * f + 4);
-          }
         }
       }
 #pragma unroll
@@ -265,14 +220,12 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
             split2(kr[n][2 * u], bh[n][0], bl[n][0]);
             split2(kr[n][2 * u + 1], bh[n][1], bl[n][1]);
           }
-          if constexpr (!LOW) {  // bf16 q and k have no lo halves
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(sacc[n], ql[s], bh[n][0], bh[n][1]);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(sacc[n], qh[s], bl[n][0], bl[n][1]);
-          }
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(sacc[n], qh[s], bh[n][0], bh[n][1]);
@@ -351,11 +304,9 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(oacc[4 * f + n], al, bh[n][0], bh[n][1]);
-          if constexpr (!LOW) {  // bf16 v has no lo half
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(oacc[4 * f + n], ah, bl[n][0], bl[n][1]);
-          }
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_tf32(oacc[4 * f + n], ah, bh[n][0], bh[n][1]);
@@ -383,15 +334,8 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     }
 #pragma unroll
     for (int f = 0; f < HALVES; ++f) {
-      E* ob = o + (((long long)b * T + row) * H + h) * DK + 32 * f + 8 * t;
-      if constexpr (LOW) {
-        const float d[8] = {
-            oacc[4 * f][2 * r] * inv,         oacc[4 * f + 1][2 * r] * inv,
-            oacc[4 * f + 2][2 * r] * inv,     oacc[4 * f + 3][2 * r] * inv,
-            oacc[4 * f][2 * r + 1] * inv,     oacc[4 * f + 1][2 * r + 1] * inv,
-            oacc[4 * f + 2][2 * r + 1] * inv, oacc[4 * f + 3][2 * r + 1] * inv};
-        narrow8(ob, d);
-      } else {
+      float* ob =
+          o + (((long long)b * T + row) * H + h) * DK + 32 * f + 8 * t;
       *reinterpret_cast<float4*>(ob) =
           make_float4(oacc[4 * f][2 * r] * inv, oacc[4 * f + 1][2 * r] * inv,
                       oacc[4 * f + 2][2 * r] * inv,
@@ -401,7 +345,6 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
                       oacc[4 * f + 1][2 * r + 1] * inv,
                       oacc[4 * f + 2][2 * r + 1] * inv,
                       oacc[4 * f + 3][2 * r + 1] * inv);
-      }
     }
   }
 }
@@ -415,28 +358,9 @@ extern "C" int ev_prefill_attention_f32(
     int B, int T, int H, int x_len, float scale, void* stream) {
   if (T <= 0 || x_len < 0 || x_len > T) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  prefill_attention_kernel<32, float>
-      <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
       (float*)lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
-      (const int*)y_lens, T, H, x_len, scale);
-  return (int)cudaGetLastError();
-}
-
-// The bf16 instance (the s1 fine-tune under is_half): q/k/v (B, T, H, 32)
-// bf16 views whose batch and time strides are multiples of 8 elements, the
-// pointers 16-byte aligned; o (B, T, H, 32) bf16 contiguous; lse as above.
-extern "C" int ev_prefill_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    long long q_sb, long long q_st, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
-    int B, int T, int H, int x_len, float scale, void* stream) {
-  if (T <= 0 || x_len < 0 || x_len > T) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  prefill_attention_kernel<32, bf16>
-      <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
       (const int*)y_lens, T, H, x_len, scale);
   return (int)cudaGetLastError();
 }
@@ -454,14 +378,12 @@ extern "C" int ev_encoder_attention_f32(
   if (T <= 0 || (dk != 32 && dk != 64)) return (int)cudaErrorInvalidValue;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   if (dk == 32)
-    prefill_attention_kernel<32, float>
-        <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+    prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
         (const int*)valid_lens, T, H, T, scale);
   else
-    prefill_attention_kernel<64, float>
-        <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+    prefill_attention_kernel<64><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
         (const int*)valid_lens, T, H, T, scale);

@@ -65,8 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_io.cuh"
-#include "warp_mma.cuh"
+#include "attention_bf16.cuh"
 
 namespace {
 
@@ -90,24 +89,7 @@ constexpr int MIN_BLOCKS = 4;   // blocks an SM asked of the launch bounds
 
 static_assert(QSTEP == 8 || QSTEP == 16, "a dkdv step is one k8 or k16");
 
-// 2^x by the MUFU unit alone (exp2f adds a rescue of subnormal results,
-// which only flushes P < 2^-126 to 0 here)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes (4 with lse / D) global -> shared, zeros where !ok
-__device__ __forceinline__ void stage16(bf16* dst, const bf16* src, bool ok) {
-  if constexpr (ASYNC) {
-    cp_async16(dst, src, ok);
-  } else {
-    *reinterpret_cast<uint4*>(dst) =
-        ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-  }
-}
-
+// 4 bytes (lse, D) global -> shared, zeros where !ok
 __device__ __forceinline__ void stage4(float* dst, const float* src,
                                        bool ok) {
   if constexpr (ASYNC) {
@@ -115,59 +97,6 @@ __device__ __forceinline__ void stage4(float* dst, const float* src,
   } else {
     *dst = ok ? *src : 0.f;
   }
-}
-
-// v = t[0] + t[1] + ... in bf16 terms for two values a (low half) and b
-__device__ __forceinline__ void split(float a, float b,
-                                      uint32_t (&t)[TERMS]) {
-#pragma unroll
-  for (int i = 0; i < TERMS; ++i) {
-    t[i] = narrow2(a, b);
-    a -= bf16_lo(t[i]);
-    b -= bf16_hi(t[i]);
-  }
-}
-
-// Rows r0 + g and r0 + g + 8 of a view (time stride st, `base` at dim 0 of
-// the head) as the A fragments of the two k16 steps over the head dims;
-// rows at or past `end` are 0
-__device__ __forceinline__ void load_a(const bf16* base, long long st,
-                                       int r0, int end, int g, int t,
-                                       uint32_t (&a)[2][4]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(base + row * st);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      a[s][r] = row < end ? __ldg(p + 8 * s + t) : 0u;
-      a[s][r + 2] = row < end ? __ldg(p + 8 * s + 4 + t) : 0u;
-    }
-  }
-}
-
-// B fragments over the head dims of rows x0..x0+7 of a staged tile (n8
-// column g = row x0 + g): b[0], b[1] the k16 step of dims 0-15, b[2], b[3]
-// of dims 16-31; with .trans, b[m] is the k8 step over those rows of dim
-// tile m (dims 8m..8m+7)
-template <bool TRANS = false>
-__device__ __forceinline__ void ldsm_dims(uint32_t (&b)[4], const bf16* tile,
-                                          int x0, int lane) {
-  const uint32_t a =
-      smem_addr(tile + (x0 + (lane & 7)) * LDS + 8 * (lane >> 3));
-  if constexpr (TRANS) {
-    ldsm4_trans(b, a);
-  } else {
-    ldsm4(b, a);
-  }
-}
-
-// B fragments of the k16 step over rows x0..x0+15 of a staged tile for dim
-// tiles 2m and 2m+1: b[0], b[1] tile 2m, b[2], b[3] tile 2m+1
-__device__ __forceinline__ void ldsm_rows(uint32_t (&b)[4], const bf16* tile,
-                                          int x0, int m, int lane) {
-  ldsm4_trans(b, smem_addr(tile + (x0 + (lane & 15)) * LDS +
-                           8 * (2 * m + (lane >> 4))));
 }
 
 // acc += W X over the rows of one k16 step: W's TERMS A fragments, X's
@@ -178,7 +107,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4][4],
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     uint32_t b[4];
-    ldsm_rows(b, x, x0, m, lane);
+    ldsm_rows<LDS>(b, x, x0, m, lane);
 #pragma unroll
     for (int i = TERMS - 1; i >= 0; --i) {
       mma_bf16(acc[2 * m], w[i], b[0], b[1]);
@@ -198,7 +127,7 @@ __device__ __forceinline__ void mma_step(float (&acc)[4][4],
     mma_rows(acc, w, x, x0, lane);
   } else {
     uint32_t b[4];
-    ldsm_dims<true>(b, x, x0, lane);
+    ldsm_dims<LDS, true>(b, x, x0, lane);
 #pragma unroll
     for (int m = 0; m < 4; ++m)
 #pragma unroll
@@ -284,8 +213,9 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
         const int r = p >> 2, c = (p & 3) * 8;
         const int row = q0 + r;
         const bool ok = row < T;
-        stage16(&sq[slot][r][c], ok ? qb + row * in_st + c : qb, ok);
-        stage16(&sdo[slot][r][c], ok ? gb + row * (H * DK) + c : gb, ok);
+        stage16<ASYNC>(&sq[slot][r][c], ok ? qb + row * in_st + c : qb, ok);
+        stage16<ASYNC>(&sdo[slot][r][c], ok ? gb + row * (H * DK) + c : gb,
+                       ok);
       }
       for (int r = tid; r < QT; r += NT) {
         const int row = q0 + r;
@@ -333,8 +263,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         uint32_t bq[4], bg[4];
-        ldsm_dims(bq, tq, QSTEP * j + 8 * n, lane);
-        ldsm_dims(bg, tg, QSTEP * j + 8 * n, lane);
+        ldsm_dims<LDS>(bq, tq, QSTEP * j + 8 * n, lane);
+        ldsm_dims<LDS>(bg, tg, QSTEP * j + 8 * n, lane);
         mma_bf16(st[n], ka[0], bq[0], bq[1]);
         mma_bf16(st[n], ka[1], bq[2], bq[3]);
         mma_bf16(dpt[n], va[0], bg[0], bg[1]);
@@ -426,8 +356,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
         const int r = p >> 2, c = (p & 3) * 8;
         const int key = k0 + r;
         const bool ok = key < kend;
-        stage16(&sk[slot][r][c], ok ? kb + key * in_st + c : kb, ok);
-        stage16(&sv[slot][r][c], ok ? vb + key * in_st + c : vb, ok);
+        stage16<ASYNC>(&sk[slot][r][c], ok ? kb + key * in_st + c : kb, ok);
+        stage16<ASYNC>(&sv[slot][r][c], ok ? vb + key * in_st + c : vb, ok);
       }
     }
     cp_async_commit();
@@ -475,8 +405,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
 #pragma unroll
       for (int n = 0; n < BKT / 8; ++n) {
         uint32_t bk[4], bv[4];
-        ldsm_dims(bk, tk, 8 * n, lane);
-        ldsm_dims(bv, tv, 8 * n, lane);
+        ldsm_dims<LDS>(bk, tk, 8 * n, lane);
+        ldsm_dims<LDS>(bv, tv, 8 * n, lane);
         mma_bf16(s[n], qa[0], bk[0], bk[1]);
         mma_bf16(s[n], qa[1], bk[2], bk[3]);
         mma_bf16(dp[n], ga[0], bv[0], bv[1]);

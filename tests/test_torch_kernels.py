@@ -835,14 +835,29 @@ def _bf16_heads(qkv, h):
     return att._split_heads(qkv.to(torch.bfloat16), h)
 
 
+# K1's bf16 kernel at the edges of its own tiles: 128-row query tiles of
+# four 32-row warps and 64-key staged tiles (T, x_len and the valid lengths
+# one off each), a one-row T, batch rows whose every row sees no key
+K1_BF16_EDGES = [
+    (64, [64, 63, 1], 63, [63, 62, 1]),      # T = 127
+    (63, [63, 0, 17], 65, [65, 64, 0]),      # T = 128
+    (65, [65, 64, 63], 64, [64, 1, 0]),      # T = 129
+    (128, [0, 128], 1, [0, 1]),              # row 0 sees no key at all
+    (0, [0, 0], 1, [1, 0]),                  # T = 1, audio
+    (1, [1, 0], 0, [0, 0]),                  # T = 1, text
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", K5_CASES)
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
+                         K5_CASES + K1_BF16_EDGES)
 def test_prefill_attention_bf16_matches_twin(x_len, x_lens, y_len, y_lens):
-    """K1's bf16 instance with its lse at the s1 shapes and K1 / K5's tile
+    """K1's bf16 instance with its lse at the s1 shapes, K1 / K5's tile
     edges (x_len 15 / 16 / 17, T < 16, a batch row of pads, rows with no
-    visible key): o against the bf16 twin (rows with no key are 0 in the
-    kernel, NaN in the twin), lse within 1e-4 (fp32); one bf16 launch
-    counted, none fp32; two calls bit-identical."""
+    visible key) and its own (K1_BF16_EDGES): o against the bf16 twin (rows
+    with no key are 0 in the kernel, NaN in the twin), lse within 1e-4
+    (fp32) and -inf exactly where the twin's is; one bf16 launch counted,
+    none fp32; two calls bit-identical."""
     gen = _card()
     b, h, dk, t = len(x_lens), 16, 32, x_len + y_len
     xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
@@ -860,10 +875,78 @@ def test_prefill_attention_bf16_matches_twin(x_len, x_lens, y_len, y_lens):
     want_lse = att.prefill_attention_lse_reference(q, k, x_len, xl, yl)
     hidden = torch.isinf(want_lse)
     assert torch.equal(torch.isinf(lse), hidden)
+    assert not o[hidden.transpose(1, 2)].any()
     torch.testing.assert_close(lse[~hidden], want_lse[~hidden], rtol=0,
                                atol=1e-4)
     o2, lse2 = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` loaded by path (it imports nothing at the top but
+    the standard library)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_s1_window_kernel_patterns_class_k1_and_k5():
+    """The s1 window's profile groups kernels by name (chip_smoke
+    K1_KERNEL, K5_KERNEL, on the lower-cased demangled names a trace
+    holds): K1's fp32 and bf16 kernels are K1, K5's dsum / dkdv / dq of
+    either instance are K5, and no name is both or falls to neither."""
+    cs = _chip_smoke()
+    k1 = ["(anonymous namespace)::prefill_attention_kernel<32>(float const*, "
+          "float const*, float const*, float*, float*, long long, long long, "
+          "long long, long long, long long, long long, int const*, int "
+          "const*, int, int, int, float)",
+          "(anonymous namespace)::prefill_attention_kernel<64>(float const*, "
+          "float const*, float const*, float*, float*, long long, long long, "
+          "long long, long long, long long, long long, int const*, int "
+          "const*, int, int, int, float)",
+          "(anonymous namespace)::prefill_attention_bf16_kernel(__nv_bfloat16 "
+          "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+          "__nv_bfloat16*, float*, long long, long long, long long, long "
+          "long, long long, long long, int const*, int const*, int, int, "
+          "int, float)"]
+    k5 = [f"(anonymous namespace)::{k}{sfx}_kernel(float const*, int)"
+          for k in ("dsum", "dkdv", "dq") for sfx in ("", "_bf16")]
+    other = ["void decode_attention_kernel<8>(float const*)",
+             "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn",
+             "void at::native::vectorized_elementwise_kernel<4>()"]
+    for name in k1 + k5 + other:
+        name = name.lower()
+        got = (bool(cs.K1_KERNEL.search(name)),
+               bool(cs.K5_KERNEL.search(name)))
+        want = (name in map(str.lower, k1), name in map(str.lower, k5))
+        assert got == want, (name, got)
+
+
+def test_k1_variants_undo_one_choice_each():
+    """``bench/k1_variants.py`` writes variants of the tree's K1 bf16
+    source that each differ from it in one of the constants at its top."""
+    import os
+
+    from easevoice_trainer_tpu_torch.bench import k1_variants
+    from easevoice_trainer_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, "prefill_attention_bf16.cu")) as f:
+        src = f.read()
+    got = k1_variants.variants(src)
+    names = {"terms3", "sync", "warps2", "mt1", "ring2", "in_order"}
+    assert names < set(got) and len(got) == len(names) + 1
+    assert set(got) - names <= {"bkt32", "bkt64"}
+    for name, text in got.items():
+        changed = [(a, b) for a, b in zip(src.splitlines(),
+                                          text.splitlines()) if a != b]
+        assert len(changed) == 1, name
+        assert changed[0][0].startswith("constexpr "), name
 
 
 # K5's bf16 kernels at the edges of their own tiles: 16-row MMA fragments,
