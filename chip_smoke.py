@@ -14,7 +14,7 @@ bit and its bf16 instance held to the twin beside the parent's; the bf16
 K1 over the two s1 shapes, held to the twin and to the parent's, also as
 CUDA graphs; the bf16 K4-dW per stage held to the parent's); then
 ``bench/sass_diff.py`` must find every kernel body of the parent's library
-in this tree's, the parent's bf16 K1 body excepted (K1_BF16_REPLACED).
+in this tree's.
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -59,7 +59,13 @@ Phases, one summary line each; any failure exits non-zero:
    HMMA opcodes of their kernels' SASS (bf16 m16n8k16 alone; no ptxas
    spill in K1's); K4-dW bf16 with its plan per stage
    and the tensor-core opcodes of its wgmma route's SASS (bf16 HGMMA
-   alone);
+   alone).  Then the dropout instances of K1 and K5 (``check_dropout``,
+   the s1 fine-tune with dropout 0.1), fp32 and bf16, at the two s1 shapes
+   against their twins given the same Philox keep mask, the keep rate,
+   the mask read back bit for bit from K1, K5's dkdv and K5's dq at
+   T = 1776, each timed beside the instance without dropout, the twin and
+   SDPA with dropout_p = 0.1 under the same boolean mask, with its bound
+   and the RNG's own floor from the Philox instructions in its SASS;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
    from a seeded ``torch.Generator``, written to .pth files and loaded the way
    a user's trained models are), a synthetic 5 s reference and six English
@@ -158,9 +164,13 @@ Phases, one summary line each; any failure exits non-zero:
    bucket, first micro-batch, peak memory of each run; one bf16 DPO
    micro-batch (``if_dpo``, B=4 at T = 1776: finite, 2 x 24 K1 and K5 bf16
    calls); and one bf16 accumulation window under torch.profiler by group
-   (K1, K5, GEMMs, optimizer, other);
+   (K1, K5, GEMMs, optimizer, other).  Then one accumulation window (4
+   micro-batches of B=24) with ``model.dropout: 0.1`` in bf16 and in
+   fp32: finite losses, 24 K1 and 24 K5 dropout calls a micro-batch and no
+   launch of an instance without dropout;
 12. reference s1 step: one micro-batch at a small width on the card and on
-   the CPU agrees (loss and every qkv gradient), in fp32 and in bf16;
+   the CPU agrees (loss and every qkv gradient), in fp32 and in bf16,
+   without and with dropout 0.1 (the same masks at all four sites);
 13. rest: the port's REST server as a user drives it, every process of it
    under an import hook that refuses the JAX package, jax, flax, yaml,
    transformers, safetensors, aiohttp and psutil: ``python -m
@@ -289,6 +299,28 @@ KERNEL_INFO = {
         "easevoice_trainer_tpu_torch/csrc/mrf_conv_wgrad.cu",
         "easevoice_trainer_tpu/ops/fused_mrf.py:168 (_bwd_kernel, dW and "
         "db, git 42ecfe8), in bf16"),
+    # the dropout instances of the s1 fine-tune (T2SConfig.dropout > 0)
+    "prefill_attention_dropout": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:128 (nn.Dropout on the "
+        "attention probabilities inside K1, the port of "
+        "ops/pallas/flash_prefill.py:35, git 0ec4461, which takes no "
+        "dropout)"),
+    "prefill_attention_dropout_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bf16.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:128 (nn.Dropout on the "
+        "attention probabilities, dtype bfloat16, inside K1's bf16 "
+        "instance)"),
+    "prefill_attention_bwd_dropout": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:128 (nn.Dropout on the "
+        "attention probabilities under jax.value_and_grad, "
+        "train/gpt_step.py:143; no Pallas ancestor)"),
+    "prefill_attention_bwd_dropout_bf16": (
+        "easevoice_trainer_tpu_torch/csrc/prefill_attention_bwd_bf16.cu",
+        "easevoice_trainer_tpu/models/gpt/t2s.py:128 (nn.Dropout on the "
+        "attention probabilities, dtype bfloat16, under jax.value_and_grad, "
+        "train/gpt_step.py:143; no Pallas ancestor)"),
 }
 
 # the s1 micro-batches of the "s1 training" phase: B=8, 416 phonemes
@@ -427,6 +459,22 @@ def graph_timer(torch, fn, stream, reps: int = 20):
     return ms
 
 
+def event_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls after a warm-up
+    between two CUDA events (every kernel of a call and the gaps between
+    them), for a call whose kernel count torch.profiler cannot be held to
+    (a library call that may lose records in a session)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def in_turns(torch, fn, old, name=None, launches=None):
     """Device ms of ``fn`` and of ``old``, the same call on the parent
     commit's package, timed in turns (old, new, new, old), each the mean of
@@ -542,9 +590,11 @@ def check_kernels(torch, results, parent=None):
                     for path in (build.build().path,
                                  parent.build.build().path))
         for width in ("Li32E", "Li64E"):
-            # the fp32 instances of the two trees (not the bf16 one)
+            # the fp32 instances of the two trees
+            # (not the bf16 one, nor this tree's dropout instance)
             mine, theirs = ([b for n, bs in lib.items()
                              if width in n and "bfloat16" not in n
+                             and "Lb1E" not in n
                              for b in bs] for lib in (new, old))
             log(f"[a/b] K1's dk-{width[2:4]} fp32 SASS: {len(mine)} copy in "
                 f"this tree's library ({len(mine[0])} instructions), "
@@ -1196,7 +1246,9 @@ def check_k5(torch, results, parent=None):
                   ("dsum_kernel", "dkdv_kernel", "dq_kernel")).items()}
     log("[kernels] K5 tensor-core instructions (HMMA) in the SASS: "
         + ", ".join(f"{n} {c}" for n, c in sorted(tensor.items())))
-    assert tensor.get("dq_kernel") and tensor.get("dkdv_kernel"), tensor
+    assert all(tensor.get(f"{k}<{drop}>") for k in ("dq_kernel",
+                                                    "dkdv_kernel")
+               for drop in ("false", "true")), tensor
 
     gen = torch.Generator(device="cuda").manual_seed(6006)
     b, h, dk, x_len = S1_B, 16, 32, S1_X_LEN
@@ -1473,11 +1525,12 @@ def check_bf16(torch, results, parent=None):
                 counts[opcode(ln)] = counts.get(opcode(ln), 0) + 1
     log(f"[kernels] K1 and K5 bf16 tensor-core instructions in the SASS: "
         f"{hmma}")
-    assert len(hmma) == 3 and all(
+    # each with and without dropout
+    assert len(hmma) == 6 and all(
         c and set(c) == {"HMMA.16816.F32.BF16"} for c in hmma.values()), \
         f"K1 / K5's bf16 kernels are not on bf16 m16n8k16 alone: {hmma}"
     spills = ptxas_spills(build.build().build_log,
-                          "prefill_attention_bf16_kernel")
+                          "prefill_attention_bf16_kernelILb0E")
     log(f"[kernels] K1 bf16, ptxas: {spills or 'library reused, no report'}")
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in spills.values()), f"K1 bf16 spills: {spills}"
@@ -1837,6 +1890,334 @@ def check_bf16(torch, results, parent=None):
              f"tree's against it {vs_parent}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3, dropout: K1 and K5's dropout instances (the s1 fine-tune with
+# T2SConfig.dropout > 0)
+# ---------------------------------------------------------------------------
+
+DROPOUT_P = 0.1
+# H100 SXM: 132 SMs, 64 INT32 lanes an SM (16 a partition; NVIDIA's H100
+# Tensor Core GPU Architecture white paper)
+SMS, INT32_LANES = 132, 64
+# the integer pipe's opcodes, for the instructions a Philox call costs
+INT_OPS = ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT",
+           "IMNMX", "IABS", "BMSK", "SGXT", "PLOP3", "P2R", "R2P", "IMUL")
+# Philox's round multipliers 0xD2511F53 and 0xCD9E8D57, as SASS prints an
+# immediate (unsigned or signed)
+PHILOX_M = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
+# the Philox calls in one pass of each dropout body's unrolled tile loop,
+# from the sources: K1 fp32 4 n8 key tiles (one call a lane pair and row
+# pair each), K1 bf16 MT x NS = 2 x 8, dkdv BQ / 16 x 2 query tiles, dq 4
+# key tiles, dkdv bf16 QT / QSTEP x NQ = 4 x 2, dq bf16 BKT / 8 = 4
+PHILOX_CALLS = {"prefill_attention": 4, "prefill_attention_bf16": 16,
+                "dkdv": 8, "dq": 4, "dkdv_bf16": 8, "dq_bf16": 4}
+
+
+def philox_cost(lib_path: str) -> dict:
+    """Per dropout kernel (K1's two instances, K5's dkdv and dq in each
+    dtype): the integer-pipe instructions its SASS body adds over its
+    instance without dropout, per Philox call of the body (PHILOX_CALLS):
+    "instructions a call", the lane exchanges and the threshold tests
+    included; beside it the multiplies by the round constants found in the
+    body (20 a call where each is an IMAD with an immediate)."""
+    pairs = (("prefill_attention_kernelILi32ELb", "prefill_attention"),
+             ("prefill_attention_bf16_kernelILb", "prefill_attention_bf16"),
+             ("dkdv_kernelILb", "dkdv"), ("dq_kernelILb", "dq"),
+             ("dkdv_bf16_kernelILb", "dkdv_bf16"),
+             ("dq_bf16_kernelILb", "dq_bf16"))
+    funcs = sass_functions(lib_path, tuple(k for k, _ in pairs))
+    out = {}
+    for key, name in pairs:
+        bodies = {}
+        for mangled, copies in funcs.items():
+            if key + "0E" in mangled:
+                bodies[False] = copies[0]
+            elif key + "1E" in mangled:
+                bodies[True] = copies[0]
+
+        def ints(body):
+            return sum(opcode(ln).split(".")[0] in INT_OPS for ln in body)
+
+        muls = sum(1 for ln in bodies[True]
+                   if opcode(ln).startswith("IMAD")
+                   and any(m in ln.lower() for m in PHILOX_M))
+        extra = ints(bodies[True]) - ints(bodies[False])
+        out[name] = dict(calls=PHILOX_CALLS[name], round_muls=muls,
+                         int_added=extra,
+                         per_call=extra / PHILOX_CALLS[name])
+    return out
+
+
+def max_sm_clock_hz() -> float:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
+                    block=32):
+    """The keep bits K1, K5's dkdv kernel and K5's dq kernel draw, read
+    through their outputs and compared with ``attention_keep_mask`` on every
+    visible pair.  With q = 0 every visible pair of a row has P =
+    1 / n_visible, so:
+      K1: v one-hot on a block of 32 keys (v[key k0 + j, :, j] = 1) gives
+          o[row, :, j] = M(row, k0 + j) / (keep n_visible);
+      dkdv: dO one-hot on a block of 32 query rows gives dV[key, :, j] =
+          P~(r0 + j, key) = M(r0 + j, key) / (keep n_visible);
+      dq: o = 0 (so D = 0), dO[:, :, 0] = v[:, :, 0] = 1 (so dP~ = 1) and k
+          one-hot on a block of keys give dQ[row, :, j] = P M(row, k0 + j) /
+          (keep sqrt(dk)).
+    Each is positive exactly where the pair is kept.  Returns {kernel:
+    (pairs read that disagree, visible pairs read)}; hidden pairs must read
+    0 too (counted as disagreeing otherwise)."""
+    b, dk = len(xl), 32
+    dev = torch.device("cuda")
+    mask = dropout.keep_mask(b, h, t, x_len, dev)
+    vis = (att.build_hybrid_mask_bias(x_len, t - x_len, xl, yl) == 0
+           ).expand(b, h, t, t)
+    zeros = functools.partial(torch.zeros, (b, t, h, dk), dtype=dtype,
+                              device=dev)
+    eye = torch.eye(block, dk, dtype=dtype, device=dev)
+    q = zeros()
+    found = {"K1": [0, 0], "K5 dkdv": [0, 0], "K5 dq": [0, 0]}
+
+    def tally(key, got, k0, rows_first):
+        # got: bits (b, h, t, n) over keys k0.. (or (b, h, n, t) over rows)
+        n = got.shape[-1] if not rows_first else got.shape[2]
+        if rows_first:
+            want, seen = mask[:, :, k0:k0 + n], vis[:, :, k0:k0 + n]
+        else:
+            want, seen = mask[..., k0:k0 + n], vis[..., k0:k0 + n]
+        found[key][0] += int(((got != want) & seen).sum() +
+                             (got & ~seen).sum())
+        found[key][1] += int(seen.sum())
+
+    for k0 in range(0, t, block):
+        n = min(block, t - k0)
+        v = zeros()
+        v[:, k0:k0 + n] = eye[:n, None, :]
+        o, lse = att.prefill_attention_lse(q, q, v, x_len, xl, yl, dropout)
+        tally("K1", (o.float() > 0).permute(0, 2, 1, 3)[..., :n], k0, False)
+        # dq: k one-hot on the same block; o = 0, dO = v = e_0
+        kk = zeros()
+        kk[:, k0:k0 + n] = eye[:n, None, :]
+        ones0 = zeros()
+        ones0[..., 0] = 1
+        dq = att.prefill_attention_bwd(q, kk, ones0, zeros(), lse, ones0,
+                                       x_len, xl, yl, dropout=dropout)[0]
+        tally("K5 dq", (dq.float() > 0).permute(0, 2, 1, 3)[..., :n], k0,
+              False)
+    for r0 in range(0, t, block):
+        n = min(block, t - r0)
+        k = torch.randn((b, t, h, dk), device=dev).to(dtype)
+        v = torch.randn((b, t, h, dk), device=dev).to(dtype)
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, dropout)
+        do = zeros()
+        do[:, r0:r0 + n] = eye[:n, None, :]
+        dv = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                       dropout=dropout)[2]
+        # dv (b, key, h, j) -> (b, h, j, key): rows r0 + j
+        tally("K5 dkdv", (dv.float() > 0).permute(0, 2, 3, 1)[:, :, :n], r0,
+              True)
+    return {key: tuple(v) for key, v in found.items()}
+
+
+def check_dropout(torch, results):
+    """K1 (with its lse) and K5 with dropout at p = 0.1 (DROPOUT_P), fp32
+    and bf16, at the two s1 micro-batch shapes (B=8, H=16, 416 phonemes,
+    300 and 1360 tokens, ragged lengths): each against its twin given the
+    same keep mask (``attention_keep_mask``; fp32: K1's o 1e-4 absolute and
+    K5 1e-4 x max(1, max|twin|); bf16: BF16_TOL / BF16_SHARE), K1's lse
+    bit-equal to the instance without dropout's (the undropped softmax),
+    repeated launches bit-identical, the keep rate over the visible pairs
+    within 6 sigma of 1 - p; the mask read back from K1, K5's dkdv and K5's
+    dq at T = 1776 (``dropout_readout``), bit for bit.  Device ms of each
+    dropout instance beside the instance without dropout on the same inputs,
+    the twin and SDPA with dropout_p = 0.1 under the same boolean mask
+    (forward; its backward through autograd; between CUDA events,
+    ``event_ms``: a profiler session may lose a library call's records
+    unnoticed), which the port never calls;
+    the bound as for the instances without dropout, and beside it the RNG's
+    own floor: the Philox calls these inputs need (one a four visible pairs
+    a pass; K5 draws twice) x the integer instructions a call costs in the
+    SASS (``philox_cost``) / (132 SMs x 64 INT32 lanes x the card's maximum
+    SM clock)."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.ops import build
+
+    cost = philox_cost(build.build().path)
+    log("[dropout] Philox in the SASS: " + ", ".join(
+        f"{n} {c['int_added']} integer instructions added for {c['calls']} "
+        f"calls, {c['per_call']:.1f} a call ({c['round_muls']} round-constant "
+        f"multiplies)" for n, c in cost.items()))
+    for key in ("prefill_attention_kernelILi32ELb1E",
+                "prefill_attention_bf16_kernelILb1E", "dkdv_kernelILb1E",
+                "dq_kernelILb1E", "dkdv_bf16_kernelILb1E",
+                "dq_bf16_kernelILb1E"):
+        for name, line in ptxas_spills(build.build().build_log, key).items():
+            log(f"[dropout] ptxas {short_name(name)}: {line}")
+    int_rate = SMS * INT32_LANES * max_sm_clock_hz()
+    gen = torch.Generator(device="cuda").manual_seed(1919)
+    b, h, dk, x_len = S1_B, 16, 32, S1_X_LEN
+    p = DROPOUT_P
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        sfx = "_bf16" if bf else ""
+        ops_rate = BF16_OPS_PER_S if bf else FP32_OPS_PER_S
+        sums = {key: [0.0] * 4 for key in ("k1", "k5")}  # drop, off, twin, lib
+        bounds = {key: Bound(ops_rate) for key in ("k1", "k5")}
+        floors = {"k1": 0.0, "k5": 0.0}
+        worst = {"k1": _Worst(), "k5": _Worst()} if bf else \
+            {"k1": 0.0, "k5": 0.0}
+        rates = []
+        for i, y_len in enumerate(S1_Y_LENS):
+            t = x_len + y_len
+            xl, yl = s1_lens(torch, gen, b, x_len, y_len)
+            qkv = torch.randn((b, t, 3 * h * dk), generator=gen,
+                              device="cuda").to(dtype)
+            do = torch.randn((b, t, h, dk), generator=gen,
+                             device="cuda").to(dtype)
+            q, k, v = att._split_heads(qkv, h)
+            drop = att.AttentionDropout(p, 0x5EED0000 + 7 * i, 11)
+            mask = drop.keep_mask(b, h, t, x_len, "cuda")
+            bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
+            vis = (bias == 0).expand(b, h, t, t)
+            n_vis = int(vis.sum())
+            rate = float((mask & vis).sum()) / n_vis
+            sigma = math.sqrt(p * (1 - p) / n_vis)
+            rates.append((rate, sigma))
+            assert abs(rate - (1 - p)) <= 6 * sigma, (rate, sigma)
+            k1_args = (q, k, v, x_len, xl, yl)
+            o, lse = att.prefill_attention_lse(*k1_args, drop)
+            _, lse_off = att.prefill_attention_lse(*k1_args)
+            assert torch.equal(lse, lse_off), \
+                "K1's lse with dropout is not the undropped softmax's"
+            for _ in range(2):
+                again = att.prefill_attention_lse(*k1_args, drop)
+                assert torch.equal(o, again[0]), "K1 dropout does not repeat"
+            want_o = torch.nan_to_num(att.prefill_attention_reference(
+                *k1_args, mask, p), nan=0.0)
+            k5_args = (q, k, v, o, lse, do, x_len, xl, yl)
+            got = att.prefill_attention_bwd(*k5_args, dropout=drop)
+            want = att.prefill_attention_bwd_reference(*k5_args, mask, p)
+            for _ in range(2):
+                again = att.prefill_attention_bwd(*k5_args, dropout=drop)
+                assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                    "K5 dropout does not repeat"
+            assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+            if bf:
+                worst["k1"].add(bf16_err(torch, o, want_o))
+                for g, w in zip(got, want):
+                    worst["k5"].add(bf16_err(torch, g, w))
+            else:
+                worst["k1"] = max(worst["k1"], max_err(torch, o, want_o))
+                worst["k5"] = max(worst["k5"], max(
+                    max_err(torch, g, w) / max(1.0, float(w.abs().max()))
+                    for g, w in zip(got, want)))
+            del want, again, want_o
+            # SDPA with dropout under the same boolean mask, heads first
+            ok = bias == 0
+            qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
+                          for z in (q, k, v))
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=ok,
+                                                 dropout_p=p)
+            lib_bwd = functools.partial(
+                torch.autograd.grad, out, (qh, kh, vh),
+                do.transpose(1, 2).contiguous(), retain_graph=True)
+            times = {
+                "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
+                           *k1_args, drop), launches=1),
+                       device_ms(torch, lambda: att.prefill_attention_lse(
+                           *k1_args), launches=1),
+                       device_ms(torch, lambda: (
+                           att.prefill_attention_reference(*k1_args, mask,
+                                                           p),
+                           att.prefill_attention_lse_reference(
+                               q, k, x_len, xl, yl)), reps=3),
+                       event_ms(torch, lambda: F.scaled_dot_product_attention(
+                           qh.detach(), kh.detach(), vh.detach(),
+                           attn_mask=ok, dropout_p=p))),
+                "k5": (device_ms(torch, lambda: att.prefill_attention_bwd(
+                           *k5_args, dropout=drop), launches=3),
+                       device_ms(torch, lambda: att.prefill_attention_bwd(
+                           *k5_args), launches=3),
+                       device_ms(torch, lambda: (
+                           att.prefill_attention_bwd_reference(
+                               *k5_args, mask, p)), reps=3),
+                       event_ms(torch, lib_bwd, reps=5)),
+            }
+            pairs = n_vis
+            elems = b * t * h * dk
+            size = 2 if bf else 4
+            bounds["k1"].add(size * 4 * elems + 4 * b * h * t,
+                             4 * dk * pairs)
+            bounds["k5"].add(size * 8 * elems + 4 * b * h * t,
+                             10 * dk * pairs)
+            # one Philox call a four visible pairs a pass: K1 draws once,
+            # K5 twice (dkdv and dq)
+            calls = math.ceil(pairs / 4)
+            floors["k1"] += calls * cost["prefill_attention" + sfx][
+                "per_call"] / int_rate * 1e3
+            floors["k5"] += calls * (cost["dkdv" + sfx]["per_call"] + cost[
+                "dq" + sfx]["per_call"]) / int_rate * 1e3
+            for key in sums:
+                sums[key] = [a + c for a, c in zip(sums[key], times[key])]
+            log(f"[dropout] {'bf16' if bf else 'fp32'} K1 + lse / K5, p={p}, "
+                f"B={b} H={h} x_len={x_len} y_len={y_len} (T={t}): "
+                f"{n_vis} visible (row, key, head) triples, keep rate "
+                f"{rate:.6f} (1 - p = {1 - p}, sigma {sigma:.2g}); device ms "
+                f"K1 dropout {times['k1'][0]:.4f} (without {times['k1'][1]:.4f}"
+                f", twin {times['k1'][2]:.4f}, SDPA dropout "
+                f"{times['k1'][3]:.4f}); K5 dropout {times['k5'][0]:.4f} "
+                f"(without {times['k5'][1]:.4f}, twin {times['k5'][2]:.4f}, "
+                f"SDPA dropout backward {times['k5'][3]:.4f})")
+            del qkv, q, k, v, do, o, lse, got, mask, vis, qh, kh, vh, out, \
+                lib_bwd, bias, ok
+            torch.cuda.empty_cache()
+        # the mask read back at the longer shape, bit for bit
+        t = x_len + S1_Y_LENS[-1]
+        xl, yl = s1_lens(torch, gen, b, x_len, S1_Y_LENS[-1])
+        readout = dropout_readout(torch, att, dtype,
+                                  att.AttentionDropout(p, 0x5EED, 3), x_len,
+                                  xl, yl, t)
+        log(f"[dropout] {'bf16' if bf else 'fp32'} mask readout at T={t} "
+            f"(x_lens={xl.tolist()}, y_lens={yl.tolist()}): " + ", ".join(
+                f"{key} {bad} of {n} visible pairs off attention_keep_mask"
+                for key, (bad, n) in readout.items()))
+        assert all(bad == 0 and n > 0 for bad, n in readout.values()), \
+            readout
+        if bf:
+            ok_k1, ok_k5 = worst["k1"].ok(), worst["k5"].ok()
+            errs = (worst["k1"].abs, worst["k5"].abs)
+        else:
+            ok_k1, ok_k5 = worst["k1"] <= 1e-4, worst["k5"] <= 1e-4
+            errs = (worst["k1"], worst["k5"])
+        for key, base, name in (("k1", "prefill_attention", "K1 + lse"),
+                                ("k5", "prefill_attention_bwd", "K5")):
+            drop_ms, off, twin, lib = sums[key]
+            bd = bounds[key]
+            log(f"[dropout] {name} {'bf16' if bf else 'fp32'} over the two "
+                f"s1 shapes: dropout {drop_ms:.4f} ms, without dropout "
+                f"{off:.4f} ms ({drop_ms / off:.2f}x), twin {twin:.4f} ms, "
+                f"SDPA dropout {lib:.4f} ms; bound {bd.ms:.4f} ms ({bd.by}); "
+                f"RNG floor {floors[key]:.4f} ms (Philox calls x "
+                f"instructions a call / {int_rate:.4g} integer lanes a "
+                f"second); against the twin "
+                f"{worst[key] if bf else f'{worst[key]:.3g} (tol 1e-4)'}")
+            results[base + "_dropout" + sfx] = dict(
+                max_abs_err=errs[0] if key == "k1" else errs[1],
+                ms=drop_ms, plain_ms=twin, library_ms=lib,
+                without_dropout_ms=off, rng_floor_ms=floors[key],
+                keep_rate=[r for r, _ in rates], mask_readout=readout,
+                **bd.result())
+        assert ok_k1, f"K1 dropout disagrees with its twin: {worst['k1']}"
+        assert ok_k5, f"K5 dropout disagrees with its twin: {worst['k5']}"
+
+
 def sass_functions(path: str, keys) -> dict:
     """The SASS of the kernel library at ``path``: for every function whose
     name holds one of ``keys``, the instruction lines of each copy of it in
@@ -1891,11 +2272,12 @@ def short_name(mangled: str) -> str:
 
     m = re.search(r"(wgrad_\w+?_kernel|conv_mma_kernel|"
                   r"prefill_attention_bf16_kernel|"
-                  r"(?:dsum|dkdv|dq)(?:_bf16)?_kernel)((?:I?Li-?\d+E)*)",
+                  r"(?:dsum|dkdv|dq)(?:_bf16)?_kernel)((?:I?L[ib]-?\d+E)*)",
                   mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(-?\d+)E", m.group(2))
+    args = [v if t == "i" else ("false", "true")[int(v)] for t, v in
+            re.findall(r"L([ib])(-?\d+)E", m.group(2))]
     if "bfloat16" in mangled[m.end():m.end() + 40]:
         args.append("bf16")
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -2055,18 +2437,13 @@ def ab_mrf(torch, parent):
     assert worst.ok(), f"K4-dW bf16 disagrees with the parent's: {worst}"
 
 
-# the parent's bf16 K1 body (the instance of the fp32 loop with bf16
-# widened in), which prefill_attention_bf16_kernel replaces
-K1_BF16_REPLACED = r"prefill_attention_kernelILi32E13__nv_bfloat16"
-
-
 def ab_sass(parent_root: str) -> None:
     """``bench/sass_diff.py`` against the parent's library: every kernel
-    body of the parent but its bf16 K1 (K1_BF16_REPLACED) must be in this
-    tree's library instruction for instruction."""
+    body of the parent must be in this tree's library instruction for
+    instruction (no body replaced by design)."""
     from easevoice_trainer_tpu_torch.bench import sass_diff
 
-    rc = sass_diff.main([parent_root, "--replaced", K1_BF16_REPLACED])
+    rc = sass_diff.main([parent_root])
     assert rc == 0, "a kernel body of the parent changed (bench/sass_diff.py)"
 
 
@@ -4761,6 +5138,88 @@ def train_s1(torch, tmp: str, results):
     return trainer
 
 
+def train_s1_dropout(torch, tmp: str, results) -> None:
+    """GPTTrain.train() at full width with ``model.dropout: 0.1`` (the
+    repo's configs/gpt.yaml with that key changed, under a base path of its
+    own) for one accumulation window: train_s1's pretrained .ckpt and data
+    at B=24 (4 micro-batches at T = 716 and 1776, one ScaledAdam update),
+    with is_half at its default (bf16) and with is_half=False (fp32).
+    Finite losses; a micro-batch launches K1's dropout instance 24 times
+    and K5's 24 times (72 launches), of the run's dtype, and no instance
+    without dropout; the counts go to the dropout instances' entries."""
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.train.gpt import GPTTrain, \
+        GPTTrainParams
+    from easevoice_trainer_tpu_torch.utils import paths
+
+    base = os.path.join(tmp, "s1_dropout_base")
+    os.makedirs(os.path.join(base, "configs"))
+    with open(paths.gpt_config_path(), encoding="utf8") as f:
+        text = f.read()
+    cfg_text = re.sub(r"(?m)^(\s*dropout:)\s*0\s*$", r"\1 0.1", text)
+    assert cfg_text != text, "configs/gpt.yaml holds no 'dropout: 0' line"
+    with open(paths.gpt_config_path(base), "w", encoding="utf8") as f:
+        f.write(cfg_text)
+    k5_per_call = ops.prefill_attention_bwd.launches_per_call
+    old_base = os.environ.get("EASEVOICE_BASE_PATH")
+    os.environ["EASEVOICE_BASE_PATH"] = base
+    try:
+        for tag, is_half in TRAIN_RUNS:
+            with _is_half(is_half):
+                trainer = GPTTrain(GPTTrainParams(
+                    batch_size=3 * S1_B, total_epochs=1, save_every_epoch=1,
+                    model_path=os.path.join(tmp, "s1_random.ckpt"),
+                    train_input_dir=os.path.join(tmp, "s1_data"),
+                    output_model_name=f"chip_smoke_s1_dropout_{tag}",
+                    project_dir=os.path.join(tmp, f"s1_dropout_{tag}")))
+            cfg = trainer.model_cfg
+            assert cfg.dropout == 0.1 and (cfg.n_layers, cfg.hidden_dim,
+                                           cfg.n_heads) == (24, 512, 16)
+            history = []
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            resp = trainer.train(on_step=lambda step, m: history.append(
+                {k: float(v) for k, v in m.items()}))
+            wall = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            assert resp.ok, resp.message
+            n, layers = len(history), cfg.n_layers
+            assert n == 4 and trainer.step_fn.optimizer.param_groups[0][
+                "step"] == 1, n
+            assert all(math.isfinite(v) for m in history
+                       for v in m.values()), history
+            sfx = "_bf16" if tag == "bf16" else ""
+            want = {"prefill_attention_dropout" + sfx: layers * n,
+                    "prefill_attention_bwd_dropout" + sfx:
+                        k5_per_call * layers * n}
+            got = {k: c for k, c in launches.items() if c}
+            assert got == want, (got, want)
+            for name, count in want.items():
+                r = results[name]
+                r["launches"] = r.get("launches", 0) + count
+                r.setdefault("per_path", {})["s1_dropout_micro_batch"] = \
+                    count / n
+            log(f"[s1 dropout] {tag} (is_half={is_half or 'default'}): "
+                f"GPTTrain.train() with dropout {cfg.dropout}: {n} "
+                f"micro-batches of B={3 * S1_B} (one ScaledAdam update) in "
+                f"{wall:.2f} s wall, T = "
+                f"{sorted(set(S1_X_LEN + t for t in trainer.step_tokens))}; "
+                f"s a micro-batch " + ", ".join(
+                    f"{t:.4f}" for t in trainer.step_seconds)
+                + "; losses " + ", ".join(f"{m['loss']:.1f}" for m in history)
+                + "; grad norms " + ", ".join(
+                    f"{m['grad_norm']:.3g}" for m in history)
+                + f"; launches {got}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if old_base is None:
+            os.environ.pop("EASEVOICE_BASE_PATH", None)
+        else:
+            os.environ["EASEVOICE_BASE_PATH"] = old_base
+
+
 def s1_dpo_micro_batch(torch, trainer) -> None:
     """One micro-batch of the DPO objective (``GPTTrainHP(if_dpo=True)``)
     on the bf16 model the s1 run trained: B = 4 (GPTTrain halves the batch
@@ -4927,18 +5386,46 @@ def profile_s1_window(torch, trainer, attempts: int = 3) -> None:
 # ---------------------------------------------------------------------------
 
 
+def cpu_site_masks(torch, seed: int):
+    """Context: the GPT's three dropout sites outside the attention
+    (``models/gpt/t2s.py`` ``dropout``) draw from one CPU generator seeded
+    with ``seed``, their masks moved to the tensor's device, so that a run
+    on the card and one on the CPU drop the same elements there; the
+    attention's masks are the same on both by construction (Philox)."""
+    import contextlib
+
+    from easevoice_trainer_tpu_torch.models.gpt import t2s
+
+    @contextlib.contextmanager
+    def ctx():
+        real = t2s.dropout
+        gen = torch.Generator().manual_seed(seed)
+
+        def on_the_cpu(x, p, training, generator):
+            return real(x.cpu(), p, training, gen).to(x.device)
+
+        t2s.dropout = on_the_cpu
+        try:
+            yield
+        finally:
+            t2s.dropout = real
+    return ctx()
+
+
 def reference_s1_step(torch):
     """The training forward and backward of a GPT at a small width (2
     layers, width 64, 2 heads of dk 32) on the card (K1, K5) and on the CPU
     (the twins) from the same weights and batch, in fp32 and in bf16 (the
     model with dtype bfloat16: K1 / K5's bf16 instances against the bf16
-    twins).  fp32: loss within 1e-5 x max(1, |CPU|), every layer's qkv
-    gradient (in_proj weight and bias) within 1e-4 of its largest CPU
-    magnitude.  bf16: cuBLAS and the CPU sum in other orders and K5 takes
-    the softmax's D from the bf16 o, so bf16 roundings flip (2^-8 of a
-    value) and travel through two layers: loss within 1e-2, gradients
-    within 5e-2."""
-    from easevoice_trainer_tpu_torch import convert
+    twins), each without dropout and with dropout 0.1 (K1 / K5's dropout
+    instances against the twins with ``attention_keep_mask``; the other
+    three sites' masks drawn on the CPU for both, ``cpu_site_masks``).
+    fp32: loss within 1e-5 x max(1, |CPU|), every layer's qkv gradient
+    (in_proj weight and bias) within 1e-4 of its largest CPU magnitude.
+    bf16: cuBLAS and the CPU sum in other orders and K5 takes the softmax's
+    D from the bf16 o, so bf16 roundings flip (2^-8 of a value) and travel
+    through two layers: loss within 1e-2, gradients within 5e-2."""
+    from easevoice_trainer_tpu_torch import convert, ops
     from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
         Text2SemanticDecoder
 
@@ -4953,24 +5440,38 @@ def reference_s1_step(torch):
              torch.randn((b, x_len, 1024), generator=gen))
     state = convert.random_state_dict(Text2SemanticDecoder(cfg),
                                       torch.Generator().manual_seed(18))
-    for dtype, tol_loss, tol_grad in ((None, 1e-5, 1e-4),
-                                      (torch.bfloat16, 1e-2, 5e-2)):
+    for (dtype, tol_loss, tol_grad), p in itertools.product(
+            ((None, 1e-5, 1e-4), (torch.bfloat16, 1e-2, 5e-2)),
+            (0.0, DROPOUT_P)):
         runs = {}
         for dev in ("cuda", "cpu"):
-            model = Text2SemanticDecoder(cfg, dtype=dtype)
+            model = Text2SemanticDecoder(dataclasses.replace(cfg, dropout=p),
+                                         dtype=dtype)
             model.load_state_dict(state)
             model.to(dev)
-            out = model(*(t.to(dev) for t in batch))
-            out["loss"].backward()
-            grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+            ops.reset_launch_counts()
+            with cpu_site_masks(torch, 23):
+                out = model(*(t.to(dev) for t in batch), seed=20261019)
+                out["loss"].backward()
+            launches = {k: c for k, c in ops.launch_counts().items() if c}
+            grads = {k: w.grad.cpu() for k, w in model.named_parameters()
                      if "self_attn.in_proj" in k}
-            runs[dev] = (float(out["loss"].detach()), grads)
-        (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+            runs[dev] = (float(out["loss"].detach()), grads, launches)
+        label = ("bf16" if dtype is not None else "fp32") + (
+            f" dropout {p}" if p else "")
+        # the card ran the instances of its dtype and dropout alone (2
+        # layers), the CPU none
+        name = "_dropout" if p else ""
+        name += "_bf16" if dtype is not None else ""
+        assert runs["cuda"][2] == {
+            "prefill_attention" + name: 2,
+            "prefill_attention_bwd" + name: 6} and not runs["cpu"][2], \
+            (runs["cuda"][2], runs["cpu"][2])
+        (l_gpu, g_gpu, _), (l_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
         loss_err = abs(l_gpu - l_cpu) / max(1.0, abs(l_cpu))
         grad_err = max(float((g_gpu[k] - w).abs().max())
                        / max(float(w.abs().max()), 1e-30)
                        for k, w in g_cpu.items())
-        label = "bf16" if dtype is not None else "fp32"
         log(f"[reference] s1 micro-batch {label} card vs CPU (GPT width 64, "
             f"2 layers, B={b}, T={x_len + y_len}): loss {l_gpu:.4f} vs "
             f"{l_cpu:.4f}, relative {loss_err:.3g} (tol {tol_loss}); "
@@ -5499,8 +6000,8 @@ def trace_kernels(path: str) -> dict:
 
 # the REST path's kernels by the symbol in their device records: K1's
 # GPT instance (dk 32), its dk-64 instance (the clone's HuBERT), K2, K3
-TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32>"),
-                 ("encoder_attention", "prefill_attention_kernel<64>"),
+TRACE_KERNELS = (("prefill_attention", "prefill_attention_kernel<32, false>"),
+                 ("encoder_attention", "prefill_attention_kernel<64, false>"),
                  ("decode_attention", "decode_attention_kernel"),
                  ("mrf_conv", "conv_mma_kernel"))
 
@@ -5976,6 +6477,8 @@ def main() -> int:
         check_k5(torch, results, parent and parent.ops.attention)
         phase = "bf16 kernels"
         check_bf16(torch, results, parent and parent.ops.attention)
+        phase = "dropout kernels"
+        check_dropout(torch, results)
         if parent is not None:
             phase = "mrf a/b"
             ab_mrf(torch, parent)
@@ -6017,6 +6520,8 @@ def main() -> int:
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+        phase = "s1 dropout"
+        train_s1_dropout(torch, tmp, results)
         phase = "reference s1 step"
         reference_s1_step(torch)
         gc.collect()
@@ -6064,7 +6569,8 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
                       "whisper_T1500", "roformer", "fp32_ms",
-                      "max_rel_err", "graph_ms"):
+                      "max_rel_err", "graph_ms", "without_dropout_ms",
+                      "rng_floor_ms", "keep_rate", "mask_readout"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -103,7 +103,7 @@ def variants(src: str) -> dict:
     return {
         "q8": src[:begin] + _Q8 + src[end:],
         "exp2f": _swap(src, "? ex2(fmaf(", "? exp2f(fmaf(", 2),
-        "no_cap": _swap(src, "__launch_bounds__(NT, 3)",
+        "no_cap": _swap(src, "__launch_bounds__(NT, DROP ? 2 : 3)",
                         "__launch_bounds__(NT)", 2),
         "cvt": _swap(src, _SPLIT, _CVT),
     }
@@ -127,7 +127,7 @@ def variants_bf16(src: str) -> dict:
         "terms3": const("TERMS", 3),
         "sync": const("ASYNC", "false"),
         "q8": const("QSTEP", 8),
-        "no_cap": _swap(src, "__launch_bounds__(NT, MIN_BLOCKS)",
+        "no_cap": _swap(src, "__launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS)",
                         "__launch_bounds__(NT)", 2),
         f"cap{blocks - 1}": const("MIN_BLOCKS", blocks - 1),
     }

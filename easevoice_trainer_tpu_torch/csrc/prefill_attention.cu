@@ -56,10 +56,23 @@
 // key (its o is 0); the training backward (K5, prefill_attention_bwd.cu)
 // recomputes P = exp(S - lse) from it.  The row state it is written from is
 // the online softmax's own, so o is the same with or without it.
+//
+// Dropout (the s1 fine-tune with T2SConfig.dropout > 0; JAX drops the
+// probabilities after the softmax, models/gpt/t2s.py:128): the instance
+// with DROP draws each visible pair's keep bit M from Philox (philox.cuh)
+// right after the exponent and zeroes the dropped P elements before they
+// enter P V, ahead of the 3xTF32 split; the row max m, the row sum l and
+// the lse stay the undropped softmax's, and 1 / (1 - p) is folded into the
+// final 1 / l, so o = (P o M / (1 - p)) V with P normalised by the undropped
+// sum.  Lanes t and t ^ 1 share one Philox call of four keys: each draws the
+// bits of one of its two rows and they trade them by a shuffle.  K5 draws
+// the same bits again.  The instances without DROP are the code above,
+// unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -80,16 +93,18 @@ __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(l);
 }
 
-// DK: 32 (the 512/16 GPT) or 64 (the encoders: 1024/16, 768/12)
-template <int DK>
+// DK: 32 (the 512/16 GPT) or 64 (the encoders: 1024/16, 768/12); DROP:
+// the s1 fine-tune's dropout on P (DK 32 only)
+template <int DK, bool DROP = false>
 __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale) {
+    int H, int x_len, float scale, const Dropout drop) {
   static_assert(DK == 32 || DK == 64, "K1 is written for dk 32 and 64");
+  static_assert(!DROP || DK == 32, "dropout is the GPT's alone");
   constexpr int LDS = DK + 4;   // shared row stride in floats, 4 mod 32
   constexpr int NS = DK / 8;    // k-steps of Q K^T, n8 tiles of P V
   constexpr int HALVES = DK / 32;
@@ -278,6 +293,17 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
         oacc[n][2] *= alpha[1];
         oacc[n][3] *= alpha[1];
       }
+      if constexpr (DROP) {  // P o M, after the row sums took P
+        const int group = (text ? k0 : k0 - x_len) / 4;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const uint32_t keep =
+              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sacc[n][e] = keep >> e & 1u ? sacc[n][e] : 0.f;
+        }
+      }
       // O += P V: k-step j is score tile j (slot t = key 8j+2t, slot t+4 =
       // key 8j+2t+1), n8 tile 4f+u column g is dim 32f+4g+u
 #pragma unroll
@@ -326,7 +352,8 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
   for (int r = 0; r < 2; ++r) {
     const int row = rows[r];
     if (row >= T) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: 0
+    float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: 0
+    if constexpr (DROP) inv *= drop.inv_keep;
     if constexpr (DK == 32) {
       if (lse != nullptr && t == 0)  // m and l are in log2 units
         lse[((long long)b * H + h) * T + row] =
@@ -361,7 +388,30 @@ extern "C" int ev_prefill_attention_f32(
   prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
       (float*)lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
-      (const int*)y_lens, T, H, x_len, scale);
+      (const int*)y_lens, T, H, x_len, scale, Dropout{});
+  return (int)cudaGetLastError();
+}
+
+// K1 with dropout on P: the arguments above, then the Philox seed, the
+// layer index, the keep threshold (a pair is kept iff its word < thr) and
+// keep = 1 - p (philox.cuh); lse is written as above
+extern "C" int ev_prefill_attention_dropout_f32(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
+    int B, int T, int H, int x_len, float scale, unsigned long long seed,
+    int layer, unsigned thr, float keep, void* stream) {
+  if (T <= 0 || x_len < 0 || x_len > T || layer < 0 || layer >= (1 << 15) ||
+      H >= (1 << 15) || !(keep > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
+                     (uint32_t)layer, 1.f / keep};
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  prefill_attention_kernel<32, true>
+      <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)o,
+          (float*)lse, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+          (const int*)x_lens, (const int*)y_lens, T, H, x_len, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -381,11 +431,11 @@ extern "C" int ev_encoder_attention_f32(
     prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
-        (const int*)valid_lens, T, H, T, scale);
+        (const int*)valid_lens, T, H, T, scale, Dropout{});
   else
     prefill_attention_kernel<64><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
-        (const int*)valid_lens, T, H, T, scale);
+        (const int*)valid_lens, T, H, T, scale, Dropout{});
   return (int)cudaGetLastError();
 }

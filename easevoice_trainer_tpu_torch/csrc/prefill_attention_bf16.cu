@@ -63,11 +63,23 @@
 // the pointers 16-byte aligned (the split of the fused qkv projection); o
 // is (B, T, H, 32) bf16 contiguous; lse, when not null, (B, H, T) fp32 in
 // natural-log units.
+//
+// Dropout (the s1 fine-tune with T2SConfig.dropout > 0; JAX drops the fp32
+// probabilities after the softmax, models/gpt/t2s.py:128): the instance
+// with DROP draws each visible pair's keep bit M from Philox (philox.cuh)
+// after the exponent and zeroes the dropped P elements before the hi + lo
+// bf16 split; m, the row sum and the lse stay the undropped softmax's, and
+// 1 / (1 - p) is folded into the final 1 / sum, so o = (P o M / (1 - p)) V.
+// Lanes t and t ^ 1 share one Philox call of four keys, each drawing the
+// bits of one row of the pair and trading them by a shuffle.  K5's bf16
+// instance draws the same bits again.  The instance without DROP is the
+// code above, unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_bf16.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -95,13 +107,14 @@ static_assert(BKT % 16 == 0, "a staged tile is whole k16 steps of P V");
 static_assert(STAGES >= 2, "the ring overlaps a tile's copies with math");
 static_assert(2 * STAGES * BKT >= BQ, "o goes out through the ring");
 
+template <bool DROP = false>
 __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
     float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale) {
+    int H, int x_len, float scale, const Dropout drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -236,6 +249,21 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
           acc[u][d][2 * r + 1] *= alpha;
         }
       }
+    if constexpr (DROP) {  // P o M, after the row sums took P
+      const int group = (text ? k0 : k0 - x_len) / 4;
+#pragma unroll
+      for (int u = 0; u < MT; ++u) {
+        const int rows[2] = {r0 + 16 * u + g, r0 + 16 * u + g + 8};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const uint32_t keep =
+              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[u][n][e] = keep >> e & 1u ? s[u][n][e] : 0.f;
+        }
+      }
+    }
     // O += P V: k16 step j is score tiles 2j and 2j + 1 (A fragment a0 /
     // a1 tile 2j's c0c1 / c2c3, a2 / a3 tile 2j + 1's), V's rows 16j..,
     // whose B fragments serve every row tile
@@ -280,7 +308,8 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
       float sum = l[u][r];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float inv = sum > 0.f ? 1.f / sum : 0.f;  // no visible key: 0
+      float inv = sum > 0.f ? 1.f / sum : 0.f;  // no visible key: 0
+      if constexpr (DROP) inv *= drop.inv_keep;
       const int rl = 16 * u + g + 8 * r, row = r0 + rl;
       uint32_t* p = reinterpret_cast<uint32_t*>(so + rl * LDS);
 #pragma unroll
@@ -317,6 +346,28 @@ extern "C" int ev_prefill_attention_bf16(
   prefill_attention_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
       q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
-      (const int*)y_lens, T, H, x_len, scale);
+      (const int*)y_lens, T, H, x_len, scale, Dropout{});
+  return (int)cudaGetLastError();
+}
+
+// K1's bf16 instance with dropout on P: the arguments above, then the
+// Philox seed, the layer index, the keep threshold and keep = 1 - p
+// (philox.cuh)
+extern "C" int ev_prefill_attention_dropout_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
+    int B, int T, int H, int x_len, float scale, unsigned long long seed,
+    int layer, unsigned thr, float keep, void* stream) {
+  if (T <= 0 || x_len < 0 || x_len > T || layer < 0 || layer >= (1 << 15) ||
+      H >= (1 << 15) || !(keep > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
+                     (uint32_t)layer, 1.f / keep};
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  prefill_attention_bf16_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
+      (const int*)y_lens, T, H, x_len, scale, drop);
   return (int)cudaGetLastError();
 }

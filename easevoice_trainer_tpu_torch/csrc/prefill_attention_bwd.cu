@@ -77,10 +77,27 @@
 //
 // The bf16 instance (the s1 fine-tune under is_half) has kernels of its
 // own: prefill_attention_bwd_bf16.cu.
+//
+// Dropout (the s1 fine-tune with T2SConfig.dropout > 0): K1's instance with
+// dropout computed O = P~ V with P~ = P o M / keep, P the undropped softmax,
+// M the keep bits of philox.cuh and keep = 1 - p.  The dkdv and dq kernels
+// with DROP draw M again (no mask is stored) and take, with
+// dP~ = dO V^T:
+//   dV = P~^T dO = (P o M)^T dO / keep,
+//   dS = P o (dP~ o M / keep - D),
+//   D  = rowsum(dO o O), unchanged: rowsum(P o dP~ o M / keep)
+//      = rowsum(dO o (P~ V)) = rowsum(dO o O),
+// so dsum_kernel is the same, dK = dS^T Q / sqrt(dk) and dQ = dS K / sqrt(dk)
+// as before.  dq draws M as K1 does (lanes t and t ^ 1 share a Philox call);
+// dkdv holds a tile transposed and each lane gathers its four bits by
+// shuffles from the lanes that drew them (philox.cuh keep_cols).  These
+// instances are held to 2 blocks an SM instead of 3, for the generator's
+// registers.  The instances without DROP are the code above, unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -250,14 +267,15 @@ __global__ void __launch_bounds__(DSUM_NT) dsum_kernel(
   dsum[((long long)b * H + h) * T + row] = acc;
 }
 
-__global__ void __launch_bounds__(NT, 3) dkdv_kernel(
+template <bool DROP = false>
+__global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     float* __restrict__ dk, float* __restrict__ dv, long long in_sb,
     long long in_st, long long out_sb, long long out_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale) {
+    int H, int x_len, float scale, const Dropout drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -337,11 +355,21 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
       // S^T = K Q^T, dP^T = V dO^T: tile n element c0 = (key g, query
       // qc + 8n + 2t), c1 = (key g, query + 1), c2 / c3 key g + 8
       float st[2][4], dpt[2][4];
+      [[maybe_unused]] uint32_t mask[2];  // the keep bits, with DROP
       mma_dims<2>(st, kh, kl, &sq[slot][16 * j][0], g, t);
       mma_dims<2>(dpt, vh, vl, &sdo[slot][16 * j][0], g, t);
       float p[2][4], ds[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
+        if constexpr (DROP) {  // dP~ o M / keep
+          const uint32_t keep =
+              keep_cols(drop, b, h, qc + 8 * n,
+                        (text ? kw : kw - x_len) / 4, !text, g, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[n][e] = keep >> e & 1u ? dpt[n][e] * drop.inv_keep : 0.f;
+          mask[n] = keep;
+        }
         const float2 l2 = *reinterpret_cast<const float2*>(
             &slse[slot][16 * j + 8 * n + 2 * t]);
         const float2 d2 = *reinterpret_cast<const float2*>(
@@ -359,6 +387,8 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
           }
           p[n][e] = vis ? ex2(fmaf(st[n][e], c, -m[e & 1])) : 0.f;
           ds[n][e] = p[n][e] * (dpt[n][e] - dd[e & 1]);
+          if constexpr (DROP)  // P o M for dV; 1 / keep at the store
+            p[n][e] = mask[n] >> e & 1u ? p[n][e] : 0.f;
         }
       }
       // dV += P^T dO, dK += dS^T Q, one k-step of 8 queries per tile n
@@ -373,17 +403,20 @@ __global__ void __launch_bounds__(NT, 3) dkdv_kernel(
   }
 
   const long long out = (long long)b * out_sb + h * DK;
-  store_rows(dv + out, out_st, kw, k_write, acc_dv, 1.f, g, t);
+  store_rows(dv + out, out_st, kw, k_write, acc_dv,
+             DROP ? drop.inv_keep : 1.f, g, t);
   store_rows(dk + out, out_st, kw, k_write, acc_dk, scale, g, t);
 }
 
-__global__ void __launch_bounds__(NT, 3) dq_kernel(
+template <bool DROP = false>
+__global__ void __launch_bounds__(NT, DROP ? 2 : 3) dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     float* __restrict__ dq, long long in_sb, long long in_st,
     long long out_sb, long long out_st, const int* __restrict__ x_lens,
-    const int* __restrict__ y_lens, int T, int H, int x_len, float scale) {
+    const int* __restrict__ y_lens, int T, int H, int x_len, float scale,
+    const Dropout drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -463,6 +496,17 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
       float s[4][4], dp[4][4];
       mma_dims<4>(s, qh, ql, &sk[slot][0][0], g, t);
       mma_dims<4>(dp, gh, gl, &sv[slot][0][0], g, t);
+      if constexpr (DROP) {  // dP~ o M / keep
+        const int group = (text ? k0 : k0 - x_len) / 4;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const uint32_t keep =
+              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[n][e] = keep >> e & 1u ? dp[n][e] * drop.inv_keep : 0.f;
+        }
+      }
       // dS = P (dP - D) in place of S
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -493,12 +537,14 @@ __global__ void __launch_bounds__(NT, 3) dq_kernel(
 }
 
 // The three launches of one call, on `s`; the first CUDA error.
+template <bool DROP>
 int launch_bwd(const float* q, const float* k, const float* v,
                const float* o, const float* dout, const float* lse,
                float* dsum, float* dq, float* dk, float* dv,
                long long in_sb, long long in_st, long long out_sb,
                long long out_st, const int* x_lens, const int* y_lens, int B,
-               int T, int H, int x_len, float scale, cudaStream_t s) {
+               int T, int H, int x_len, float scale, const Dropout& drop,
+               cudaStream_t s) {
   if (B < 1 || T < 1 || H < 1 || x_len < 0 || x_len > T)
     return (int)cudaErrorInvalidValue;
   dsum_kernel<<<dim3((T * H + DSUM_NT - 1) / DSUM_NT, B), DSUM_NT, 0, s>>>(
@@ -506,14 +552,14 @@ int launch_bwd(const float* q, const float* k, const float* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int key_tiles = (x_len + BK - 1) / BK + (T - x_len + BK - 1) / BK;
-  dkdv_kernel<<<dim3(key_tiles, H, B), NT, 0, s>>>(
+  dkdv_kernel<DROP><<<dim3(key_tiles, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dk, dv, in_sb, in_st, out_sb, out_st, x_lens,
-      y_lens, T, H, x_len, scale);
+      y_lens, T, H, x_len, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
+  dq_kernel<DROP><<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dq, in_sb, in_st, out_sb, out_st, x_lens,
-      y_lens, T, H, x_len, scale);
+      y_lens, T, H, x_len, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -528,10 +574,32 @@ extern "C" int ev_prefill_attention_bwd_f32(
     void* dv, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens, const void* y_lens, int B, int T,
     int H, int x_len, float scale, void* stream) {
-  return launch_bwd(
+  return launch_bwd<false>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o,
       (const float*)dout, (const float*)lse, (float*)dsum, (float*)dq,
       (float*)dk, (float*)dv, in_sb, in_st, out_sb, out_st,
       (const int*)x_lens, (const int*)y_lens, B, T, H, x_len, scale,
+      Dropout{}, (cudaStream_t)stream);
+}
+
+// The gradient of K1 with dropout: the arguments above, then K1's Philox
+// seed, layer index, keep threshold and keep = 1 - p (philox.cuh), which
+// draw its mask again.
+extern "C" int ev_prefill_attention_bwd_dropout_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+    void* dv, long long in_sb, long long in_st, long long out_sb,
+    long long out_st, const void* x_lens, const void* y_lens, int B, int T,
+    int H, int x_len, float scale, unsigned long long seed, int layer,
+    unsigned thr, float keep, void* stream) {
+  if (layer < 0 || layer >= (1 << 15) || H >= (1 << 15) || !(keep > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
+                     (uint32_t)layer, 1.f / keep};
+  return launch_bwd<true>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, (const float*)lse, (float*)dsum, (float*)dq,
+      (float*)dk, (float*)dv, in_sb, in_st, out_sb, out_st,
+      (const int*)x_lens, (const int*)y_lens, B, T, H, x_len, scale, drop,
       (cudaStream_t)stream);
 }

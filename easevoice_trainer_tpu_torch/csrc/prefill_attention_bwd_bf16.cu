@@ -62,10 +62,23 @@
 // (B, H, T) fp32; dq, dk, dv are (B, T, H, 32) bf16 views sharing (out_sb,
 // out_st).  Strides are multiples of 8 elements and the pointers 16-byte
 // aligned.
+//
+// Dropout (the s1 fine-tune with T2SConfig.dropout > 0), as in the fp32
+// instance (prefill_attention_bwd.cu): K1's bf16 instance with dropout
+// computed O = P~ V, P~ = P o M / keep, M the keep bits of philox.cuh,
+// keep = 1 - p.  The dkdv and dq kernels with DROP draw M again and take
+// dV = (P o M)^T dO / keep and dS = P o (dP~ o M / keep - D) with
+// dP~ = dO V^T; D = rowsum(dO o O) is unchanged (rowsum(P o dP~ o M / keep)
+// = rowsum(dO o (P~ V)) = rowsum(dO o O)), so dsum_bf16_kernel is the same.
+// P o M and dS enter the hi + lo bf16 split as P and dS did.  These
+// instances are held to 3 blocks an SM instead of MIN_BLOCKS, for the
+// generator's registers.  The instances without DROP are the code above,
+// unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_bf16.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -173,14 +186,15 @@ __global__ void __launch_bounds__(DSUM_NT) dsum_bf16_kernel(
   dsum[((long long)b * H + h) * T + row] = acc;
 }
 
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
+template <bool DROP = false>
+__global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dk, bf16* __restrict__ dv, long long in_sb,
     long long in_st, long long out_sb, long long out_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale) {
+    int H, int x_len, float scale, const Dropout drop) {
   constexpr int NQ = QSTEP / 8;  // n8 query tiles a step
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -281,6 +295,10 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
         const float2 d2 = *reinterpret_cast<const float2*>(&sd[slot][col]);
         const float m[2] = {l2.x * LOG2E, l2.y * LOG2E};
         const float dd[2] = {d2.x, d2.y};
+        [[maybe_unused]] uint32_t keep;  // the keep bits, with DROP
+        if constexpr (DROP)
+          keep = keep_cols(drop, b, h, qc + 8 * n,
+                           (text ? kw : kw - x_len) / 4, !text, g, t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           bool vis = full;
@@ -291,8 +309,15 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
                   (text ? key < xv : (query >= key && key < y_end));
           }
           const float p = vis ? ex2(fmaf(st[n][e], c, -m[e & 1])) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dd[e & 1]);
+          if constexpr (DROP) {  // P o M for dV (1 / keep at the store),
+            const bool kept = keep >> e & 1u;  // dP~ o M / keep for dS
+            st[n][e] = kept ? p : 0.f;
+            dpt[n][e] = p * ((kept ? dpt[n][e] * drop.inv_keep : 0.f) -
+                             dd[e & 1]);
+          } else {
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - dd[e & 1]);
+          }
         }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -316,17 +341,20 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
   cp_async_wait<0>();  // only empty groups are left
 
   const long long out = (long long)b * out_sb + h * DK;
-  store_rows(dv + out, out_st, kw, k_write, acc_dv, 1.f, g, t);
+  store_rows(dv + out, out_st, kw, k_write, acc_dv,
+             DROP ? drop.inv_keep : 1.f, g, t);
   store_rows(dk + out, out_st, kw, k_write, acc_dk, scale, g, t);
 }
 
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
+template <bool DROP = false>
+__global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dq, long long in_sb, long long in_st,
     long long out_sb, long long out_st, const int* __restrict__ x_lens,
-    const int* __restrict__ y_lens, int T, int H, int x_len, float scale) {
+    const int* __restrict__ y_lens, int T, int H, int x_len, float scale,
+    const Dropout drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -421,6 +449,14 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int n = 2 * j + h2;
+          if constexpr (DROP) {  // dP~ o M / keep
+            const uint32_t keep =
+                keep_rows(drop, b, h, rows, (text ? k0 : k0 - x_len) / 4 +
+                          2 * n, !text, t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[n][e] = keep >> e & 1u ? dp[n][e] * drop.inv_keep : 0.f;
+          }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             bool vis = full;
@@ -455,16 +491,16 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
 
 }  // namespace
 
-// The bf16 instance of K5 (see prefill_attention_bwd.cu for the fp32 one):
-// q, k, v, o, dout, dq, dk, dv bf16 (strides multiples of 8 elements,
-// pointers 16-byte aligned), lse and dsum (B * H * T floats of scratch)
-// fp32.  Three launches on `stream`; returns the first CUDA error.
-extern "C" int ev_prefill_attention_bwd_bf16(
+namespace {
+
+// The three launches of one call, on `stream`; the first CUDA error.
+template <bool DROP>
+int launch_bwd_bf16(
     const void* q_, const void* k_, const void* v_, const void* o_,
     const void* dout_, const void* lse_, void* dsum_, void* dq_, void* dk_,
     void* dv_, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens_, const void* y_lens_, int B, int T,
-    int H, int x_len, float scale, void* stream) {
+    int H, int x_len, float scale, const Dropout& drop, void* stream) {
   const bf16 *q = (const bf16*)q_, *k = (const bf16*)k_, *v = (const bf16*)v_;
   const bf16 *o = (const bf16*)o_, *dout = (const bf16*)dout_;
   const float* lse = (const float*)lse_;
@@ -479,13 +515,49 @@ extern "C" int ev_prefill_attention_bwd_bf16(
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int key_tiles = (x_len + BK - 1) / BK + (T - x_len + BK - 1) / BK;
-  dkdv_bf16_kernel<<<dim3(key_tiles, H, B), NT, 0, s>>>(
+  dkdv_bf16_kernel<DROP><<<dim3(key_tiles, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dk, dv, in_sb, in_st, out_sb, out_st, x_lens,
-      y_lens, T, H, x_len, scale);
+      y_lens, T, H, x_len, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_bf16_kernel<<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
+  dq_bf16_kernel<DROP><<<dim3((T + BQ - 1) / BQ, H, B), NT, 0, s>>>(
       q, k, v, dout, lse, dsum, dq, in_sb, in_st, out_sb, out_st, x_lens,
-      y_lens, T, H, x_len, scale);
+      y_lens, T, H, x_len, scale, drop);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The bf16 instance of K5 (see prefill_attention_bwd.cu for the fp32 one):
+// q, k, v, o, dout, dq, dk, dv bf16 (strides multiples of 8 elements,
+// pointers 16-byte aligned), lse and dsum (B * H * T floats of scratch)
+// fp32.  Three launches on `stream`; returns the first CUDA error.
+extern "C" int ev_prefill_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+    void* dv, long long in_sb, long long in_st, long long out_sb,
+    long long out_st, const void* x_lens, const void* y_lens, int B, int T,
+    int H, int x_len, float scale, void* stream) {
+  return launch_bwd_bf16<false>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                                in_sb, in_st, out_sb, out_st, x_lens, y_lens,
+                                B, T, H, x_len, scale, Dropout{}, stream);
+}
+
+// The gradient of K1's bf16 instance with dropout: the arguments above,
+// then K1's Philox seed, layer index, keep threshold and keep = 1 - p
+// (philox.cuh), which draw its mask again.
+extern "C" int ev_prefill_attention_bwd_dropout_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+    void* dv, long long in_sb, long long in_st, long long out_sb,
+    long long out_st, const void* x_lens, const void* y_lens, int B, int T,
+    int H, int x_len, float scale, unsigned long long seed, int layer,
+    unsigned thr, float keep, void* stream) {
+  if (layer < 0 || layer >= (1 << 15) || H >= (1 << 15) || !(keep > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
+                     (uint32_t)layer, 1.f / keep};
+  return launch_bwd_bf16<true>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
+                               in_sb, in_st, out_sb, out_st, x_lens, y_lens,
+                               B, T, H, x_len, scale, drop, stream);
 }

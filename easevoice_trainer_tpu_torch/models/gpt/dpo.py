@@ -8,7 +8,7 @@ sequence log-prob margin is added to the CE loss.  Off by default
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +56,17 @@ def dpo_loss(chosen_logps: torch.Tensor, rejected_logps: torch.Tensor,
 
 
 def dpo_forward(model, batch: Dict[str, torch.Tensor], reject_y: torch.Tensor,
-                reject_lens: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Chosen and rejected forwards of ``model`` combined."""
+                reject_lens: torch.Tensor,
+                seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Chosen and rejected forwards of ``model`` combined.  Both take
+    ``seed``, the dropout seed, so they drop the same elements (the
+    rejected sequences are padded to the chosen ones' length), as the JAX
+    passes share their ``rngs``."""
     out = model(batch["phoneme_ids"], batch["phoneme_ids_len"],
                 batch["semantic_ids"], batch["semantic_ids_len"],
-                batch["bert_feature"])
+                batch["bert_feature"], seed=seed)
     out_rej = model(batch["phoneme_ids"], batch["phoneme_ids_len"], reject_y,
-                    reject_lens, batch["bert_feature"])
+                    reject_lens, batch["bert_feature"], seed=seed)
     chosen = sequence_logps(out["logits"], out["targets"])
     rejected = sequence_logps(out_rej["logits"], out_rej["targets"])
     loss = out["loss"] + dpo_loss(chosen, rejected)

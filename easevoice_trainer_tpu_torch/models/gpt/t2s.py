@@ -15,8 +15,18 @@ parity tests hold the port to.
 ``Text2SemanticDecoder.forward`` is the training forward (the JAX
 ``__call__``): every layer's attention goes through
 ``ops.attention.self_attention``, K1 forward and K5 backward on the card.
-Dropout is not supported (``configs/gpt.yaml`` and ``T2SConfig`` both say
-0, and K1 takes no dropout mask): a config with ``dropout > 0`` raises.
+With ``T2SConfig.dropout > 0`` (``configs/gpt.yaml`` ships 0) a module in
+training mode drops where the JAX layer does with ``deterministic=False``
+(t2s.py:128, :155, :160, :162), in its order: the attention probabilities
+inside K1 (K5 draws the same mask again; the twins on the CPU), then the
+attention output, the FFN's hidden layer and the FFN output through
+``nn.layers.dropout``.  One host integer ``seed`` a forward draws them
+all: the probabilities' masks are Philox of (seed ^ ATTENTION_KEY, layer,
+batch row, head, query, key) (``ops/philox.py``), the other three sites'
+come from a ``torch.Generator`` on the model's device seeded with
+``seed``.  The same seed gives the same masks for sequences of one shape,
+which DPO's chosen and rejected passes are (JAX's shared ``rngs``).  In
+eval mode, at rate 0 and in the serving passes nothing is drawn.
 
 ``dtype`` (the JAX module's): None computes in fp32; bfloat16 is the s1
 fine-tune under ``is_half`` (JAX ``train/gpt.py:162-163``).  Parameters stay
@@ -31,19 +41,23 @@ loss and accuracy take the logits in fp32.  The serving passes
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
-
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import compute_dtype, linear_in, set_compute_dtype
+from ...nn.layers import compute_dtype, dropout, linear_in, \
+    set_compute_dtype
 from ...ops import decode_attention, prefill_attention, self_attention
+from ...ops.attention import AttentionDropout
 
 LN_EPS = 1e-6
+# XORed into a forward's seed for the Philox key of the attention masks, so
+# that they never share a key with the generator of the other sites (torch's
+# CUDA generator is a Philox keyed by its seed)
+ATTENTION_KEY = 0x9E3779B97F4A7C15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,15 +136,27 @@ class _SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerRng:
+    """What one layer's dropout draws from in a training forward: the
+    forward's seed, the layer's index and the forward's generator."""
+
+    seed: int
+    layer: int
+    generator: torch.Generator
+
+
 class TransformerLayer(nn.Module):
     """Post-norm encoder layer for the full (prefill) and incremental
-    (decode) passes."""
+    (decode) passes; ``dropout`` is the JAX layer's rate, taken by
+    ``train_forward`` alone."""
 
     def __init__(self, d_model: int, n_heads: int, ffn_dim: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.n_heads = n_heads
+        self.dropout = dropout
         self.self_attn = _SelfAttention(d_model)
         self.linear1 = nn.Linear(d_model, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, d_model)
@@ -163,10 +189,18 @@ class TransformerLayer(nn.Module):
         x = self.norm2(x + self.ffn(x))
         return x, kv
 
-    def train_forward(self, x, x_len: int, x_lens, y_lens):
+    def train_forward(self, x, x_len: int, x_lens, y_lens,
+                      rng: Optional[LayerRng] = None):
         """The layer under autograd: attention on the fused projection
         through ``self_attention`` (K1 forward, K5 backward), in the compute
-        dtype (the layer's input and output stay fp32)."""
+        dtype (the layer's input and output stay fp32).  With ``rng`` and a
+        rate above 0 it drops at the JAX layer's four sites, in its order:
+        the probabilities (K1 / K5 keyed by ``rng.seed`` and
+        ``rng.layer``), then the attention output, the FFN's hidden layer
+        and the FFN output (from ``rng.generator``)."""
+        p = self.dropout if rng is not None else 0.0
+        attn_drop = AttentionDropout(p, rng.seed, rng.layer) if p else None
+        gen = rng.generator if p else None
         dtype = compute_dtype(self)
         if dtype is None:
             qkv = F.linear(x, self.self_attn.in_proj_weight,
@@ -175,19 +209,21 @@ class TransformerLayer(nn.Module):
             qkv = F.linear(x.to(dtype),
                            self.self_attn.in_proj_weight.to(dtype)) \
                 + self.self_attn.in_proj_bias.to(dtype)
-        o = self_attention(qkv, self.n_heads, x_len, x_lens, y_lens)
-        x = self.norm1(x + linear_in(self.self_attn.out_proj,
-                                     o.reshape(x.shape), dtype))
-        ffn = linear_in(self.linear2, torch.relu(
-            linear_in(self.linear1, x, dtype)), dtype)
-        return self.norm2(x + ffn)
+        o = self_attention(qkv, self.n_heads, x_len, x_lens, y_lens,
+                           attn_drop)
+        y = linear_in(self.self_attn.out_proj, o.reshape(x.shape), dtype)
+        x = self.norm1(x + dropout(y, p, True, gen))
+        hidden = torch.relu(linear_in(self.linear1, x, dtype))
+        ffn = linear_in(self.linear2, dropout(hidden, p, True, gen), dtype)
+        return self.norm2(x + dropout(ffn, p, True, gen))
 
 
 class _Layers(nn.Module):
     def __init__(self, cfg: T2SConfig):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerLayer(cfg.hidden_dim, cfg.n_heads, cfg.ffn_dim)
+            TransformerLayer(cfg.hidden_dim, cfg.n_heads, cfg.ffn_dim,
+                             dropout=cfg.dropout)
             for _ in range(cfg.n_layers))
 
 
@@ -219,7 +255,8 @@ class Text2SemanticDecoder(nn.Module):
     def embed_audio(self, y, offset: int = 0):
         return self.ar_audio_position(self.ar_audio_embedding(y), offset)
 
-    def forward(self, x, x_lens, y, y_lens, bert_feature):
+    def forward(self, x, x_lens, y, y_lens, bert_feature,
+                seed: Optional[int] = None):
         """Training forward with the CE loss and top-3 accuracy (JAX:
         t2s.py:256-303).
 
@@ -229,12 +266,16 @@ class Text2SemanticDecoder(nn.Module):
         The CE is a sum over all B x Ty positions (pad rows see only the
         valid prefix through the mask, so they learn to emit EOS); the
         accuracy is over the non-EOS targets.  Returns dict(loss, acc,
-        logits (B, Ty, V), targets, num_targets)."""
+        logits (B, Ty, V), targets, num_targets).
+
+        ``seed``: a host integer that draws this forward's dropout masks
+        (the module note), needed in training mode when ``cfg.dropout >
+        0`` and not read otherwise."""
         c = self.cfg
-        if c.dropout > 0:
-            raise NotImplementedError(
-                f"Text2SemanticDecoder: dropout {c.dropout} is not supported "
-                f"(K1 takes no dropout mask; configs/gpt.yaml sets 0)")
+        drops = self.training and c.dropout > 0
+        if drops and seed is None:
+            raise ValueError(f"Text2SemanticDecoder: dropout {c.dropout} in "
+                             f"training needs a seed")
         b, x_len = x.shape
         y_len = y.shape[1]
         pos = torch.arange(y_len, device=y.device)
@@ -248,8 +289,14 @@ class Text2SemanticDecoder(nn.Module):
 
         h = torch.cat([self.embed_text(x, bert_feature),
                        self.embed_audio(y_in)], dim=1)
-        for layer in self.h.layers:
-            h = layer.train_forward(h, x_len, x_lens, y_lens)
+        gen = None
+        if drops:
+            seed %= 2 ** 64
+            gen = torch.Generator(device=h.device)
+            gen.manual_seed(seed)
+        for i, layer in enumerate(self.h.layers):
+            rng = LayerRng(seed ^ ATTENTION_KEY, i, gen) if drops else None
+            h = layer.train_forward(h, x_len, x_lens, y_lens, rng)
 
         logits = linear_in(self.ar_predict_layer, h[:, x_len:],
                            compute_dtype(self))           # (B, Ty, V)

@@ -261,9 +261,12 @@ def dropout(x: torch.Tensor, p: float, training: bool,
             generator) -> torch.Tensor:
     """Inverted dropout as flax ``nn.Dropout``: keep with probability 1-p and
     scale by 1/(1-p).  The mask comes from ``generator`` (a
-    ``torch.Generator`` on ``x``'s device); identity in eval mode or at p=0."""
+    ``torch.Generator`` on ``x``'s device); identity in eval mode or at p=0,
+    zeros at p=1 (flax's rate-1 case, which draws nothing)."""
     if not training or p == 0.0:
         return x
+    if p == 1.0:
+        return torch.zeros_like(x)
     if generator is None:
         raise ValueError("dropout in training needs an explicit "
                          "torch.Generator")

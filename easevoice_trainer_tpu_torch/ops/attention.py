@@ -22,15 +22,32 @@ is fp32: scores in fp32 from the bf16 q and k, the softmax in fp32, P V in
 fp32 from the fp32 probabilities and the bf16 v, o rounded to bf16 (the out
 projection's cast); the gradients dq, dk, dv in fp32, rounded to bf16.  A
 CUDA tensor of another dtype raises; nothing is cast to reach an instance.
+
+Dropout on the attention probabilities (the s1 fine-tune with
+``T2SConfig.dropout > 0``; JAX t2s.py:128 drops the fp32 probabilities
+after the softmax): ``self_attention``, ``prefill_attention_lse`` and
+``prefill_attention_bwd`` take ``dropout``, an :class:`AttentionDropout`
+(rate p, a host integer seed, the layer index).  The keep mask M of each
+(batch, head, query row, key) is Philox4x32-10 of (seed, layer, b, h, row,
+key) (``ops/philox.py``, ``csrc/philox.cuh``): on the card K1's and K5's
+dropout instances draw it inside their loops (counted in
+``launches_dropout`` / ``launches_dropout_bf16``), on the CPU the twins
+take it from ``attention_keep_mask`` and apply ``where(M, P / (1 - p), 0)``
+in fp32; either way K5 draws the bits K1 drew.  The row max, row sum and
+lse stay the undropped softmax's.  ``dropout`` None or p = 0 launches the
+instances without dropout; p = 1 gives zeros, as flax does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from ..nn.layers import wide
 from . import build
+from .philox import attention_keep_mask, keep_threshold
 
 DK = 32  # the GPT kernels are written for the 512/16 GPT's head width
 ENCODER_DK = 64  # K1's encoder instance: 1024/16 (BERT), 768/12 (G2PW, HuBERT,
@@ -60,21 +77,63 @@ def build_hybrid_mask_bias(x_len: int, y_len: int, x_lens: torch.Tensor,
     return torch.where(ok, zero, -math.inf)[:, None]
 
 
-def _dense_attention(q, k, v, bias):
+@dataclasses.dataclass(frozen=True)
+class AttentionDropout:
+    """Dropout on one layer's attention probabilities: rate ``p``, the
+    Philox ``seed`` (a host integer, so no launch waits on the card) and
+    the ``layer`` index, from which K1 and K5 draw the keep mask."""
+
+    p: float
+    seed: int
+    layer: int
+
+    def keep_mask(self, b: int, h: int, t: int, x_len: int,
+                  device) -> torch.Tensor:
+        """The keep mask (b, h, t, t) bool the kernels draw."""
+        return attention_keep_mask(self.seed, self.layer, b, h, t, x_len,
+                                   self.p, device)
+
+
+def _dropping(dropout: Optional[AttentionDropout]):
+    """``dropout`` when it drops something, else None (p = 0)."""
+    if dropout is None or dropout.p == 0.0:
+        return None
+    if not 0.0 < dropout.p <= 1.0:
+        raise ValueError(f"attention dropout rate {dropout.p} outside [0, 1]")
+    return dropout
+
+
+def _twin_mask(dropout: Optional[AttentionDropout], q: torch.Tensor,
+               x_len: int):
+    """(keep mask, p) of ``dropout`` for the twins of q's shape, or
+    (None, 0)."""
+    if dropout is None:
+        return None, 0.0
+    b, t, h, _ = q.shape
+    return dropout.keep_mask(b, h, t, x_len, q.device), dropout.p
+
+
+def _dense_attention(q, k, v, bias, mask=None, p_drop: float = 0.0):
     """Dense attention; bf16 q / k / v are taken in fp32 (their products are
-    exact there) and o is rounded back to their dtype."""
+    exact there) and o is rounded back to their dtype.  ``mask``: the keep
+    mask (B, H, T, T) of dropout at rate ``p_drop`` on the probabilities."""
     dtype = q.dtype
     q, k, v = wide(q), wide(k), wide(v)
     dk = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dk)
     probs = torch.softmax(scores + bias, dim=-1)
+    if mask is not None:
+        probs = torch.where(mask, probs / (1.0 - p_drop), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(dtype)
 
 
-def prefill_attention_reference(q, k, v, x_len: int, x_lens, y_lens):
-    """Plain twin of K1: dense scores + build_hybrid_mask_bias."""
+def prefill_attention_reference(q, k, v, x_len: int, x_lens, y_lens,
+                                mask=None, p_drop: float = 0.0):
+    """Plain twin of K1: dense scores + build_hybrid_mask_bias; with
+    ``mask`` (B, H, T, T) bool, dropout at rate ``p_drop`` on the
+    probabilities, ``where(mask, P / (1 - p_drop), 0)`` in fp32."""
     bias = build_hybrid_mask_bias(x_len, q.shape[1] - x_len, x_lens, y_lens)
-    return _dense_attention(q, k, v, bias)
+    return _dense_attention(q, k, v, bias, mask, p_drop)
 
 
 def _masked_scores(q, k, x_len: int, x_lens, y_lens) -> torch.Tensor:
@@ -92,13 +151,16 @@ def prefill_attention_lse_reference(q, k, x_len: int, x_lens, y_lens):
 
 
 def prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len: int, x_lens,
-                                    y_lens):
+                                    y_lens, mask=None, p_drop: float = 0.0):
     """Plain twin of K5, written from the math of the softmax backward:
     P = exp(S - lse) (0 where the mask hides the pair or the row sees no
     key), D = rowsum(dO * O) (0 for such a row), dV = P^T dO,
     dS = P (dO V^T - D), dQ = dS K / sqrt(dk), dK = dS^T Q / sqrt(dk).
     All (B, T, H, dk).  bf16 inputs are taken in fp32 and the gradients
-    rounded to their dtype, as K5's bf16 instance does."""
+    rounded to their dtype, as K5's bf16 instance does.  With ``mask`` (the
+    keep mask of dropout at rate ``p_drop``), P~ = where(mask, P / keep, 0)
+    with keep = 1 - p_drop: dV = P~^T dO and dS = P (where(mask, dO V^T /
+    keep, 0) - D); D is unchanged, since rowsum(dO * O) is rowsum(P~ dP)."""
     dtype = q.dtype
     q, k, v, o, do = (wide(z) for z in (q, k, v, o, do))
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -110,8 +172,15 @@ def prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len: int, x_lens,
     # K1 and NaN from the dense twin, and whose P is 0 either way
     dsum = torch.where(torch.isfinite(lse),
                        (do * o).sum(-1).transpose(1, 2)[..., None], 0.0)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - dsum)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    if mask is None:
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    else:
+        keep = 1.0 - p_drop
+        dv = torch.einsum("bhqk,bqhd->bkhd", torch.where(mask, p / keep, 0.0),
+                          do)
+        dp = torch.where(mask, dp / keep, 0.0)
+    ds = p * (dp - dsum)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
@@ -154,9 +223,27 @@ def _suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
-def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool):
+def _drop_args(dropout: Optional[AttentionDropout]):
+    """The dropout entry points' trailing arguments (seed, layer, keep
+    threshold, 1 - p); none without dropout."""
+    if dropout is None:
+        return ()
+    return (int(dropout.seed) & 0xFFFFFFFFFFFFFFFF, int(dropout.layer),
+            keep_threshold(dropout.p), 1.0 - dropout.p)
+
+
+def _count(fn, dtype: torch.dtype, drop: bool, n: int) -> None:
+    """Adds ``n`` launches to the counter of the instance that ran."""
+    name = "launches" + ("_dropout" if drop else "") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    setattr(fn, name, getattr(fn, name) + n)
+
+
+def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool,
+                  dropout: Optional[AttentionDropout] = None):
     """K1 on the card: o (B, T, H, dk), and the row logsumexp (B, H, T)
-    when ``with_lse`` (else None, and K1 writes no lse)."""
+    when ``with_lse`` (else None, and K1 writes no lse); with ``dropout``
+    (0 < p < 1) its dropout instance."""
     _check_cuda("prefill_attention", q, k, v, x_lens, y_lens)
     _check_heads("prefill_attention", q, k, v, dtypes=GPT_DTYPES)
     b, t, h, dk = q.shape
@@ -167,19 +254,18 @@ def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool):
     o = torch.empty((b, t, h, dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    drop = _drop_args(dropout)
     lib = build.build()
-    rc = getattr(lib, "ev_prefill_attention_" + _suffix(q.dtype))(
+    rc = getattr(lib, "ev_prefill_attention_" + ("dropout_" if drop else "")
+                 + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), x_lens.data_ptr(), y_lens.data_ptr(),
-        b, t, h, int(x_len), 1.0 / math.sqrt(dk),
+        b, t, h, int(x_len), 1.0 / math.sqrt(dk), *drop,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "prefill_attention")
-    if q.dtype == torch.bfloat16:
-        prefill_attention.launches_bf16 += 1
-    else:
-        prefill_attention.launches += 1
+    _count(prefill_attention, q.dtype, bool(drop), 1)
     return o, lse
 
 
@@ -196,17 +282,23 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           x_len: int, x_lens: torch.Tensor,
-                          y_lens: torch.Tensor):
+                          y_lens: torch.Tensor,
+                          dropout: Optional[AttentionDropout] = None):
     """K1 writing its row logsumexp too: (o (B, T, H, dk), lse (B, H, T));
-    the twins on the CPU."""
+    the twins on the CPU.  ``dropout`` (0 <= p < 1) drops the
+    probabilities; the lse is the undropped softmax's."""
+    dropout = _dropping(dropout)
     if q.device.type == "cpu":
-        return (prefill_attention_reference(q, k, v, x_len, x_lens, y_lens),
+        return (prefill_attention_reference(q, k, v, x_len, x_lens, y_lens,
+                                            *_twin_mask(dropout, q, x_len)),
                 prefill_attention_lse_reference(q, k, x_len, x_lens, y_lens))
-    return _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True)
+    return _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout)
 
 
 prefill_attention.launches = 0
 prefill_attention.launches_bf16 = 0
+prefill_attention.launches_dropout = 0
+prefill_attention.launches_dropout_bf16 = 0
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -268,7 +360,7 @@ encoder_attention.launches_dk32 = 0
 
 
 def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
-                          out=None):
+                          out=None, dropout: Optional[AttentionDropout] = None):
     """K5, the gradient of K1: (dq, dk, dv), each (B, T, H, dk).
 
     q/k/v are K1's inputs (views of one fused projection sharing its
@@ -277,10 +369,14 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     slices of the fused projection's gradient); new tensors when None.  On
     the CPU the plain twin runs.  One K5 call is three launches (D, dK/dV,
     dQ), and counts three.  fp32 or bf16 (then o, do and the outputs are
-    bf16, lse fp32; ``launches_bf16`` counts them)."""
+    bf16, lse fp32; ``launches_bf16`` counts them).  ``dropout``: the one K1
+    ran with (0 <= p < 1), whose mask K5 draws again; its instances count
+    in ``launches_dropout`` / ``launches_dropout_bf16``."""
+    dropout = _dropping(dropout)
     if q.device.type == "cpu":
-        grads = prefill_attention_bwd_reference(q, k, v, o, lse, do, x_len,
-                                                x_lens, y_lens)
+        grads = prefill_attention_bwd_reference(
+            q, k, v, o, lse, do, x_len, x_lens, y_lens,
+            *_twin_mask(dropout, q, x_len))
         if out is None:
             return grads
         for dst, g in zip(out, grads):
@@ -320,25 +416,25 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     y_lens = y_lens.to(torch.int32).contiguous()
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk_, dv = out
-    rc = getattr(build.build(),
-                 "ev_prefill_attention_bwd_" + _suffix(q.dtype))(
+    drop = _drop_args(dropout)
+    rc = getattr(build.build(), "ev_prefill_attention_bwd_"
+                 + ("dropout_" if drop else "") + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
         dk_.data_ptr(), dv.data_ptr(), q.stride(0), q.stride(1),
         dq.stride(0), dq.stride(1), x_lens.data_ptr(), y_lens.data_ptr(),
-        b, t, h, int(x_len), 1.0 / math.sqrt(dk),
+        b, t, h, int(x_len), 1.0 / math.sqrt(dk), *drop,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "prefill_attention_bwd")
-    n = prefill_attention_bwd.launches_per_call
-    if q.dtype == torch.bfloat16:
-        prefill_attention_bwd.launches_bf16 += n
-    else:
-        prefill_attention_bwd.launches += n
+    _count(prefill_attention_bwd, q.dtype, bool(drop),
+           prefill_attention_bwd.launches_per_call)
     return tuple(out)
 
 
 prefill_attention_bwd.launches = 0
 prefill_attention_bwd.launches_bf16 = 0
+prefill_attention_bwd.launches_dropout = 0
+prefill_attention_bwd.launches_dropout_bf16 = 0
 prefill_attention_bwd.launches_per_call = 3    # dsum, dkdv, dq
 
 
@@ -351,14 +447,15 @@ def _split_heads(qkv: torch.Tensor, n_heads: int):
 
 class _SelfAttention(torch.autograd.Function):
     """K1 forward (with its row logsumexp) and K5 backward; d(qkv) is one
-    (B, T, 3 * D) tensor whose three slices K5 writes in place."""
+    (B, T, 3 * D) tensor whose three slices K5 writes in place.  K5 takes
+    K1's dropout, and so draws K1's mask."""
 
     @staticmethod
-    def forward(ctx, qkv, n_heads, x_len, x_lens, y_lens):
+    def forward(ctx, qkv, n_heads, x_len, x_lens, y_lens, dropout):
         q, k, v = _split_heads(qkv, n_heads)
-        o, lse = _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True)
+        o, lse = _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout)
         ctx.save_for_backward(qkv, o, lse, x_lens, y_lens)
-        ctx.n_heads, ctx.x_len = n_heads, x_len
+        ctx.n_heads, ctx.x_len, ctx.dropout = n_heads, x_len, dropout
         return o
 
     @staticmethod
@@ -367,12 +464,14 @@ class _SelfAttention(torch.autograd.Function):
         q, k, v = _split_heads(qkv, ctx.n_heads)
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         prefill_attention_bwd(q, k, v, o, lse, do, ctx.x_len, x_lens, y_lens,
-                              out=_split_heads(dqkv, ctx.n_heads))
-        return dqkv, None, None, None, None
+                              out=_split_heads(dqkv, ctx.n_heads),
+                              dropout=ctx.dropout)
+        return dqkv, None, None, None, None, None
 
 
 def self_attention(qkv: torch.Tensor, n_heads: int, x_len: int,
-                   x_lens: torch.Tensor, y_lens: torch.Tensor
+                   x_lens: torch.Tensor, y_lens: torch.Tensor,
+                   dropout: Optional[AttentionDropout] = None
                    ) -> torch.Tensor:
     """Training attention over [text; audio] under the hybrid mask.
 
@@ -380,15 +479,24 @@ def self_attention(qkv: torch.Tensor, n_heads: int, x_len: int,
     the last axis, each H heads of dk); returns o (B, T, H, dk) in qkv's
     dtype, differentiable in qkv.  On the card: K1 forward, K5 backward
     (their bf16 instances for bf16), or a raise.  On the CPU: the dense
-    twin, which autograd differentiates."""
+    twin, which autograd differentiates.  ``dropout``: dropout on the
+    probabilities (K1 / K5's dropout instances on the card, the twin with
+    ``attention_keep_mask`` on the CPU); at p = 1, o is zeros, as flax's
+    dropout at rate 1 zeroes the probabilities."""
+    dropout = _dropping(dropout)
+    if dropout is not None and dropout.p == 1.0:
+        b, t, three_d = qkv.shape
+        return qkv.new_zeros((b, t, n_heads, three_d // (3 * n_heads)))
     if qkv.device.type == "cpu":
         q, k, v = _split_heads(qkv, n_heads)
-        return prefill_attention_reference(q, k, v, x_len, x_lens, y_lens)
+        return prefill_attention_reference(q, k, v, x_len, x_lens, y_lens,
+                                           *_twin_mask(dropout, q, x_len))
     if qkv.device.type != "cuda":
         raise ValueError(f"self_attention: no kernel for device "
                          f"{qkv.device}")
     return _SelfAttention.apply(qkv, n_heads, int(x_len),
-                                x_lens.to(torch.int32), y_lens.to(torch.int32))
+                                x_lens.to(torch.int32),
+                                y_lens.to(torch.int32), dropout)
 
 
 def decode_attention_reference(q, k_cache, v_cache, x_len: int, x_lens,

@@ -53,6 +53,14 @@ for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd", "ev_mrf_conv",
               "ev_mrf_conv_bwd_data", "ev_mrf_conv_bwd_weight"):
     SIGNATURES[_name + "_bf16"] = SIGNATURES[_name + "_f32"]
 SIGNATURES["ev_mrf_conv_bwd_weight_max_clusters_bf16"] = [_I] * 7
+# K1 and K5 with dropout (the s1 fine-tune): the arguments of the instance
+# without, then the Philox seed, the layer, the keep threshold and 1 - p,
+# before the stream
+for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd"):
+    for _dt in ("f32", "bf16"):
+        _base = SIGNATURES[f"{_name}_{_dt}"]
+        SIGNATURES[f"{_name}_dropout_{_dt}"] = _base[:-1] + [
+            ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _P]
 
 
 class KernelLibrary:

@@ -17,6 +17,10 @@
 * per ``save_every_epoch``: the resume file and the deployable
   ``{name}-e{E}.ckpt`` in ``export_gpt_weights``' format (half precision,
   ``model.``-prefixed reference names).
+* ``model.dropout`` of the yaml above 0: each micro-batch draws its dropout
+  masks from the seed ``train.seed * 1_000_003 + micro-batch count`` (JAX:
+  ``fold_in(fast_key(seed), step)``; the s2 trainer seeds its generator
+  the same way).
 
 On ``GPTTrainParams.device``: the first CUDA card by default, which must
 exist (no silent move to the host); ``"cpu"`` runs the kernels' plain twins.
@@ -232,7 +236,8 @@ class GPTTrain:
                         max_len=batch["semantic_ids"].shape[1])
                     batch["reject_semantic_ids"] = rej
                     batch["reject_semantic_ids_len"] = rej_lens
-                metrics = step_fn(self._to_device(batch))
+                metrics = step_fn(self._to_device(batch),
+                                  seed=self.seed * 1_000_003 + step_fn.step)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.step_seconds.append(time.perf_counter() - t_step)

@@ -62,27 +62,36 @@ class GPTTrainStep:
         self.mini_step = 0     # position inside the accumulation window
         self.acc: Optional[List[torch.Tensor]] = None
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
-        """-> (loss, forward outputs) of one micro-batch."""
+    def loss(self, batch: Dict[str, torch.Tensor],
+             seed: Optional[int] = None):
+        """-> (loss, forward outputs) of one micro-batch; ``seed`` draws its
+        dropout masks."""
         if self.hp.if_dpo:
             from ..models.gpt.dpo import dpo_forward
 
             out = dpo_forward(self.model, batch,
                               batch["reject_semantic_ids"],
-                              batch["reject_semantic_ids_len"])
+                              batch["reject_semantic_ids_len"], seed=seed)
         else:
             out = self.model(batch["phoneme_ids"], batch["phoneme_ids_len"],
                              batch["semantic_ids"],
                              batch["semantic_ids_len"],
-                             batch["bert_feature"])
+                             batch["bert_feature"], seed=seed)
         return out["loss"], out
 
-    def __call__(self, batch: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """One micro-batch.  ``seed``: a host integer that draws its dropout
+        masks (JAX's per-step dropout rng), needed when the model drops
+        (``cfg.dropout > 0``)."""
+        if seed is None and self.model.cfg.dropout > 0:
+            raise ValueError(f"GPTTrainStep: the model drops out (dropout "
+                             f"{self.model.cfg.dropout}): a micro-batch "
+                             f"needs a seed")
         self.model.train()
         for p in self.params:
             p.grad = None
-        loss, out = self.loss(batch)
+        loss, out = self.loss(batch, seed)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]

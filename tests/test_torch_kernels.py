@@ -900,7 +900,8 @@ def test_s1_window_kernel_patterns_class_k1_and_k5():
     """The s1 window's profile groups kernels by name (chip_smoke
     K1_KERNEL, K5_KERNEL, on the lower-cased demangled names a trace
     holds): K1's fp32 and bf16 kernels are K1, K5's dsum / dkdv / dq of
-    either instance are K5, and no name is both or falls to neither."""
+    either instance are K5, with or without dropout, and no name is both
+    or falls to neither."""
     cs = _chip_smoke()
     k1 = ["(anonymous namespace)::prefill_attention_kernel<32>(float const*, "
           "float const*, float const*, float*, float*, long long, long long, "
@@ -915,8 +916,14 @@ def test_s1_window_kernel_patterns_class_k1_and_k5():
           "__nv_bfloat16*, float*, long long, long long, long long, long "
           "long, long long, long long, int const*, int const*, int, int, "
           "int, float)"]
-    k5 = [f"(anonymous namespace)::{k}{sfx}_kernel(float const*, int)"
-          for k in ("dsum", "dkdv", "dq") for sfx in ("", "_bf16")]
+    # the instances with a DROP template flag (the dropout ones: true)
+    k1 += ["(anonymous namespace)::prefill_attention_kernel<32, true>(float "
+           "const*, int, float, ev::Dropout)",
+           "(anonymous namespace)::prefill_attention_bf16_kernel<false>("
+           "__nv_bfloat16 const*, int, float, ev::Dropout)"]
+    k5 = [f"(anonymous namespace)::{k}{sfx}_kernel{flag}(float const*, int)"
+          for k in ("dsum", "dkdv", "dq") for sfx in ("", "_bf16")
+          for flag in ("", "<true>")]
     other = ["void decode_attention_kernel<8>(float const*)",
              "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_tn",
              "void at::native::vectorized_elementwise_kernel<4>()"]
@@ -1495,3 +1502,167 @@ def test_roformer_card_matches_cpu():
     err = float((got - want).abs().max()) / max(1.0, float(
         want.abs().max()))
     assert err <= 1e-4, err
+
+
+# ---- dropout: K1 and K5's dropout instances (T2SConfig.dropout > 0) ----------
+#
+# Each against its twin given the keep mask the kernels draw
+# (``attention_keep_mask``): fp32 within K1's 1e-4 absolute and K5's 1e-4
+# relative, bf16 within the 2^-6 / one-step rule (``_close_bf16``).
+
+DROPOUT_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _dropout_heads(gen, dtype, x_len, x_lens, y_len, y_lens, h=16):
+    b, t = len(x_lens), x_len + y_len
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, t, 3 * h * 32), generator=gen,
+                      device="cuda").to(dtype)
+    do = torch.randn((b, t, h, 32), generator=gen, device="cuda").to(dtype)
+    return (*att._split_heads(qkv, h), do, xl, yl)
+
+
+def _close(got, want, dtype, rel):
+    if dtype == torch.bfloat16:
+        _close_bf16(got, want)
+    elif rel:
+        _close_rel(got, want, 1e-4)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
+                         K5_CASES + K1_BF16_EDGES + K5_BF16_EDGES)
+def test_prefill_attention_dropout_matches_twin(dtype, x_len, x_lens, y_len,
+                                                y_lens):
+    """K1's dropout instance (p = 0.1) with its lse at the s1 shapes and the
+    tile edges of both dtypes: o against the twin with the same keep mask
+    (rows that see no key are 0), the lse bit-equal to the instance
+    without dropout's (the undropped softmax), one dropout launch counted
+    and no other, two calls bit-identical."""
+    gen = _card()
+    q, k, v, _, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
+                                        y_lens)
+    drop = att.AttentionDropout(0.1, 0x1234_5678_9ABC, 7)
+    counts = ("launches", "launches_bf16", "launches_dropout",
+              "launches_dropout_bf16")
+    before = [getattr(prefill_attention, c) for c in counts]
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    ran = "launches_dropout" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert [getattr(prefill_attention, c) for c in counts] == [
+        n + (c == ran) for n, c in zip(before, counts)]
+    b, t, h, _ = q.shape
+    mask = drop.keep_mask(b, h, t, x_len, "cuda")
+    want = torch.nan_to_num(att.prefill_attention_reference(
+        q, k, v, x_len, xl, yl, mask, 0.1), nan=0.0)
+    _close(o, want, dtype, rel=False)
+    assert torch.equal(lse, att.prefill_attention_lse(q, k, v, x_len, xl,
+                                                      yl)[1])
+    again = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
+                         K5_CASES + K5_BF16_EDGES)
+def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
+                                                    y_len, y_lens):
+    """K5's dropout instance on the o and lse of K1's: dq, dk, dv against
+    the twin with the same keep mask, finite, three dropout launches
+    counted and no other, repeated launches bit-identical."""
+    gen = _card()
+    q, k, v, do, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
+                                         y_lens)
+    drop = att.AttentionDropout(0.1, 99, 23)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    counts = ("launches", "launches_bf16", "launches_dropout",
+              "launches_dropout_bf16")
+    before = [getattr(prefill_attention_bwd, c) for c in counts]
+    got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                dropout=drop)
+    ran = "launches_dropout" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert [getattr(prefill_attention_bwd, c) for c in counts] == [
+        n + 3 * (c == ran) for n, c in zip(before, counts)]
+    b, t, h, _ = q.shape
+    want = att.prefill_attention_bwd_reference(
+        q, k, v, o, lse, do, x_len, xl, yl,
+        drop.keep_mask(b, h, t, x_len, "cuda"), 0.1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, w, dtype, rel=True)
+    again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                  dropout=drop)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", [
+    (37, [37, 0, 5], 95, [95, 71, 2]),       # x_len off every tile, no text
+    (64, [64, 63, 1], 63, [63, 62, 0]),      # on the tiles, one off
+    (1, [1, 0], 14, [14, 0]),                # T = 15
+    (416, [416, 211], 1360, [877, 1360]),    # the long s1 shape
+])
+def test_dropout_mask_readout(dtype, x_len, x_lens, y_len, y_lens):
+    """The keep bits K1, K5's dkdv kernel and K5's dq kernel draw, read
+    through their outputs (chip_smoke ``dropout_readout``: q = 0 makes P
+    uniform over a row's visible keys, and one-hot v, dO or k turn one
+    block of pairs into outputs that are positive exactly where a pair is
+    kept), equal ``attention_keep_mask`` on every visible pair, across
+    tiles and the text / audio boundary; hidden pairs read 0."""
+    _card()
+    xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
+    got = _chip_smoke().dropout_readout(
+        torch, att, dtype, att.AttentionDropout(0.1, 2 ** 40 + 5, 19), x_len,
+        xl, yl, x_len + y_len, h=4)
+    assert all(bad == 0 and n > 0 for bad, n in got.values()), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
+def test_self_attention_dropout_autograd_on_the_card(dtype):
+    """The training attention with dropout through the autograd Function
+    (K1 and K5's dropout instances, K5 drawing K1's mask again) against
+    autograd of the dense twin with the same mask; p = 0 launches the
+    instances without dropout, p = 1 gives zeros."""
+    gen = _card()
+    b, h, dk, x_len, y_len = 3, 16, 32, 37, 90
+    xl = torch.tensor([37, 20, 5], dtype=torch.int32, device="cuda")
+    yl = torch.tensor([90, 71, 2], dtype=torch.int32, device="cuda")
+    qkv = torch.randn((b, x_len + y_len, 3 * h * dk), generator=gen,
+                      device="cuda").to(dtype)
+    do = torch.randn((b, x_len + y_len, h, dk), generator=gen,
+                     device="cuda").to(dtype)
+    drop = att.AttentionDropout(0.1, 4242, 0)
+    mask = drop.keep_mask(b, h, x_len + y_len, x_len, "cuda")
+    outs, grads = [], []
+    for card in (True, False):
+        x = qkv.clone().requires_grad_()
+        if card:
+            o = self_attention(x, h, x_len, xl, yl, drop)
+        else:
+            o = att.prefill_attention_reference(*att._split_heads(x, h),
+                                                x_len, xl, yl, mask, 0.1)
+        o.backward(do)
+        outs.append(o.detach())
+        grads.append(x.grad)
+    if dtype == torch.bfloat16:
+        _close_bf16(outs[0], outs[1])
+        _close_bf16(grads[0], grads[1], share=0.05)
+    else:
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+        _close_rel(grads[0], grads[1], 1e-4)
+    n0 = prefill_attention.launches_dropout + \
+        prefill_attention.launches_dropout_bf16
+    off = self_attention(qkv, h, x_len, xl, yl,
+                         att.AttentionDropout(0.0, 4242, 0))
+    assert torch.equal(off, self_attention(qkv, h, x_len, xl, yl))
+    assert n0 == prefill_attention.launches_dropout + \
+        prefill_attention.launches_dropout_bf16
+    assert not self_attention(qkv, h, x_len, xl, yl,
+                              att.AttentionDropout(1.0, 4242, 0)).any()

@@ -172,12 +172,6 @@ def test_training_forward_matches_jax(gpt):
     assert float(got["acc"]) == pytest.approx(float(want["acc"]), abs=1e-7)
 
 
-def test_training_forward_refuses_dropout():
-    model = Text2SemanticDecoder(T2SConfig(**{**T2S_KW, "dropout": 0.1}))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(*_args(_torch_batch(_batch(8))))
-
-
 # ---- ScaledAdam -------------------------------------------------------------
 
 SHAPES = [(8, 16), (4, 7), (1,)]      # two tensors and a one-element one
