@@ -167,7 +167,18 @@ Phases, one summary line each; any failure exits non-zero:
    (K1, K5, GEMMs, optimizer, other).  Then one accumulation window (4
    micro-batches of B=24) with ``model.dropout: 0.1`` in bf16 and in
    fp32: finite losses, 24 K1 and 24 K5 dropout calls a micro-batch and no
-   launch of an instance without dropout;
+   launch of an instance without dropout.  Then data parallel
+   (``data_parallel``): both fine-tunes in bf16 through ``parallel/``
+   (``launch``, the ranks' rows of the global batch, ``reduce_gradients``),
+   the s1 window (global B = 8 at T = 716, dropout 0 and 0.1) and 2 s2
+   steps (global B = 8), in this process as the world of one, on two ranks
+   sharing the card over gloo (metrics equal across the ranks, weights
+   bit-identical, losses and grad norms within 2^-6 of the world of one,
+   rank 1's K1 keep bits equal to the world of one's mask at its global
+   row) and on an NCCL world of one rank (bit-identical to this process);
+   s a micro-batch / step, all-reduce ms (CUDA events) and bytes a step;
+   and the bf16 drop rate of ``nn.layers.dropout`` on the card (4.2e6
+   draws at p = 0.1, within 6 sigma);
 12. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient), in fp32 and in bf16,
    without and with dropout 0.1 (the same masks at all four sites);
@@ -2033,7 +2044,9 @@ def check_dropout(torch, results):
     bit-equal to the instance without dropout's (the undropped softmax),
     repeated launches bit-identical, the keep rate over the visible pairs
     within 6 sigma of 1 - p; the mask read back from K1, K5's dkdv and K5's
-    dq at T = 1776 (``dropout_readout``), bit for bit.  Device ms of each
+    dq at T = 1776 (``dropout_readout``), bit for bit.  The second shape
+    and the readout draw as a data-parallel rank would (``row0`` 5 and 3:
+    the mask of the global batch rows row0 ..).  Device ms of each
     dropout instance beside the instance without dropout on the same inputs,
     the twin and SDPA with dropout_p = 0.1 under the same boolean mask
     (forward; its backward through autograd; between CUDA events,
@@ -2082,7 +2095,9 @@ def check_dropout(torch, results):
             do = torch.randn((b, t, h, dk), generator=gen,
                              device="cuda").to(dtype)
             q, k, v = att._split_heads(qkv, h)
-            drop = att.AttentionDropout(p, 0x5EED0000 + 7 * i, 11)
+            # the second shape as a data-parallel rank whose rows start at
+            # global row 5 (row0 keys the mask by the global batch row)
+            drop = att.AttentionDropout(p, 0x5EED0000 + 7 * i, 11, 5 * i)
             mask = drop.keep_mask(b, h, t, x_len, "cuda")
             bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
             vis = (bias == 0).expand(b, h, t, t)
@@ -2182,8 +2197,8 @@ def check_dropout(torch, results):
         t = x_len + S1_Y_LENS[-1]
         xl, yl = s1_lens(torch, gen, b, x_len, S1_Y_LENS[-1])
         readout = dropout_readout(torch, att, dtype,
-                                  att.AttentionDropout(p, 0x5EED, 3), x_len,
-                                  xl, yl, t)
+                                  att.AttentionDropout(p, 0x5EED, 3, 3),
+                                  x_len, xl, yl, t)
         log(f"[dropout] {'bf16' if bf else 'fp32'} mask readout at T={t} "
             f"(x_lens={xl.tolist()}, y_lens={yl.tolist()}): " + ", ".join(
                 f"{key} {bad} of {n} visible pairs off attention_keep_mask"
@@ -5485,6 +5500,368 @@ def reference_s1_step(torch):
 
 
 # ---------------------------------------------------------------------------
+# data parallel: both fine-tunes through parallel/, on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DP_SEED = 20_020
+DP_B = 8                    # global batch rows: 4 a rank in a world of two
+DP_WINDOW = 4               # s1 micro-batches: one accumulation window
+DP_S2_STEPS = 2
+# the T = 716 bucket: rows 0-3 long, rows 4-7 short, so the two ranks hold
+# other numbers of targets and valid frames
+DP_X_LENS = (416, 380, 350, 300, 200, 150, 120, 64)
+DP_Y_LENS = (300, 290, 260, 240, 120, 90, 60, 30)
+DP_S2_FRAMES = 160          # 3.2 s at 50 spectrogram frames a second
+DP_SPEC_LENS = (160, 150, 140, 130, 90, 70, 50, 40)
+DP_TEXT_LENS = (96, 90, 80, 70, 50, 40, 30, 20)
+# bf16 ranks against the world of one: per-rank GEMMs and the bf16
+# weight gradients rounded per rank before the fp32 sum, max(1, |ref|)
+DP_BF16_TOL = 2.0 ** -6
+DP_DRAWS = 4_200_000        # the drop rate's draws
+
+
+def dp_s1_batches(np):
+    """One accumulation window of global s1 micro-batches at the T = 716
+    bucket (416 phonemes, 300 tokens), as numpy (``collate_gpt``'s keys)."""
+    rng = np.random.default_rng(DP_SEED)
+    x_len, y_len = S1_X_LEN, S1_Y_LENS[0]
+    out = []
+    for _ in range(DP_WINDOW):
+        x = rng.integers(1, 732, (DP_B, x_len)).astype(np.int32)
+        y = rng.integers(0, 1024, (DP_B, y_len)).astype(np.int32)
+        for i, (xl, yl) in enumerate(zip(DP_X_LENS, DP_Y_LENS)):
+            x[i, xl:] = 0
+            y[i, yl:] = 0
+        out.append({"phoneme_ids": x,
+                    "phoneme_ids_len": np.asarray(DP_X_LENS, np.int32),
+                    "semantic_ids": y,
+                    "semantic_ids_len": np.asarray(DP_Y_LENS, np.int32),
+                    "bert_feature": rng.normal(
+                        size=(DP_B, x_len, 1024)).astype(np.float32)})
+    return out
+
+
+def dp_s2_setup(torch, np, dev):
+    """configs/s2.json's SovitsConfig, S2TrainHP and MelConfig (as
+    ``SovitsTrain`` reads them) and DP_S2_STEPS global batches of
+    DP_S2_FRAMES frames with ragged lengths, as tensors on ``dev``."""
+    from easevoice_trainer_tpu_torch.models.sovits import SovitsConfig
+    from easevoice_trainer_tpu_torch.ops.stft import MelConfig, spectrogram
+    from easevoice_trainer_tpu_torch.train.sovits_step import S2TrainHP
+    from easevoice_trainer_tpu_torch.utils import paths
+
+    with open(paths.s2_config_path(), encoding="utf8") as f:
+        raw = json.load(f)
+    t, d = raw["train"], raw["data"]
+    cfg = SovitsConfig.from_json_dict(raw)
+    hp = S2TrainHP(learning_rate=t["learning_rate"], betas=tuple(t["betas"]),
+                   eps=t["eps"], lr_decay=t["lr_decay"],
+                   segment_size=t["segment_size"], c_mel=t["c_mel"],
+                   c_kl=t["c_kl"])
+    mel = MelConfig(sampling_rate=d["sampling_rate"], n_fft=d["filter_length"],
+                    hop_length=d["hop_length"], win_length=d["win_length"],
+                    n_mels=d["n_mel_channels"], fmin=d["mel_fmin"],
+                    fmax=d["mel_fmax"])
+    rng = np.random.default_rng(DP_SEED + 1)
+    batches = []
+    for _ in range(DP_S2_STEPS):
+        wav = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (DP_B, DP_S2_FRAMES * mel.hop_length)).astype(
+                np.float32)).to(dev)
+        spec = spectrogram(wav, mel.n_fft, mel.hop_length, mel.win_length)
+        batches.append({
+            "ssl": torch.from_numpy(rng.normal(size=(
+                DP_B, DP_S2_FRAMES, cfg.ssl_dim)).astype(np.float32)).to(dev),
+            "spec": spec[:, :DP_S2_FRAMES].contiguous(), "wav": wav,
+            "spec_lengths": torch.tensor(DP_SPEC_LENS, device=dev),
+            "text": torch.from_numpy(rng.integers(
+                1, cfg.n_symbols, (DP_B, max(DP_TEXT_LENS)))).to(dev),
+            "text_lengths": torch.tensor(DP_TEXT_LENS, device=dev)})
+    return cfg, hp, mel, batches
+
+
+def dp_digest(modules) -> str:
+    """sha256 of the modules' weights, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in modules:
+        for k, v in m.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k1_keep_bits(torch, att, dropout, x_len, xl, yl, t, h=16, block=32):
+    """The keep bits K1's bf16 dropout instance draws for a batch of one
+    row, read through its output as ``dropout_readout`` reads them (q = 0,
+    v one-hot on a block of 32 keys): (h, t, t) bool, True where a visible
+    pair is kept."""
+    dev, dk = torch.device("cuda"), 32
+    zeros = functools.partial(torch.zeros, (1, t, h, dk),
+                              dtype=torch.bfloat16, device=dev)
+    eye = torch.eye(block, dk, dtype=torch.bfloat16, device=dev)
+    q = zeros()
+    bits = torch.zeros((h, t, t), dtype=torch.bool, device=dev)
+    for k0 in range(0, t, block):
+        n = min(block, t - k0)
+        v = zeros()
+        v[:, k0:k0 + n] = eye[:n, None, :]
+        o, _ = att.prefill_attention_lse(q, q, v, x_len, xl, yl, dropout)
+        bits[:, :, k0:k0 + n] = (o[0].float() > 0).permute(1, 0, 2)[..., :n]
+    return bits.cpu()
+
+
+def dp_jobs(torch, dev, rows):
+    """The phase's work on one rank (``rows``: its ``BatchRows``) or in the
+    world of one (``rows`` None): the s1 window in bf16 at dropout 0 and
+    0.1, then DP_S2_STEPS s2 steps in bf16, every model built from
+    DP_SEED.  Per job: the metrics, the weights' digest, s a micro-batch /
+    step (host clock to the end of its device work), each
+    ``reduce_gradients`` call's bytes and its time between CUDA events and
+    on the host clock, the kernels launched; on the rank whose rows start
+    past 0, the K1 keep bits of its first row (the window's first seed,
+    layer 0)."""
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
+        Text2SemanticDecoder
+    from easevoice_trainer_tpu_torch.models.gpt.t2s import ATTENTION_KEY
+    from easevoice_trainer_tpu_torch.models.sovits import \
+        MultiPeriodDiscriminator, SynthesizerTrn
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.parallel import distributed
+    from easevoice_trainer_tpu_torch.train.gpt_step import GPTTrainHP, \
+        GPTTrainStep
+    from easevoice_trainer_tpu_torch.train.sovits_step import S2TrainStep
+    from easevoice_trainer_tpu_torch.utils import paths, simple_yaml
+
+    local = list(range(DP_B)) if rows is None else \
+        distributed.process_local_rows(DP_B)
+    calls = []
+    real_reduce = distributed.reduce_gradients
+
+    def timed_reduce(params):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        nbytes = real_reduce(params)
+        end.record()
+        torch.cuda.synchronize()
+        calls.append((nbytes, start, end, time.perf_counter() - t0))
+        return nbytes
+
+    def job(run):
+        calls.clear()
+        ops.reset_launch_counts()
+        metrics, seconds = [], []
+        for i in range(len(run["batches"])):
+            t0 = time.perf_counter()
+            got = run["step"](i)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in got.items()})
+        return {"metrics": metrics, "seconds": seconds,
+                "digest": dp_digest(run["nets"]),
+                "reduce": [(n, s.elapsed_time(e), host * 1e3)
+                           for n, s, e, host in calls],
+                "launches": {k: c for k, c in ops.launch_counts().items()
+                             if c}}
+
+    out = {}
+    distributed.reduce_gradients = timed_reduce
+    try:
+        s1 = dp_s1_batches(np)
+        cfg = T2SConfig.from_yaml_dict(simple_yaml.load(
+            paths.gpt_config_path()))
+        for p in (0.0, DROPOUT_P):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(DP_SEED)
+                model = Text2SemanticDecoder(
+                    dataclasses.replace(cfg, dropout=p),
+                    dtype=torch.bfloat16).to(dev).train()
+            step = GPTTrainStep(model, GPTTrainHP())
+            batches = [{k: torch.from_numpy(v[local]).to(dev).to(
+                torch.int64 if v.dtype == np.int32 else torch.float32)
+                for k, v in b.items()} for b in s1]
+            out[f"s1 dropout {p}"] = job({
+                "batches": batches, "nets": (model,),
+                "step": lambda i: step(batches[i], seed=DP_SEED + i,
+                                       rows=rows)})
+            if p and rows is not None and rows.row0:
+                seed = (DP_SEED % 2 ** 64) ^ ATTENTION_KEY
+                t = S1_X_LEN + S1_Y_LENS[0]
+                first = local[0]
+                lens = [torch.tensor([v[first]], dtype=torch.int32,
+                                     device=dev)
+                        for v in (DP_X_LENS, DP_Y_LENS)]
+                out["keep_bits"] = k1_keep_bits(
+                    torch, att, att.AttentionDropout(p, seed, 0, rows.row0),
+                    S1_X_LEN, *lens, t, cfg.n_heads)
+            del model, step, batches
+            torch.cuda.empty_cache()
+        s2_cfg, hp, mel, s2 = dp_s2_setup(torch, np, dev)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(DP_SEED)
+            net_g = SynthesizerTrn(s2_cfg, with_enc_q=True,
+                                   dtype=torch.bfloat16)
+            net_d = MultiPeriodDiscriminator(dtype=torch.bfloat16)
+        net_g.to(dev)
+        net_d.to(dev)
+        s2_step = S2TrainStep(net_g, net_d, hp, mel, steps_per_epoch=100)
+        gen = torch.Generator(device=dev)
+        s2_local = [{k: v[local] for k, v in b.items()} for b in s2]
+
+        def s2_call(i):
+            gen.manual_seed(DP_SEED + i)
+            return s2_step(s2_local[i], gen, rows=rows)
+
+        out["s2"] = job({"batches": s2_local, "nets": (net_g, net_d),
+                         "step": s2_call})
+    finally:
+        distributed.reduce_gradients = real_reduce
+    return out
+
+
+def dp_rank():
+    """One rank of the data-parallel phase (``distributed.launch``'s
+    target): the rank's jobs on its card (cuda:0 when the ranks share it
+    over gloo), TF32 off as in the parent."""
+    import torch
+
+    from easevoice_trainer_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return dp_jobs(torch, dev, distributed.batch_rows(DP_B))
+
+
+def dp_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def data_parallel(torch, results) -> None:
+    """Both fine-tunes in bf16 through ``parallel/``: ``launch`` starts the
+    ranks, each loads its rows of the global batch (``process_local_rows``)
+    and the steps sum the gradients (``reduce_gradients``).  The s1 window
+    (configs/gpt.yaml's GPT, 512 x 24, 16 heads, global B = 8 at T = 716,
+    4 micro-batches, once at dropout 0 and once at 0.1) and 2 s2 steps
+    (``SovitsConfig()``, global B = 8, 160 frames) run
+
+    * in this process, the world of one on the global batch;
+    * (a) on two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on
+      one device), asked for by ``backend="gloo"``: every rank's metrics
+      equal, the weights bit-identical across the ranks, each loss and
+      grad norm within DP_BF16_TOL of the world of one's, and rank 1's K1
+      keep bits for its first row (global row 4) read back equal to the
+      world of one's mask at row 4, bit for bit;
+    * (b) on an NCCL world of one rank: bit-identical to this process (an
+      all-reduce over one rank is a copy): NCCL initializes and reduces
+      on the card.
+
+    Printed beside the card's name and power limit: s a micro-batch / step
+    of each world, each all-reduce's ms (CUDA events) and bytes a step.
+    Then the drop rate of ``nn.layers.dropout`` in bf16 on the card,
+    DP_DRAWS draws at p = 0.1, within 6 sigma, beside the same draw made
+    in bf16 as before the repair.  Outside a world no process group
+    exists."""
+    from easevoice_trainer_tpu_torch.nn import layers
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.models.gpt.t2s import ATTENTION_KEY
+    from easevoice_trainer_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    assert not distributed.initialized()
+    one = dp_jobs(torch, torch.device("cuda"), None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worlds = {"gloo x2": distributed.launch(dp_rank, (), 2, "cuda", "gloo"),
+              "nccl x1": distributed.launch(dp_rank, (), 1, "cuda", "nccl")}
+    assert not distributed.initialized()
+    for name, ranks in worlds.items():
+        for job, ref in one.items():
+            got = [r[job] for r in ranks]
+            for r in got[1:]:
+                assert r["metrics"] == got[0]["metrics"], (name, job)
+                assert r["digest"] == got[0]["digest"], (name, job)
+            if name == "nccl x1":
+                assert got[0]["metrics"] == ref["metrics"], (
+                    name, job, got[0]["metrics"], ref["metrics"])
+                assert got[0]["digest"] == ref["digest"], (name, job)
+                worst = 0.0
+            else:
+                worst = max(dp_rel(m[k], w[k]) for m, w in zip(
+                    got[0]["metrics"], ref["metrics"]) for k in w
+                    if k.startswith(("loss", "grad_norm")))
+                assert worst <= DP_BF16_TOL, (name, job, worst)
+            reduce = [c for r in got for c in r["reduce"]]
+            steps = len(ref["metrics"])
+            per_rank = sum(n for n, _, _ in got[0]["reduce"]) / steps
+            log(f"[data parallel] {name} {job}: {len(got)} rank(s) of "
+                f"{DP_B // len(got)} rows; metrics equal across ranks, "
+                f"weights bit-identical across ranks"
+                + (" and to the world of one" if name == "nccl x1" else
+                   f"; worst loss / grad norm against the world of one "
+                   f"{worst:.3g} (tol {DP_BF16_TOL:.3g})")
+                + f"; s a micro-batch / step " + ", ".join(
+                    f"{s:.4f}" for s in got[0]["seconds"])
+                + " (world of one " + ", ".join(
+                    f"{s:.4f}" for s in ref["seconds"]) + ")"
+                + f"; all-reduce {len(reduce) // len(got) // steps} a "
+                f"step, {per_rank / 1e6:.2f} MB a step a rank, ms a call "
+                f"(CUDA events) " + ", ".join(
+                    f"{ms:.3f}" for _, ms, _ in got[0]["reduce"])
+                + ", host " + ", ".join(
+                    f"{ms:.3f}" for _, _, ms in got[0]["reduce"])
+                + f"; launches {got[0]['launches']}; {smi}")
+            if job.startswith("s1"):
+                sfx = "_dropout_bf16" if "0.1" in job else "_bf16"
+                n = 24 * DP_WINDOW
+                assert got[0]["launches"] == {
+                    "prefill_attention" + sfx: n,
+                    "prefill_attention_bwd" + sfx: 3 * n}, got[0]["launches"]
+    # (a)'s rank 1: K1's keep bits of its first row against the world of
+    # one's mask at that global row
+    bits = worlds["gloo x2"][1]["keep_bits"]
+    t = S1_X_LEN + S1_Y_LENS[0]
+    row = DP_B // 2
+    xl = torch.tensor(DP_X_LENS, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(DP_Y_LENS, dtype=torch.int32, device="cuda")
+    vis = (att.build_hybrid_mask_bias(S1_X_LEN, t - S1_X_LEN, xl, yl)[row, 0]
+           == 0).cpu()
+    mask = att.AttentionDropout(DROPOUT_P, (DP_SEED % 2 ** 64) ^
+                                ATTENTION_KEY, 0).keep_mask(
+        DP_B, bits.shape[0], t, S1_X_LEN, "cuda")[row].cpu()
+    off = int(((bits != mask) & vis).sum() + (bits & ~vis).sum())
+    n_vis = int(vis.sum()) * bits.shape[0]
+    log(f"[data parallel] gloo x2 rank 1, K1 bf16 dropout keep bits of its "
+        f"row 0 (global row {row}, layer 0, T={t}) read back: {off} of "
+        f"{n_vis} visible pairs off the world of one's mask at row {row}")
+    assert off == 0 and n_vis > 0
+    # the three generator sites' draw in bf16 on the card
+    gen = torch.Generator(device="cuda")
+    ones = torch.ones(DP_DRAWS, dtype=torch.bfloat16, device="cuda")
+    rate = float((layers.dropout(ones, DROPOUT_P, True, gen.manual_seed(
+        DP_SEED)) == 0).float().mean())
+    old = float((torch.rand(DP_DRAWS, generator=gen.manual_seed(DP_SEED),
+                            dtype=torch.bfloat16, device="cuda")
+                 < DROPOUT_P).float().mean())
+    sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / DP_DRAWS)
+    log(f"[data parallel] nn.layers.dropout bf16 on the card, {DP_DRAWS} "
+        f"draws at p = {DROPOUT_P}: drop rate {rate:.6f} "
+        f"({(rate - DROPOUT_P) / sigma:+.2f} sigma, sigma {sigma:.3g}); "
+        f"uniforms drawn in bf16 as before the repair: {old:.6f} "
+        f"({(old - DROPOUT_P) / sigma:+.2f} sigma); {smi}")
+    assert abs(rate - DROPOUT_P) <= 6 * sigma, rate
+    results["data_parallel"] = {"drop_rate_bf16": rate}
+    log(f"[data parallel] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # UVR5 vocal separation
 # ---------------------------------------------------------------------------
 
@@ -6441,7 +6818,17 @@ def main() -> int:
         return 2
 
     results = {}
-    phase = "device"
+    marks = []
+
+    def enter(name: str) -> str:
+        """Logs the wall of the phase that ends here; -> ``name``."""
+        now = time.perf_counter()
+        if marks:
+            log(f"[time] phase '{marks[-1][0]}' {now - marks[-1][1]:.1f} s")
+        marks.append((name, now))
+        return name
+
+    phase = enter("device")
     t_run = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -6454,7 +6841,7 @@ def main() -> int:
             f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
             f"{torch.backends.cudnn.allow_tf32}")
 
-        phase = "build"
+        phase = enter("build")
         from easevoice_trainer_tpu_torch.ops import build
 
         lib = build.build()
@@ -6465,70 +6852,74 @@ def main() -> int:
 
         parent = None
         if args.parent:
-            phase = "parent build"
+            phase = enter("parent build")
             parent = load_parent(args.parent)
 
-        phase = "kernels"
+        phase = enter("kernels")
         check_kernels(torch, results, parent and parent.ops.attention)
         check_encoder(torch, results)
         check_encoder_asr(torch, results)
         check_encoder_roformer(torch, results)
         check_k4(torch, results)
         check_k5(torch, results, parent and parent.ops.attention)
-        phase = "bf16 kernels"
+        phase = enter("bf16 kernels")
         check_bf16(torch, results, parent and parent.ops.attention)
-        phase = "dropout kernels"
+        phase = enter("dropout kernels")
         check_dropout(torch, results)
         if parent is not None:
-            phase = "mrf a/b"
+            phase = enter("mrf a/b")
             ab_mrf(torch, parent)
-            phase = "sass a/b"
+            phase = enter("sass a/b")
             ab_sass(args.parent)
-        phase = "serving"
+        phase = enter("serving")
         tts = serve(torch, tmp, results)
-        phase = "serving profile"
+        phase = enter("serving profile")
         profile_gpt(torch, tts.t2s, parent)
-        phase = "reference"
+        phase = enter("reference")
         reference_check(torch, tts)
         del tts
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "chinese serving"
+        phase = enter("chinese serving")
         serve_chinese(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "data prep"
+        phase = enter("data prep")
         data_prep(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "uvr5"
+        phase = enter("uvr5")
         uvr5_phase(torch, tmp, results)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "training"
+        phase = enter("training")
         train(torch, tmp, results)
-        phase = "reference train step"
+        phase = enter("reference train step")
         reference_train_step(torch)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "s1 training"
+        phase = enter("s1 training")
         trainer = train_s1(torch, tmp, results)
-        phase = "s1 dpo"
+        phase = enter("s1 dpo")
         s1_dpo_micro_batch(torch, trainer)
-        phase = "s1 profile"
+        phase = enter("s1 profile")
         profile_s1_window(torch, trainer)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "s1 dropout"
+        phase = enter("s1 dropout")
         train_s1_dropout(torch, tmp, results)
-        phase = "reference s1 step"
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = enter("data parallel")
+        data_parallel(torch, results)
+        phase = enter("reference s1 step")
         reference_s1_step(torch)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "rest"
+        phase = enter("rest")
         rest_phase(torch, tmp, results)
-        phase = "isolation"
+        phase = enter("isolation")
         from easevoice_trainer_tpu_torch import native
 
         foreign = sorted(m for m in sys.modules
@@ -6555,6 +6946,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    enter("end")
     log(f"[run] every phase passed in {time.perf_counter() - t_run:.1f} s "
         f"(the kernels' build included)")
     kernels = []

@@ -1,13 +1,20 @@
 """cmd: s1 GPT fine-tune on the port (one CUDA card unless the params name
-``"device": "cpu"``)."""
+``"device": "cpu"``).  When ``EASEVOICE_DP`` gives this host more than one
+rank (``parallel/mesh.py data_parallel_world``), the task starts one
+process a rank (``parallel.distributed.launch``) and answers with rank 0's
+response; rank 0 alone writes the progress lines."""
 from . import filter_fields, run_task
 
 
 def main(params: dict):
-    from ..train.gpt import GPTTrain, GPTTrainParams
+    from ..parallel import data_parallel_world, distributed
+    from ..train.gpt import GPTTrainParams, train_gpt
 
     p = GPTTrainParams(**filter_fields(params, GPTTrainParams))
-    return GPTTrain(p).train()
+    ranks = data_parallel_world(p.device)
+    if ranks is None:
+        return train_gpt(p)
+    return distributed.launch(train_gpt, (p,), ranks, device=p.device)[0]
 
 
 if __name__ == "__main__":

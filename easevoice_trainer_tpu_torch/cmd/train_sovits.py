@@ -1,13 +1,20 @@
 """cmd: s2 SoVITS fine-tune on the port (one CUDA card unless the params
-name ``"device": "cpu"``)."""
+name ``"device": "cpu"``).  When ``EASEVOICE_DP`` gives this host more than
+one rank (``parallel/mesh.py data_parallel_world``), the task starts one
+process a rank (``parallel.distributed.launch``) and answers with rank 0's
+response; rank 0 alone writes the progress lines."""
 from . import filter_fields, run_task
 
 
 def main(params: dict):
-    from ..train.sovits import SovitsTrain, SovitsTrainParams
+    from ..parallel import data_parallel_world, distributed
+    from ..train.sovits import SovitsTrainParams, train_sovits
 
     p = SovitsTrainParams(**filter_fields(params, SovitsTrainParams))
-    return SovitsTrain(p).train()
+    ranks = data_parallel_world(p.device)
+    if ranks is None:
+        return train_sovits(p)
+    return distributed.launch(train_sovits, (p,), ranks, device=p.device)[0]
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...nn.layers import BatchRows
+
 
 def make_reject_y(y: np.ndarray, y_lens: np.ndarray,
                   rng: np.random.Generator,
@@ -56,19 +58,26 @@ def dpo_loss(chosen_logps: torch.Tensor, rejected_logps: torch.Tensor,
 
 
 def dpo_forward(model, batch: Dict[str, torch.Tensor], reject_y: torch.Tensor,
-                reject_lens: torch.Tensor,
-                seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                reject_lens: torch.Tensor, seed: Optional[int] = None,
+                rows: Optional[BatchRows] = None) -> Dict[str, torch.Tensor]:
     """Chosen and rejected forwards of ``model`` combined.  Both take
     ``seed``, the dropout seed, so they drop the same elements (the
     rejected sequences are padded to the chosen ones' length), as the JAX
-    passes share their ``rngs``."""
+    passes share their ``rngs``.  ``rows``: on a data-parallel rank, where
+    the batch sits in the global batch; the means over rows (the DPO term,
+    the margin) are then the rank's share of the global batch's, its local
+    mean x local rows / global rows."""
     out = model(batch["phoneme_ids"], batch["phoneme_ids_len"],
                 batch["semantic_ids"], batch["semantic_ids_len"],
-                batch["bert_feature"], seed=seed)
+                batch["bert_feature"], seed=seed, rows=rows)
     out_rej = model(batch["phoneme_ids"], batch["phoneme_ids_len"], reject_y,
-                    reject_lens, batch["bert_feature"], seed=seed)
+                    reject_lens, batch["bert_feature"], seed=seed, rows=rows)
     chosen = sequence_logps(out["logits"], out["targets"])
     rejected = sequence_logps(out_rej["logits"], out_rej["targets"])
-    loss = out["loss"] + dpo_loss(chosen, rejected)
-    return {"loss": loss, "acc": out["acc"], "ce_loss": out["loss"],
-            "dpo_margin": (chosen - rejected).mean()}
+    pref, margin = dpo_loss(chosen, rejected), (chosen - rejected).mean()
+    if rows is not None:
+        share = chosen.shape[0] / rows.total
+        pref, margin = pref * share, margin * share
+    return {"loss": out["loss"] + pref, "acc": out["acc"],
+            "hits": out["hits"], "num_targets": out["num_targets"],
+            "ce_loss": out["loss"], "dpo_margin": margin}

@@ -26,7 +26,12 @@ batch row, head, query, key) (``ops/philox.py``), the other three sites'
 come from a ``torch.Generator`` on the model's device seeded with
 ``seed``.  The same seed gives the same masks for sequences of one shape,
 which DPO's chosen and rejected passes are (JAX's shared ``rngs``).  In
-eval mode, at rate 0 and in the serving passes nothing is drawn.
+eval mode, at rate 0 and in the serving passes nothing is drawn.  A rank of
+a data-parallel step passes ``rows`` (``nn.layers.BatchRows``): the
+probabilities' masks are keyed by the global batch row (``row0`` of
+``AttentionDropout``) and the other sites' are drawn at the global batch's
+shape, of which the rank keeps its rows, so a world of ranks draws exactly
+what one process draws on the global batch.
 
 ``dtype`` (the JAX module's): None computes in fp32; bfloat16 is the s1
 fine-tune under ``is_half`` (JAX ``train/gpt.py:162-163``).  Parameters stay
@@ -41,15 +46,15 @@ loss and accuracy take the logits in fp32.  The serving passes
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import compute_dtype, dropout, linear_in, \
-    set_compute_dtype
+from ...nn.layers import BatchRows, RankGenerator, compute_dtype, \
+    dropout, linear_in, set_compute_dtype
 from ...ops import decode_attention, prefill_attention, self_attention
 from ...ops.attention import AttentionDropout
 
@@ -139,11 +144,14 @@ class _SelfAttention(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class LayerRng:
     """What one layer's dropout draws from in a training forward: the
-    forward's seed, the layer's index and the forward's generator."""
+    forward's seed, the layer's index, the forward's generator (a
+    ``RankGenerator`` on a data-parallel rank) and the global batch row of
+    the forward's batch row 0."""
 
     seed: int
     layer: int
-    generator: torch.Generator
+    generator: Union[torch.Generator, RankGenerator]
+    row0: int = 0
 
 
 class TransformerLayer(nn.Module):
@@ -199,7 +207,8 @@ class TransformerLayer(nn.Module):
         ``rng.layer``), then the attention output, the FFN's hidden layer
         and the FFN output (from ``rng.generator``)."""
         p = self.dropout if rng is not None else 0.0
-        attn_drop = AttentionDropout(p, rng.seed, rng.layer) if p else None
+        attn_drop = AttentionDropout(p, rng.seed, rng.layer, rng.row0) \
+            if p else None
         gen = rng.generator if p else None
         dtype = compute_dtype(self)
         if dtype is None:
@@ -256,7 +265,8 @@ class Text2SemanticDecoder(nn.Module):
         return self.ar_audio_position(self.ar_audio_embedding(y), offset)
 
     def forward(self, x, x_lens, y, y_lens, bert_feature,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None,
+                rows: Optional[BatchRows] = None):
         """Training forward with the CE loss and top-3 accuracy (JAX:
         t2s.py:256-303).
 
@@ -266,11 +276,13 @@ class Text2SemanticDecoder(nn.Module):
         The CE is a sum over all B x Ty positions (pad rows see only the
         valid prefix through the mask, so they learn to emit EOS); the
         accuracy is over the non-EOS targets.  Returns dict(loss, acc,
-        logits (B, Ty, V), targets, num_targets).
+        logits (B, Ty, V), targets, num_targets, hits: the accuracy's
+        numerator).
 
         ``seed``: a host integer that draws this forward's dropout masks
         (the module note), needed in training mode when ``cfg.dropout >
-        0`` and not read otherwise."""
+        0`` and not read otherwise; ``rows``: where this batch sits in a
+        data-parallel step's global batch (the module note)."""
         c = self.cfg
         drops = self.training and c.dropout > 0
         if drops and seed is None:
@@ -294,8 +306,12 @@ class Text2SemanticDecoder(nn.Module):
             seed %= 2 ** 64
             gen = torch.Generator(device=h.device)
             gen.manual_seed(seed)
+            if rows is not None:
+                gen = RankGenerator(gen, rows)
+        row0 = rows.row0 if rows is not None else 0
         for i, layer in enumerate(self.h.layers):
-            rng = LayerRng(seed ^ ATTENTION_KEY, i, gen) if drops else None
+            rng = LayerRng(seed ^ ATTENTION_KEY, i, gen, row0) if drops \
+                else None
             h = layer.train_forward(h, x_len, x_lens, y_lens, rng)
 
         logits = linear_in(self.ar_predict_layer, h[:, x_len:],
@@ -307,9 +323,10 @@ class Text2SemanticDecoder(nn.Module):
             hit = (topk == targets[..., None]).any(dim=-1)
             acc_mask = (targets != c.eos_id).float()
             num = acc_mask.sum()
-            acc = (hit.float() * acc_mask).sum() / torch.clamp(num, min=1.0)
+            hits = (hit.float() * acc_mask).sum()
+            acc = hits / torch.clamp(num, min=1.0)
         return {"loss": loss, "acc": acc, "logits": logits,
-                "targets": targets, "num_targets": num}
+                "targets": targets, "num_targets": num, "hits": hits}
 
     @torch.no_grad()
     def prefill(self, x, x_lens, prompts, bert_feature, cache_len: int

@@ -2,6 +2,8 @@
 reduction is taken in fp32."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -37,10 +39,15 @@ def generator_adv_loss(fake_outputs):
     return loss, gen_losses
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
-    """KL(q || p) between the flowed posterior and the prior, masked mean."""
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL(q || p) between the flowed posterior and the prior, masked mean.
+    ``count``: the mean's denominator, ``sum(z_mask)`` unless given (a
+    data-parallel rank gives the world's, so its KL is its share of the
+    global batch's)."""
     z_p, logs_q, m_p, logs_p, z_mask = (
         t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if count is None
+                                     else count)

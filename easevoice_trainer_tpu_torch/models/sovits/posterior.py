@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...nn.layers import compute_dtype, conv_in, sequence_mask
+from ...nn.layers import compute_dtype, conv_in, random_rows, sequence_mask
 from ...nn.wavenet import WaveNet
 
 
@@ -45,8 +45,8 @@ class PosteriorEncoder(nn.Module):
             if generator is None:
                 raise ValueError("PosteriorEncoder: give eps or a "
                                  "torch.Generator to draw it from")
-            eps = torch.randn(m.shape, generator=generator, device=m.device,
-                              dtype=m.dtype)
+            eps = random_rows(torch.randn, m.shape, generator, m.device,
+                              m.dtype)
         # JAX draws the noise in the compute dtype
         z = (m + eps.to(m.dtype) * torch.exp(logs)) * x_mask
         return z, m, logs, x_mask

@@ -13,7 +13,11 @@ buffer is not part of the state dict.  An in-place edit of ``weight_g`` /
 ``weight_v`` in eval mode needs :meth:`fold` to take effect.
 
 Dropout draws its masks from an explicit ``torch.Generator`` that the caller
-passes down (:func:`dropout`); the global RNG is never used.
+passes down (:func:`dropout`); the global RNG is never used.  In a
+data-parallel step the caller passes a :class:`RankGenerator` instead: every
+draw is then made at the global batch's shape and the rank keeps its own
+rows (:func:`random_rows`), so a world of N ranks draws what one process
+draws on the whole batch.
 
 Compute dtype (the JAX modules' ``dtype``): a module computes in fp32 unless
 :func:`set_compute_dtype` gave it bfloat16, which the fine-tunes do under
@@ -28,8 +32,9 @@ scalar meets a bf16 tensor as a bf16 value (JAX's weak typing,
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -257,12 +262,55 @@ class LayerNorm(nn.Module):
                 + self.beta[None, :, None]).to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """Where one rank's rows sit in a data-parallel step's global batch:
+    rows ``[row0, row0 + n)`` of ``total``, n the rank's batch size."""
+
+    row0: int
+    total: int
+
+
+class RankGenerator:
+    """A ``torch.Generator`` as one rank of a data-parallel world draws from
+    it: every draw of :func:`random_rows` is made at the global batch's
+    shape (``rows.total`` rows) and the rank keeps rows ``rows.row0 ..``.
+    Every rank seeds its generator alike and draws the same global shapes in
+    the same order, so the generators stay in step across the world."""
+
+    def __init__(self, generator: torch.Generator, rows: BatchRows):
+        self.generator = generator
+        self.rows = rows
+
+
+Generator = Union[torch.Generator, RankGenerator]
+
+
+def random_rows(draw, shape, generator: Generator, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``draw(shape, generator=..., device=..., dtype=...)`` (``torch.rand``
+    or ``torch.randn``) of a batch-first ``shape``; from a
+    :class:`RankGenerator`, the rank's rows of the draw at the global
+    batch's shape."""
+    if not isinstance(generator, RankGenerator):
+        return draw(tuple(shape), generator=generator, device=device,
+                    dtype=dtype)
+    rows = generator.rows
+    full = draw((rows.total, *shape[1:]), generator=generator.generator,
+                device=device, dtype=dtype)
+    return full[rows.row0:rows.row0 + shape[0]]
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator) -> torch.Tensor:
+            generator: Optional[Generator]) -> torch.Tensor:
     """Inverted dropout as flax ``nn.Dropout``: keep with probability 1-p and
     scale by 1/(1-p).  The mask comes from ``generator`` (a
-    ``torch.Generator`` on ``x``'s device); identity in eval mode or at p=0,
-    zeros at p=1 (flax's rate-1 case, which draws nothing)."""
+    ``torch.Generator`` on ``x``'s device, or a :class:`RankGenerator`);
+    identity in eval mode or at p=0, zeros at p=1 (flax's rate-1 case, which
+    draws nothing).  The uniforms are fp32 whatever ``x.dtype`` is, as flax
+    draws ``bernoulli(rng, 1 - p)`` from a Python float: drawn in bf16 they
+    take some 2^8 values below 1 and drop at a rate well off p (0.102 for
+    0.1)."""
     if not training or p == 0.0:
         return x
     if p == 1.0:
@@ -270,8 +318,7 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     if generator is None:
         raise ValueError("dropout in training needs an explicit "
                          "torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= p
+    keep = random_rows(torch.rand, x.shape, generator, x.device) >= p
     return x * keep / weak_scalar(1.0 - p, x.dtype)
 
 
@@ -284,7 +331,7 @@ def slice_segments(x: torch.Tensor, starts: torch.Tensor,
 
 
 def rand_slice_starts(lengths: torch.Tensor, segment_size: int,
-                      generator: torch.Generator) -> torch.Tensor:
+                      generator: Generator) -> torch.Tensor:
     """Random slice starts as the JAX ``rand_slice_segments`` draws them:
     ``(u * max(len - seg + 1, 1)).int()`` with u ~ U[0, 1) from
     ``generator``."""
@@ -292,6 +339,5 @@ def rand_slice_starts(lengths: torch.Tensor, segment_size: int,
         raise ValueError("random slice starts need an explicit "
                          "torch.Generator")
     max_start = (lengths - segment_size + 1).clamp_min(1).to(torch.float32)
-    u = torch.rand(lengths.shape, generator=generator,
-                   device=lengths.device)
+    u = random_rows(torch.rand, lengths.shape, generator, lengths.device)
     return (u * max_start).to(torch.int64)

@@ -23,10 +23,15 @@ iff its word is below ``keep_threshold(p)``.  A key is named by its segment
 that segment; one Philox call serves the four keys ``4 (i // 4) ..
 4 (i // 4) + 3`` of one segment and one row, word ``i % 4`` for key ``i``:
 
-    counter = (i // 4, row, b, layer << 16 | h << 1 | is_audio_key)
+    counter = (i // 4, row, row0 + b, layer << 16 | h << 1 | is_audio_key)
     key     = (seed mod 2^32, seed // 2^32)
 
-So a keep bit is a function of (seed, layer, b, h, row, key) and the
+``row0 + b`` is the row in the global batch: a rank of a data-parallel step
+whose rows start at ``row0`` of the global batch passes that ``row0`` (0
+outside data parallel), so a world of ranks draws the masks one process
+draws on the whole batch.
+
+So a keep bit is a function of (seed, layer, row0 + b, h, row, key) and the
 text / audio split alone: no tile, warp or launch enters it, and the fp32
 and bf16 kernels, K1 and K5, and this twin all draw the same bit.
 """
@@ -82,11 +87,13 @@ def split_seed(seed: int):
 
 
 def attention_keep_mask(seed: int, layer: int, b: int, h: int, t: int,
-                        x_len: int, p: float, device=None) -> torch.Tensor:
+                        x_len: int, p: float, device=None,
+                        row0: int = 0) -> torch.Tensor:
     """The keep mask (b, h, t, t) bool of the s1 attention's dropout at
     rate ``p`` in layer ``layer``: [batch, head, query row, key], drawn as
-    the module note says.  Built one Philox call per four keys of a
-    segment, as the kernels draw it."""
+    the module note says, for the global batch rows ``row0 .. row0 + b``.
+    Built one Philox call per four keys of a segment, as the kernels draw
+    it."""
     if not 0 <= x_len <= t:
         raise ValueError(f"attention_keep_mask: x_len {x_len} outside "
                          f"[0, {t}]")
@@ -104,7 +111,7 @@ def attention_keep_mask(seed: int, layer: int, b: int, h: int, t: int,
         for bi in range(b):     # one batch row at a time bounds the memory
             c3 = (layer << 16) | (heads << 1) | audio
             w = philox4x32_10(groups[None, None, :], rows[None, :, None],
-                              bi, c3[:, None, None], k0, k1)
+                              row0 + bi, c3[:, None, None], k0, k1)
             # (h, t, groups, 4) -> (h, t, 4 * groups): word j is key 4 g + j
             words.append(torch.stack(w, dim=-1).flatten(-2)[..., :n] < thr)
         parts.append(torch.stack(words))

@@ -22,8 +22,19 @@
   ``fold_in(fast_key(seed), step)``; the s2 trainer seeds its generator
   the same way).
 
-On ``GPTTrainParams.device``: the first CUDA card by default, which must
-exist (no silent move to the host); ``"cpu"`` runs the kernels' plain twins.
+Data parallel (``parallel/``, JAX ``train/gpt.py:148-150``, ``:205-239``):
+the trainer joins the world first (``maybe_initialize``, a no-op outside
+one); every rank builds the same seeded bucket schedule, wrap-pads each
+batch to a multiple of the world and loads only its block of rows
+(``process_local_rows``; DPO's rejected sequences are made over the global
+batch first), and the step sums the gradients over the world.  Resume
+files load on every rank; the resume files, exports, connector lines,
+session data and TensorBoard are written by rank 0 alone.
+``cmd/train_gpt.py`` starts the ranks (``EASEVOICE_DP``).
+
+On ``GPTTrainParams.device``: the first CUDA card by default (a rank's
+``cuda:<local index>`` in a world), which must exist (no silent move to
+the host); ``"cpu"`` runs the kernels' plain twins.
 On the card the model computes in bf16 when ``GlobalCFG().is_half`` (env
 ``is_half``, default True), as the JAX package does on an accelerator
 (JAX ``train/gpt.py:162-163``: ``Text2SemanticDecoder(dtype=bfloat16)``),
@@ -46,6 +57,8 @@ import torch
 
 from .. import convert
 from ..models.gpt import T2SConfig, Text2SemanticDecoder
+from ..parallel import distributed, local_batch_multiple, \
+    wrap_pad_indices
 from ..utils import paths, simple_yaml
 from ..utils.config import GlobalCFG
 from ..utils.connector import MultiProcessOutputConnector
@@ -67,7 +80,9 @@ class GPTTrainParams:
     if_dpo: bool = False
     if_save_latest: bool = True
     if_save_every_weights: bool = True
-    gpu_ids: str = "0"           # accepted for API parity; one card is used
+    # accepted for API parity and ignored, as the JAX package ignores it:
+    # EASEVOICE_DP and CUDA_VISIBLE_DEVICES choose the cards
+    gpu_ids: str = "0"
     model_path: str = ""
     train_input_dir: str = ""
     output_model_name: str = ""
@@ -102,8 +117,27 @@ def gpt_export_tree(model: Text2SemanticDecoder):
     return tree
 
 
+def semantic_rows(dataset: data_mod.GPTDataset, idxs: List[int],
+                  max_sem: int):
+    """The semantic ids and lengths of ``idxs`` as ``collate_gpt`` pads
+    them, with no BERT features loaded (DPO's global batch on a rank)."""
+    sem = np.zeros((len(idxs), max_sem), np.int32)
+    lens = np.zeros((len(idxs),), np.int32)
+    for row, i in enumerate(idxs):
+        codes = dataset.items[i][2][:max_sem]
+        sem[row, :len(codes)] = codes
+        lens[row] = len(codes)
+    return sem, lens
+
+
+def train_gpt(params: GPTTrainParams) -> EaseVoiceResponse:
+    """One rank's fine-tune (``parallel.distributed.launch``'s target)."""
+    return GPTTrain(params).train()
+
+
 class GPTTrain:
     def __init__(self, params: GPTTrainParams):
+        distributed.maybe_initialize(params.device)
         self.params = params
         self.cfg_yaml = simple_yaml.load(paths.gpt_config_path())
         self.model_cfg = T2SConfig.from_yaml_dict(self.cfg_yaml)
@@ -116,7 +150,7 @@ class GPTTrain:
             # DPO doubles the forward cost; the reference halves the batch
             self.batch_size = max(1, self.batch_size // 2)
         self.max_sec = self.cfg_yaml.get("data", {}).get("max_sec", 54)
-        self.device = torch.device(params.device)
+        self.device = distributed.rank_device(params.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("GPTTrain: device 'cuda' asked for and no "
                                "CUDA card is available; pass device='cpu' to "
@@ -219,25 +253,36 @@ class GPTTrain:
                 self.pretrained))
             logger.info("loaded pretrained GPT %s", self.pretrained)
 
-        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name))
+        primary = distributed.is_primary()
+        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name)) \
+            if primary else None
+        world = distributed.world_size()
         last: Dict[str, float] = {}
         for epoch in range(start_epoch, self.epochs + 1):
             for bucket_id, idxs in batcher.epoch_batches(epoch):
                 t_step = time.perf_counter()
                 tokens = _round_up(batcher.padded_frames(bucket_id), 2)
+                idxs = wrap_pad_indices(idxs, local_batch_multiple(world))
+                rows = distributed.batch_rows(len(idxs))
+                local = distributed.process_local_rows(len(idxs))
                 batch = data_mod.collate_gpt(
-                    [dataset.load_item(i) for i in idxs], max_ph, tokens)
+                    [dataset.load_item(idxs[r]) for r in local], max_ph,
+                    tokens)
                 if self.params.if_dpo:
                     from ..models.gpt.dpo import make_reject_y
 
+                    # over the global batch, then the rank's rows
+                    sem = (batch["semantic_ids"], batch["semantic_ids_len"]
+                           ) if rows is None else semantic_rows(
+                               dataset, idxs, tokens)
                     rej, rej_lens = make_reject_y(
-                        batch["semantic_ids"], batch["semantic_ids_len"],
-                        np.random.default_rng(self.seed + step_fn.step),
-                        max_len=batch["semantic_ids"].shape[1])
-                    batch["reject_semantic_ids"] = rej
-                    batch["reject_semantic_ids_len"] = rej_lens
+                        *sem, np.random.default_rng(self.seed + step_fn.step),
+                        max_len=tokens)
+                    batch["reject_semantic_ids"] = rej[local]
+                    batch["reject_semantic_ids_len"] = rej_lens[local]
                 metrics = step_fn(self._to_device(batch),
-                                  seed=self.seed * 1_000_003 + step_fn.step)
+                                  seed=self.seed * 1_000_003 + step_fn.step,
+                                  rows=rows)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.step_seconds.append(time.perf_counter() - t_step)
@@ -247,22 +292,24 @@ class GPTTrain:
                     on_step(global_step, metrics)
                 if global_step % LOG_EVERY == 0:
                     last = {k: float(v) for k, v in metrics.items()}
-                    self.connector.write_loss(
-                        global_step, last["loss"],
-                        other={"acc": last["acc"], "lr": 0.002,
-                               "epoch": epoch})
+                    if primary:
+                        self.connector.write_loss(
+                            global_step, last["loss"],
+                            other={"acc": last["acc"], "lr": 0.002,
+                                   "epoch": epoch})
                     if writer:
                         for k, v in last.items():
                             writer.add_scalar(k, v, global_step)
-            if epoch % self.params.save_every_epoch == 0 \
-                    or epoch == self.epochs:
+            if primary and (epoch % self.params.save_every_epoch == 0
+                            or epoch == self.epochs):
                 self._save_resume(step_fn, epoch)
                 if self.params.if_save_every_weights:
                     self._export_weights(model, epoch)
-            self.connector.write_session_data(
-                {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
+            if primary:
+                self.connector.write_session_data(
+                    {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
 
-        final = self._export_weights(model, self.epochs)
+        final = self._export_weights(model, self.epochs) if primary else ""
         if writer:
             writer.close()
         return EaseVoiceResponse(

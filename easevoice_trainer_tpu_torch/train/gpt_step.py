@@ -18,6 +18,18 @@
 Metrics are 0-d tensors on the model's device: ``loss``, ``acc`` and
 ``grad_norm``, the global norm of the micro-batch's raw gradients.
 
+Data parallel (``parallel/``): a rank passes ``rows``, where its rows sit
+in the global micro-batch.  Its loss is its share of the global batch's:
+the CE is a sum over every position (JAX t2s.py:294), so the ranks' shares
+add up to it as they are, and DPO's means over rows are scaled by local /
+global rows (``models/gpt/dpo.py``).  The gradients are summed over the
+world (``reduce_gradients``, one all-reduce) right after the backward,
+before ``grad_norm``, the running mean and ScaledAdam, so every rank holds
+the global micro-batch's gradient and takes the same optimizer step.  The
+accuracy is the ranks' hits over the world's count of targets, and the
+loss is summed over the world (``sum_across_ranks``): every rank reports
+the global batch's metrics, as JAX does.
+
 The forward runs in the model's compute dtype (bf16 under ``is_half``, JAX
 ``train/gpt.py:162-163``); the loss and accuracy come from fp32 logits, and
 the gradients of the fp32 parameters reach the accumulator and ScaledAdam
@@ -31,6 +43,8 @@ from typing import Dict, List, Optional
 import torch
 
 from ..models.gpt import Text2SemanticDecoder
+from ..nn.layers import BatchRows
+from ..parallel import distributed
 from .scaled_adam import ScaledAdam
 
 
@@ -63,27 +77,31 @@ class GPTTrainStep:
         self.acc: Optional[List[torch.Tensor]] = None
 
     def loss(self, batch: Dict[str, torch.Tensor],
-             seed: Optional[int] = None):
+             seed: Optional[int] = None, rows: Optional[BatchRows] = None):
         """-> (loss, forward outputs) of one micro-batch; ``seed`` draws its
-        dropout masks."""
+        dropout masks, ``rows`` places it in a global batch."""
         if self.hp.if_dpo:
             from ..models.gpt.dpo import dpo_forward
 
             out = dpo_forward(self.model, batch,
                               batch["reject_semantic_ids"],
-                              batch["reject_semantic_ids_len"], seed=seed)
+                              batch["reject_semantic_ids_len"], seed=seed,
+                              rows=rows)
         else:
             out = self.model(batch["phoneme_ids"], batch["phoneme_ids_len"],
                              batch["semantic_ids"],
                              batch["semantic_ids_len"],
-                             batch["bert_feature"], seed=seed)
+                             batch["bert_feature"], seed=seed, rows=rows)
         return out["loss"], out
 
     def __call__(self, batch: Dict[str, torch.Tensor],
-                 seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                 seed: Optional[int] = None,
+                 rows: Optional[BatchRows] = None
+                 ) -> Dict[str, torch.Tensor]:
         """One micro-batch.  ``seed``: a host integer that draws its dropout
         masks (JAX's per-step dropout rng), needed when the model drops
-        (``cfg.dropout > 0``)."""
+        (``cfg.dropout > 0``).  ``rows``: on a data-parallel rank, where
+        ``batch`` sits in the global micro-batch (the module note)."""
         if seed is None and self.model.cfg.dropout > 0:
             raise ValueError(f"GPTTrainStep: the model drops out (dropout "
                              f"{self.model.cfg.dropout}): a micro-batch "
@@ -91,8 +109,10 @@ class GPTTrainStep:
         self.model.train()
         for p in self.params:
             p.grad = None
-        loss, out = self.loss(batch, seed)
+        loss, out = self.loss(batch, seed, rows)
         loss.backward()
+        if rows is not None:
+            distributed.reduce_gradients(self.params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         with torch.no_grad():
@@ -115,7 +135,13 @@ class GPTTrainStep:
         for p in self.params:
             p.grad = None
         self.step += 1
-        return {"loss": loss.detach(), "acc": out["acc"].detach(),
+        if rows is None:
+            return {"loss": loss.detach(), "acc": out["acc"].detach(),
+                    "grad_norm": grad_norm}
+        world = distributed.sum_across_ranks(
+            {"loss": loss, "hits": out["hits"], "num": out["num_targets"]})
+        return {"loss": world["loss"],
+                "acc": world["hits"] / torch.clamp(world["num"], min=1.0),
                 "grad_norm": grad_norm}
 
     # ---- checkpoint state ---------------------------------------------------

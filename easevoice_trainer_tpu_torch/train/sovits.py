@@ -13,9 +13,20 @@
 * per ``save_every_epoch``: resume files + the half-precision deployable
   ``{name}_e{E}_s{S}.pth`` (``{"weight", "config", "info"}``, no ``enc_q``).
 
-On ``SovitsTrainParams.device``: the first CUDA card by default, which
-must exist (no silent move to the host); ``"cpu"`` runs the kernels' plain
-twins.  On the card both models compute in bf16 when ``GlobalCFG().is_half``
+Data parallel (``parallel/``, JAX ``train/sovits.py:186-188``,
+``:241-268``): the trainer joins the world first (``maybe_initialize``, a
+no-op outside one); every rank builds the same seeded bucket schedule,
+wrap-pads each batch to a multiple of the world and loads only its block
+of rows (``process_local_rows``); the step draws its rows of the global
+batch's slice starts, noise and masks and sums the gradients over the
+world.  Resume files load on every rank; the resume files, exports,
+connector lines, session data and TensorBoard are written by rank 0 alone.
+``cmd/train_sovits.py`` starts the ranks (``EASEVOICE_DP``).
+
+On ``SovitsTrainParams.device``: the first CUDA card by default (a rank's
+``cuda:<local index>`` in a world), which must exist (no silent move to
+the host); ``"cpu"`` runs the kernels' plain twins.  On the card both
+models compute in bf16 when ``GlobalCFG().is_half``
 (env ``is_half``, default True), as the JAX package does on an accelerator
 (JAX ``train/sovits.py:204-206``), the ResBlocks through the bf16 instances
 of K3 and K4; ``is_half=False`` gives fp32, and so does a "cpu" device
@@ -40,6 +51,8 @@ from .. import convert
 from ..models.sovits import MultiPeriodDiscriminator, SovitsConfig, \
     SynthesizerTrn
 from ..ops.stft import MelConfig
+from ..parallel import distributed, local_batch_multiple, \
+    wrap_pad_indices
 from ..utils import paths
 from ..utils.config import GlobalCFG
 from ..utils.connector import MultiProcessOutputConnector
@@ -64,7 +77,9 @@ class SovitsTrainParams:
     if_save_latest: bool = True
     if_save_every_weights: bool = True
     save_every_epoch: int = 5
-    gpu_ids: str = "0"           # accepted for API parity; one card is used
+    # accepted for API parity and ignored, as the JAX package ignores it:
+    # EASEVOICE_DP and CUDA_VISIBLE_DEVICES choose the cards
+    gpu_ids: str = "0"
     train_input_dir: str = ""
     output_model_name: str = ""
     project_dir: str = ""
@@ -148,8 +163,14 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def train_sovits(params: SovitsTrainParams) -> EaseVoiceResponse:
+    """One rank's fine-tune (``parallel.distributed.launch``'s target)."""
+    return SovitsTrain(params).train()
+
+
 class SovitsTrain:
     def __init__(self, params: SovitsTrainParams):
+        distributed.maybe_initialize(params.device)
         self.params = params
         with open(paths.s2_config_path(), encoding="utf8") as f:
             self.raw_cfg = json.load(f)
@@ -180,7 +201,7 @@ class SovitsTrain:
         self.batch_size = params.batch_size
         self.log_interval = train_cfg.get("log_interval", 10)
         self.seed = train_cfg.get("seed", 1234)
-        self.device = torch.device(params.device)
+        self.device = distributed.rank_device(params.device)
         self.compute_dtype = training_dtype(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SovitsTrain: device 'cuda' asked for and no "
@@ -294,17 +315,23 @@ class SovitsTrain:
             self._load_pretrained(net_g, net_d)
 
         generator = torch.Generator(device=self.device)
-        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name))
+        primary = distributed.is_primary()
+        writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name)) \
+            if primary else None
+        world = distributed.world_size()
         last_metrics: Dict[str, float] = {}
         for epoch in range(start_epoch, self.epochs + 1):
             for bucket_id, idxs in batcher.epoch_batches(epoch):
                 t_step = time.perf_counter()
+                idxs = wrap_pad_indices(idxs, local_batch_multiple(world))
+                rows = distributed.batch_rows(len(idxs))
                 batch = self._to_device(data_mod.collate_s2(
-                    [dataset.load_item(i) for i in idxs],
+                    [dataset.load_item(idxs[r]) for r in
+                     distributed.process_local_rows(len(idxs))],
                     batcher.padded_frames(bucket_id), text_cap,
                     hop=self.mel_cfg.hop_length))
                 generator.manual_seed(self.seed * 1_000_003 + step_fn.step)
-                metrics = step_fn(batch, generator)
+                metrics = step_fn(batch, generator, rows=rows)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.step_seconds.append(time.perf_counter() - t_step)
@@ -313,6 +340,7 @@ class SovitsTrain:
                     on_step(global_step, metrics)
                 if global_step % self.log_interval == 0:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
+                if primary and global_step % self.log_interval == 0:
                     self.connector.write_loss(
                         global_step, last_metrics["loss/g/total"],
                         other={
@@ -324,15 +352,17 @@ class SovitsTrain:
                 if writer and global_step % 5 == 0:
                     for k, v in metrics.items():
                         writer.add_scalar(k, float(v), global_step)
-            if epoch % self.params.save_every_epoch == 0 \
-                    or epoch == self.epochs:
+            if primary and (epoch % self.params.save_every_epoch == 0
+                            or epoch == self.epochs):
                 self._save_resume(step_fn, epoch)
                 if self.params.if_save_every_weights:
                     self._export_weights(net_g, epoch, step_fn.step)
-            self.connector.write_session_data(
-                {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
+            if primary:
+                self.connector.write_session_data(
+                    {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
 
-        final_path = self._export_weights(net_g, self.epochs, step_fn.step)
+        final_path = self._export_weights(net_g, self.epochs, step_fn.step) \
+            if primary else ""
         if writer:
             writer.close()
         return EaseVoiceResponse(

@@ -19,6 +19,19 @@ and every loss reduction are fp32 (JAX ``sovits_step.py:233``,
 The generator has two LR groups: ``enc_p.text_embedding``,
 ``enc_p.encoder_text`` and ``enc_p.mrte`` at ``text_low_lr_rate``, the rest
 at the base rate, ``lr * decay ** (step // steps_per_epoch)``.
+
+Data parallel (``parallel/``): a rank passes ``rows``, where its rows sit
+in the global batch.  Its draws (slice starts, posterior noise, dropout
+masks) are its rows of the global batch's (``nn.layers.RankGenerator``),
+and each loss is its share of the global batch's: a mean over a
+batch-first tensor (the LSGAN terms, feature matching, mel L1, commit) is
+the local mean x local rows / global rows, which is the local sum over the
+global count, and the KL divides by the world's mask count.  Each backward
+is followed by one all-reduce summing the gradients over the world
+(``reduce_gradients``), the D one before ``grad_norm/d`` and ``optim_d``,
+the G one before ``grad_norm/g`` and ``optim_g``; the losses are summed
+over the world (``sum_across_ranks``), so every rank reports the global
+batch's metrics, as JAX does.
 """
 from __future__ import annotations
 
@@ -30,7 +43,8 @@ import torch
 from ..models.sovits import losses
 from ..models.sovits.discriminator import MultiPeriodDiscriminator
 from ..models.sovits.synthesizer import SynthesizerTrn
-from ..nn.layers import slice_segments
+from ..nn.layers import BatchRows, RankGenerator, slice_segments
+from ..parallel import distributed
 from ..ops.stft import MelConfig, mel_spectrogram, spec_to_mel
 from .optim_lowp import AdamWLowp
 
@@ -93,13 +107,20 @@ class S2TrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
                  ids_slice: Optional[torch.Tensor] = None,
-                 eps: Optional[torch.Tensor] = None
+                 eps: Optional[torch.Tensor] = None,
+                 rows: Optional[BatchRows] = None
                  ) -> Dict[str, torch.Tensor]:
         """batch: ``collate_s2``'s keys as tensors.  ``generator`` draws the
         slice starts, the posterior noise and the dropout masks unless
-        ``ids_slice`` / ``eps`` are given.  Returns the JAX step's metrics
-        as 0-d tensors (no host sync)."""
+        ``ids_slice`` / ``eps`` are given.  ``rows``: on a data-parallel
+        rank, where ``batch`` sits in the global batch (the module note).
+        Returns the JAX step's metrics as 0-d tensors (no host sync
+        outside data parallel)."""
         hp, mel_cfg = self.hp, self.mel_cfg
+        if rows is not None:
+            share = batch["ssl"].shape[0] / rows.total
+            if isinstance(generator, torch.Generator):
+                generator = RankGenerator(generator, rows)
         self.net_g.train()
         self.net_d.train()
         y_hat, commit, ids_slice, y_mask, latents = self.net_g(
@@ -120,7 +141,11 @@ class S2TrainStep:
         self.optim_d.zero_grad()
         real_l, fake_l, _, _ = self.net_d(y, y_hat.detach())
         loss_disc, _, _ = losses.discriminator_loss(real_l, fake_l)
+        if rows is not None:
+            loss_disc = loss_disc * share
         loss_disc.backward()
+        if rows is not None:
+            distributed.reduce_gradients(self.optim_d.params())
         grad_norm_d = _global_norm(self.optim_d.params())
         self.optim_d.step()
 
@@ -133,20 +158,32 @@ class S2TrainStep:
             fake_l, fmap_g = self.net_d.run(y_hat)
             y_hat_mel = mel_spectrogram(y_hat[:, 0], mel_cfg).transpose(1, 2)
             loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * hp.c_mel
-            loss_kl = losses.kl_loss(z_p, logs_q, m_p, logs_p,
-                                     y_mask) * hp.c_kl
+            count = None
+            if rows is not None:
+                count = distributed.sum_across_ranks(
+                    {"n": y_mask.float().sum()})["n"]
+            loss_kl = losses.kl_loss(z_p, logs_q, m_p, logs_p, y_mask,
+                                     count) * hp.c_kl
             loss_fm = losses.feature_matching_loss(fmap_r, fmap_g)
             loss_adv, _ = losses.generator_adv_loss(fake_l)
+            if rows is not None:
+                loss_mel, loss_fm, loss_adv, commit = (
+                    t * share for t in (loss_mel, loss_fm, loss_adv, commit))
             total = loss_adv + loss_fm + loss_mel + commit + loss_kl
             total.backward()
         finally:
             self.net_d.requires_grad_(True)
+        if rows is not None:
+            distributed.reduce_gradients(self.optim_g.params())
         grad_norm_g = _global_norm(self.optim_g.params())
         self.optim_g.step()
-        return {
+        metrics = {
             "loss/g/total": total.detach(), "loss/g/adv": loss_adv.detach(),
             "loss/g/fm": loss_fm.detach(), "loss/g/mel": loss_mel.detach(),
             "loss/g/kl": loss_kl.detach(), "loss/g/commit": commit.detach(),
             "loss/d/total": loss_disc.detach(),
-            "grad_norm/g": grad_norm_g, "grad_norm/d": grad_norm_d,
         }
+        if rows is not None:
+            metrics = distributed.sum_across_ranks(metrics)
+        return {**metrics, "grad_norm/g": grad_norm_g,
+                "grad_norm/d": grad_norm_d}

@@ -38,6 +38,7 @@ from easevoice_trainer_tpu.train import gpt_step as jstep
 from easevoice_trainer_tpu_torch import convert
 from easevoice_trainer_tpu_torch.models.gpt import dpo as pdpo
 from easevoice_trainer_tpu_torch.models.gpt import t2s as pt2s
+from easevoice_trainer_tpu_torch.nn import layers
 from easevoice_trainer_tpu_torch.nn.layers import set_compute_dtype
 from easevoice_trainer_tpu_torch.ops import attention as att
 from easevoice_trainer_tpu_torch.ops import philox
@@ -185,6 +186,19 @@ def test_keep_mask_depends_on_seed_and_layer_alone():
                                      k0, k1)
         want = int(words[i % 4]) < philox.keep_threshold(P)
         assert bool(whole[b, h, row, key]) == want
+
+
+def test_keep_mask_row0_is_the_global_batch_row():
+    """A mask drawn for the batch rows ``row0 ..`` of a data-parallel
+    rank is those rows of the global batch's mask, bit for bit, through
+    ``attention_keep_mask`` and through ``AttentionDropout.row0``."""
+    t, x_len = 45, 13
+    whole = philox.attention_keep_mask(7, 1, 5, 2, t, x_len, P)
+    for row0 in (0, 1, 3):
+        part = philox.attention_keep_mask(7, 1, 2, 2, t, x_len, P, row0=row0)
+        assert torch.equal(part, whole[row0:row0 + 2])
+    drop = att.AttentionDropout(P, 7, 1, row0=3)
+    assert torch.equal(drop.keep_mask(2, 2, t, x_len, "cpu"), whole[3:])
 
 
 # ---- (c) the twins with a mask ----------------------------------------------
@@ -554,3 +568,34 @@ def test_gpt_train_with_dropout_on_cpu(workspace):
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     assert _train_losses(norm, project, "c") != first
+
+
+# ---- (i) the uniforms of nn.layers.dropout ----------------------------------
+
+
+def test_dropout_draws_bf16_at_the_rate():
+    """``nn.layers.dropout`` on a bf16 tensor of 4.2e6 elements at p = 0.1
+    drops within 6 sigma of p (sigma 1.5e-4): its uniforms are fp32, as
+    flax's ``bernoulli(rng, 1 - p)`` draws from a Python float.  Uniforms
+    drawn in bf16 take ~2^8 values below 1: they dropped 0.10168 of these
+    elements (11.5 sigma off).  The kept ones are scaled by 1 / bf16(0.9)."""
+    n, gen = 4_200_000, torch.Generator().manual_seed(2024)
+    y = layers.dropout(torch.ones(n, dtype=BF), P, True, gen)
+    assert y.dtype == BF
+    rate = float((y == 0).float().mean())
+    assert abs(rate - P) <= 6 * (P * (1 - P) / n) ** 0.5, rate
+    kept = y[y != 0]
+    assert torch.equal(kept, torch.full_like(
+        kept, 1.0 / layers.weak_scalar(1.0 - P, BF)))
+
+
+def test_dropout_masks_are_the_fp32_draw_in_every_dtype():
+    """An fp32 input's mask is the one the fine-tunes drew before the bf16
+    repair, ``torch.rand(shape) >= p`` from the generator, bit for bit;
+    a bf16 input of the same shape and seed gets the same mask."""
+    shape = (3, 64, 50)
+    want = torch.rand(shape, generator=torch.Generator().manual_seed(9)) >= P
+    for dtype in (torch.float32, BF):
+        y = layers.dropout(torch.ones(shape, dtype=dtype), P, True,
+                           torch.Generator().manual_seed(9))
+        assert torch.equal(y != 0, want), dtype

@@ -733,6 +733,11 @@ import numpy as np
 import easevoice_trainer_tpu_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
+# data parallel (parallel/): the world from the environment, no group here
+from easevoice_trainer_tpu_torch.parallel import data_parallel_world, \
+    distributed
+assert data_parallel_world("cpu") is None
+assert distributed.maybe_initialize("cpu") is False
 from easevoice_trainer_tpu_torch.inference.preprocessor import \
     TextPreprocessor
 from easevoice_trainer_tpu_torch.utils import audio_io
@@ -940,7 +945,8 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))
 def test_port_stands_alone_subprocess(tmp_path):
     """A fresh interpreter that refuses to import the JAX package, jax,
     flax, transformers, safetensors, yaml, aiohttp and psutil imports every
-    module of the port, runs the text frontend in every language, loads
+    module of the port (``parallel/`` with them, whose world it reads: no
+    process group), runs the text frontend in every language, loads
     and resamples a wav, reads configs/gpt.yaml, takes two micro-batches of
     the s1 train step, prepares a dataset through the slicer, denoise and
     normalize cmds on the CPU, transcribes through the ASR cmd in zh and
@@ -952,7 +958,8 @@ def test_port_stands_alone_subprocess(tmp_path):
     # by minutes when they do
     env = dict(os.environ, PYTHONPATH=REPO, EASEVOICE_DISABLE_G2PW="1",
                OMP_NUM_THREADS="1")
-    env.pop("EASEVOICE_PINYIN_TABLE", None)
+    for name in ("EASEVOICE_PINYIN_TABLE", "EASEVOICE_DP", "EASEVOICE_TP"):
+        env.pop(name, None)
     proc = subprocess.run([sys.executable, "-c", _ISOLATED,
                            str(tmp_path / "ref.wav")], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

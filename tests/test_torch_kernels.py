@@ -1511,6 +1511,9 @@ def test_roformer_card_matches_cpu():
 # relative, bf16 within the 2^-6 / one-step rule (``_close_bf16``).
 
 DROPOUT_DTYPES = [torch.float32, torch.bfloat16]
+# the global batch row of a call's batch row 0: 0, and a data-parallel
+# rank's first row
+DROPOUT_ROW0S = [0, 5]
 
 
 def _dropout_heads(gen, dtype, x_len, x_lens, y_len, y_lens, h=16):
@@ -1536,17 +1539,19 @@ def _close(got, want, dtype, rel):
 @pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 @pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
                          K5_CASES + K1_BF16_EDGES + K5_BF16_EDGES)
+@pytest.mark.parametrize("row0", DROPOUT_ROW0S)
 def test_prefill_attention_dropout_matches_twin(dtype, x_len, x_lens, y_len,
-                                                y_lens):
+                                                y_lens, row0):
     """K1's dropout instance (p = 0.1) with its lse at the s1 shapes and the
     tile edges of both dtypes: o against the twin with the same keep mask
     (rows that see no key are 0), the lse bit-equal to the instance
     without dropout's (the undropped softmax), one dropout launch counted
-    and no other, two calls bit-identical."""
+    and no other, two calls bit-identical; ``row0`` 0, and 5 as a
+    data-parallel rank whose rows start at global row 5."""
     gen = _card()
     q, k, v, _, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
                                         y_lens)
-    drop = att.AttentionDropout(0.1, 0x1234_5678_9ABC, 7)
+    drop = att.AttentionDropout(0.1, 0x1234_5678_9ABC, 7, row0)
     counts = ("launches", "launches_bf16", "launches_dropout",
               "launches_dropout_bf16")
     before = [getattr(prefill_attention, c) for c in counts]
@@ -1569,15 +1574,17 @@ def test_prefill_attention_dropout_matches_twin(dtype, x_len, x_lens, y_len,
 @pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 @pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
                          K5_CASES + K5_BF16_EDGES)
+@pytest.mark.parametrize("row0", DROPOUT_ROW0S)
 def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
-                                                    y_len, y_lens):
+                                                    y_len, y_lens, row0):
     """K5's dropout instance on the o and lse of K1's: dq, dk, dv against
     the twin with the same keep mask, finite, three dropout launches
-    counted and no other, repeated launches bit-identical."""
+    counted and no other, repeated launches bit-identical; ``row0`` as in
+    the K1 test."""
     gen = _card()
     q, k, v, do, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
                                          y_lens)
-    drop = att.AttentionDropout(0.1, 99, 23)
+    drop = att.AttentionDropout(0.1, 99, 23, row0)
     o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
     counts = ("launches", "launches_bf16", "launches_dropout",
               "launches_dropout_bf16")
@@ -1607,19 +1614,21 @@ def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
     (1, [1, 0], 14, [14, 0]),                # T = 15
     (416, [416, 211], 1360, [877, 1360]),    # the long s1 shape
 ])
-def test_dropout_mask_readout(dtype, x_len, x_lens, y_len, y_lens):
+@pytest.mark.parametrize("row0", DROPOUT_ROW0S)
+def test_dropout_mask_readout(dtype, x_len, x_lens, y_len, y_lens, row0):
     """The keep bits K1, K5's dkdv kernel and K5's dq kernel draw, read
     through their outputs (chip_smoke ``dropout_readout``: q = 0 makes P
     uniform over a row's visible keys, and one-hot v, dO or k turn one
     block of pairs into outputs that are positive exactly where a pair is
     kept), equal ``attention_keep_mask`` on every visible pair, across
-    tiles and the text / audio boundary; hidden pairs read 0."""
+    tiles and the text / audio boundary; hidden pairs read 0.  With
+    ``row0`` 5 they are the rows 5 .. of the global batch's mask."""
     _card()
     xl = torch.tensor(x_lens, dtype=torch.int32, device="cuda")
     yl = torch.tensor(y_lens, dtype=torch.int32, device="cuda")
     got = _chip_smoke().dropout_readout(
-        torch, att, dtype, att.AttentionDropout(0.1, 2 ** 40 + 5, 19), x_len,
-        xl, yl, x_len + y_len, h=4)
+        torch, att, dtype, att.AttentionDropout(0.1, 2 ** 40 + 5, 19, row0),
+        x_len, xl, yl, x_len + y_len, h=4)
     assert all(bad == 0 and n > 0 for bad, n in got.values()), got
 
 
