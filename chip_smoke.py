@@ -178,7 +178,20 @@ Phases, one summary line each; any failure exits non-zero:
    row) and on an NCCL world of one rank (bit-identical to this process);
    s a micro-batch / step, all-reduce ms (CUDA events) and bytes a step;
    and the bf16 drop rate of ``nn.layers.dropout`` on the card (4.2e6
-   draws at p = 0.1, within 6 sigma);
+   draws at p = 0.1, within 6 sigma).  Then tensor parallel
+   (``tensor_parallel``): the s1 window through ``parallel/gpt_sharding``
+   on two ranks of one model group sharing the card over gloo, at
+   configs/gpt.yaml's full width and depth (8 heads and 1024 FFN columns a
+   rank), in bf16, fp32 and bf16 with dropout 0.1, and on a data 2 x model
+   2 grid of four ranks at 4 layers in fp32 with dropout 0.1: metrics
+   equal across the ranks, replicated weights bit-identical across each
+   model group, metrics and gathered weights against the world of one
+   (1e-3 relative in fp32, 2^-6 in bf16; in fp32 at most 1 % of a
+   tensor's elements with a window update 25 % off), each rank's K1 / K5
+   launches, model index 1's K1 keep bits equal to the world of one's at
+   heads 8-15; s a micro-batch, the bytes and ms of the model and data
+   groups' all-reduces; K1 and K5 at the local shape H = 8 beside H = 16,
+   SDPA and the bound;
 12. reference s1 step: one micro-batch at a small width on the card and on
    the CPU agrees (loss and every qkv gradient), in fp32 and in bf16,
    without and with dropout 0.1 (the same masks at all four sites);
@@ -3704,7 +3717,7 @@ def data_prep(torch, tmp: str, results):
     init.load_state_dict({k: v.cpu() for k, v in convert.random_state_dict(
         init, gen).items()})
     gpt_ckpt = os.path.join(root, "s1_random.ckpt")
-    ckpt.export_gpt_weights(gpt_export_tree(init), gpt_ckpt,
+    ckpt.export_gpt_weights(gpt_export_tree(init.state_dict()), gpt_ckpt,
                             config=cfg_yaml, info="random")
     del init
     fed = []
@@ -5012,7 +5025,7 @@ def train_s1(torch, tmp: str, results):
     init.load_state_dict({k: v.cpu() for k, v in convert.random_state_dict(
         init, gen).items()})
     pretrained = os.path.join(tmp, "s1_random.ckpt")
-    ckpt.export_gpt_weights(gpt_export_tree(init), pretrained,
+    ckpt.export_gpt_weights(gpt_export_tree(init.state_dict()), pretrained,
                             config=cfg_yaml, info="random")
     pre = convert.load_torch_state_dict(pretrained)   # fp16, as saved
     del init
@@ -5612,7 +5625,7 @@ def k1_keep_bits(torch, att, dropout, x_len, xl, yl, t, h=16, block=32):
     return bits.cpu()
 
 
-def dp_jobs(torch, dev, rows):
+def dp_jobs(torch, dev, rows, only_first: bool = False):
     """The phase's work on one rank (``rows``: its ``BatchRows``) or in the
     world of one (``rows`` None): the s1 window in bf16 at dropout 0 and
     0.1, then DP_S2_STEPS s2 steps in bf16, every model built from
@@ -5621,7 +5634,7 @@ def dp_jobs(torch, dev, rows):
     ``reduce_gradients`` call's bytes and its time between CUDA events and
     on the host clock, the kernels launched; on the rank whose rows start
     past 0, the K1 keep bits of its first row (the window's first seed,
-    layer 0)."""
+    layer 0).  ``only_first``: the s1 window at dropout 0 alone."""
     import numpy as np
 
     from easevoice_trainer_tpu_torch import ops
@@ -5676,7 +5689,7 @@ def dp_jobs(torch, dev, rows):
         s1 = dp_s1_batches(np)
         cfg = T2SConfig.from_yaml_dict(simple_yaml.load(
             paths.gpt_config_path()))
-        for p in (0.0, DROPOUT_P):
+        for p in (0.0,) if only_first else (0.0, DROPOUT_P):
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(DP_SEED)
                 model = Text2SemanticDecoder(
@@ -5702,6 +5715,8 @@ def dp_jobs(torch, dev, rows):
                     S1_X_LEN, *lens, t, cfg.n_heads)
             del model, step, batches
             torch.cuda.empty_cache()
+        if only_first:
+            return out
         s2_cfg, hp, mel, s2 = dp_s2_setup(torch, np, dev)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(DP_SEED)
@@ -5725,10 +5740,11 @@ def dp_jobs(torch, dev, rows):
     return out
 
 
-def dp_rank():
+def dp_rank(only_first: bool = False):
     """One rank of the data-parallel phase (``distributed.launch``'s
     target): the rank's jobs on its card (cuda:0 when the ranks share it
-    over gloo), TF32 off as in the parent."""
+    over gloo), TF32 off as in the parent; ``only_first`` as for
+    ``dp_jobs``."""
     import torch
 
     from easevoice_trainer_tpu_torch.parallel import distributed
@@ -5736,7 +5752,7 @@ def dp_rank():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    return dp_jobs(torch, dev, distributed.batch_rows(DP_B))
+    return dp_jobs(torch, dev, distributed.batch_rows(DP_B), only_first)
 
 
 def dp_rel(a: float, b: float) -> float:
@@ -5758,9 +5774,9 @@ def data_parallel(torch, results) -> None:
       grad norm within DP_BF16_TOL of the world of one's, and rank 1's K1
       keep bits for its first row (global row 4) read back equal to the
       world of one's mask at row 4, bit for bit;
-    * (b) on an NCCL world of one rank: bit-identical to this process (an
-      all-reduce over one rank is a copy): NCCL initializes and reduces
-      on the card.
+    * (b) on an NCCL world of one rank, the s1 window at dropout 0 alone:
+      bit-identical to this process (an all-reduce over one rank is a
+      copy): NCCL initializes and reduces on the card.
 
     Printed beside the card's name and power limit: s a micro-batch / step
     of each world, each all-reduce's ms (CUDA events) and bytes a step.
@@ -5780,10 +5796,13 @@ def data_parallel(torch, results) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     worlds = {"gloo x2": distributed.launch(dp_rank, (), 2, "cuda", "gloo"),
-              "nccl x1": distributed.launch(dp_rank, (), 1, "cuda", "nccl")}
+              "nccl x1": distributed.launch(dp_rank, (True,), 1, "cuda",
+                                            "nccl")}
     assert not distributed.initialized()
     for name, ranks in worlds.items():
         for job, ref in one.items():
+            if job not in ranks[0]:
+                continue
             got = [r[job] for r in ranks]
             for r in got[1:]:
                 assert r["metrics"] == got[0]["metrics"], (name, job)
@@ -5859,6 +5878,413 @@ def data_parallel(torch, results) -> None:
     assert abs(rate - DROPOUT_P) <= 6 * sigma, rate
     results["data_parallel"] = {"drop_rate_bf16": rate}
     log(f"[data parallel] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: the s1 fine-tune on a (data, model) grid of ranks
+# ---------------------------------------------------------------------------
+
+TP_N_MODEL = 2
+TP_GRID = (2, 2)            # data x model, at reduced depth
+TP_GRID_LAYERS = 4
+TP_FP32_TOL = 1e-3          # fp32 ranks against the world of one, relative
+# fp32 weight updates: the share of a tensor's elements whose window
+# update is more than 25 % off the world of one's.  ScaledAdam's first step
+# moves each element by about lr x RMS x sign(g), so an element whose
+# gradient is within rounding of 0 may take the other sign, and one such
+# element of a 2048-element bias is 4.4 % of its update's norm; a wrong
+# scale (an RMS over the shard alone) puts every element of the tensor
+# off
+TP_UPDATE_OFF = 1e-2
+# the jobs: (name, dropout, layers or None for configs/gpt.yaml's)
+TP_JOBS = (("bf16", 0.0, None), ("fp32", 0.0, None),
+           ("bf16 dropout", DROPOUT_P, None))
+TP_GRID_JOBS = (("fp32 dropout", DROPOUT_P, TP_GRID_LAYERS),)
+
+
+def tp_jobs(torch, dev, jobs, ref_dir):
+    """The tensor-parallel phase's work on one rank of a grid, or in the
+    world of one (no process group): per job of ``jobs``, one s1 window
+    (DP_WINDOW micro-batches of the global B = DP_B at T = 716, the GPT of
+    configs/gpt.yaml in the job's dtype and dropout, built on the CPU from
+    DP_SEED and sharded for the rank's model index).  Per job: the metrics,
+    s a micro-batch (host clock to the end of its device work), the
+    kernels launched, the model group's all-reduces (``all_reduce_model``)
+    and the data group's (``reduce_gradients``) each with its bytes, ms
+    between CUDA events and host ms, and a digest of the replicated
+    weights.  The world of one writes its weights after the window to
+    ``ref_dir``; rank 0 of a grid gathers the whole weights and holds them
+    to those (the worst error relative to max(1, |ref|), and the worst
+    norm of the difference of the window's updates over the update's);
+    the rank at model index 1 of a dropout job reads K1's keep bits of its
+    heads (``h0``) for batch row 0."""
+    import hashlib
+
+    import numpy as np
+
+    from easevoice_trainer_tpu_torch import ops
+    from easevoice_trainer_tpu_torch.models.gpt import T2SConfig, \
+        Text2SemanticDecoder
+    from easevoice_trainer_tpu_torch.models.gpt.t2s import ATTENTION_KEY
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.parallel import distributed, \
+        gpt_sharding
+    from easevoice_trainer_tpu_torch.train.gpt_step import GPTTrainHP, \
+        GPTTrainStep
+    from easevoice_trainer_tpu_torch.utils import paths, simple_yaml
+
+    world = distributed.initialized()
+    rows = distributed.batch_rows(DP_B)
+    local = distributed.process_local_rows(DP_B)
+    tp = (distributed.model_rank(), distributed.model_size()) \
+        if distributed.model_size() > 1 else None
+    cfg = T2SConfig.from_yaml_dict(simple_yaml.load(paths.gpt_config_path()))
+    s1 = dp_s1_batches(np)
+    calls = {"model": [], "data": []}
+    real = {"model": distributed.all_reduce_model,
+            "data": distributed.reduce_gradients}
+
+    def timed(kind):
+        def call(arg):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            got = real[kind](arg)
+            end.record()
+            torch.cuda.synchronize()
+            nbytes = got if kind == "data" else arg.numel() * \
+                arg.element_size()
+            if nbytes:    # reduce_gradients without a data group moves none
+                calls[kind].append((nbytes, start, end,
+                                    time.perf_counter() - t0))
+            return got
+        return call
+
+    out = {}
+    distributed.all_reduce_model = timed("model")
+    distributed.reduce_gradients = timed("data")
+    try:
+        inits = {}    # the initial weights by depth (dtype and dropout
+        #               leave them as they are)
+        for name, p, layers in jobs:
+            dtype = torch.bfloat16 if name.startswith("bf16") else None
+            c = dataclasses.replace(cfg, dropout=p,
+                                    n_layers=layers or cfg.n_layers)
+            if c.n_layers not in inits:
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(DP_SEED)
+                    inits[c.n_layers] = Text2SemanticDecoder(c).state_dict()
+            init = inits[c.n_layers]
+            model = Text2SemanticDecoder(c, dtype=dtype, tp=tp)
+            model.load_state_dict(init if tp is None else
+                                  gpt_sharding.shard_state_dict(init, *tp))
+            model.to(dev).train()
+            step = GPTTrainStep(model, GPTTrainHP())
+            batches = [{k: torch.from_numpy(v[local]).to(dev).to(
+                torch.int64 if v.dtype == np.int32 else torch.float32)
+                for k, v in b.items()} for b in s1]
+            for kind in calls:
+                calls[kind].clear()
+            ops.reset_launch_counts()
+            metrics, seconds = [], []
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                got = step(batch, seed=DP_SEED + i, rows=rows)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in got.items()})
+            res = {"metrics": metrics, "seconds": seconds,
+                   "launches": {k: n for k, n in ops.launch_counts().items()
+                                if n},
+                   "reduce": {kind: [(n, s.elapsed_time(e), host * 1e3)
+                                     for n, s, e, host in got_calls]
+                              for kind, got_calls in calls.items()}}
+            named = [(k, v.detach()) for k, v in model.state_dict().items()]
+            h = hashlib.sha256()
+            for k, v in named:
+                if gpt_sharding.shard_class(k) == "rep":
+                    h.update(k.encode())
+                    h.update(v.float().cpu().numpy().tobytes())
+            res["rep_digest"] = h.hexdigest()
+            after = dict(zip([k for k, _ in named],
+                             gpt_sharding.gather_whole(named)))
+            ref_path = os.path.join(ref_dir, name.replace(" ", "_") + ".pt")
+            if not world:
+                torch.save({k: v.cpu() for k, v in after.items()}, ref_path)
+            elif distributed.rank() == 0:
+                ref = torch.load(ref_path, map_location="cpu")
+                worst, moved, moved_name = 0.0, 0.0, ""
+                for k, want in ref.items():
+                    mine, want = after[k], want.to(dev)
+                    worst = max(worst, float((mine - want).abs().max()) /
+                                max(1.0, float(want.abs().max())))
+                    start = init[k].to(dev)
+                    d_ref, d_mine = want - start, mine - start
+                    if k.endswith("in_proj_bias"):   # not the key biases
+                        third = d_ref.shape[0] // 3
+                        d_ref, d_mine = (torch.cat([d[:third],
+                                                    d[2 * third:]])
+                                         for d in (d_ref, d_mine))
+                    off = float(((d_mine - d_ref).abs()
+                                 > 0.25 * d_ref.abs()).float().mean())
+                    if off > moved:
+                        moved, moved_name = off, k
+                res["weights"] = (worst, moved, moved_name)
+            if p and tp is not None and tp[0] == 1:
+                seed = (DP_SEED % 2 ** 64) ^ ATTENTION_KEY
+                first = local[0]
+                lens = [torch.tensor([v[first]], dtype=torch.int32,
+                                     device=dev)
+                        for v in (DP_X_LENS, DP_Y_LENS)]
+                heads = c.n_heads // tp[1]
+                res["keep_bits"] = (first, heads, k1_keep_bits(
+                    torch, att, att.AttentionDropout(p, seed, 0, first,
+                                                     heads),
+                    S1_X_LEN, *lens, S1_X_LEN + S1_Y_LENS[0], heads))
+            out[name] = res
+            del model, step, batches, after, named, init
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        distributed.all_reduce_model = real["model"]
+        distributed.reduce_gradients = real["data"]
+    return out
+
+
+def tp_rank(jobs, ref_dir):
+    """One rank of the tensor-parallel phase (``distributed.launch``'s
+    target): its jobs on the card the ranks share over gloo, TF32 off as
+    in the parent."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return tp_jobs(torch, dev, jobs, ref_dir)
+
+
+def tp_kernel_times(torch, smi) -> dict:
+    """K1 + lse and K5 at a tensor-parallel rank's local shape (H = 8 of
+    the 16 heads at TP 2; B = DP_B, T = 716, DP_X_LENS / DP_Y_LENS) beside
+    the whole layer's (H = 16) on the same rows, fp32 and bf16: device ms
+    (torch.profiler), SDPA's and its backward's at H = 8, and the bound at
+    H = 8 (Bound: q, k, v, o, lse moved once; 4 dk flops a visible (row,
+    key, head) for K1, 10 for K5)."""
+    import torch.nn.functional as F
+
+    from easevoice_trainer_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    b, dk, x_len, y_len = DP_B, 32, S1_X_LEN, S1_Y_LENS[0]
+    t = x_len + y_len
+    xl = torch.tensor(DP_X_LENS, dtype=torch.int32, device="cuda")
+    yl = torch.tensor(DP_Y_LENS, dtype=torch.int32, device="cuda")
+    bias = att.build_hybrid_mask_bias(x_len, y_len, xl, yl)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        tag = "bf16" if bf else "fp32"
+        times = {}
+        for h in (16, 8):
+            qkv = torch.randn((b, t, 3 * h * dk), generator=gen,
+                              device="cuda").to(dtype)
+            do = torch.randn((b, t, h, dk), generator=gen,
+                             device="cuda").to(dtype)
+            q, k, v = att._split_heads(qkv, h)
+            o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl)
+            times[h] = (
+                device_ms(torch, lambda: att.prefill_attention_lse(
+                    q, k, v, x_len, xl, yl), launches=1),
+                device_ms(torch, lambda: att.prefill_attention_bwd(
+                    q, k, v, o, lse, do, x_len, xl, yl), launches=3))
+        qh, kh, vh = (z.transpose(1, 2).contiguous().requires_grad_()
+                      for z in (q, k, v))
+        lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+        lib_bwd = functools.partial(torch.autograd.grad, lib, (qh, kh, vh),
+                                    do.transpose(1, 2).contiguous(),
+                                    retain_graph=True)
+        lib_ms = (event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), attn_mask=bias)),
+            event_ms(torch, lib_bwd, reps=5))
+        pairs = int((bias == 0).sum()) * 8
+        elems = b * t * 8 * dk
+        size = 2 if bf else 4
+        bounds = [Bound(BF16_OPS_PER_S if bf else FP32_OPS_PER_S)
+                  for _ in "ab"]
+        bounds[0].add(size * 4 * elems + 4 * b * 8 * t, 4 * dk * pairs)
+        bounds[1].add(size * 8 * elems + 4 * b * 8 * t, 10 * dk * pairs)
+        for i, name in enumerate(("K1 + lse", "K5")):
+            log(f"[tensor parallel] {tag} {name} at B={b} T={t} "
+                f"(DP_X_LENS / DP_Y_LENS): device ms H=8 "
+                f"{times[8][i]:.4f}, H=16 {times[16][i]:.4f} (H=8 / H=16 "
+                f"{times[8][i] / times[16][i]:.3f}); SDPA"
+                f"{' backward' if i else ''} H=8 {lib_ms[i]:.4f}; bound H=8 "
+                f"{bounds[i].ms:.4f} ({bounds[i].by}); {smi}")
+        out[tag] = {"h8_ms": [times[8][0], times[8][1]],
+                    "h16_ms": [times[16][0], times[16][1]],
+                    "library_ms": list(lib_ms),
+                    "bound_ms": [bd.ms for bd in bounds]}
+        del qkv, do, q, k, v, o, lse, qh, kh, vh, lib, lib_bwd
+        torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel(torch, results) -> None:
+    """The s1 fine-tune under tensor parallelism through ``parallel/``:
+    ``launch`` starts the ranks of a (data, model) grid, each holds its
+    model index's shard of the GPT (``gpt_sharding``: its heads of each
+    layer's attention, 1 / n_model of its FFN) and its data index's rows,
+    and the steps join the model group by Megatron's f and g.  The s1
+    window (DP_WINDOW micro-batches of the global B = DP_B at T = 716, one
+    ScaledAdam update) runs
+
+    * in this process, the world of one on the global batch;
+    * (a) TP 2 x DP 1 at configs/gpt.yaml's full width and depth (512 x 24,
+      16 heads, FFN 2048), two ranks sharing cuda:0 over gloo, in bf16, in
+      fp32 and in bf16 with dropout 0.1;
+    * (b) a data 2 x model 2 grid of four ranks at TP_GRID_LAYERS layers,
+      fp32 with dropout 0.1 (the fp32 dropout instances of K1 and K5 on
+      the grid).
+
+    Checked: every rank reports the same metrics; the replicated weights
+    are bitwise equal across each model group; losses, acc and grad norms
+    against the world of one within TP_FP32_TOL relative in fp32 and
+    DP_BF16_TOL of max(1, |ref|) in bf16; the gathered weights within the
+    same, and in fp32 at most TP_UPDATE_OFF of each weight's elements with
+    a window update more than 25 % off the world of one's (key biases
+    aside); every rank launched its K1 and K5 instance
+    n_layers x DP_WINDOW times (K5 three kernels a call) and no other; the
+    keep bits K1 drew on model index 1 (heads 8-15, through ``h0``) are the
+    world of one's at those heads, bit for bit.  Printed beside the card's
+    name and power limit: s a micro-batch, each rank's launches, the bytes
+    a rank all-reduces a micro-batch over the model group and the data
+    group with their ms (CUDA events, host); then K1 / K5 at the local
+    shape H = 8 (:func:`tp_kernel_times`)."""
+    from easevoice_trainer_tpu_torch.models.gpt import T2SConfig
+    from easevoice_trainer_tpu_torch.models.gpt.t2s import ATTENTION_KEY
+    from easevoice_trainer_tpu_torch.ops import attention as att
+    from easevoice_trainer_tpu_torch.parallel import distributed
+    from easevoice_trainer_tpu_torch.utils import paths, simple_yaml
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    cfg = T2SConfig.from_yaml_dict(simple_yaml.load(paths.gpt_config_path()))
+    assert not distributed.initialized()
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        one = tp_jobs(torch, torch.device("cuda"), TP_JOBS + TP_GRID_JOBS,
+                      ref_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls["world of one"] = time.perf_counter() - t0
+        worlds = {}
+        for world, jobs, n_data, n_model in (
+                (f"model {TP_N_MODEL}", TP_JOBS, 1, TP_N_MODEL),
+                (f"data {TP_GRID[0]} x model {TP_GRID[1]}", TP_GRID_JOBS,
+                 *TP_GRID)):
+            t0 = time.perf_counter()
+            worlds[world] = (jobs, distributed.launch(
+                tp_rank, (jobs, ref_dir), n_data * n_model, "cuda", "gloo",
+                n_model=n_model))
+            walls[world] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    assert not distributed.initialized()
+    for world, (jobs, ranks) in worlds.items():
+        n_model = TP_N_MODEL if world.startswith("model") else TP_GRID[1]
+        for name, p, layers in jobs:
+            ref = one[name]
+            got = [r[name] for r in ranks]
+            for r in got[1:]:
+                assert r["metrics"] == got[0]["metrics"], (world, name)
+            for d in range(len(got) // n_model):
+                group = got[d * n_model:(d + 1) * n_model]
+                assert len({g["rep_digest"] for g in group}) == 1, \
+                    (world, name, d)
+            tol = DP_BF16_TOL if name.startswith("bf16") else TP_FP32_TOL
+            worst = max(dp_rel(m[k], w[k]) for m, w in zip(
+                got[0]["metrics"], ref["metrics"]) for k in w)
+            w_err, moved, moved_name = got[0]["weights"]
+            assert worst <= tol and w_err <= tol, (world, name, worst, w_err)
+            if not name.startswith("bf16"):
+                assert moved <= TP_UPDATE_OFF, (world, name, moved)
+            n = (layers or cfg.n_layers) * DP_WINDOW
+            sfx = ("_dropout" if p else "") + \
+                ("_bf16" if name.startswith("bf16") else "")
+            want = {"prefill_attention" + sfx: n,
+                    "prefill_attention_bwd" + sfx: 3 * n}
+            for r in got:
+                assert r["launches"] == want, (world, name, r["launches"])
+            for kernel, count in want.items():
+                results.setdefault(kernel, {}).setdefault("per_path", {})[
+                    f"tensor_parallel_{world.replace(' ', '_')}_rank_"
+                    f"micro_batch"] = count / DP_WINDOW
+            steps = len(ref["metrics"])
+            model_calls = got[0]["reduce"]["model"]
+            data_calls = got[0]["reduce"]["data"]
+            log(f"[tensor parallel] {world} {name}: {len(got)} ranks, "
+                f"{DP_B // (len(got) // n_model)} rows and "
+                f"{cfg.n_heads // n_model} heads a rank, "
+                f"{layers or cfg.n_layers} layers; "
+                f"metrics equal across ranks, replicated weights "
+                f"bit-identical across each model group; worst loss / acc "
+                f"/ grad norm against the world of one {worst:.3g}, "
+                f"gathered weights {w_err:.3g} (tol {tol:.3g}); window "
+                f"updates more than 25 % off: at most {moved:.3g} of a "
+                f"tensor's elements ({moved_name}); s a micro-batch "
+                + ", ".join(f"{s:.4f}" for s in got[0]["seconds"])
+                + " (world of one " + ", ".join(
+                    f"{s:.4f}" for s in ref["seconds"]) + ")"
+                + f"; launches a rank {got[0]['launches']}; model group "
+                f"{len(model_calls) / steps:.1f} all-reduces a micro-batch, "
+                f"{sum(c[0] for c in model_calls) / steps / 1e6:.2f} MB a "
+                f"micro-batch a rank, "
+                f"{sum(c[1] for c in model_calls) / steps:.1f} ms (CUDA "
+                f"events) / {sum(c[2] for c in model_calls) / steps:.1f} ms "
+                f"(host) a micro-batch; data group "
+                + (f"{len(data_calls)} all-reduces, "
+                   f"{sum(c[0] for c in data_calls) / steps / 1e6:.2f} MB a "
+                   f"micro-batch a rank, ms a call (CUDA events) " + ", ".join(
+                       f"{c[1]:.3f}" for c in data_calls) + ", host "
+                   + ", ".join(f"{c[2]:.3f}" for c in data_calls)
+                   if data_calls else "none (a data axis of 1)")
+                + "; " + smi)
+            if p and world.startswith("model"):
+                first, heads, bits = got[1]["keep_bits"]
+                t = S1_X_LEN + S1_Y_LENS[0]
+                xl = torch.tensor(DP_X_LENS, dtype=torch.int32,
+                                  device="cuda")
+                yl = torch.tensor(DP_Y_LENS, dtype=torch.int32,
+                                  device="cuda")
+                vis = (att.build_hybrid_mask_bias(
+                    S1_X_LEN, t - S1_X_LEN, xl, yl)[first, 0] == 0).cpu()
+                mask = att.AttentionDropout(
+                    p, (DP_SEED % 2 ** 64) ^ ATTENTION_KEY, 0).keep_mask(
+                        DP_B, 2 * heads, t, S1_X_LEN, "cuda")[
+                            first, heads:].cpu()
+                off = int(((bits != mask) & vis).sum() + (bits & ~vis).sum())
+                n_vis = int(vis.sum()) * heads
+                log(f"[tensor parallel] {world} {name} model index 1, K1 "
+                    f"keep bits of heads {heads}-{2 * heads - 1} (h0 "
+                    f"{heads}), batch row {first}, layer 0, T={t}, read "
+                    f"back: {off} of {n_vis} visible pairs off the world of "
+                    f"one's mask at those heads")
+                assert off == 0 and n_vis > 0
+    t0 = time.perf_counter()
+    times = tp_kernel_times(torch, smi)
+    walls["K1 / K5 at H = 8"] = time.perf_counter() - t0
+    log("[tensor parallel] walls: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()))
+    for tag, got in times.items():
+        sfx = "_bf16" if tag == "bf16" else ""
+        for i, kernel in enumerate(("prefill_attention",
+                                    "prefill_attention_bwd")):
+            results.setdefault(kernel + sfx, {})["tp_h8"] = {
+                key: vals[i] for key, vals in got.items()}
+    log(f"[tensor parallel] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6913,6 +7339,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = enter("data parallel")
         data_parallel(torch, results)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = enter("tensor parallel")
+        tensor_parallel(torch, results)
         phase = enter("reference s1 step")
         reference_s1_step(torch)
         gc.collect()
@@ -6962,7 +7392,7 @@ def main() -> int:
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
                       "whisper_T1500", "roformer", "fp32_ms",
                       "max_rel_err", "graph_ms", "without_dropout_ms",
-                      "rng_floor_ms", "keep_rate", "mask_readout"):
+                      "rng_floor_ms", "keep_rate", "mask_readout", "tp_h8"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 name ``"device": "cpu"``).  When ``EASEVOICE_DP`` gives this host more than
 one rank (``parallel/mesh.py data_parallel_world``), the task starts one
 process a rank (``parallel.distributed.launch``) and answers with rank 0's
-response; rank 0 alone writes the progress lines."""
+response; rank 0 alone writes the progress lines.  ``EASEVOICE_TP`` is not
+read: the s2 fine-tune is data-parallel only, as the JAX package's."""
 from . import filter_fields, run_task
 
 

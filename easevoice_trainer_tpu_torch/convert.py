@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .nn.layers import weight_norm_key
+from .parallel.gpt_sharding import shard_state_dict
 from .train import ckpt
 
 
@@ -116,6 +117,14 @@ def discriminator_state_dict(params: Dict[str, Any],
 def gpt_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Text2SemanticDecoder params -> the port's state dict."""
     return _to_torch(ckpt.flax_to_torch(params, ckpt.gpt_rules()))
+
+
+def gpt_shard_state_dict(params: Dict[str, Any], m: int, n_model: int
+                         ) -> Dict[str, torch.Tensor]:
+    """Text2SemanticDecoder params -> the state dict of model index ``m``'s
+    tensor-parallel shard (``Text2SemanticDecoder(..., tp=(m,
+    n_model))``)."""
+    return shard_state_dict(gpt_state_dict(params), m, n_model)
 
 
 def hubert_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -17,19 +17,20 @@
 // i in it; one Philox call serves the four keys 4 (i / 4) .. + 3 of one
 // segment and one row, word i % 4 for key i:
 //
-//   counter = (i / 4, row, row0 + b, l << 16 | h << 1 | is_audio_key)
+//   counter = (i / 4, row, row0 + b, l << 16 | (h0 + h) << 1 | is_audio_key)
 //   key     = (seed & 0xffffffff, seed >> 32)
 //
 // row0 + b is the row in the global batch: a rank of a data-parallel step
 // whose rows start at row0 of the global batch passes that row0 (0 outside
 // data parallel), so a world of ranks draws the masks one process draws on
-// the whole batch.
+// the whole batch.  h0 + h is the head among the layer's heads: a rank of a
+// tensor-parallel step holding heads h0 .. passes that h0 (0 otherwise).
 //
-// So the bit depends on (seed, l, row0 + b, h, row, key) and the text /
-// audio split alone, never on a tile, a warp or the launch.  Every kernel's key
-// tiles start at a multiple of 32 keys into their segment, so the four
-// keys of a call sit in one tile; the kernels share each call's four bits
-// among the lanes that hold those pairs by shuffles.
+// So the bit depends on (seed, l, row0 + b, h0 + h, row, key) and the text
+// / audio split alone, never on a tile, a warp or the launch.  Every
+// kernel's key tiles start at a multiple of 32 keys into their segment, so
+// the four keys of a call sit in one tile; the kernels share each call's
+// four bits among the lanes that hold those pairs by shuffles.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +45,7 @@ struct Dropout {
   uint32_t layer;   // the layer index, below 2^15
   float inv_keep;   // 1 / (1 - p)
   uint32_t row0;    // the global batch row of the launch's batch row 0
+  uint32_t h0;      // the layer's head of the launch's head 0
 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
@@ -63,12 +65,13 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 
 // Keep bits of one Philox call: bit j for key 4 * group + j of the segment
 // (audio or text), query `row`, the launch's batch row b (global row
-// d.row0 + b), head h
+// d.row0 + b), its head h (the layer's head d.h0 + h)
 __device__ __forceinline__ uint32_t keep4(const Dropout& d, int b, int h,
                                           int row, int group, bool audio) {
   const uint4 w = philox4x32_10(
       make_uint4((uint32_t)group, (uint32_t)row, d.row0 + (uint32_t)b,
-                 d.layer << 16 | (uint32_t)h << 1 | (audio ? 1u : 0u)),
+                 d.layer << 16 | (d.h0 + (uint32_t)h) << 1 |
+                     (audio ? 1u : 0u)),
       d.k0, d.k1);
   return (uint32_t)(w.x < d.thr) | (uint32_t)(w.y < d.thr) << 1 |
          (uint32_t)(w.z < d.thr) << 2 | (uint32_t)(w.w < d.thr) << 3;

@@ -351,19 +351,21 @@ extern "C" int ev_prefill_attention_bf16(
 }
 
 // K1's bf16 instance with dropout on P: the arguments above, then the
-// Philox seed, the layer index, the keep threshold, keep = 1 - p and
-// the global batch row of batch row 0 (philox.cuh)
+// Philox seed, the layer index, the keep threshold, keep = 1 - p, the
+// global batch row of batch row 0 and the layer's head of head 0
+// (philox.cuh)
 extern "C" int ev_prefill_attention_dropout_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
     int B, int T, int H, int x_len, float scale, unsigned long long seed,
-    int layer, unsigned thr, float keep, int row0, void* stream) {
+    int layer, unsigned thr, float keep, int row0, int h0, void* stream) {
   if (T <= 0 || x_len < 0 || x_len > T || layer < 0 || layer >= (1 << 15) ||
-      H >= (1 << 15) || !(keep > 0.f) || row0 < 0)
+      h0 < 0 || H + h0 >= (1 << 15) || !(keep > 0.f) || row0 < 0)
     return (int)cudaErrorInvalidValue;
   const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0};
+                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
+                     (uint32_t)h0};
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   prefill_attention_bf16_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,

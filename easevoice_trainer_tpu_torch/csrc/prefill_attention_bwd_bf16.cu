@@ -544,20 +544,22 @@ extern "C" int ev_prefill_attention_bwd_bf16(
 }
 
 // The gradient of K1's bf16 instance with dropout: the arguments above,
-// then K1's Philox seed, layer index, keep threshold, keep = 1 - p and
-// global row of batch row 0 (philox.cuh), which draw its mask again.
+// then K1's Philox seed, layer index, keep threshold, keep = 1 - p, global
+// row of batch row 0 and head of head 0 (philox.cuh), which draw its mask
+// again.
 extern "C" int ev_prefill_attention_bwd_dropout_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens, const void* y_lens, int B, int T,
     int H, int x_len, float scale, unsigned long long seed, int layer,
-    unsigned thr, float keep, int row0, void* stream) {
-  if (layer < 0 || layer >= (1 << 15) || H >= (1 << 15) || !(keep > 0.f) ||
-      row0 < 0)
+    unsigned thr, float keep, int row0, int h0, void* stream) {
+  if (layer < 0 || layer >= (1 << 15) || h0 < 0 || H + h0 >= (1 << 15) ||
+      !(keep > 0.f) || row0 < 0)
     return (int)cudaErrorInvalidValue;
   const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0};
+                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
+                     (uint32_t)h0};
   return launch_bwd_bf16<true>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
                                in_sb, in_st, out_sb, out_st, x_lens, y_lens,
                                B, T, H, x_len, scale, drop, stream);

@@ -33,6 +33,19 @@ probabilities' masks are keyed by the global batch row (``row0`` of
 shape, of which the rank keeps its rows, so a world of ranks draws exactly
 what one process draws on the global batch.
 
+Tensor parallelism (``parallel/gpt_sharding.py``): a model built with
+``tp=(m, n_model)`` holds shard m of each layer's qkv and FFN projections
+(``TransformerLayer``), under the whole model's parameter names, and its
+training forward runs the layer's heads ``m * H / n_model ..`` and FFN
+columns on this rank, joined to the model group's other ranks by
+Megatron's f and g.  Its dropout draws the whole model's masks: K1 / K5
+key the probabilities' bits by the layer's head (``h0`` of
+``AttentionDropout``), the FFN hidden layer's mask is drawn at the whole
+width and the rank keeps its column block (``RankGenerator.column_block``),
+and the two other sites act on tensors that every rank of the group holds
+whole.  The serving passes (``prefill``, ``decode_step``) run whole models
+only.
+
 ``dtype`` (the JAX module's): None computes in fp32; bfloat16 is the s1
 fine-tune under ``is_half`` (JAX ``train/gpt.py:162-163``).  Parameters stay
 fp32.  As flax computes the JAX module then: the dense layers (``bert_proj``,
@@ -57,6 +70,10 @@ from ...nn.layers import BatchRows, RankGenerator, compute_dtype, \
     dropout, linear_in, set_compute_dtype
 from ...ops import decode_attention, prefill_attention, self_attention
 from ...ops.attention import AttentionDropout
+from ...parallel.gpt_sharding import copy_to_model, row_parallel_linear
+
+# (model index, n_model) of a tensor-parallel shard; None: the whole model
+TP = Optional[Tuple[int, int]]
 
 LN_EPS = 1e-6
 # XORed into a forward's seed for the Philox key of the attention masks, so
@@ -131,14 +148,15 @@ class TokenEmbedding(nn.Module):
 
 class _SelfAttention(nn.Module):
     """Fused qkv projection + output projection (nn.MultiheadAttention's
-    parameter names)."""
+    parameter names), of ``width`` projected channels (d_model, or its
+    shard's d_model / n_model)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, width: int):
         super().__init__()
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         nn.init.xavier_uniform_(self.in_proj_weight)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = nn.Linear(width, d_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,23 +175,37 @@ class LayerRng:
 class TransformerLayer(nn.Module):
     """Post-norm encoder layer for the full (prefill) and incremental
     (decode) passes; ``dropout`` is the JAX layer's rate, taken by
-    ``train_forward`` alone."""
+    ``train_forward`` alone.  With ``tp=(m, n_model)`` it is shard m
+    (``parallel/gpt_sharding.py``): ``in_proj_weight`` (3D / n_model, D)
+    holding the q, k and v rows of heads ``m * H / n_model ..``, with its
+    bias; ``out_proj.weight`` (D, D / n_model); ``linear1`` (F / n_model,
+    D); ``linear2.weight`` (D, F / n_model); ``out_proj`` and ``linear2``
+    keep their whole biases, and the norms are whole."""
 
     def __init__(self, d_model: int, n_heads: int, ffn_dim: int,
-                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0,
+                 tp: TP = None):
         super().__init__()
+        n = tp[1] if tp is not None else 1
+        if n_heads % n or ffn_dim % n:
+            raise ValueError(f"TransformerLayer: {n_heads} heads and FFN "
+                             f"{ffn_dim} do not split over {n} model ranks")
         self.d_model = d_model
         self.n_heads = n_heads
         self.dropout = dropout
-        self.self_attn = _SelfAttention(d_model)
-        self.linear1 = nn.Linear(d_model, ffn_dim)
-        self.linear2 = nn.Linear(ffn_dim, d_model)
+        self.tp = tp
+        self.self_attn = _SelfAttention(d_model, d_model // n)
+        self.linear1 = nn.Linear(d_model, ffn_dim // n)
+        self.linear2 = nn.Linear(ffn_dim // n, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         set_compute_dtype(self, dtype)
 
     def qkv(self, x: torch.Tensor):
         """(B, T, D) -> q, k, v as (B, T, H, dk) views of one projection."""
+        if self.tp is not None:
+            raise ValueError("TransformerLayer: a tensor-parallel shard "
+                             "trains; serving runs the whole model")
         b, t, _ = x.shape
         qkv = F.linear(x, self.self_attn.in_proj_weight,
                        self.self_attn.in_proj_bias)
@@ -205,42 +237,57 @@ class TransformerLayer(nn.Module):
         rate above 0 it drops at the JAX layer's four sites, in its order:
         the probabilities (K1 / K5 keyed by ``rng.seed`` and
         ``rng.layer``), then the attention output, the FFN's hidden layer
-        and the FFN output (from ``rng.generator``)."""
+        and the FFN output (from ``rng.generator``).  A shard (``tp``) runs
+        its heads and FFN columns between f and g (the module note)."""
+        split = self.tp is not None
+        m, n = self.tp if split else (0, 1)
+        heads = self.n_heads // n
         p = self.dropout if rng is not None else 0.0
-        attn_drop = AttentionDropout(p, rng.seed, rng.layer, rng.row0) \
-            if p else None
+        attn_drop = AttentionDropout(p, rng.seed, rng.layer, rng.row0,
+                                     m * heads) if p else None
         gen = rng.generator if p else None
         dtype = compute_dtype(self)
+        xin = copy_to_model(x) if split else x
         if dtype is None:
-            qkv = F.linear(x, self.self_attn.in_proj_weight,
+            qkv = F.linear(xin, self.self_attn.in_proj_weight,
                            self.self_attn.in_proj_bias)
         else:   # flax DenseGeneral(dtype=bf16): bf16 product, bf16 bias add
-            qkv = F.linear(x.to(dtype),
+            qkv = F.linear(xin.to(dtype),
                            self.self_attn.in_proj_weight.to(dtype)) \
                 + self.self_attn.in_proj_bias.to(dtype)
-        o = self_attention(qkv, self.n_heads, x_len, x_lens, y_lens,
-                           attn_drop)
-        y = linear_in(self.self_attn.out_proj, o.reshape(x.shape), dtype)
+        o = self_attention(qkv, heads, x_len, x_lens, y_lens, attn_drop)
+        # the row-parallel products end in g and add their biases after it
+        out = row_parallel_linear if split else linear_in
+        y = out(self.self_attn.out_proj, o.reshape(*x.shape[:2], -1), dtype)
         x = self.norm1(x + dropout(y, p, True, gen))
-        hidden = torch.relu(linear_in(self.linear1, x, dtype))
-        ffn = linear_in(self.linear2, dropout(hidden, p, True, gen), dtype)
+        hidden = torch.relu(linear_in(
+            self.linear1, copy_to_model(x) if split else x, dtype))
+        # a shard's hidden layer is its column block of the whole one
+        hidden_gen = gen.column_block() if split and gen is not None \
+            else gen
+        ffn = out(self.linear2, dropout(hidden, p, True, hidden_gen), dtype)
         return self.norm2(x + dropout(ffn, p, True, gen))
 
 
 class _Layers(nn.Module):
-    def __init__(self, cfg: T2SConfig):
+    def __init__(self, cfg: T2SConfig, tp: TP = None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerLayer(cfg.hidden_dim, cfg.n_heads, cfg.ffn_dim,
-                             dropout=cfg.dropout)
+                             dropout=cfg.dropout, tp=tp)
             for _ in range(cfg.n_layers))
 
 
 class Text2SemanticDecoder(nn.Module):
+    """The s1 GPT; ``tp=(m, n_model)`` builds model index m's shard of it
+    for a tensor-parallel step (the module note), whose state dict is
+    ``parallel.gpt_sharding.shard_state_dict`` of the whole model's."""
+
     def __init__(self, cfg: T2SConfig = T2SConfig(),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, tp: TP = None):
         super().__init__()
         c = self.cfg = cfg
+        self.tp = tp
         self.bert_proj = nn.Linear(1024, c.embedding_dim)
         self.ar_text_embedding = TokenEmbedding(c.embedding_dim,
                                                 c.phoneme_vocab_size)
@@ -250,7 +297,7 @@ class Text2SemanticDecoder(nn.Module):
                                                         c.max_position)
         self.ar_audio_position = SinePositionalEmbedding(c.embedding_dim,
                                                          c.max_position)
-        self.h = _Layers(c)
+        self.h = _Layers(c, tp)
         self.ar_predict_layer = nn.Linear(c.hidden_dim, c.vocab_size,
                                           bias=False)
         set_compute_dtype(self, dtype)

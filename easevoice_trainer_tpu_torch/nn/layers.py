@@ -17,7 +17,9 @@ passes down (:func:`dropout`); the global RNG is never used.  In a
 data-parallel step the caller passes a :class:`RankGenerator` instead: every
 draw is then made at the global batch's shape and the rank keeps its own
 rows (:func:`random_rows`), so a world of N ranks draws what one process
-draws on the whole batch.
+draws on the whole batch.  Under tensor parallelism a draw for a tensor
+whose last axis is sharded (the s1 FFN's hidden layer) is made at the whole
+width too, and the rank keeps its column block as well.
 
 Compute dtype (the JAX modules' ``dtype``): a module computes in fp32 unless
 :func:`set_compute_dtype` gave it bfloat16, which the fine-tunes do under
@@ -265,22 +267,38 @@ class LayerNorm(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class BatchRows:
     """Where one rank's rows sit in a data-parallel step's global batch:
-    rows ``[row0, row0 + n)`` of ``total``, n the rank's batch size."""
+    rows ``[row0, row0 + n)`` of ``total``, n the rank's batch size; and,
+    under tensor parallelism, its column block ``col_block`` of
+    ``col_blocks`` (its model index of n_model) along a sharded last
+    axis."""
 
     row0: int
     total: int
+    col_block: int = 0
+    col_blocks: int = 1
 
 
 class RankGenerator:
     """A ``torch.Generator`` as one rank of a data-parallel world draws from
     it: every draw of :func:`random_rows` is made at the global batch's
-    shape (``rows.total`` rows) and the rank keeps rows ``rows.row0 ..``.
-    Every rank seeds its generator alike and draws the same global shapes in
-    the same order, so the generators stay in step across the world."""
+    shape (``rows.total`` rows) and the rank keeps rows ``rows.row0 ..``;
+    with ``columns`` (:meth:`column_block`), for a tensor whose last axis
+    is sharded over the model group, the draw is made at the whole width
+    and the rank keeps its column block too.  Every rank seeds its
+    generator alike and draws the same global shapes in the same order, so
+    the generators stay in step across the world, the ranks of a model
+    group included."""
 
-    def __init__(self, generator: torch.Generator, rows: BatchRows):
+    def __init__(self, generator: torch.Generator, rows: BatchRows,
+                 columns: bool = False):
         self.generator = generator
         self.rows = rows
+        self.columns = columns
+
+    def column_block(self) -> "RankGenerator":
+        """This generator (the same ``torch.Generator``) drawing for a
+        column-sharded tensor."""
+        return RankGenerator(self.generator, self.rows, columns=True)
 
 
 Generator = Union[torch.Generator, RankGenerator]
@@ -291,14 +309,21 @@ def random_rows(draw, shape, generator: Generator, device,
     """``draw(shape, generator=..., device=..., dtype=...)`` (``torch.rand``
     or ``torch.randn``) of a batch-first ``shape``; from a
     :class:`RankGenerator`, the rank's rows of the draw at the global
-    batch's shape."""
+    batch's shape, and, drawing for a column-sharded tensor, its column
+    block of the draw at the whole width."""
     if not isinstance(generator, RankGenerator):
         return draw(tuple(shape), generator=generator, device=device,
                     dtype=dtype)
     rows = generator.rows
-    full = draw((rows.total, *shape[1:]), generator=generator.generator,
-                device=device, dtype=dtype)
-    return full[rows.row0:rows.row0 + shape[0]]
+    whole = [rows.total, *shape[1:]]
+    blocks = rows.col_blocks if generator.columns else 1
+    whole[-1] *= blocks
+    full = draw(tuple(whole), generator=generator.generator, device=device,
+                dtype=dtype)[rows.row0:rows.row0 + shape[0]]
+    if blocks == 1:
+        return full
+    c0 = rows.col_block * shape[-1]
+    return full[..., c0:c0 + shape[-1]]
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

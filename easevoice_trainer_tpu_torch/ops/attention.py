@@ -27,10 +27,11 @@ Dropout on the attention probabilities (the s1 fine-tune with
 ``T2SConfig.dropout > 0``; JAX t2s.py:128 drops the fp32 probabilities
 after the softmax): ``self_attention``, ``prefill_attention_lse`` and
 ``prefill_attention_bwd`` take ``dropout``, an :class:`AttentionDropout`
-(rate p, a host integer seed, the layer index and ``row0``, the global
-batch row of batch row 0 in a data-parallel step).  The keep mask M of each
-(batch, head, query row, key) is Philox4x32-10 of (seed, layer, row0 + b,
-h, row, key) (``ops/philox.py``, ``csrc/philox.cuh``): on the card K1's
+(rate p, a host integer seed, the layer index, ``row0``, the global batch
+row of batch row 0 in a data-parallel step, and ``h0``, the layer's head
+of head 0 on a tensor-parallel rank).  The keep mask M of each (batch,
+head, query row, key) is Philox4x32-10 of (seed, layer, row0 + b, h0 + h,
+row, key) (``ops/philox.py``, ``csrc/philox.cuh``): on the card K1's
 and K5's dropout instances draw it inside their loops (counted in
 ``launches_dropout`` / ``launches_dropout_bf16``), on the CPU the twins
 take it from ``attention_keep_mask`` and apply ``where(M, P / (1 - p), 0)``
@@ -82,20 +83,22 @@ def build_hybrid_mask_bias(x_len: int, y_len: int, x_lens: torch.Tensor,
 class AttentionDropout:
     """Dropout on one layer's attention probabilities: rate ``p``, the
     Philox ``seed`` (a host integer, so no launch waits on the card), the
-    ``layer`` index and ``row0``, the global batch row of the call's batch
-    row 0 (a data-parallel rank's first row; 0 otherwise), from which K1
-    and K5 draw the keep mask."""
+    ``layer`` index, ``row0``, the global batch row of the call's batch
+    row 0 (a data-parallel rank's first row; 0 otherwise), and ``h0``, the
+    layer's head that the call's head 0 is (a tensor-parallel rank's first
+    head; 0 otherwise), from which K1 and K5 draw the keep mask."""
 
     p: float
     seed: int
     layer: int
     row0: int = 0
+    h0: int = 0
 
     def keep_mask(self, b: int, h: int, t: int, x_len: int,
                   device) -> torch.Tensor:
         """The keep mask (b, h, t, t) bool the kernels draw."""
         return attention_keep_mask(self.seed, self.layer, b, h, t, x_len,
-                                   self.p, device, self.row0)
+                                   self.p, device, self.row0, self.h0)
 
 
 def _dropping(dropout: Optional[AttentionDropout]):
@@ -229,11 +232,12 @@ def _suffix(dtype: torch.dtype) -> str:
 
 def _drop_args(dropout: Optional[AttentionDropout]):
     """The dropout entry points' trailing arguments (seed, layer, keep
-    threshold, 1 - p, row0); none without dropout."""
+    threshold, 1 - p, row0, h0); none without dropout."""
     if dropout is None:
         return ()
     return (int(dropout.seed) & 0xFFFFFFFFFFFFFFFF, int(dropout.layer),
-            keep_threshold(dropout.p), 1.0 - dropout.p, int(dropout.row0))
+            keep_threshold(dropout.p), 1.0 - dropout.p, int(dropout.row0),
+            int(dropout.h0))
 
 
 def _count(fn, dtype: torch.dtype, drop: bool, n: int) -> None:

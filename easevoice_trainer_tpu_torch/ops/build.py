@@ -54,13 +54,14 @@ for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd", "ev_mrf_conv",
     SIGNATURES[_name + "_bf16"] = SIGNATURES[_name + "_f32"]
 SIGNATURES["ev_mrf_conv_bwd_weight_max_clusters_bf16"] = [_I] * 7
 # K1 and K5 with dropout (the s1 fine-tune): the arguments of the instance
-# without, then the Philox seed, the layer, the keep threshold, 1 - p and
-# the global batch row of batch row 0, before the stream
+# without, then the Philox seed, the layer, the keep threshold, 1 - p, the
+# global batch row of batch row 0 and the layer's head of head 0, before the
+# stream
 for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd"):
     for _dt in ("f32", "bf16"):
         _base = SIGNATURES[f"{_name}_{_dt}"]
         SIGNATURES[f"{_name}_dropout_{_dt}"] = _base[:-1] + [
-            ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _P]
+            ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _I, _P]
 
 
 class KernelLibrary:

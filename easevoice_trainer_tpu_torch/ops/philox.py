@@ -23,17 +23,20 @@ iff its word is below ``keep_threshold(p)``.  A key is named by its segment
 that segment; one Philox call serves the four keys ``4 (i // 4) ..
 4 (i // 4) + 3`` of one segment and one row, word ``i % 4`` for key ``i``:
 
-    counter = (i // 4, row, row0 + b, layer << 16 | h << 1 | is_audio_key)
+    counter = (i // 4, row, row0 + b,
+               layer << 16 | (h0 + h) << 1 | is_audio_key)
     key     = (seed mod 2^32, seed // 2^32)
 
 ``row0 + b`` is the row in the global batch: a rank of a data-parallel step
 whose rows start at ``row0`` of the global batch passes that ``row0`` (0
 outside data parallel), so a world of ranks draws the masks one process
-draws on the whole batch.
+draws on the whole batch.  ``h0 + h`` is the head among all heads: a rank of
+a tensor-parallel step that holds heads ``h0 ..`` of the layer passes that
+``h0`` (0 otherwise), so it draws the bits one process draws for them.
 
-So a keep bit is a function of (seed, layer, row0 + b, h, row, key) and the
-text / audio split alone: no tile, warp or launch enters it, and the fp32
-and bf16 kernels, K1 and K5, and this twin all draw the same bit.
+So a keep bit is a function of (seed, layer, row0 + b, h0 + h, row, key)
+and the text / audio split alone: no tile, warp or launch enters it, and
+the fp32 and bf16 kernels, K1 and K5, and this twin all draw the same bit.
 """
 from __future__ import annotations
 
@@ -88,10 +91,11 @@ def split_seed(seed: int):
 
 def attention_keep_mask(seed: int, layer: int, b: int, h: int, t: int,
                         x_len: int, p: float, device=None,
-                        row0: int = 0) -> torch.Tensor:
+                        row0: int = 0, h0: int = 0) -> torch.Tensor:
     """The keep mask (b, h, t, t) bool of the s1 attention's dropout at
     rate ``p`` in layer ``layer``: [batch, head, query row, key], drawn as
-    the module note says, for the global batch rows ``row0 .. row0 + b``.
+    the module note says, for the global batch rows ``row0 .. row0 + b``
+    and the heads ``h0 .. h0 + h`` of the layer.
     Built one Philox call per four keys of a segment, as the kernels draw
     it."""
     if not 0 <= x_len <= t:
@@ -101,7 +105,7 @@ def attention_keep_mask(seed: int, layer: int, b: int, h: int, t: int,
     thr = keep_threshold(p)
     dev = torch.device("cpu") if device is None else torch.device(device)
     rows = torch.arange(t, dtype=torch.int64, device=dev)
-    heads = torch.arange(h, dtype=torch.int64, device=dev)
+    heads = torch.arange(h0, h0 + h, dtype=torch.int64, device=dev)
     parts = []
     for audio, n in ((0, x_len), (1, t - x_len)):
         if n == 0:

@@ -30,7 +30,18 @@ batch to a multiple of the world and loads only its block of rows
 batch first), and the step sums the gradients over the world.  Resume
 files load on every rank; the resume files, exports, connector lines,
 session data and TensorBoard are written by rank 0 alone.
-``cmd/train_gpt.py`` starts the ranks (``EASEVOICE_DP``).
+``cmd/train_gpt.py`` starts the ranks (``EASEVOICE_DP``, ``EASEVOICE_TP``).
+
+Tensor parallel (``parallel/gpt_sharding.py``, JAX ``train/gpt.py:203-221``):
+on a grid with a model axis of 2 or more every rank builds the whole model
+from the seed (and the optimizer's state from its initial values, the RMS
+of whole tensors) and keeps its model index's shards; the pretrained merge
+and a resume file are applied to the whole model and sharded the same way.
+Rows go by the data index, so the ranks of a model group load the same
+ones.  Resume files and exports hold whole tensors: the ranks of rank 0's
+model group gather their shards (the parameters, ScaledAdam's
+``exp_avg_sq`` and ``delta``, the accumulator) and rank 0 writes them, so a
+file written on any grid loads on any other, a world of one included.
 
 On ``GPTTrainParams.device``: the first CUDA card by default (a rank's
 ``cuda:<local index>`` in a world), which must exist (no silent move to
@@ -57,7 +68,7 @@ import torch
 
 from .. import convert
 from ..models.gpt import T2SConfig, Text2SemanticDecoder
-from ..parallel import distributed, local_batch_multiple, \
+from ..parallel import distributed, gpt_sharding, local_batch_multiple, \
     wrap_pad_indices
 from ..utils import paths, simple_yaml
 from ..utils.config import GlobalCFG
@@ -107,10 +118,9 @@ GPT_BOUNDARIES = (0, 100, 200, 300, 400, 500, 700, 900, 1100, 1360)
 LOG_EVERY = 10   # micro-batches between connector loss lines
 
 
-def gpt_export_tree(model: Text2SemanticDecoder):
-    """The model's weights as the JAX package's flax-layout tree."""
-    flat = {k: v.detach().float().cpu().numpy()
-            for k, v in model.state_dict().items()}
+def gpt_export_tree(state: Dict[str, torch.Tensor]):
+    """A whole GPT state dict as the JAX package's flax-layout tree."""
+    flat = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
     tree, unmatched = ckpt_io.torch_to_flax(flat, ckpt_io.gpt_rules())
     if unmatched:
         raise KeyError(f"no GPT export rule for {unmatched[:5]}")
@@ -183,12 +193,33 @@ class GPTTrain:
                     best, best_key = f, key
         return os.path.join(self.ckpt_dir, best) if best else None
 
+    @staticmethod
+    def _whole_state(model: Text2SemanticDecoder) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors (under tensor
+        parallelism gathered over the model group: every rank of it calls
+        this)."""
+        sd = model.state_dict()
+        if model.tp is None:
+            return sd
+        return dict(zip(sd, gpt_sharding.gather_whole(list(sd.items()))))
+
+    def _load_whole(self, model: Text2SemanticDecoder,
+                    whole: Dict[str, torch.Tensor]) -> None:
+        """Loads a whole state dict; a shard keeps its part."""
+        if model.tp is not None:
+            whole = gpt_sharding.shard_state_dict(whole, *model.tp)
+        model.load_state_dict(whole, strict=True)
+
     def _save_resume(self, step_fn: GPTTrainStep, epoch: int) -> None:
+        """Writes the resume file of whole tensors (rank 0; the other ranks
+        of its model group only gather)."""
+        state = {"model": self._whole_state(step_fn.model),
+                 "train_step": step_fn.state_dict(), "epoch": epoch}
+        if not distributed.is_primary():
+            return
         path = os.path.join(self.ckpt_dir,
                             f"epoch={epoch}-step={step_fn.step}.ckpt")
-        torch.save({"model": step_fn.model.state_dict(),
-                    "train_step": step_fn.state_dict(), "epoch": epoch},
-                   path + ".tmp")
+        torch.save(state, path + ".tmp")
         os.replace(path + ".tmp", path)
         if self.params.if_save_latest:
             for f in os.listdir(self.ckpt_dir):
@@ -203,14 +234,19 @@ class GPTTrain:
         if path is None:
             return 1
         obj = torch.load(path, map_location=self.device, weights_only=False)
-        step_fn.model.load_state_dict(obj["model"], strict=True)
+        self._load_whole(step_fn.model, obj["model"])
         step_fn.load_state_dict(obj["train_step"])
         logger.info("resumed from %s", path)
         return int(obj["epoch"]) + 1
 
     def _export_weights(self, model: Text2SemanticDecoder, epoch: int) -> str:
+        """Writes the export of whole tensors (rank 0, as
+        :meth:`_save_resume`); -> its path, "" on the other ranks."""
+        whole = self._whole_state(model)
+        if not distributed.is_primary():
+            return ""
         path = os.path.join(self.output_dir, f"{self.name}-e{epoch}.ckpt")
-        ckpt_io.export_gpt_weights(gpt_export_tree(model), path,
+        ckpt_io.export_gpt_weights(gpt_export_tree(whole), path,
                                    config=self.cfg_yaml, info=f"GPT-e{epoch}")
         return path
 
@@ -239,30 +275,41 @@ class GPTTrain:
             seed=self.seed)
         max_ph = _round_up(max(len(p) for (_, p, _) in dataset.items), 16)
 
+        tp = None if distributed.model_size() == 1 else (
+            distributed.model_rank(), distributed.model_size())
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)    # the modules' initial values
-            model = Text2SemanticDecoder(self.model_cfg,
-                                         dtype=self.compute_dtype)
+            model = whole = Text2SemanticDecoder(self.model_cfg,
+                                                 dtype=self.compute_dtype)
+            if tp is not None:
+                model = Text2SemanticDecoder(self.model_cfg,
+                                             dtype=self.compute_dtype, tp=tp)
+                self._load_whole(model, whole.state_dict())
         model.to(self.device)
         # the optimizer's state comes from the initial values, as JAX's
         # create_train_state takes it before the pretrained merge
         step_fn = self.step_fn = GPTTrainStep(model, self.hp)
         start_epoch = self._try_resume(step_fn)
         if start_epoch == 1 and os.path.exists(self.pretrained):
-            merge_matching(model, convert.load_torch_state_dict(
+            merge_matching(whole, convert.load_torch_state_dict(
                 self.pretrained))
+            if tp is not None:
+                self._load_whole(model, whole.state_dict())
             logger.info("loaded pretrained GPT %s", self.pretrained)
+        del whole
 
         primary = distributed.is_primary()
+        # rank 0's model group gathers what rank 0 writes
+        saver = distributed.data_rank() == 0
         writer = _tb_writer(os.path.join(paths.tb_log_dir(), self.name)) \
             if primary else None
-        world = distributed.world_size()
+        n_data = distributed.data_size()
         last: Dict[str, float] = {}
         for epoch in range(start_epoch, self.epochs + 1):
             for bucket_id, idxs in batcher.epoch_batches(epoch):
                 t_step = time.perf_counter()
                 tokens = _round_up(batcher.padded_frames(bucket_id), 2)
-                idxs = wrap_pad_indices(idxs, local_batch_multiple(world))
+                idxs = wrap_pad_indices(idxs, local_batch_multiple(n_data))
                 rows = distributed.batch_rows(len(idxs))
                 local = distributed.process_local_rows(len(idxs))
                 batch = data_mod.collate_gpt(
@@ -300,8 +347,8 @@ class GPTTrain:
                     if writer:
                         for k, v in last.items():
                             writer.add_scalar(k, v, global_step)
-            if primary and (epoch % self.params.save_every_epoch == 0
-                            or epoch == self.epochs):
+            if saver and (epoch % self.params.save_every_epoch == 0
+                          or epoch == self.epochs):
                 self._save_resume(step_fn, epoch)
                 if self.params.if_save_every_weights:
                     self._export_weights(model, epoch)
@@ -309,7 +356,7 @@ class GPTTrain:
                 self.connector.write_session_data(
                     {"progress": f"{epoch}/{self.epochs}", "epoch": epoch})
 
-        final = self._export_weights(model, self.epochs) if primary else ""
+        final = self._export_weights(model, self.epochs) if saver else ""
         if writer:
             writer.close()
         return EaseVoiceResponse(

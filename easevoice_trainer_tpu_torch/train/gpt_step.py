@@ -30,6 +30,18 @@ accuracy is the ranks' hits over the world's count of targets, and the
 loss is summed over the world (``sum_across_ranks``): every rank reports
 the global batch's metrics, as JAX does.
 
+Tensor parallelism (a model built with ``tp``, ``parallel/gpt_sharding.py``):
+the ranks of a model group hold one data index's rows and their shards of
+the model, and compute its whole loss and replicated gradients alike.  The
+gradients are summed over the data group, the metrics too, and
+``grad_norm`` is the whole tensors' norm: the sharded tensors' sum(g^2)
+summed over the model group, the replicated ones' counted once.  ScaledAdam
+takes its per-tensor sums over whole tensors
+(``gpt_sharding.ModelShards``).  :meth:`GPTTrainStep.state_dict` holds
+whole tensors, gathered over the model group, and
+:meth:`GPTTrainStep.load_state_dict` takes whole tensors and keeps the
+rank's shards, so resume files do not depend on the grid.
+
 The forward runs in the model's compute dtype (bf16 under ``is_half``, JAX
 ``train/gpt.py:162-163``); the loss and accuracy come from fp32 logits, and
 the gradients of the fp32 parameters reach the accumulator and ScaledAdam
@@ -44,7 +56,7 @@ import torch
 
 from ..models.gpt import Text2SemanticDecoder
 from ..nn.layers import BatchRows
-from ..parallel import distributed
+from ..parallel import distributed, gpt_sharding
 from .scaled_adam import ScaledAdam
 
 
@@ -60,6 +72,8 @@ class GPTTrainHP:
 
 
 OPTIMIZER_RANGE = "ScaledAdam.step"
+# ScaledAdam's per-element state, sharded as its parameter is
+SHARDED_STATE = ("exp_avg_sq", "delta")
 
 
 class GPTTrainStep:
@@ -69,9 +83,13 @@ class GPTTrainStep:
     def __init__(self, model: Text2SemanticDecoder, hp: GPTTrainHP):
         self.model = model
         self.hp = hp
-        self.params: List[torch.nn.Parameter] = list(model.parameters())
+        named = list(model.named_parameters())
+        self.names = [k for k, _ in named]
+        self.params: List[torch.nn.Parameter] = [p for _, p in named]
+        self.shards = gpt_sharding.model_shards(model)
         self.optimizer = ScaledAdam(self.params, lr=LOCKED_LR, betas=BETAS,
-                                    clipping_scale=CLIPPING_SCALE)
+                                    clipping_scale=CLIPPING_SCALE,
+                                    shards=self.shards)
         self.step = 0          # micro-batches taken
         self.mini_step = 0     # position inside the accumulation window
         self.acc: Optional[List[torch.Tensor]] = None
@@ -116,7 +134,7 @@ class GPTTrainStep:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         with torch.no_grad():
-            grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            grad_norm = torch.sqrt(self._sum_of_squares(grads))
             n = self.mini_step
             if self.acc is None:
                 self.acc = [torch.zeros_like(g) for g in grads]
@@ -139,19 +157,55 @@ class GPTTrainStep:
             return {"loss": loss.detach(), "acc": out["acc"].detach(),
                     "grad_norm": grad_norm}
         world = distributed.sum_across_ranks(
-            {"loss": loss, "hits": out["hits"], "num": out["num_targets"]})
+            {"loss": loss.detach(), "hits": out["hits"],
+             "num": out["num_targets"]})
         return {"loss": world["loss"],
                 "acc": world["hits"] / torch.clamp(world["num"], min=1.0),
                 "grad_norm": grad_norm}
 
+    def _sum_of_squares(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """sum(g^2) over the whole tensors of ``grads``."""
+        if self.shards is None:
+            return sum((g.float() ** 2).sum() for g in grads)
+        split = [[], []]
+        for g, sharded in zip(grads, self.shards.sharded):
+            split[sharded].append((g.float() ** 2).sum())
+        return sum(split[0]) + distributed.all_reduce_model(
+            torch.stack(split[1]).sum())
+
     # ---- checkpoint state ---------------------------------------------------
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "mini_step": self.mini_step,
-                "acc": self.acc, "optimizer": self.optimizer.state_dict()}
+        """The step's state with whole tensors (under tensor parallelism a
+        collective over the model group: every rank of it calls this)."""
+        opt = self.optimizer.state_dict()
+        if self.shards is None:
+            return {"step": self.step, "mini_step": self.mini_step,
+                    "acc": self.acc, "optimizer": opt}
+        acc = None if self.acc is None else gpt_sharding.gather_whole(
+            list(zip(self.names, self.acc)))
+        # new dicts: the packed state holds the optimizer's own
+        opt["state"] = {i: {k: (gpt_sharding.gather_whole(
+            [(self.names[i], v)])[0] if k in SHARDED_STATE else v)
+            for k, v in st.items()} for i, st in opt["state"].items()}
+        return {"step": self.step, "mini_step": self.mini_step, "acc": acc,
+                "optimizer": opt}
 
     def load_state_dict(self, state: dict) -> None:
+        """Loads a :meth:`state_dict` of whole tensors (from any grid); a
+        tensor-parallel rank keeps its shards."""
         self.step = int(state["step"])
         self.mini_step = int(state["mini_step"])
-        self.acc = state["acc"]
-        self.optimizer.load_state_dict(state["optimizer"])
+        acc, opt = state["acc"], state["optimizer"]
+        if self.shards is not None:
+            m, n = self.model.tp
+            if acc is not None:
+                acc = [gpt_sharding.shard_tensor(k, a, m, n)
+                       for k, a in zip(self.names, acc)]
+            opt = {**opt, "state": {
+                i: {k: (gpt_sharding.shard_tensor(self.names[i], v, m, n)
+                        if k in SHARDED_STATE else v)
+                    for k, v in st.items()}
+                for i, st in opt["state"].items()}}
+        self.acc = acc
+        self.optimizer.load_state_dict(opt)

@@ -28,13 +28,26 @@ clip factor is a device scalar, so a step never waits for the card.
 
 The global state (``step``, the ``norm_buffer`` ring, ``norm_threshold``)
 lives in the single parameter group, so ``state_dict`` carries it.
+
+Tensor parallelism (``shards``, a ``parallel.gpt_sharding.ModelShards``):
+a parameter may be this rank's shard of a whole tensor.  The per-tensor
+sums are then sums over the whole tensor, as in JAX, where the math is
+global: sum(g^2) of the clipping norm, sum(p g) of the scale gradient and
+sum(p^2) of the RMS (at the start and at a refresh) are taken over each
+shard, stacked for every sharded tensor and summed over the model group in
+one all-reduce a step; the RMS divides by the whole tensor's size.  The
+clip factor multiplies sum(p g) after the sum.  Replicated tensors and
+scalars are summed on each rank alone, so every rank of a group holds the
+same per-tensor scalars.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import torch
 
+from ..parallel import distributed
+from ..parallel.gpt_sharding import ModelShards
 from .optim_lowp import moment_dtype
 
 
@@ -45,7 +58,8 @@ class ScaledAdam(torch.optim.Optimizer):
                  size_update_period: int = 4, scalar_lr_scale: float = 0.1,
                  scalar_max: float = 10.0, clipping_scale: float = 2.0,
                  clipping_update_period: int = 1000,
-                 state_dtype: Optional[torch.dtype] = None):
+                 state_dtype: Optional[torch.dtype] = None,
+                 shards: Optional[ModelShards] = None):
         defaults = dict(lr=lr, betas=tuple(betas), eps=eps, min_rms=min_rms,
                         max_rms=max_rms,
                         size_update_period=size_update_period,
@@ -65,21 +79,52 @@ class ScaledAdam(torch.optim.Optimizer):
                                              dtype=torch.float32, device=dev)
         self.state_dtype = state_dtype if state_dtype is not None \
             else moment_dtype()
+        self.shards = shards
+        if shards is not None and len(shards.sharded) != len(
+                group["params"]):
+            raise ValueError("ScaledAdam: shards describe "
+                             f"{len(shards.sharded)} parameters, not "
+                             f"{len(group['params'])}")
         # the state of each tensor from its value now, as the JAX init_fn
         # takes it from the parameters it is given
         with torch.no_grad():
-            for p in group["params"]:
-                p32 = p.detach().float()
+            params = group["params"]
+            p2 = self._whole_sums(
+                params, [[p.detach().float().pow(2).sum()] for p in params])
+            for i, (p, (sq,)) in enumerate(zip(params, p2)):
                 self.state[p] = {
                     "exp_avg_sq": torch.zeros_like(p, dtype=self.state_dtype),
                     "delta": torch.zeros_like(p, dtype=self.state_dtype),
                     "param_rms": (torch.zeros((), device=p.device)
                                   if p.numel() == 1 else
-                                  p32.pow(2).mean().sqrt()),
+                                  (sq / self._numel(i, p)).sqrt()),
                     "scale_exp_avg_sq": torch.zeros((), device=p.device),
                     "scale_grads": torch.zeros(size_update_period,
                                                device=p.device),
                 }
+
+    def _numel(self, i: int, p: torch.Tensor) -> int:
+        """The size of parameter i's whole tensor."""
+        sharded = self.shards is not None and self.shards.sharded[i]
+        return p.numel() * (self.shards.n_model if sharded else 1)
+
+    def _whole_sums(self, params, sums: List[List[torch.Tensor]]
+                    ) -> List[List[torch.Tensor]]:
+        """``sums``, one list of 0-d sums a parameter over this rank's
+        values, as sums over the whole tensors: the sharded parameters'
+        summed over the model group in one all-reduce."""
+        if self.shards is None:
+            return sums
+        idx = [i for i, s in enumerate(self.shards.sharded) if s]
+        if not idx:
+            return sums
+        flat = distributed.all_reduce_model(
+            torch.stack([x for i in idx for x in sums[i]]))
+        out = list(sums)
+        per = len(sums[0])
+        for j, i in enumerate(idx):
+            out[i] = list(flat[j * per:(j + 1) * per].unbind())
+        return out
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -103,10 +148,19 @@ class ScaledAdam(torch.optim.Optimizer):
         dev = params[0].device
         f32 = dict(dtype=torch.float32, device=dev)
 
+        is_refresh = step % K == K - 1
+        # the whole tensors' sum(g^2), sum(p g) and, at a refresh, sum(p^2),
+        # all from p and g before the update
+        sums = []
+        for p, g in zip(params, grads):
+            p32 = p.detach().float()
+            sums.append([(g * g).sum(), (p32 * g).sum()]
+                        + ([p32.pow(2).sum()] if is_refresh else []))
+        sums = self._whole_sums(params, sums)
+
         # ---- adaptive clipping: ring of RMS-weighted global norms --------
         tot = torch.zeros((), **f32)
-        for p, g in zip(params, grads):
-            sumsq = (g * g).sum()
+        for p, (sumsq, *_) in zip(params, sums):
             if p.numel() != 1:
                 sumsq = self.state[p]["param_rms"] ** 2 * sumsq
             tot = tot + sumsq
@@ -124,12 +178,11 @@ class ScaledAdam(torch.optim.Optimizer):
 
         bc2 = 1.0 - torch.tensor(b2, **f32) ** torch.tensor(step + 1.0,
                                                              **f32)
-        is_refresh = step % K == K - 1
         do_size = is_refresh and step > 0
         beta2_corr = b2 ** K
         size_lr = lr * group["scalar_lr_scale"]
 
-        for p, g in zip(params, grads):
+        for i, (p, g, whole) in enumerate(zip(params, grads, sums)):
             st = self.state[p]
             p32 = p.detach().float()
             v = st["exp_avg_sq"].float()
@@ -142,9 +195,9 @@ class ScaledAdam(torch.optim.Optimizer):
                 new = p32.clamp(-group["scalar_max"], group["scalar_max"]) + d
             else:
                 # size bookkeeping reads the clipped gradient
-                st["scale_grads"][step % K] = (p32 * (g * clip)).sum()
+                st["scale_grads"][step % K] = whole[1] * clip
                 if is_refresh:
-                    st["param_rms"] = p32.pow(2).mean().sqrt()
+                    st["param_rms"] = (whole[2] / self._numel(i, p)).sqrt()
                 rms = st["param_rms"]
                 if do_size:
                     sg = st["scale_grads"]

@@ -208,18 +208,46 @@ def test_data_parallel_world_from_env(monkeypatch, dp, device, want):
     assert parallel.data_parallel_world(device) == want
 
 
-def test_tensor_parallel_raises(monkeypatch):
-    """``EASEVOICE_TP=2`` is refused with a NotImplementedError that names
-    the ROADMAP item, by the world's reader and by the s1 task before it
-    builds anything; it is never ignored."""
+@pytest.mark.parametrize("dp", ["off", "2"])
+def test_s2_world_ignores_tensor_parallel(monkeypatch, dp):
+    """The s2 fine-tune is data-parallel only, as JAX's s2 trainer calls
+    ``data_parallel_mesh``: ``EASEVOICE_TP=2`` gives its cmd the world it
+    has without the flag."""
+    monkeypatch.delenv("EASEVOICE_NUM_PROCESSES", raising=False)
+    monkeypatch.setenv("EASEVOICE_DP", dp)
+    monkeypatch.delenv("EASEVOICE_TP", raising=False)
+    want = parallel.data_parallel_world("cpu")
+    calls = []
+    monkeypatch.setattr(distributed, "launch", lambda fn, args, n, **kw:
+                        calls.append(n) or [None])
+    monkeypatch.setattr("easevoice_trainer_tpu_torch.train.sovits."
+                        "train_sovits", lambda p: calls.append("one"))
+    from easevoice_trainer_tpu_torch.cmd import train_sovits as cmd_s2
+
+    cmd_s2.main({"device": "cpu"})
     monkeypatch.setenv("EASEVOICE_TP", "2")
-    monkeypatch.setenv("EASEVOICE_DP", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.data_parallel_world("cpu")
-    with pytest.raises(NotImplementedError, match="gpt_sharding"):
-        cmd_gpt.main({"device": "cpu"})
-    monkeypatch.setenv("EASEVOICE_TP", "1")
-    assert parallel.data_parallel_world("cpu") == 2
+    assert parallel.data_parallel_world("cpu") == want
+    cmd_s2.main({"device": "cpu"})
+    assert calls == [want or "one"] * 2
+
+
+@pytest.mark.parametrize("dp", ["auto", "off", "2"])
+def test_s1_falls_back_on_one_card(monkeypatch, dp):
+    """``EASEVOICE_TP=2`` on a pool of one card gives the s1 cmd JAX's
+    fallback, ``train_mesh``'s ``data_parallel_mesh`` below two devices:
+    no world, the single-process path, and no raise."""
+    monkeypatch.delenv("EASEVOICE_NUM_PROCESSES", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("EASEVOICE_TP", "2")
+    monkeypatch.setenv("EASEVOICE_DP", dp)
+    assert parallel.train_world("cuda") is None
+    calls = []
+    monkeypatch.setattr(distributed, "launch", lambda *a, **k: calls.append(
+        "launch"))
+    monkeypatch.setattr("easevoice_trainer_tpu_torch.train.gpt.train_gpt",
+                        lambda p: calls.append(p.device))
+    cmd_gpt.main({})
+    assert calls == ["cuda"]
 
 
 def test_single_process_has_no_world():

@@ -201,6 +201,22 @@ def test_keep_mask_row0_is_the_global_batch_row():
     assert torch.equal(drop.keep_mask(2, 2, t, x_len, "cpu"), whole[3:])
 
 
+def test_keep_mask_h0_is_the_layer_head():
+    """A mask drawn for the heads ``h0 ..`` of a tensor-parallel rank is
+    those heads of the whole layer's mask, bit for bit (the bits of (h0,
+    h) are those of (0, h0 + h)), through ``attention_keep_mask`` and
+    through ``AttentionDropout.h0``, with and without ``row0``."""
+    t, x_len = 45, 13
+    whole = philox.attention_keep_mask(7, 1, 3, 16, t, x_len, P)
+    for h0 in (0, 4, 8, 12):
+        part = philox.attention_keep_mask(7, 1, 3, 4, t, x_len, P, h0=h0)
+        assert torch.equal(part, whole[:, h0:h0 + 4])
+    drop = att.AttentionDropout(P, 7, 1, row0=1, h0=8)
+    assert torch.equal(drop.keep_mask(2, 8, t, x_len, "cpu"),
+                       whole[1:, 8:])
+    assert not torch.equal(whole[:, :8], whole[:, 8:])
+
+
 # ---- (c) the twins with a mask ----------------------------------------------
 
 

@@ -1634,6 +1634,49 @@ def test_dropout_mask_readout(dtype, x_len, x_lens, y_len, y_lens, row0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens", [
+    K5_CASES[0], (40, [1, 40, 33, 5], 95, [95, 60, 1, 33])])
+@pytest.mark.parametrize("h0", [0, 8])
+def test_dropout_h0_is_the_layer_head(dtype, x_len, x_lens, y_len, y_lens,
+                                      h0):
+    """A tensor-parallel rank's launch over 8 heads that are the layer's
+    heads ``h0 ..``: K1's and K5's dropout instances against the twin with
+    the mask of those heads, and bit for bit the outputs and gradients of
+    the launch over all 16 heads at those heads (the bits of (h0 = 8, h)
+    are those of (h0 = 0, h + 8)); with h0 = 0 the first 8 heads'."""
+    gen = _card()
+    q, k, v, do, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
+                                         y_lens)
+    whole = att.AttentionDropout(0.1, 0xABCD_1234_5678, 11, 3)
+    part = att.AttentionDropout(0.1, whole.seed, 11, 3, h0)
+    heads = slice(h0, h0 + 8)
+    q8, k8, v8, do8 = (z[:, :, heads] for z in (q, k, v, do))
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, whole)
+    grads = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                  dropout=whole)
+    o8, lse8 = att.prefill_attention_lse(q8, k8, v8, x_len, xl, yl, part)
+    grads8 = prefill_attention_bwd(q8, k8, v8, o8, lse8, do8, x_len, xl, yl,
+                                   dropout=part)
+    assert torch.equal(o8, o[:, :, heads])
+    assert torch.equal(lse8, lse[:, heads])
+    for g8, g in zip(grads8, grads):
+        assert torch.equal(g8, g[:, :, heads])
+    b, t = q.shape[:2]
+    mask = part.keep_mask(b, 8, t, x_len, "cuda")
+    assert torch.equal(mask, whole.keep_mask(b, 16, t, x_len, "cuda")[
+        :, heads])
+    want = torch.nan_to_num(att.prefill_attention_reference(
+        q8, k8, v8, x_len, xl, yl, mask, 0.1), nan=0.0)
+    _close(o8, want, dtype, rel=False)
+    want = att.prefill_attention_bwd_reference(q8, k8, v8, o8, lse8, do8,
+                                               x_len, xl, yl, mask, 0.1)
+    for name, g, w in zip(("dq", "dk", "dv"), grads8, want):
+        assert torch.isfinite(g.float()).all(), name
+        _close(g, w, dtype, rel=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 def test_self_attention_dropout_autograd_on_the_card(dtype):
     """The training attention with dropout through the autograd Function
     (K1 and K5's dropout instances, K5 drawing K1's mask again) against
