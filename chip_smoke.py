@@ -170,8 +170,9 @@ Phases, one summary line each; any failure exits non-zero:
    launch of an instance without dropout.  Then data parallel
    (``data_parallel``): both fine-tunes in bf16 through ``parallel/``
    (``launch``, the ranks' rows of the global batch, ``reduce_gradients``),
-   the s1 window (global B = 8 at T = 716, dropout 0 and 0.1) and 2 s2
-   steps (global B = 8), in this process as the world of one, on two ranks
+   the s1 window (global B = 8 at T = 716, dropout 0 and 0.1, the GPT at
+   full width and DP_LAYERS layers) and 2 s2 steps (global B = 8), in this
+   process as the world of one, on two ranks
    sharing the card over gloo (metrics equal across the ranks, weights
    bit-identical, losses and grad norms within 2^-6 of the world of one,
    rank 1's K1 keep bits equal to the world of one's mask at its global
@@ -181,9 +182,10 @@ Phases, one summary line each; any failure exits non-zero:
    draws at p = 0.1, within 6 sigma).  Then tensor parallel
    (``tensor_parallel``): the s1 window through ``parallel/gpt_sharding``
    on two ranks of one model group sharing the card over gloo, at
-   configs/gpt.yaml's full width and depth (8 heads and 1024 FFN columns a
-   rank), in bf16, fp32 and bf16 with dropout 0.1, and on a data 2 x model
-   2 grid of four ranks at 4 layers in fp32 with dropout 0.1: metrics
+   configs/gpt.yaml's full width (8 heads and 1024 FFN columns a rank) and
+   TP_LAYERS layers, in bf16, fp32 and bf16 with dropout 0.1, and on a
+   data 2 x model 2 grid of four ranks at 4 layers in fp32 with dropout
+   0.1: metrics
    equal across the ranks, replicated weights bit-identical across each
    model group, metrics and gathered weights against the world of one
    (1e-3 relative in fp32, 2^-6 in bf16; in fp32 at most 1 % of a
@@ -203,11 +205,12 @@ Phases, one summary line each; any failure exits non-zero:
    under a base path of its own, whose configs/s2.json logs every step's
    loss); /session names the card; a namespace and the uploaded 5 s
    reference; /normalize/start over phase 7's denoised clips with an en
-   row each; one epoch of s2 and of s1 training on the result (a second
-   start 409, losses in the session, the request's device "cuda" whatever
-   the body said); /voiceclone/models lists both; two greedy clones of the
-   two trained models (K1, K2 and K3 counted in the first one's device
-   records under /profiler; the card's used memory after each); a long s2
+   row each; one epoch of s2 and of s1 training on the result at B = 8 (a
+   second start 409, losses in the session, the request's device "cuda"
+   whatever the body said); /voiceclone/models lists both; two greedy
+   clones of the two trained models (K1, K2 and K3 counted in the first
+   one's device records under /profiler; the card's used memory after
+   each); a long s2
    run stopped after its first loss (its processes gone from /proc and
    from nvidia-smi within 15 s, the session Completed); easy mode over a
    10 s song (Completed where jieba imports; else Failed at step 5 with
@@ -1931,19 +1934,26 @@ INT_OPS = ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT",
 PHILOX_M = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
 # the Philox calls in one pass of each dropout body's unrolled tile loop,
 # from the sources: K1 fp32 4 n8 key tiles (one call a lane pair and row
-# pair each), K1 bf16 MT x NS = 2 x 8, dkdv BQ / 16 x 2 query tiles, dq 4
-# key tiles, dkdv bf16 QT / QSTEP x NQ = 4 x 2, dq bf16 BKT / 8 = 4
+# pair each), K1 bf16 MT x NS = 2 x 8 (a call a lane, row tile and n8 key
+# tile), dkdv BQ / 16 x 2 query tiles, dq 4 key tiles; K5 bf16 reads K1
+# bf16's bits and makes none
 PHILOX_CALLS = {"prefill_attention": 4, "prefill_attention_bf16": 16,
-                "dkdv": 8, "dq": 4, "dkdv_bf16": 8, "dq_bf16": 4}
+                "dkdv": 8, "dq": 4, "dkdv_bf16": 0, "dq_bf16": 0}
+# a K5 bf16 that draws the mask again (a --parent tree from before K1
+# wrote the bits): QT / QSTEP x NQ = 4 x 2 calls a pass of dkdv, BKT / 8 =
+# 4 of dq
+PHILOX_CALLS_DRAWING = {**PHILOX_CALLS, "dkdv_bf16": 8, "dq_bf16": 4}
 
 
-def philox_cost(lib_path: str) -> dict:
+def philox_cost(lib_path: str, calls_by_body=PHILOX_CALLS) -> dict:
     """Per dropout kernel (K1's two instances, K5's dkdv and dq in each
     dtype): the integer-pipe instructions its SASS body adds over its
     instance without dropout, per Philox call of the body (PHILOX_CALLS):
-    "instructions a call", the lane exchanges and the threshold tests
-    included; beside it the multiplies by the round constants found in the
-    body (20 a call where each is an IMAD with an immediate)."""
+    "instructions a call", the lane exchanges, the threshold tests and
+    K1 bf16's words of the mask included; beside it the multiplies by the
+    round constants found in the body (20 a call where each is an IMAD
+    with an immediate).  A body with no call (K5 bf16, which reads K1's
+    bits) must hold no such multiply; its instructions a call read 0."""
     pairs = (("prefill_attention_kernelILi32ELb", "prefill_attention"),
              ("prefill_attention_bf16_kernelILb", "prefill_attention_bf16"),
              ("dkdv_kernelILb", "dkdv"), ("dq_kernelILb", "dq"),
@@ -1966,9 +1976,10 @@ def philox_cost(lib_path: str) -> dict:
                    if opcode(ln).startswith("IMAD")
                    and any(m in ln.lower() for m in PHILOX_M))
         extra = ints(bodies[True]) - ints(bodies[False])
-        out[name] = dict(calls=PHILOX_CALLS[name], round_muls=muls,
-                         int_added=extra,
-                         per_call=extra / PHILOX_CALLS[name])
+        calls = calls_by_body[name]
+        assert calls or not muls, f"{name} with dropout holds Philox ({muls})"
+        out[name] = dict(calls=calls, round_muls=muls, int_added=extra,
+                         per_call=extra / calls if calls else 0.0)
     return out
 
 
@@ -1993,9 +2004,13 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
       dq: o = 0 (so D = 0), dO[:, :, 0] = v[:, :, 0] = 1 (so dP~ = 1) and k
           one-hot on a block of keys give dQ[row, :, j] = P M(row, k0 + j) /
           (keep sqrt(dk)).
-    Each is positive exactly where the pair is kept.  Returns {kernel:
-    (pairs read that disagree, visible pairs read)}; hidden pairs must read
-    0 too (counted as disagreeing otherwise)."""
+    Each is positive exactly where the pair is kept.  In bf16 K5 reads the
+    bits K1's bf16 instance wrote (``mask_bits``), which are read too: "K1
+    bits", unpacked (``ops/philox.py unpack_keep_mask``).  Returns
+    {kernel: (pairs read that disagree, visible pairs read)}; hidden pairs
+    must read 0 too (counted as disagreeing otherwise)."""
+    from easevoice_trainer_tpu_torch.ops import philox
+
     b, dk = len(xl), 32
     dev = torch.device("cuda")
     mask = dropout.keep_mask(b, h, t, x_len, dev)
@@ -2006,6 +2021,13 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
     eye = torch.eye(block, dk, dtype=dtype, device=dev)
     q = zeros()
     found = {"K1": [0, 0], "K5 dkdv": [0, 0], "K5 dq": [0, 0]}
+    bf = dtype == torch.bfloat16
+
+    def k1(k, v):
+        bits = att.new_mask_bits(q, x_len) if bf else None
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, dropout,
+                                           mask_bits=bits)
+        return o, lse, bits
 
     def tally(key, got, k0, rows_first):
         # got: bits (b, h, t, n) over keys k0.. (or (b, h, n, t) over rows)
@@ -2022,33 +2044,38 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
         n = min(block, t - k0)
         v = zeros()
         v[:, k0:k0 + n] = eye[:n, None, :]
-        o, lse = att.prefill_attention_lse(q, q, v, x_len, xl, yl, dropout)
+        o, lse, bits = k1(q, v)
         tally("K1", (o.float() > 0).permute(0, 2, 1, 3)[..., :n], k0, False)
+        if bf and k0 == 0:
+            found["K1 bits"] = [0, 0]
+            tally("K1 bits", philox.unpack_keep_mask(bits, t, x_len), 0,
+                  False)
         # dq: k one-hot on the same block; o = 0, dO = v = e_0
         kk = zeros()
         kk[:, k0:k0 + n] = eye[:n, None, :]
         ones0 = zeros()
         ones0[..., 0] = 1
         dq = att.prefill_attention_bwd(q, kk, ones0, zeros(), lse, ones0,
-                                       x_len, xl, yl, dropout=dropout)[0]
+                                       x_len, xl, yl, dropout=dropout,
+                                       mask_bits=bits)[0]
         tally("K5 dq", (dq.float() > 0).permute(0, 2, 1, 3)[..., :n], k0,
               False)
     for r0 in range(0, t, block):
         n = min(block, t - r0)
         k = torch.randn((b, t, h, dk), device=dev).to(dtype)
         v = torch.randn((b, t, h, dk), device=dev).to(dtype)
-        o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, dropout)
+        o, lse, bits = k1(k, v)
         do = zeros()
         do[:, r0:r0 + n] = eye[:n, None, :]
         dv = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
-                                       dropout=dropout)[2]
+                                       dropout=dropout, mask_bits=bits)[2]
         # dv (b, key, h, j) -> (b, h, j, key): rows r0 + j
         tally("K5 dkdv", (dv.float() > 0).permute(0, 2, 3, 1)[:, :, :n], r0,
               True)
     return {key: tuple(v) for key, v in found.items()}
 
 
-def check_dropout(torch, results):
+def check_dropout(torch, results, parent=None):
     """K1 (with its lse) and K5 with dropout at p = 0.1 (DROPOUT_P), fp32
     and bf16, at the two s1 micro-batch shapes (B=8, H=16, 416 phonemes,
     300 and 1360 tokens, ragged lengths): each against its twin given the
@@ -2056,20 +2083,26 @@ def check_dropout(torch, results):
     K5 1e-4 x max(1, max|twin|); bf16: BF16_TOL / BF16_SHARE), K1's lse
     bit-equal to the instance without dropout's (the undropped softmax),
     repeated launches bit-identical, the keep rate over the visible pairs
-    within 6 sigma of 1 - p; the mask read back from K1, K5's dkdv and K5's
-    dq at T = 1776 (``dropout_readout``), bit for bit.  The second shape
-    and the readout draw as a data-parallel rank would (``row0`` 5 and 3:
-    the mask of the global batch rows row0 ..).  Device ms of each
-    dropout instance beside the instance without dropout on the same inputs,
-    the twin and SDPA with dropout_p = 0.1 under the same boolean mask
-    (forward; its backward through autograd; between CUDA events,
-    ``event_ms``: a profiler session may lose a library call's records
-    unnoticed), which the port never calls;
-    the bound as for the instances without dropout, and beside it the RNG's
-    own floor: the Philox calls these inputs need (one a four visible pairs
-    a pass; K5 draws twice) x the integer instructions a call costs in the
-    SASS (``philox_cost``) / (132 SMs x 64 INT32 lanes x the card's maximum
-    SM clock)."""
+    within 6 sigma of 1 - p; in bf16 the keep bits K1 writes equal
+    ``keep_bits_reference`` (``pack_keep_mask`` of the mask AND-ed with the
+    visible pairs) bit for bit, and K5 reads them; the mask read back from
+    K1, K5's dkdv and K5's dq at T = 1776 (``dropout_readout``), bit for
+    bit.  The second shape and the readout draw as a data-parallel rank
+    would (``row0`` 5 and 3: the mask of the global batch rows row0 ..).
+    Device ms of each dropout instance beside the instance without dropout
+    on the same inputs, the twin and SDPA with dropout_p = 0.1 under the
+    same boolean mask (forward; its backward through autograd; between CUDA
+    events, ``event_ms``: a profiler session may lose a library call's
+    records unnoticed), which the port never calls; the bound as for the
+    instances without dropout plus, in bf16, the bits' bytes (written once
+    by K1, read once by K5), and beside it the RNG's own floor: the Philox
+    calls these inputs need (one a four visible pairs a pass; K5 fp32
+    draws twice, K5 bf16 never) x the integer instructions a call costs in
+    the SASS (``philox_cost``) / (132 SMs x 64 INT32 lanes x the card's
+    maximum SM clock).  With ``parent`` (the parent's ops.attention), the
+    bf16 instances are timed in turns with the parent's on the same inputs
+    and their outputs and K5's gradients compared with the parent's bit for
+    bit."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
@@ -2080,6 +2113,13 @@ def check_dropout(torch, results):
         f"{n} {c['int_added']} integer instructions added for {c['calls']} "
         f"calls, {c['per_call']:.1f} a call ({c['round_muls']} round-constant "
         f"multiplies)" for n, c in cost.items()))
+    if parent is not None:
+        old_cost = philox_cost(parent.build.build().path,
+                               PHILOX_CALLS_DRAWING)
+        log("[a/b] Philox in the parent's SASS: " + ", ".join(
+            f"{n} {c['int_added']} integer instructions added for "
+            f"{c['calls']} calls, {c['per_call']:.1f} a call"
+            for n, c in old_cost.items() if n.endswith("bf16")))
     for key in ("prefill_attention_kernelILi32ELb1E",
                 "prefill_attention_bf16_kernelILb1E", "dkdv_kernelILb1E",
                 "dq_kernelILb1E", "dkdv_bf16_kernelILb1E",
@@ -2095,6 +2135,7 @@ def check_dropout(torch, results):
         sfx = "_bf16" if bf else ""
         ops_rate = BF16_OPS_PER_S if bf else FP32_OPS_PER_S
         sums = {key: [0.0] * 4 for key in ("k1", "k5")}  # drop, off, twin, lib
+        olds = {"k1": 0.0, "k5": 0.0}   # the parent's, in turns (bf16)
         bounds = {key: Bound(ops_rate) for key in ("k1", "k5")}
         floors = {"k1": 0.0, "k5": 0.0}
         worst = {"k1": _Worst(), "k5": _Worst()} if bf else \
@@ -2120,22 +2161,45 @@ def check_dropout(torch, results):
             rates.append((rate, sigma))
             assert abs(rate - (1 - p)) <= 6 * sigma, (rate, sigma)
             k1_args = (q, k, v, x_len, xl, yl)
-            o, lse = att.prefill_attention_lse(*k1_args, drop)
+            bits = att.new_mask_bits(q, x_len) if bf else None
+            o, lse = att.prefill_attention_lse(*k1_args, drop,
+                                               mask_bits=bits)
             _, lse_off = att.prefill_attention_lse(*k1_args)
             assert torch.equal(lse, lse_off), \
                 "K1's lse with dropout is not the undropped softmax's"
             for _ in range(2):
                 again = att.prefill_attention_lse(*k1_args, drop)
                 assert torch.equal(o, again[0]), "K1 dropout does not repeat"
+            if bf:
+                bits_off = int((bits != att.keep_bits_reference(
+                    mask, x_len, xl, yl)).sum())
+                assert bits_off == 0, f"K1 bf16's bits: {bits_off} words off"
             want_o = torch.nan_to_num(att.prefill_attention_reference(
                 *k1_args, mask, p), nan=0.0)
             k5_args = (q, k, v, o, lse, do, x_len, xl, yl)
-            got = att.prefill_attention_bwd(*k5_args, dropout=drop)
+            k5_kw = dict(dropout=drop, mask_bits=bits)
+            got = att.prefill_attention_bwd(*k5_args, **k5_kw)
             want = att.prefill_attention_bwd_reference(*k5_args, mask, p)
             for _ in range(2):
-                again = att.prefill_attention_bwd(*k5_args, dropout=drop)
+                again = att.prefill_attention_bwd(*k5_args, **k5_kw)
                 assert all(torch.equal(a, c) for a, c in zip(got, again)), \
                     "K5 dropout does not repeat"
+            old = {}
+            if bf and parent is not None:   # the parent's, on these inputs
+                old_o, old_lse = parent.prefill_attention_lse(*k1_args, drop)
+                old_g = parent.prefill_attention_bwd(*k5_args, dropout=drop)
+                same = (torch.equal(old_o, o) and torch.equal(old_lse, lse),
+                        all(torch.equal(a, c) for a, c in zip(old_g, got)))
+                log(f"[a/b] dropout bf16 T={t}: this tree's K1 o / lse "
+                    f"bit-identical to the parent's: {same[0]}; K5's "
+                    f"gradients from K1's bits bit-identical to the "
+                    f"parent's, which draws the mask again: {same[1]}")
+                assert all(same), same
+                old = {"k1": lambda: parent.prefill_attention_lse(
+                           *k1_args, drop),
+                       "k5": lambda: parent.prefill_attention_bwd(
+                           *k5_args, dropout=drop)}
+                del old_o, old_lse, old_g
             assert all(bool(torch.isfinite(g.float()).all()) for g in got)
             if bf:
                 worst["k1"].add(bf16_err(torch, o, want_o))
@@ -2156,9 +2220,18 @@ def check_dropout(torch, results):
             lib_bwd = functools.partial(
                 torch.autograd.grad, out, (qh, kh, vh),
                 do.transpose(1, 2).contiguous(), retain_graph=True)
+            k1_ms, k1_old = in_turns(
+                torch, lambda: att.prefill_attention_lse(
+                    *k1_args, drop, mask_bits=bits), old.get("k1"),
+                launches=1)
+            k5_ms, k5_old = in_turns(
+                torch, lambda: att.prefill_attention_bwd(*k5_args, **k5_kw),
+                old.get("k5"), launches=3)
+            if old:
+                olds["k1"] += k1_old
+                olds["k5"] += k5_old
             times = {
-                "k1": (device_ms(torch, lambda: att.prefill_attention_lse(
-                           *k1_args, drop), launches=1),
+                "k1": (k1_ms,
                        device_ms(torch, lambda: att.prefill_attention_lse(
                            *k1_args), launches=1),
                        device_ms(torch, lambda: (
@@ -2169,8 +2242,7 @@ def check_dropout(torch, results):
                        event_ms(torch, lambda: F.scaled_dot_product_attention(
                            qh.detach(), kh.detach(), vh.detach(),
                            attn_mask=ok, dropout_p=p))),
-                "k5": (device_ms(torch, lambda: att.prefill_attention_bwd(
-                           *k5_args, dropout=drop), launches=3),
+                "k5": (k5_ms,
                        device_ms(torch, lambda: att.prefill_attention_bwd(
                            *k5_args), launches=3),
                        device_ms(torch, lambda: (
@@ -2181,12 +2253,14 @@ def check_dropout(torch, results):
             pairs = n_vis
             elems = b * t * h * dk
             size = 2 if bf else 4
-            bounds["k1"].add(size * 4 * elems + 4 * b * h * t,
+            # bf16: the bits, written by K1 and read by K5
+            nbits = bits.numel() * 4 if bf else 0
+            bounds["k1"].add(size * 4 * elems + 4 * b * h * t + nbits,
                              4 * dk * pairs)
-            bounds["k5"].add(size * 8 * elems + 4 * b * h * t,
+            bounds["k5"].add(size * 8 * elems + 4 * b * h * t + nbits,
                              10 * dk * pairs)
             # one Philox call a four visible pairs a pass: K1 draws once,
-            # K5 twice (dkdv and dq)
+            # K5 fp32 twice (dkdv and dq), K5 bf16 never
             calls = math.ceil(pairs / 4)
             floors["k1"] += calls * cost["prefill_attention" + sfx][
                 "per_call"] / int_rate * 1e3
@@ -2197,14 +2271,19 @@ def check_dropout(torch, results):
             log(f"[dropout] {'bf16' if bf else 'fp32'} K1 + lse / K5, p={p}, "
                 f"B={b} H={h} x_len={x_len} y_len={y_len} (T={t}): "
                 f"{n_vis} visible (row, key, head) triples, keep rate "
-                f"{rate:.6f} (1 - p = {1 - p}, sigma {sigma:.2g}); device ms "
+                f"{rate:.6f} (1 - p = {1 - p}, sigma {sigma:.2g})"
+                + (f"; K1's keep bits {tuple(bits.shape)} ({nbits / 1e6:.2f} "
+                   f"MB) equal keep_bits_reference bit for bit" if bf else "")
+                + (f"; in turns with the parent's: K1 {k1_old:.4f} -> "
+                   f"{k1_ms:.4f}, K5 {k5_old:.4f} -> {k5_ms:.4f}"
+                   if old else "") + "; device ms "
                 f"K1 dropout {times['k1'][0]:.4f} (without {times['k1'][1]:.4f}"
                 f", twin {times['k1'][2]:.4f}, SDPA dropout "
                 f"{times['k1'][3]:.4f}); K5 dropout {times['k5'][0]:.4f} "
                 f"(without {times['k5'][1]:.4f}, twin {times['k5'][2]:.4f}, "
                 f"SDPA dropout backward {times['k5'][3]:.4f})")
             del qkv, q, k, v, do, o, lse, got, mask, vis, qh, kh, vh, out, \
-                lib_bwd, bias, ok
+                lib_bwd, bias, ok, bits, old
             torch.cuda.empty_cache()
         # the mask read back at the longer shape, bit for bit
         t = x_len + S1_Y_LENS[-1]
@@ -2229,7 +2308,10 @@ def check_dropout(torch, results):
             drop_ms, off, twin, lib = sums[key]
             bd = bounds[key]
             log(f"[dropout] {name} {'bf16' if bf else 'fp32'} over the two "
-                f"s1 shapes: dropout {drop_ms:.4f} ms, without dropout "
+                f"s1 shapes: dropout {drop_ms:.4f} ms"
+                + (f" (the parent's in turns {olds[key]:.4f} ms, "
+                   f"{olds[key] / drop_ms:.2f}x)" if olds[key] else "")
+                + f", without dropout "
                 f"{off:.4f} ms ({drop_ms / off:.2f}x), twin {twin:.4f} ms, "
                 f"SDPA dropout {lib:.4f} ms; bound {bd.ms:.4f} ms ({bd.by}); "
                 f"RNG floor {floors[key]:.4f} ms (Philox calls x "
@@ -2242,6 +2324,8 @@ def check_dropout(torch, results):
                 without_dropout_ms=off, rng_floor_ms=floors[key],
                 keep_rate=[r for r, _ in rates], mask_readout=readout,
                 **bd.result())
+            if olds[key]:
+                results[base + "_dropout" + sfx]["parent_ms"] = olds[key]
         assert ok_k1, f"K1 dropout disagrees with its twin: {worst['k1']}"
         assert ok_k5, f"K5 dropout disagrees with its twin: {worst['k5']}"
 
@@ -2465,13 +2549,18 @@ def ab_mrf(torch, parent):
     assert worst.ok(), f"K4-dW bf16 disagrees with the parent's: {worst}"
 
 
+# the parent's kernel bodies this tree replaces by design: K1 bf16's and
+# K5 bf16's dropout instances (K1 writes the keep bits, K5 reads them)
+AB_SASS_REPLACED = r"(prefill_attention|dkdv|dq)_bf16_kernelILb1E"
+
+
 def ab_sass(parent_root: str) -> None:
     """``bench/sass_diff.py`` against the parent's library: every kernel
-    body of the parent must be in this tree's library instruction for
-    instruction (no body replaced by design)."""
+    body of the parent but AB_SASS_REPLACED must be in this tree's library
+    instruction for instruction."""
     from easevoice_trainer_tpu_torch.bench import sass_diff
 
-    rc = sass_diff.main([parent_root])
+    rc = sass_diff.main([parent_root, "--replaced", AB_SASS_REPLACED])
     assert rc == 0, "a kernel body of the parent changed (bench/sass_diff.py)"
 
 
@@ -5166,7 +5255,7 @@ def train_s1(torch, tmp: str, results):
     return trainer
 
 
-def train_s1_dropout(torch, tmp: str, results) -> None:
+def train_s1_dropout(torch, tmp: str, results, parent=None) -> None:
     """GPTTrain.train() at full width with ``model.dropout: 0.1`` (the
     repo's configs/gpt.yaml with that key changed, under a base path of its
     own) for one accumulation window: train_s1's pretrained .ckpt and data
@@ -5174,10 +5263,12 @@ def train_s1_dropout(torch, tmp: str, results) -> None:
     with is_half at its default (bf16) and with is_half=False (fp32).
     Finite losses; a micro-batch launches K1's dropout instance 24 times
     and K5's 24 times (72 launches), of the run's dtype, and no instance
-    without dropout; the counts go to the dropout instances' entries."""
+    without dropout; the counts go to the dropout instances' entries.  s a
+    micro-batch and the run's torch.cuda.max_memory_allocated are logged;
+    with ``parent`` (the parent's package) its bf16 window runs first on
+    the same data, its s a micro-batch and peak beside this tree's."""
     from easevoice_trainer_tpu_torch import ops
-    from easevoice_trainer_tpu_torch.train.gpt import GPTTrain, \
-        GPTTrainParams
+    from easevoice_trainer_tpu_torch.train import gpt as gpt_train
     from easevoice_trainer_tpu_torch.utils import paths
 
     base = os.path.join(tmp, "s1_dropout_base")
@@ -5191,42 +5282,55 @@ def train_s1_dropout(torch, tmp: str, results) -> None:
     k5_per_call = ops.prefill_attention_bwd.launches_per_call
     old_base = os.environ.get("EASEVOICE_BASE_PATH")
     os.environ["EASEVOICE_BASE_PATH"] = base
+    runs = [(tag, is_half, gpt_train, ops) for tag, is_half in TRAIN_RUNS]
+    if parent is not None:
+        import importlib
+
+        runs.insert(0, ("parent bf16", None,
+                        importlib.import_module("ev_parent.train.gpt"),
+                        parent.ops))
     try:
-        for tag, is_half in TRAIN_RUNS:
+        for tag, is_half, mod, run_ops in runs:
             with _is_half(is_half):
-                trainer = GPTTrain(GPTTrainParams(
+                trainer = mod.GPTTrain(mod.GPTTrainParams(
                     batch_size=3 * S1_B, total_epochs=1, save_every_epoch=1,
                     model_path=os.path.join(tmp, "s1_random.ckpt"),
                     train_input_dir=os.path.join(tmp, "s1_data"),
-                    output_model_name=f"chip_smoke_s1_dropout_{tag}",
-                    project_dir=os.path.join(tmp, f"s1_dropout_{tag}")))
+                    output_model_name="chip_smoke_s1_dropout_"
+                    + tag.replace(" ", "_"),
+                    project_dir=os.path.join(tmp, "s1_dropout_"
+                                             + tag.replace(" ", "_"))))
             cfg = trainer.model_cfg
             assert cfg.dropout == 0.1 and (cfg.n_layers, cfg.hidden_dim,
                                            cfg.n_heads) == (24, 512, 16)
             history = []
-            ops.reset_launch_counts()
+            run_ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
             resp = trainer.train(on_step=lambda step, m: history.append(
                 {k: float(v) for k, v in m.items()}))
             wall = time.perf_counter() - t1
-            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            launches = run_ops.launch_counts()
             assert resp.ok, resp.message
             n, layers = len(history), cfg.n_layers
             assert n == 4 and trainer.step_fn.optimizer.param_groups[0][
                 "step"] == 1, n
             assert all(math.isfinite(v) for m in history
                        for v in m.values()), history
-            sfx = "_bf16" if tag == "bf16" else ""
+            sfx = "_bf16" if tag.endswith("bf16") else ""
             want = {"prefill_attention_dropout" + sfx: layers * n,
                     "prefill_attention_bwd_dropout" + sfx:
                         k5_per_call * layers * n}
             got = {k: c for k, c in launches.items() if c}
             assert got == want, (got, want)
-            for name, count in want.items():
-                r = results[name]
-                r["launches"] = r.get("launches", 0) + count
-                r.setdefault("per_path", {})["s1_dropout_micro_batch"] = \
-                    count / n
+            if run_ops is ops:
+                for name, count in want.items():
+                    r = results[name]
+                    r["launches"] = r.get("launches", 0) + count
+                    r.setdefault("per_path", {})[
+                        "s1_dropout_micro_batch"] = count / n
             log(f"[s1 dropout] {tag} (is_half={is_half or 'default'}): "
                 f"GPTTrain.train() with dropout {cfg.dropout}: {n} "
                 f"micro-batches of B={3 * S1_B} (one ScaledAdam update) in "
@@ -5237,7 +5341,8 @@ def train_s1_dropout(torch, tmp: str, results) -> None:
                 + "; losses " + ", ".join(f"{m['loss']:.1f}" for m in history)
                 + "; grad norms " + ", ".join(
                     f"{m['grad_norm']:.3g}" for m in history)
-                + f"; launches {got}")
+                + f"; launches {got}; peak {peak / 2 ** 30:.3f} GiB "
+                f"(torch.cuda.max_memory_allocated)")
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
@@ -5520,6 +5625,9 @@ DP_SEED = 20_020
 DP_B = 8                    # global batch rows: 4 a rank in a world of two
 DP_WINDOW = 4               # s1 micro-batches: one accumulation window
 DP_S2_STEPS = 2
+# the s1 window's GPT: configs/gpt.yaml's widths at this depth (the phase
+# checks the row split and the reductions; 24 layers only lengthened it)
+DP_LAYERS = 6
 # the T = 716 bucket: rows 0-3 long, rows 4-7 short, so the two ranks hold
 # other numbers of targets and valid frames
 DP_X_LENS = (416, 380, 350, 300, 200, 150, 120, 64)
@@ -5693,7 +5801,7 @@ def dp_jobs(torch, dev, rows, only_first: bool = False):
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(DP_SEED)
                 model = Text2SemanticDecoder(
-                    dataclasses.replace(cfg, dropout=p),
+                    dataclasses.replace(cfg, dropout=p, n_layers=DP_LAYERS),
                     dtype=torch.bfloat16).to(dev).train()
             step = GPTTrainStep(model, GPTTrainHP())
             batches = [{k: torch.from_numpy(v[local]).to(dev).to(
@@ -5763,7 +5871,8 @@ def data_parallel(torch, results) -> None:
     """Both fine-tunes in bf16 through ``parallel/``: ``launch`` starts the
     ranks, each loads its rows of the global batch (``process_local_rows``)
     and the steps sum the gradients (``reduce_gradients``).  The s1 window
-    (configs/gpt.yaml's GPT, 512 x 24, 16 heads, global B = 8 at T = 716,
+    (configs/gpt.yaml's GPT at DP_LAYERS layers, 512 wide, 16 heads,
+    global B = 8 at T = 716,
     4 micro-batches, once at dropout 0 and once at 0.1) and 2 s2 steps
     (``SovitsConfig()``, global B = 8, 160 frames) run
 
@@ -5839,7 +5948,7 @@ def data_parallel(torch, results) -> None:
                 + f"; launches {got[0]['launches']}; {smi}")
             if job.startswith("s1"):
                 sfx = "_dropout_bf16" if "0.1" in job else "_bf16"
-                n = 24 * DP_WINDOW
+                n = DP_LAYERS * DP_WINDOW
                 assert got[0]["launches"] == {
                     "prefill_attention" + sfx: n,
                     "prefill_attention_bwd" + sfx: 3 * n}, got[0]["launches"]
@@ -5887,6 +5996,9 @@ def data_parallel(torch, results) -> None:
 TP_N_MODEL = 2
 TP_GRID = (2, 2)            # data x model, at reduced depth
 TP_GRID_LAYERS = 4
+# the model 2 world's depth at configs/gpt.yaml's widths (24 layers only
+# lengthened the phase: each layer does the same f, g and sums)
+TP_LAYERS = 6
 TP_FP32_TOL = 1e-3          # fp32 ranks against the world of one, relative
 # fp32 weight updates: the share of a tensor's elements whose window
 # update is more than 25 % off the world of one's.  ScaledAdam's first step
@@ -5897,8 +6009,8 @@ TP_FP32_TOL = 1e-3          # fp32 ranks against the world of one, relative
 # off
 TP_UPDATE_OFF = 1e-2
 # the jobs: (name, dropout, layers or None for configs/gpt.yaml's)
-TP_JOBS = (("bf16", 0.0, None), ("fp32", 0.0, None),
-           ("bf16 dropout", DROPOUT_P, None))
+TP_JOBS = (("bf16", 0.0, TP_LAYERS), ("fp32", 0.0, TP_LAYERS),
+           ("bf16 dropout", DROPOUT_P, TP_LAYERS))
 TP_GRID_JOBS = (("fp32 dropout", DROPOUT_P, TP_GRID_LAYERS),)
 
 
@@ -6140,9 +6252,9 @@ def tensor_parallel(torch, results) -> None:
     ScaledAdam update) runs
 
     * in this process, the world of one on the global batch;
-    * (a) TP 2 x DP 1 at configs/gpt.yaml's full width and depth (512 x 24,
-      16 heads, FFN 2048), two ranks sharing cuda:0 over gloo, in bf16, in
-      fp32 and in bf16 with dropout 0.1;
+    * (a) TP 2 x DP 1 at configs/gpt.yaml's full width (512, 16 heads, FFN
+      2048) and TP_LAYERS layers, two ranks sharing cuda:0 over gloo, in
+      bf16, in fp32 and in bf16 with dropout 0.1;
     * (b) a data 2 x model 2 grid of four ranks at TP_GRID_LAYERS layers,
       fp32 with dropout 0.1 (the fp32 dropout instances of K1 and K5 on
       the grid).
@@ -7003,13 +7115,13 @@ def _rest_drive(torch, rest, root, tmp, kind, server_pid, results):
         f"4-cnhubert, 5-wav32k and 6-name2semantic")
 
     # the fine-tunes, each then a second start (409)
-    # (one epoch each: the loaders replicate a small folder, enough s1
-    # micro-batches for a loss line every 10)
+    # (one epoch each at B = 8: the loaders replicate a small folder,
+    # enough s1 micro-batches for a loss line every 10)
     trained = {}
     for route, name, suffix in (("sovits", "rest_s2", ".pth"),
                                 ("gpt", "rest_s1", ".ckpt")):
         body_in = dict(train_input_dir=norm, project_dir=home,
-                       output_model_name=name, batch_size=4, total_epochs=1,
+                       output_model_name=name, batch_size=8, total_epochs=1,
                        save_every_epoch=1)
         status, body = rest("POST", f"/train/{route}/start", body_in)
         assert status == 200, body
@@ -7025,7 +7137,7 @@ def _rest_drive(torch, rest, root, tmp, kind, server_pid, results):
         assert path.endswith(suffix) and os.path.exists(path), path
         trained[route] = os.path.basename(path)
         log(f"[rest] train {route}: {wall:.2f} s from start to Completed "
-            f"({info['data']['global_step']} steps of B=4, one epoch); losses "
+            f"({info['data']['global_step']} steps of B=8, one epoch); losses "
             + ", ".join(f"{x['step']}: {x['loss']:.3f}" for x in losses)
             + f"; {os.path.basename(path)}")
     status, models = rest("GET", "/voiceclone/models",
@@ -7291,7 +7403,7 @@ def main() -> int:
         phase = enter("bf16 kernels")
         check_bf16(torch, results, parent and parent.ops.attention)
         phase = enter("dropout kernels")
-        check_dropout(torch, results)
+        check_dropout(torch, results, parent and parent.ops.attention)
         if parent is not None:
             phase = enter("mrf a/b")
             ab_mrf(torch, parent)
@@ -7334,7 +7446,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase = enter("s1 dropout")
-        train_s1_dropout(torch, tmp, results)
+        train_s1_dropout(torch, tmp, results, parent)
         gc.collect()
         torch.cuda.empty_cache()
         phase = enter("data parallel")
@@ -7392,7 +7504,8 @@ def main() -> int:
         for extra in ("warm_ms", "s1", "calls", "launches_per_call",
                       "whisper_T1500", "roformer", "fp32_ms",
                       "max_rel_err", "graph_ms", "without_dropout_ms",
-                      "rng_floor_ms", "keep_rate", "mask_readout", "tp_h8"):
+                      "rng_floor_ms", "keep_rate", "mask_readout", "tp_h8",
+                      "parent_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

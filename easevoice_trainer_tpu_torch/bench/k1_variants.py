@@ -1,6 +1,7 @@
 """K1 bf16's design choices, each taken back in turn, timed on the card.
 
-    python3 -m easevoice_trainer_tpu_torch.bench.k1_variants
+    python3 -m easevoice_trainer_tpu_torch.bench.k1_variants [--dropout] \
+        [--parent DIR]
 
 Writes variants of ``csrc/prefill_attention_bf16.cu`` under
 ``build/k1_variants/`` (git-ignored), each with one of the constants at its
@@ -21,6 +22,21 @@ than one bf16 step) and its lse within 1e-4:
 - ``ring2``: a ring of 2 staged tiles, not 3;
 - ``in_order``: query tiles launched first to last, not longest first.
 
+``--dropout`` times the instance with dropout instead (p = 0.1, writing
+its keep bits as the fine-tune does; o held to the twin with the same
+mask, the bits to ``keep_bits_reference`` bit for bit), with the choices of
+that instance undone (``variants_dropout``):
+
+- ``drop_mt<n>``: the other count (1 or 2) of 16-row tiles of queries a
+  warp;
+- ``drop_cap<n>``: one block an SM fewer asked of its launch bounds;
+
+and the tree's instance once more without writing the bits
+(``tree_no_bits``: a null pointer, as ``prefill_attention_lse`` without
+``mask_bits``), and with ``--parent DIR`` the instance of another tree (an
+older commit unpacked with ``git archive``) whose entry point takes no bits
+(``parent``).
+
 Needs a CUDA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -34,6 +50,7 @@ from .k5_variants import _build, _const, _entry, _kernel_ms, _swap, bf16_err
 
 KERNEL = "prefill_attention_bf16_kernel"
 ENTRY = "ev_prefill_attention_bf16"
+DROPOUT_ENTRY = "ev_prefill_attention_dropout_bf16"
 
 
 def variants(src: str) -> dict:
@@ -57,10 +74,28 @@ def variants(src: str) -> dict:
     }
 
 
-def build_all(srcs: dict, out: str) -> dict:
+def variants_dropout(src: str) -> dict:
+    """The tree's K1 bf16 source with each design choice of the instance
+    with dropout undone, by name."""
+    def const(name, new):
+        line = _const(src, name)
+        return _swap(src, line, line.rsplit("=", 1)[0] + f"= {new};")
+
+    def value(name):
+        return int(_const(src, name).rsplit("=", 1)[1].strip(" ;"))
+
+    blocks, mt = value("DROP_MIN_BLOCKS") - 1, 3 - value("DROP_MT")
+    return {f"drop_mt{mt}": const("DROP_MT", mt),
+            f"drop_cap{blocks}": const("DROP_MIN_BLOCKS", blocks)}
+
+
+def build_all(srcs: dict, out: str, entry: str = ENTRY,
+              parent: str = None) -> dict:
     """The tree's entry point and one built from each source of ``srcs``
     (name -> CUDA source, written and built under ``out``), by name; the
-    ptxas register and spill lines of each are printed."""
+    ptxas register and spill lines of each are printed.  ``parent``: the
+    root of another tree, whose instance with dropout (an entry point
+    without the bits) is built too, as "parent"."""
     from ..ops import build
 
     procs = {}
@@ -69,7 +104,13 @@ def build_all(srcs: dict, out: str) -> dict:
         with open(path, "w") as f:
             f.write(src)
         procs[name] = _build(path, os.path.join(out, f"{name}.so"))
-    fns = {"tree": getattr(build.build(), ENTRY)}
+    if parent is not None:
+        csrc = os.path.join(os.path.abspath(parent),
+                            "easevoice_trainer_tpu_torch", "csrc")
+        procs["parent"] = _build(
+            os.path.join(csrc, "prefill_attention_bf16.cu"),
+            os.path.join(out, "parent.so"), csrc)
+    fns = {"tree": getattr(build.build(), entry)}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
@@ -77,17 +118,27 @@ def build_all(srcs: dict, out: str) -> dict:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
-        fns[name] = _entry(os.path.join(out, f"{name}.so"), ENTRY)
+        argtypes = None
+        if name == "parent":   # no bits before the stream
+            argtypes = build.SIGNATURES[entry][:-2] + \
+                build.SIGNATURES[entry][-1:]
+        fns[name] = _entry(os.path.join(out, f"{name}.so"), entry, argtypes)
     return fns
 
 
-def time_all(torch, fns: dict) -> dict:
+def time_all(torch, fns: dict, dropout: bool = False) -> dict:
     """Device ms of each build over the two s1 shapes, the tree's timed
     first and last, each held to the twin; prints a line a shape and build,
-    and the sums."""
+    and the sums.  ``dropout``: the builds' dropout entry points (p = 0.1),
+    each held to the twin with the same mask and its bits to
+    ``keep_bits_reference``."""
     from ..ops import attention as att
+    from ..ops.philox import keep_threshold
 
     order = ["tree", *(n for n in fns if n != "tree"), "tree"]
+    if dropout:   # the tree's instance writing no bits
+        fns = {**fns, "tree_no_bits": fns["tree"]}
+        order.insert(-1, "tree_no_bits")
     gen = torch.Generator(device="cuda").manual_seed(1801)
     b, h, dk, x_len = 8, 16, 32, 416
     totals = dict.fromkeys(fns, 0.0)
@@ -102,8 +153,14 @@ def time_all(torch, fns: dict) -> dict:
         qkv = torch.randn((b, t, 3 * h * dk), generator=gen,
                           device="cuda").to(torch.bfloat16)
         q, k, v = att._split_heads(qkv, h)
+        drop = att.AttentionDropout(0.1, 0x1801, 9) if dropout else None
+        mask = drop.keep_mask(b, h, t, x_len, "cuda") if dropout else None
         want = torch.nan_to_num(att.prefill_attention_reference(
-            q, k, v, x_len, x_lens, y_lens), nan=0.0)
+            q, k, v, x_len, x_lens, y_lens, mask, 0.1 if dropout else 0.0),
+            nan=0.0)
+        bits = att.new_mask_bits(q, x_len)
+        want_bits = att.keep_bits_reference(mask, x_len, x_lens, y_lens) \
+            if dropout else None
         want_lse = att.prefill_attention_lse_reference(q, k, x_len, x_lens,
                                                        y_lens)
         seen = torch.isfinite(want_lse)
@@ -112,16 +169,29 @@ def time_all(torch, fns: dict) -> dict:
         args = [z.data_ptr() for z in (q, k, v, o, lse)]
         args += [q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), x_lens.data_ptr(),
-                 y_lens.data_ptr(), b, t, h, x_len, 1 / math.sqrt(dk),
-                 torch.cuda.current_stream().cuda_stream]
+                 y_lens.data_ptr(), b, t, h, x_len, 1 / math.sqrt(dk)]
+        if dropout:
+            args += [drop.seed, drop.layer, keep_threshold(0.1), 0.9, 0, 0,
+                     bits.data_ptr()]
+        args += [torch.cuda.current_stream().cuda_stream]
         runs = {}
         for name in order:
-            def run(fn=fns[name]):
-                rc = fn(*args)
+            call = args
+            if name == "tree_no_bits":
+                call = [*args[:-2], None, args[-1]]
+            elif name == "parent":
+                call = [*args[:-2], args[-1]]
+
+            def run(fn=fns[name], call=call):
+                rc = fn(*call)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
+            bits.fill_(-1)
             run()
             torch.cuda.synchronize()
+            assert not dropout or name in ("tree_no_bits", "parent") or \
+                torch.equal(bits, want_bits), \
+                f"{name}: the keep bits are not keep_bits_reference's"
             rel, share = bf16_err(o, want)
             lse_err = float((lse[seen] - want_lse[seen]).abs().max())
             assert torch.equal(torch.isfinite(lse), seen), name
@@ -132,10 +202,11 @@ def time_all(torch, fns: dict) -> dict:
             runs.setdefault(name, []).append(_kernel_ms(torch, run, KERNEL))
         for name, ms in runs.items():
             totals[name] += sum(ms) / len(ms)
-            print(f"T={t} {name}: K1 bf16 {sum(ms) / len(ms):.4f} ms",
-                  flush=True)
+            print(f"T={t} {name}: K1 bf16{' dropout' if dropout else ''} "
+                  f"{sum(ms) / len(ms):.4f} ms", flush=True)
     for name, ms in totals.items():
-        print(f"two s1 shapes, {name}: K1 bf16 {ms:.4f} ms "
+        print(f"two s1 shapes, {name}: K1 bf16"
+              f"{' dropout' if dropout else ''} {ms:.4f} ms "
               f"({ms / totals['tree']:.3f} x the tree); against the twin: "
               f"relative {worst[name][0]:.3g}, share off by more than a step "
               f"{worst[name][1]:.3g}, lse max|d| {worst[name][2]:.3g}",
@@ -143,11 +214,19 @@ def time_all(torch, fns: dict) -> dict:
     return totals
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     from ..ops import build
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dropout", action="store_true",
+                    help="the instance with dropout and its own choices")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="with --dropout: another tree's instance too")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -158,8 +237,12 @@ def main() -> int:
     out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k1_variants")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(build.CSRC, "prefill_attention_bf16.cu")) as f:
-        srcs = variants(f.read())
-    time_all(torch, build_all(srcs, out))
+        src = f.read()
+    if args.dropout:
+        time_all(torch, build_all(variants_dropout(src), out, DROPOUT_ENTRY,
+                                  args.parent), dropout=True)
+    else:
+        time_all(torch, build_all(variants(src), out))
     return 0
 
 

@@ -1,6 +1,7 @@
 """K5's design choices, each taken back in turn, timed on the card.
 
-    python3 -m easevoice_trainer_tpu_torch.bench.k5_variants [--dtype D]
+    python3 -m easevoice_trainer_tpu_torch.bench.k5_variants [--dtype D] \
+        [--dropout]
 
 Writes variants of K5's sources under ``build/k5_variants/`` (git-ignored),
 each with one choice undone, builds each with nvcc into its own library
@@ -30,6 +31,10 @@ by more than one bf16 step, both printed):
   cp.async;
 - ``q8``: dkdv 8 queries a step (m16n8k8), not 16 (m16n8k16);
 - ``no_cap`` / ``cap<n>``: no blocks-an-SM cap, or one block fewer.
+
+``--dropout`` times the bf16 instances with dropout (p = 0.1) instead,
+reading the keep bits K1's bf16 dropout instance wrote, against the twin
+with the same mask.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -127,26 +132,26 @@ def variants_bf16(src: str) -> dict:
         "terms3": const("TERMS", 3),
         "sync": const("ASYNC", "false"),
         "q8": const("QSTEP", 8),
-        "no_cap": _swap(src, "__launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS)",
+        "no_cap": _swap(src, "__launch_bounds__(NT, MIN_BLOCKS)",
                         "__launch_bounds__(NT)", 2),
         f"cap{blocks - 1}": const("MIN_BLOCKS", blocks - 1),
     }
 
 
-def _build(src_path: str, so_path: str):
+def _build(src_path: str, so_path: str, include: str = None):
     from ..ops import build
 
     return subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC, "-shared", "-o",
-         so_path, src_path], stdout=subprocess.PIPE,
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", include or build.CSRC,
+         "-shared", "-o", so_path, src_path], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 
 
-def _entry(so_path: str, name: str):
+def _entry(so_path: str, name: str, argtypes=None):
     from ..ops import build
 
     fn = getattr(ctypes.CDLL(os.path.abspath(so_path)), name)
-    fn.argtypes = build.SIGNATURES[name]
+    fn.argtypes = argtypes or build.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -178,18 +183,21 @@ def bf16_err(got, want):
     return rel, float((err > 2.0 ** -7 * w.abs() + 1e-6).float().mean())
 
 
-def run_set(torch, dtype, out: str) -> None:
+def run_set(torch, dtype, out: str, dropout: bool = False) -> None:
     """Build and time one instance's variants (``dtype`` torch.float32 or
-    torch.bfloat16) beside the tree's library."""
+    torch.bfloat16; with ``dropout`` the bf16 instance with dropout, on
+    K1's keep bits) beside the tree's library."""
     from ..ops import attention as att
     from ..ops import build
 
     bf16 = dtype == torch.bfloat16
     source = "prefill_attention_bwd_bf16.cu" if bf16 else \
         "prefill_attention_bwd.cu"
-    entry = "ev_prefill_attention_bwd_" + ("bf16" if bf16 else "f32")
-    tag = "_bf16" if bf16 else ""
-    kernels = tuple(f"{k}{tag}_kernel" for k in ("dsum", "dkdv", "dq"))
+    entry = "ev_prefill_attention_bwd_" + ("dropout_" if dropout else "") + (
+        "bf16" if bf16 else "f32")
+    tag = ("_dropout" if dropout else "") + ("_bf16" if bf16 else "")
+    kernels = tuple(f"{k}{'_bf16' if bf16 else ''}_kernel"
+                    for k in ("dsum", "dkdv", "dq"))
     with open(os.path.join(build.CSRC, source)) as f:
         srcs = (variants_bf16 if bf16 else variants)(f.read())
     procs = {}
@@ -228,9 +236,14 @@ def run_set(torch, dtype, out: str) -> None:
         q, k, v = att._split_heads(qkv, h)
         do = torch.randn((b, t, h, dk), generator=gen,
                          device="cuda").to(dtype)
-        o, lse = att.prefill_attention_lse(q, k, v, x_len, x_lens, y_lens)
-        want = att.prefill_attention_bwd_reference(q, k, v, o, lse, do,
-                                                   x_len, x_lens, y_lens)
+        drop = att.AttentionDropout(0.1, 0x6006, 5) if dropout else None
+        bits = att.new_mask_bits(q, x_len) if dropout else None
+        o, lse = att.prefill_attention_lse(q, k, v, x_len, x_lens, y_lens,
+                                           drop, mask_bits=bits)
+        mask = drop.keep_mask(b, h, t, x_len, "cuda") if dropout else None
+        want = att.prefill_attention_bwd_reference(
+            q, k, v, o, lse, do, x_len, x_lens, y_lens, mask,
+            0.1 if dropout else 0.0)
         dsum = torch.empty((b, h, t), device="cuda")
         dqkv = torch.empty((b, t, 3 * h * dk), device="cuda", dtype=dtype)
         grads = att._split_heads(dqkv, h)
@@ -238,7 +251,8 @@ def run_set(torch, dtype, out: str) -> None:
         args = [z.data_ptr() for z in (q, k, v, o, do, lse, dsum, *grads)]
         args += [q.stride(0), q.stride(1), grads[0].stride(0),
                  grads[0].stride(1), x_lens.data_ptr(), y_lens.data_ptr(),
-                 b, t, h, x_len, 1 / math.sqrt(dk), stream]
+                 b, t, h, x_len, 1 / math.sqrt(dk)]
+        args += [0.9, bits.data_ptr(), stream] if dropout else [stream]
         runs = {}
         for name in order:
             def run(fn=fns[name]):
@@ -283,6 +297,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("fp32", "bf16", "both"),
                     default="both")
+    ap.add_argument("--dropout", action="store_true",
+                    help="the bf16 instances with dropout (implies --dtype "
+                         "bf16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k5_variants: no CUDA device", file=sys.stderr)
@@ -294,6 +311,9 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k5_variants")
     os.makedirs(out, exist_ok=True)
+    if args.dropout:
+        run_set(torch, torch.bfloat16, out, dropout=True)
+        return 0
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         if args.dtype in (name, "both"):
             run_set(torch, dtype, out)

@@ -1,7 +1,8 @@
 // Philox4x32-10 and the keep mask of the s1 attention's dropout, which K1
-// (prefill_attention.cu, prefill_attention_bf16.cu) draws and K5
-// (prefill_attention_bwd.cu, prefill_attention_bwd_bf16.cu) draws again.
-// Its twin, bit for bit, is ops/philox.py.
+// (prefill_attention.cu, prefill_attention_bf16.cu) draws.  K5's fp32
+// instance (prefill_attention_bwd.cu) draws it again; K5's bf16 instance
+// (prefill_attention_bwd_bf16.cu) reads the bits K1's bf16 instance wrote
+// (below).  Its twin, bit for bit, is ops/philox.py.
 //
 // Philox4x32-10 (Salmon, Moraes, Dror and Shaw, "Parallel random numbers:
 // as easy as 1, 2, 3", SC 2011; Random123's philox4x32 with 10 rounds): a
@@ -31,6 +32,16 @@
 // kernel's key tiles start at a multiple of 32 keys into their segment, so
 // the four keys of a call sit in one tile; the kernels share each call's
 // four bits among the lanes that hold those pairs by shuffles.
+//
+// The mask as bits (K1's bf16 instance writes it, K5's bf16 instance reads
+// it; ops/philox.py pack_keep_mask / unpack_keep_mask): a (B, H, T, W)
+// int32 tensor, W = ceil(x_len / 32) + ceil((T - x_len) / 32), a query
+// row's text words and then its audio words.  Bit j of word w of a segment
+// is the keep bit of key 32 w + j of that segment AND-ed with the pair's
+// visibility under the hybrid mask: hidden pairs, and the keys past a
+// segment's end in its last word, read 0.  Since key tiles start at
+// multiples of 32 keys into their segment, a tile of 32 n keys is n whole
+// words of each row.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +58,37 @@ struct Dropout {
   uint32_t row0;    // the global batch row of the launch's batch row 0
   uint32_t h0;      // the layer's head of the launch's head 0
 };
+
+// W, the words of a query row of the mask as bits
+__host__ __device__ __forceinline__ int mask_words(int T, int x_len) {
+  return (x_len + 31) / 32 + (T - x_len + 31) / 32;
+}
+
+// The dropout argument of the bf16 instances (by value, the last kernel
+// argument; the instances without dropout take it and never read it):
+// Dropout's fields and the mask as bits
+struct DropoutBits : Dropout {
+  uint32_t* bits;  // (B, H, T, W): K1 writes them (not when null), K5 reads
+                   // them
+};
+
+// The DropoutBits of a launch; K5, which only reads the bits, passes the
+// key, threshold, layer, row0 and h0 as 0
+__host__ inline DropoutBits dropout_bits(unsigned long long seed,
+                                         uint32_t thr, uint32_t layer,
+                                         float keep, uint32_t row0,
+                                         uint32_t h0, void* bits) {
+  DropoutBits d;
+  d.k0 = (uint32_t)seed;
+  d.k1 = (uint32_t)(seed >> 32);
+  d.thr = thr;
+  d.layer = layer;
+  d.inv_keep = 1.f / keep;
+  d.row0 = row0;
+  d.h0 = h0;
+  d.bits = (uint32_t*)bits;
+  return d;
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {

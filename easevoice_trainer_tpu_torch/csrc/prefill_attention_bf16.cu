@@ -67,13 +67,29 @@
 // Dropout (the s1 fine-tune with T2SConfig.dropout > 0; JAX drops the fp32
 // probabilities after the softmax, models/gpt/t2s.py:128): the instance
 // with DROP draws each visible pair's keep bit M from Philox (philox.cuh)
-// after the exponent and zeroes the dropped P elements before the hi + lo
-// bf16 split; m, the row sum and the lse stay the undropped softmax's, and
-// 1 / (1 - p) is folded into the final 1 / sum, so o = (P o M / (1 - p)) V.
-// Lanes t and t ^ 1 share one Philox call of four keys, each drawing the
-// bits of one row of the pair and trading them by a shuffle.  K5's bf16
-// instance draws the same bits again.  The instance without DROP is the
-// code above, unchanged.
+// once, zeroes the dropped P elements before the hi + lo bf16 split and
+// writes M as bits (philox.cuh's layout), which K5's bf16 instance reads
+// instead of drawing them again; m, the row sum and the lse stay the
+// undropped softmax's, and 1 / (1 - p) is folded into the final 1 / sum,
+// so o = (P o M / (1 - p)) V.  What bounds it is the integer pipe: a
+// Philox call is ~10x the integer work of the tile's other arithmetic for
+// its four pairs, and every pair needs its call.  So DROP_MT and
+// DROP_MIN_BLOCKS, which bench/k1_variants.py --dropout undoes, give this
+// instance one 16-row tile of queries a warp (not the instance without
+// dropout's two) and 4 blocks an SM, so that more warps hide the integer
+// pipe's latency.
+//
+// Lane t draws row rows[t & 1] of each row tile for keys 8n + 4 (t >> 1)
+// .. + 3 of score tile n (one call); lanes t and t ^ 2 OR their halves into
+// the row's 32-key words, and lanes t and t ^ 1 trade rows: 2 shuffles a
+// word.  Lane t stores word t >> 1 of row rows[t & 1] of each walked tile;
+// a warp stores zero words for the tiles hidden from it and, after its
+// walk, for the keys no row of the block sees, so every word of every row
+// < T is written (no memset).  Tried and slower, or no faster (PERF.md):
+// the rounds' keys worked out on the host; no call for the groups a row
+// does not see; the calls made beside S's products; trading each call's
+// bits as K1's fp32 instance does, then gathering the words.  The instance
+// without DROP is the code above, unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -97,36 +113,91 @@ constexpr int TERMS = 2;              // bf16 terms of P in P V
 constexpr bool ASYNC = true;          // tiles by cp.async (false: plain)
 constexpr int STAGES = 3;             // tiles in the ring
 constexpr bool LONGEST_FIRST = true;  // the last query tiles launch first
+// and those of the instance with dropout (DROP):
+constexpr int DROP_MT = 1;          // 16-row MMA tiles of queries a warp
+constexpr int DROP_MIN_BLOCKS = 4;  // blocks an SM asked of the launch bounds
 
 constexpr int NT = 32 * WARPS;
 constexpr int WR = 16 * MT;     // query rows a warp
 constexpr int BQ = WR * WARPS;  // query rows a block
 constexpr int NS = BKT / 8;     // n8 score tiles of a staged tile
+constexpr int WPT = BKT / 32;   // 32-key words of the mask a row a tile
 
-static_assert(BKT % 16 == 0, "a staged tile is whole k16 steps of P V");
+static_assert(BKT % 32 == 0, "a staged tile is whole words of the mask");
 static_assert(STAGES >= 2, "the ring overlaps a tile's copies with math");
 static_assert(2 * STAGES * BKT >= BQ, "o goes out through the ring");
+// the 16-row MMA tiles of queries a warp of each instance
+template <bool DROP>
+constexpr int MT_OF = DROP ? DROP_MT : MT;
+static_assert(2 * STAGES * BKT >= 16 * DROP_MT * WARPS,
+              "o goes out through the ring");
 
-template <bool DROP = false>
-__global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
+// DROP: kw[u][r][w], word w of a staged tile of keys k0.. for row
+// r0 + 16u + g + 8r (bit j: key k0 + 32w + j), hidden pairs 0.  Lane t
+// draws row rows[t & 1] of row tile u for keys 8n + 4 (t >> 1) .. + 3 of
+// score tile n (one Philox call), AND-ed with the pairs the row sees;
+// lanes t and t ^ 2 OR their halves into the row's words, and lanes t and
+// t ^ 1 trade them.  `full`: the warp sees every pair of the tile.
+template <int MTS>
+__device__ __forceinline__ void draw_words(uint32_t (&kw)[MTS][2][WPT],
+                                           const DropoutBits& drop, int b,
+                                           int h, int r0, int g, int t,
+                                           int k0, int x_len, int xv, int yv,
+                                           bool text, bool full) {
+  const int odd = t & 1, half = t >> 1;
+  const int seg = text ? k0 : k0 - x_len;  // in the tile's segment
+#pragma unroll
+  for (int u = 0; u < MTS; ++u) {
+    const int row = r0 + 16 * u + g + 8 * odd;
+    // the row sees the tile's keys below k0 + lim (one path for full
+    // tiles too, so the unrolled calls are in the code once)
+    const int lim = full   ? BKT
+                    : text ? xv - k0
+                           : (row >= x_len ? min(row + 1, x_len + yv) - k0
+                                           : 0);
+    uint32_t part[WPT] = {};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int off = 8 * n + 4 * half;          // the call's first key
+      const int nv = min(max(lim - off, 0), 4);  // its visible keys
+      const uint32_t own = keep4(drop, b, h, row, (seg + off) / 4, !text) &
+                           (0xFu >> (4 - nv));
+      part[n / 4] |= own << 8 * (n % 4);
+    }
+#pragma unroll
+    for (int w = 0; w < WPT; ++w) {
+      const uint32_t mine = part[w] << 4 * half;
+      const uint32_t word = mine | __shfl_xor_sync(0xffffffffu, mine, 2);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, word, 1);
+      kw[u][0][w] = odd ? other : word;
+      kw[u][1][w] = odd ? word : other;
+    }
+  }
+}
+
+// The kernel's body; the instance with DROP runs MT_OF<true> row tiles a
+// warp
+template <bool DROP>
+__device__ __forceinline__ void prefill_attention_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
     float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale, const Dropout drop) {
+    int H, int x_len, float scale, const DropoutBits& drop) {
+  constexpr int MTS = MT_OF<DROP>, WRS = 16 * MTS, BQS = WRS * WARPS;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q0 =
-      (LONGEST_FIRST ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
-  const int r0 = q0 + warp * WR;  // the warp's first row
-  const int r_hi = r0 + WR - 1;   // and its last
+      (LONGEST_FIRST ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQS;
+  const int r0 = q0 + warp * WRS;  // the warp's first row
+  const int r_hi = r0 + WRS - 1;   // and its last
   const int xv = min(max(x_lens[b], 0), x_len);
   const int yv = min(max(y_lens[b], 0), T - x_len);
 
   // keys the block walks: text [0, xv), audio [x_len, a_end)
-  const int q_last = min(q0 + BQ, T) - 1;
+  const int q_last = min(q0 + BQS, T) - 1;
   const int a_end = q_last >= x_len ? min(q_last + 1, x_len + yv) : x_len;
   const int n_text = (xv + BKT - 1) / BKT;
   const int n_tiles = n_text + (a_end - x_len + BKT - 1) / BKT;
@@ -158,24 +229,40 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
 
   // row tile u of the warp: rows r0 + 16u + g (accumulator elements 0, 1)
   // and r0 + 16u + g + 8 (elements 2, 3)
-  uint32_t qa[MT][2][4];
+  uint32_t qa[MTS][2][4];
 #pragma unroll
-  for (int u = 0; u < MT; ++u)
+  for (int u = 0; u < MTS; ++u)
     load_a(q + b * q_sb + h * DK, q_st, r0 + 16 * u, T, g, t, qa[u]);
 
   // O accumulators: n8 tile d, c0 = row g dim 8d+2t, c1 dim 8d+2t+1, c2 /
   // c3 the same for row g+8; the row max (log2 units) and this lane's part
   // of the row sum
-  float acc[MT][4][4] = {};
-  float m[MT][2], l[MT][2];
+  float acc[MTS][4][4] = {};
+  float m[MTS][2], l[MTS][2];
 #pragma unroll
-  for (int u = 0; u < MT; ++u)
+  for (int u = 0; u < MTS; ++u)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       m[u][r] = -INFINITY;
       l[u][r] = 0.f;
     }
   const float c = scale * LOG2E;
+
+  // DROP: the mask's words of this (b, h) (nw_text text words, then the
+  // audio ones, W a row); zero_words(w0, w1) stores 0 in words [w0, w1) of
+  // the warp's rows below T
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] uint32_t* const bits =
+      DROP && drop.bits != nullptr
+          ? drop.bits + ((long long)b * H + h) * T * W : nullptr;
+  [[maybe_unused]] auto zero_words = [&](int w0, int w1) {
+    const int n = w1 - w0;
+    for (int x = lane; x < WRS * n; x += 32) {
+      const int rl = x / n, row = r0 + rl;
+      if (row < T) bits[(long long)row * W + w0 + x - rl * n] = 0u;
+    }
+  };
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile i landed
@@ -185,28 +272,37 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
     const bf16* tv = &kv[i % STAGES][1][0][0];
     const bool text = i < n_text;
     const int k0 = text ? i * BKT : x_len + (i - n_text) * BKT;
+    // the tile's first word of the mask in a row, and the row's end of its
+    // segment
+    [[maybe_unused]] const int w_tile =
+        text ? k0 / 32 : nw_text + (k0 - x_len) / 32;
+    [[maybe_unused]] const int w_seg = text ? nw_text : W;
     // hidden from every row of the warp: audio keys for text rows, or keys
     // past the last row's causal reach
-    if (!text && (r_hi < x_len || k0 > r_hi)) continue;
+    if (!text && (r_hi < x_len || k0 > r_hi)) {
+      if constexpr (DROP)
+        if (bits != nullptr) zero_words(w_tile, min(w_tile + WPT, w_seg));
+      continue;
+    }
     const bool full = text ? k0 + BKT <= xv
                            : (r0 >= x_len && k0 + BKT - 1 <= r0 &&
                               k0 + BKT <= x_len + yv);
     // S = Q K^T: tile n holds keys k0 + 8n + (B column g); element e of
     // row tile u is row r0 + 16u + g + 8 (e >> 1), key k0 + 8n + 2t + (e & 1)
-    float s[MT][NS][4] = {};
+    float s[MTS][NS][4] = {};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       uint32_t bk[4];
       ldsm_dims<LDS>(bk, tk, 8 * n, lane);
 #pragma unroll
-      for (int u = 0; u < MT; ++u) {
+      for (int u = 0; u < MTS; ++u) {
         mma_bf16(s[u][n], qa[u][0], bk[0], bk[1]);
         mma_bf16(s[u][n], qa[u][1], bk[2], bk[3]);
       }
     }
     if (!full) {
 #pragma unroll
-      for (int u = 0; u < MT; ++u)
+      for (int u = 0; u < MTS; ++u)
 #pragma unroll
         for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -221,7 +317,7 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
     }
     // online softmax in log2 units, the scale folded into the exponent
 #pragma unroll
-    for (int u = 0; u < MT; ++u)
+    for (int u = 0; u < MTS; ++u)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = -INFINITY;
@@ -250,28 +346,42 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
         }
       }
     if constexpr (DROP) {  // P o M, after the row sums took P
-      const int group = (text ? k0 : k0 - x_len) / 4;
+      uint32_t kw[MTS][2][WPT];  // the tile's words of the mask
+      draw_words(kw, drop, b, h, r0, g, t, k0, x_len, xv, yv, text, full);
+      if (bits != nullptr) {  // lane t: word t >> 1 of row rows[t & 1]
 #pragma unroll
-      for (int u = 0; u < MT; ++u) {
-        const int rows[2] = {r0 + 16 * u + g, r0 + 16 * u + g + 8};
+        for (int u = 0; u < MTS; ++u) {
+          const int row = r0 + 16 * u + g + 8 * (t & 1);
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const uint32_t keep =
-              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[u][n][e] = keep >> e & 1u ? s[u][n][e] : 0.f;
+          for (int w = 0; w < WPT; ++w)
+            if ((w & 1) == (t >> 1) && row < T && w_tile + w < w_seg)
+              bits[(long long)row * W + w_tile + w] =
+                  t & 1 ? kw[u][1][w] : kw[u][0][w];
         }
       }
+      // element e of score tile n: bit 8 (n % 4) + 2t + (e & 1) of word
+      // n / 4 of row e >> 1
+#pragma unroll
+      for (int u = 0; u < MTS; ++u)
+#pragma unroll
+        for (int w = 0; w < 2 * WPT; ++w) kw[u][w / WPT][w % WPT] >>= 2 * t;
+#pragma unroll
+      for (int u = 0; u < MTS; ++u)
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[u][n][e] = kw[u][e >> 1][n / 4] >> (8 * (n % 4) + (e & 1)) & 1u
+                             ? s[u][n][e] : 0.f;
     }
     // O += P V: k16 step j is score tiles 2j and 2j + 1 (A fragment a0 /
     // a1 tile 2j's c0c1 / c2c3, a2 / a3 tile 2j + 1's), V's rows 16j..,
     // whose B fragments serve every row tile
 #pragma unroll
     for (int j = 0; j < BKT / 16; ++j) {
-      uint32_t pa[MT][TERMS][4];
+      uint32_t pa[MTS][TERMS][4];
 #pragma unroll
-      for (int u = 0; u < MT; ++u)
+      for (int u = 0; u < MTS; ++u)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
@@ -286,7 +396,7 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
         uint32_t bv[4];
         ldsm_rows<LDS>(bv, tv, 16 * j, d2, lane);
 #pragma unroll
-        for (int u = 0; u < MT; ++u)
+        for (int u = 0; u < MTS; ++u)
 #pragma unroll
           for (int x = TERMS - 1; x >= 0; --x) {
             mma_bf16(acc[u][2 * d2], pa[u][x], bv[0], bv[1]);
@@ -296,13 +406,19 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
     }
   }
   cp_async_wait<0>();  // only empty groups are left
+  if constexpr (DROP) {  // the words of keys no row of the block sees
+    if (bits != nullptr) {
+      zero_words(n_text * WPT, nw_text);
+      zero_words(nw_text + (n_tiles - n_text) * WPT, W);
+    }
+  }
   __syncthreads();     // every warp is done with the ring: o goes through it
 
-  // the warp's WR x 32 tile of o, normalised and rounded, into rows of the
+  // the warp's WRS x 32 tile of o, normalised and rounded, into rows of the
   // ring; then out in 16-byte pieces, four a row
-  bf16* so = &kv[0][0][0][0] + warp * WR * LDS;
+  bf16* so = &kv[0][0][0][0] + warp * WRS * LDS;
 #pragma unroll
-  for (int u = 0; u < MT; ++u)
+  for (int u = 0; u < MTS; ++u)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float sum = l[u][r];
@@ -322,13 +438,44 @@ __global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
     }
   __syncwarp();
 #pragma unroll
-  for (int rr = 0; rr < 2 * MT; ++rr) {
+  for (int rr = 0; rr < 2 * MTS; ++rr) {
     const int rl = g + 8 * rr, row = r0 + rl;
     if (row < T)
       *reinterpret_cast<uint4*>(
           o + (((long long)b * T + row) * H + h) * DK + 8 * t) =
           *reinterpret_cast<const uint4*>(so + rl * LDS + 8 * t);
   }
+}
+
+
+// The kernel: the instance without dropout with the launch bounds of its
+// threads alone, the one with dropout held to DROP_MIN_BLOCKS blocks an SM
+// (an explicit specialization, so that the first keeps its code)
+template <bool DROP = false>
+__global__ void __launch_bounds__(NT) prefill_attention_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
+    long long k_st, long long v_sb, long long v_st,
+    const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
+    int H, int x_len, float scale, const DropoutBits drop) {
+  prefill_attention_bf16<DROP>(q, k, v, o, lse, q_sb, q_st, k_sb, k_st, v_sb,
+                               v_st, x_lens, y_lens, T, H, x_len, scale,
+                               drop);
+}
+
+template <>
+__global__ void __launch_bounds__(NT, DROP_MIN_BLOCKS)
+    prefill_attention_bf16_kernel<true>(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
+    long long k_st, long long v_sb, long long v_st,
+    const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
+    int H, int x_len, float scale, const DropoutBits drop) {
+  prefill_attention_bf16<true>(q, k, v, o, lse, q_sb, q_st, k_sb, k_st, v_sb,
+                               v_st, x_lens, y_lens, T, H, x_len, scale,
+                               drop);
 }
 
 }  // namespace
@@ -346,27 +493,29 @@ extern "C" int ev_prefill_attention_bf16(
   prefill_attention_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
       q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
-      (const int*)y_lens, T, H, x_len, scale, Dropout{});
+      (const int*)y_lens, T, H, x_len, scale, DropoutBits{});
   return (int)cudaGetLastError();
 }
 
 // K1's bf16 instance with dropout on P: the arguments above, then the
 // Philox seed, the layer index, the keep threshold, keep = 1 - p, the
-// global batch row of batch row 0 and the layer's head of head 0
+// global batch row of batch row 0, the layer's head of head 0 and the
+// (B, H, T, W) int32 words it writes the keep bits to, or null for none
 // (philox.cuh)
 extern "C" int ev_prefill_attention_dropout_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
     int B, int T, int H, int x_len, float scale, unsigned long long seed,
-    int layer, unsigned thr, float keep, int row0, int h0, void* stream) {
+    int layer, unsigned thr, float keep, int row0, int h0, void* bits,
+    void* stream) {
   if (T <= 0 || x_len < 0 || x_len > T || layer < 0 || layer >= (1 << 15) ||
       h0 < 0 || H + h0 >= (1 << 15) || !(keep > 0.f) || row0 < 0)
     return (int)cudaErrorInvalidValue;
-  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
-                     (uint32_t)h0};
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  const DropoutBits drop = dropout_bits(seed, thr, (uint32_t)layer, keep,
+                                        (uint32_t)row0, (uint32_t)h0, bits);
+  constexpr int BQD = 16 * MT_OF<true> * WARPS;  // query rows a block
+  const dim3 grid((T + BQD - 1) / BQD, H, B);
   prefill_attention_bf16_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
       q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,

@@ -66,14 +66,22 @@
 // Dropout (the s1 fine-tune with T2SConfig.dropout > 0), as in the fp32
 // instance (prefill_attention_bwd.cu): K1's bf16 instance with dropout
 // computed O = P~ V, P~ = P o M / keep, M the keep bits of philox.cuh,
-// keep = 1 - p.  The dkdv and dq kernels with DROP draw M again and take
+// keep = 1 - p, and wrote M as bits (philox.cuh's layout, one bit a pair:
+// 1/8 of the bool residual jax.value_and_grad keeps).  The dkdv and dq
+// kernels with DROP read those bits, and draw nothing, and take
 // dV = (P o M)^T dO / keep and dS = P o (dP~ o M / keep - D) with
 // dP~ = dO V^T; D = rowsum(dO o O) is unchanged (rowsum(P o dP~ o M / keep)
 // = rowsum(dO o (P~ V)) = rowsum(dO o O)), so dsum_bf16_kernel is the same.
-// P o M and dS enter the hi + lo bf16 split as P and dS did.  These
-// instances are held to 3 blocks an SM instead of MIN_BLOCKS, for the
-// generator's registers.  The instances without DROP are the code above,
-// unchanged.
+// The dkdv walk stages the query tile's two words a row (its 64 keys) by
+// 4-byte cp.async beside lse and D, and lane (g, t) shifts out the bits of
+// its keys kw + g (+ 8) at queries qc + 2t (+ 1); the dq walk stages the
+// block's 64 rows' word of each 32-key tile the same way.  P o M and dS
+// enter the hi + lo bf16 split as P and dS did, so the gradients are those
+// of drawing M again, bit for bit.  Free of the generator's registers,
+// these instances take MIN_BLOCKS blocks an SM as the others do (held to
+// 3 while they drew the mask; bench/k5_variants.py --dropout: 3 is slower,
+// no cap the same, PERF.md).  The instances without DROP are the code
+// above, unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,13 +110,13 @@ constexpr int MIN_BLOCKS = 4;   // blocks an SM asked of the launch bounds
 
 static_assert(QSTEP == 8 || QSTEP == 16, "a dkdv step is one k8 or k16");
 
-// 4 bytes (lse, D) global -> shared, zeros where !ok
-__device__ __forceinline__ void stage4(float* dst, const float* src,
-                                       bool ok) {
+// 4 bytes (lse, D, a word of the mask) global -> shared, zeros where !ok
+template <class X>
+__device__ __forceinline__ void stage4(X* dst, const X* src, bool ok) {
   if constexpr (ASYNC) {
     cp_async4(dst, src, ok);
   } else {
-    *dst = ok ? *src : 0.f;
+    *dst = ok ? *src : X(0);
   }
 }
 
@@ -187,14 +195,14 @@ __global__ void __launch_bounds__(DSUM_NT) dsum_bf16_kernel(
 }
 
 template <bool DROP = false>
-__global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dk, bf16* __restrict__ dv, long long in_sb,
     long long in_st, long long out_sb, long long out_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale, const Dropout drop) {
+    int H, int x_len, float scale, const DropoutBits drop) {
   constexpr int NQ = QSTEP / 8;  // n8 query tiles a step
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -215,11 +223,21 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
   __shared__ __align__(16) bf16 sdo[2][QT][LDS];
   __shared__ __align__(16) float slse[2][QT];
   __shared__ __align__(16) float sd[2][QT];
+  // DROP: the staged query rows' words of the block's keys, [slot][word][row]
+  __shared__ __align__(16) uint32_t sbits[DROP ? 2 : 1][BK / 32][QT];
 
   const long long head = (long long)b * in_sb + h * DK;
   const bf16* qb = q + head;
   const bf16* gb = dout + (long long)b * T * H * DK + h * DK;
   const long long lrow = ((long long)b * H + h) * T;
+  // DROP: the block's first word of the mask in a row, the end of its
+  // segment's words, and this (b, h)'s words
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] const int w_blk =
+      text ? k0 / 32 : nw_text + (k0 - x_len) / 32;
+  [[maybe_unused]] const int w_seg = text ? nw_text : W;
+  [[maybe_unused]] const uint32_t* bits = drop.bits + lrow * W;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int q0 = q_begin + i * QT;
@@ -236,6 +254,14 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
         const bool ok = row < T;
         stage4(&slse[slot][r], lse + (ok ? lrow + row : 0), ok);
         stage4(&sd[slot][r], dsum + (ok ? lrow + row : 0), ok);
+      }
+      if constexpr (DROP) {
+        for (int p = tid; p < BK / 32 * QT; p += NT) {
+          const int w = p / QT, r = p % QT, row = q0 + r;
+          const bool ok = row < T && w_blk + w < w_seg;
+          stage4(&sbits[slot][w][r],
+                 bits + (ok ? (long long)row * W + w_blk + w : 0), ok);
+        }
       }
     }
     cp_async_commit();
@@ -254,6 +280,8 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
   const bool live = kw < kend;  // some key of the warp is seen
   const int keys[2] = {kw + g, kw + g + 8};
   const int y_end = x_len + yv;
+  // DROP: the warp's keys are bits 16 (warp & 1) + g (+ 8) of word warp / 2
+  [[maybe_unused]] const int bit0 = 16 * (warp & 1) + g;
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
@@ -296,9 +324,13 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
         const float m[2] = {l2.x * LOG2E, l2.y * LOG2E};
         const float dd[2] = {d2.x, d2.y};
         [[maybe_unused]] uint32_t keep;  // the keep bits, with DROP
-        if constexpr (DROP)
-          keep = keep_cols(drop, b, h, qc + 8 * n,
-                           (text ? kw : kw - x_len) / 4, !text, g, t);
+        if constexpr (DROP) {  // bit e: key keys[e >> 1], query + (e & 1)
+          const uint2 w2 =
+              *reinterpret_cast<const uint2*>(&sbits[slot][warp >> 1][col]);
+          const uint32_t x = w2.x >> bit0, y = w2.y >> bit0;
+          keep = (x & 1u) | (y & 1u) << 1 | (x >> 8 & 1u) << 2 |
+                 (y >> 8 & 1u) << 3;
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           bool vis = full;
@@ -347,14 +379,14 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dkdv_bf16_kernel(
 }
 
 template <bool DROP = false>
-__global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dq, long long in_sb, long long in_st,
     long long out_sb, long long out_st, const int* __restrict__ x_lens,
     const int* __restrict__ y_lens, int T, int H, int x_len, float scale,
-    const Dropout drop) {
+    const DropoutBits drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -372,10 +404,18 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
 
   __shared__ __align__(16) bf16 sk[2][BKT][LDS];
   __shared__ __align__(16) bf16 sv[2][BKT][LDS];
+  // DROP: the block's rows' word of the staged key tile, [slot][row]
+  __shared__ __align__(16) uint32_t sbits[DROP ? 2 : 1][BQ];
+  static_assert(BKT == 32, "a dq key tile is one word of the mask");
 
   const long long head = (long long)b * in_sb + h * DK;
   const bf16* kb = k + head;
   const bf16* vb = v + head;
+  // DROP: this (b, h)'s words of the mask, W a row, text words first
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] const uint32_t* bits =
+      drop.bits + ((long long)b * H + h) * T * W;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int k0 = i < n_text ? i * BKT : x_len + (i - n_text) * BKT;
@@ -386,6 +426,15 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
         const bool ok = key < kend;
         stage16<ASYNC>(&sk[slot][r][c], ok ? kb + key * in_st + c : kb, ok);
         stage16<ASYNC>(&sv[slot][r][c], ok ? vb + key * in_st + c : vb, ok);
+      }
+      if constexpr (DROP) {  // text tile i is word i, audio tile i - n_text
+        const int w = i < n_text ? i : nw_text + i - n_text;
+        for (int r = tid; r < BQ; r += NT) {
+          const int row = q0 + r;
+          const bool ok = row < T;
+          stage4(&sbits[slot][r], bits + (ok ? (long long)row * W + w : 0),
+                 ok);
+        }
       }
     }
     cp_async_commit();
@@ -429,6 +478,13 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
                                 k0 + BKT <= x_len + yv);
       // S = Q K^T, dP = dO V^T: tile n holds keys k0 + 8n + (B column g);
       // element e is row rows[e >> 1], key k0 + 8n + 2t + (e & 1)
+      // DROP: the rows' words of the tile, bit 2t + 8n + (e & 1) for
+      // element e of score tile n
+      [[maybe_unused]] uint32_t word[2];
+      if constexpr (DROP)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          word[r] = sbits[slot][16 * warp + g + 8 * r] >> 2 * t;
       float s[BKT / 8][4] = {}, dp[BKT / 8][4] = {};
 #pragma unroll
       for (int n = 0; n < BKT / 8; ++n) {
@@ -449,14 +505,11 @@ __global__ void __launch_bounds__(NT, DROP ? 3 : MIN_BLOCKS) dq_bf16_kernel(
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int n = 2 * j + h2;
-          if constexpr (DROP) {  // dP~ o M / keep
-            const uint32_t keep =
-                keep_rows(drop, b, h, rows, (text ? k0 : k0 - x_len) / 4 +
-                          2 * n, !text, t);
+          if constexpr (DROP)  // dP~ o M / keep
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              dp[n][e] = keep >> e & 1u ? dp[n][e] * drop.inv_keep : 0.f;
-          }
+              dp[n][e] = word[e >> 1] >> (8 * n + (e & 1)) & 1u
+                             ? dp[n][e] * drop.inv_keep : 0.f;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             bool vis = full;
@@ -500,7 +553,7 @@ int launch_bwd_bf16(
     const void* dout_, const void* lse_, void* dsum_, void* dq_, void* dk_,
     void* dv_, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens_, const void* y_lens_, int B, int T,
-    int H, int x_len, float scale, const Dropout& drop, void* stream) {
+    int H, int x_len, float scale, const DropoutBits& drop, void* stream) {
   const bf16 *q = (const bf16*)q_, *k = (const bf16*)k_, *v = (const bf16*)v_;
   const bf16 *o = (const bf16*)o_, *dout = (const bf16*)dout_;
   const float* lse = (const float*)lse_;
@@ -540,26 +593,23 @@ extern "C" int ev_prefill_attention_bwd_bf16(
     int H, int x_len, float scale, void* stream) {
   return launch_bwd_bf16<false>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
                                 in_sb, in_st, out_sb, out_st, x_lens, y_lens,
-                                B, T, H, x_len, scale, Dropout{}, stream);
+                                B, T, H, x_len, scale, DropoutBits{},
+                                stream);
 }
 
 // The gradient of K1's bf16 instance with dropout: the arguments above,
-// then K1's Philox seed, layer index, keep threshold, keep = 1 - p, global
-// row of batch row 0 and head of head 0 (philox.cuh), which draw its mask
-// again.
+// then keep = 1 - p and the (B, H, T, W) int32 keep bits that K1's bf16
+// instance wrote (philox.cuh), which it reads in both walks.
 extern "C" int ev_prefill_attention_bwd_dropout_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens, const void* y_lens, int B, int T,
-    int H, int x_len, float scale, unsigned long long seed, int layer,
-    unsigned thr, float keep, int row0, int h0, void* stream) {
-  if (layer < 0 || layer >= (1 << 15) || h0 < 0 || H + h0 >= (1 << 15) ||
-      !(keep > 0.f) || row0 < 0)
-    return (int)cudaErrorInvalidValue;
-  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
-                     (uint32_t)h0};
+    int H, int x_len, float scale, float keep, const void* bits,
+    void* stream) {
+  if (!(keep > 0.f) || bits == nullptr) return (int)cudaErrorInvalidValue;
+  const DropoutBits drop =
+      dropout_bits(0, 0, 0, keep, 0, 0, const_cast<void*>(bits));
   return launch_bwd_bf16<true>(q, k, v, o, dout, lse, dsum, dq, dk, dv,
                                in_sb, in_st, out_sb, out_st, x_lens, y_lens,
                                B, T, H, x_len, scale, drop, stream);

@@ -32,12 +32,18 @@ row of batch row 0 in a data-parallel step, and ``h0``, the layer's head
 of head 0 on a tensor-parallel rank).  The keep mask M of each (batch,
 head, query row, key) is Philox4x32-10 of (seed, layer, row0 + b, h0 + h,
 row, key) (``ops/philox.py``, ``csrc/philox.cuh``): on the card K1's
-and K5's dropout instances draw it inside their loops (counted in
+dropout instances draw it inside their loops (counted in
 ``launches_dropout`` / ``launches_dropout_bf16``), on the CPU the twins
 take it from ``attention_keep_mask`` and apply ``where(M, P / (1 - p), 0)``
-in fp32; either way K5 draws the bits K1 drew.  The row max, row sum and
-lse stay the undropped softmax's.  ``dropout`` None or p = 0 launches the
-instances without dropout; p = 1 gives zeros, as flax does.
+in fp32.  K5's fp32 instance draws the bits again.  K1's bf16 instance
+also writes them, AND-ed with the pairs' visibility, as ``mask_bits`` (one
+bit a pair, ``ops/philox.py pack_keep_mask``; :func:`new_mask_bits` makes
+the tensor), and K5's bf16 instance reads them and draws nothing: on the
+card a bf16 K5 with dropout raises without them, and the autograd Function
+saves them for its backward.  On the CPU the twins fill and take the same
+bits.  The row max, row sum and lse stay the undropped softmax's.
+``dropout`` None or p = 0 launches the instances without dropout; p = 1
+gives zeros, as flax does.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ import torch
 
 from ..nn.layers import wide
 from . import build
-from .philox import attention_keep_mask, keep_threshold
+from .philox import attention_keep_mask, keep_threshold, mask_words, \
+    pack_keep_mask, unpack_keep_mask
 
 DK = 32  # the GPT kernels are written for the 512/16 GPT's head width
 ENCODER_DK = 64  # K1's encoder instance: 1024/16 (BERT), 768/12 (G2PW, HuBERT,
@@ -111,13 +118,42 @@ def _dropping(dropout: Optional[AttentionDropout]):
 
 
 def _twin_mask(dropout: Optional[AttentionDropout], q: torch.Tensor,
-               x_len: int):
+               x_len: int, mask_bits: Optional[torch.Tensor] = None):
     """(keep mask, p) of ``dropout`` for the twins of q's shape, or
-    (None, 0)."""
+    (None, 0); the mask read from ``mask_bits`` when given."""
     if dropout is None:
         return None, 0.0
     b, t, h, _ = q.shape
+    if mask_bits is not None:
+        return unpack_keep_mask(mask_bits, t, x_len), dropout.p
     return dropout.keep_mask(b, h, t, x_len, q.device), dropout.p
+
+
+def new_mask_bits(q: torch.Tensor, x_len: int) -> torch.Tensor:
+    """An int32 (B, H, T, W) tensor, on q's device, for the keep bits of
+    dropout on K1's probabilities (q (B, T, H, dk); W =
+    ``ops/philox.py mask_words(T, x_len)``), which K1 fills."""
+    b, t, h, _ = q.shape
+    return torch.empty((b, h, t, mask_words(t, x_len)), dtype=torch.int32,
+                       device=q.device)
+
+
+def _check_bits(name: str, mask_bits, dropout, q: torch.Tensor,
+                x_len: int) -> None:
+    """``mask_bits`` as the wrappers take it: given only with dropout, and
+    then new_mask_bits(q, x_len)'s shape, int32, contiguous, q's device."""
+    if mask_bits is None:
+        return
+    if dropout is None:
+        raise ValueError(f"{name}: mask_bits without dropout")
+    b, t, h, _ = q.shape
+    want = (b, h, t, mask_words(t, x_len))
+    if (tuple(mask_bits.shape) != want or mask_bits.dtype != torch.int32
+            or not mask_bits.is_contiguous()
+            or mask_bits.device != q.device):
+        raise ValueError(f"{name}: mask_bits must be contiguous int32 {want} "
+                         f"on {q.device}, got {mask_bits.dtype} "
+                         f"{tuple(mask_bits.shape)} on {mask_bits.device}")
 
 
 def _dense_attention(q, k, v, bias, mask=None, p_drop: float = 0.0):
@@ -248,21 +284,29 @@ def _count(fn, dtype: torch.dtype, drop: bool, n: int) -> None:
 
 
 def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool,
-                  dropout: Optional[AttentionDropout] = None):
+                  dropout: Optional[AttentionDropout] = None,
+                  mask_bits: Optional[torch.Tensor] = None):
     """K1 on the card: o (B, T, H, dk), and the row logsumexp (B, H, T)
     when ``with_lse`` (else None, and K1 writes no lse); with ``dropout``
-    (0 < p < 1) its dropout instance."""
+    (0 < p < 1) its dropout instance, whose bf16 instance writes the keep
+    bits into ``mask_bits`` (new_mask_bits) when given."""
     _check_cuda("prefill_attention", q, k, v, x_lens, y_lens)
     _check_heads("prefill_attention", q, k, v, dtypes=GPT_DTYPES)
     b, t, h, dk = q.shape
     if not 0 <= x_len <= t:
         raise ValueError(f"prefill_attention: x_len {x_len} outside [0, {t}]")
+    _check_bits("prefill_attention", mask_bits, dropout, q, x_len)
+    if mask_bits is not None and q.dtype != torch.bfloat16:
+        raise ValueError("prefill_attention: only the bf16 instance writes "
+                         "mask_bits (the fp32 K5 draws the mask again)")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     o = torch.empty((b, t, h, dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     drop = _drop_args(dropout)
+    if drop and q.dtype == torch.bfloat16:
+        drop += (None if mask_bits is None else mask_bits.data_ptr(),)
     lib = build.build()
     rc = getattr(lib, "ev_prefill_attention_" + ("dropout_" if drop else "")
                  + _suffix(q.dtype))(
@@ -291,16 +335,35 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           x_len: int, x_lens: torch.Tensor,
                           y_lens: torch.Tensor,
-                          dropout: Optional[AttentionDropout] = None):
+                          dropout: Optional[AttentionDropout] = None,
+                          mask_bits: Optional[torch.Tensor] = None):
     """K1 writing its row logsumexp too: (o (B, T, H, dk), lse (B, H, T));
     the twins on the CPU.  ``dropout`` (0 <= p < 1) drops the
-    probabilities; the lse is the undropped softmax's."""
+    probabilities; the lse is the undropped softmax's.  ``mask_bits``
+    (:func:`new_mask_bits`; bf16 only on the card): filled with the keep
+    bits AND-ed with the pairs' visibility, which K5's bf16 instance
+    takes."""
     dropout = _dropping(dropout)
     if q.device.type == "cpu":
+        _check_bits("prefill_attention_lse", mask_bits, dropout, q, x_len)
+        mask, p = _twin_mask(dropout, q, x_len)
+        if mask_bits is not None:
+            mask_bits.copy_(keep_bits_reference(mask, x_len, x_lens, y_lens))
         return (prefill_attention_reference(q, k, v, x_len, x_lens, y_lens,
-                                            *_twin_mask(dropout, q, x_len)),
+                                            mask, p),
                 prefill_attention_lse_reference(q, k, x_len, x_lens, y_lens))
-    return _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout)
+    return _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout,
+                         mask_bits)
+
+
+def keep_bits_reference(mask: torch.Tensor, x_len: int, x_lens: torch.Tensor,
+                        y_lens: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the bits K1's bf16 dropout instance writes: the keep
+    mask (B, H, T, T) AND-ed with the hybrid mask's visible pairs, packed
+    (``pack_keep_mask``) to (B, H, T, W) int32."""
+    t = mask.shape[-1]
+    visible = build_hybrid_mask_bias(x_len, t - x_len, x_lens, y_lens) == 0
+    return pack_keep_mask(mask & visible.to(mask.device), x_len)
 
 
 prefill_attention.launches = 0
@@ -368,7 +431,8 @@ encoder_attention.launches_dk32 = 0
 
 
 def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
-                          out=None, dropout: Optional[AttentionDropout] = None):
+                          out=None, dropout: Optional[AttentionDropout] = None,
+                          mask_bits: Optional[torch.Tensor] = None):
     """K5, the gradient of K1: (dq, dk, dv), each (B, T, H, dk).
 
     q/k/v are K1's inputs (views of one fused projection sharing its
@@ -378,13 +442,17 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     the CPU the plain twin runs.  One K5 call is three launches (D, dK/dV,
     dQ), and counts three.  fp32 or bf16 (then o, do and the outputs are
     bf16, lse fp32; ``launches_bf16`` counts them).  ``dropout``: the one K1
-    ran with (0 <= p < 1), whose mask K5 draws again; its instances count
-    in ``launches_dropout`` / ``launches_dropout_bf16``."""
+    ran with (0 <= p < 1); its instances count in ``launches_dropout`` /
+    ``launches_dropout_bf16``.  The fp32 instance draws K1's mask again;
+    the bf16 one reads ``mask_bits``, the bits K1's bf16 instance wrote
+    (:func:`prefill_attention_lse`), and raises without them.  On the CPU
+    the twin reads ``mask_bits`` when given, else draws the mask."""
     dropout = _dropping(dropout)
+    _check_bits("prefill_attention_bwd", mask_bits, dropout, q, x_len)
     if q.device.type == "cpu":
         grads = prefill_attention_bwd_reference(
             q, k, v, o, lse, do, x_len, x_lens, y_lens,
-            *_twin_mask(dropout, q, x_len))
+            *_twin_mask(dropout, q, x_len, mask_bits))
         if out is None:
             return grads
         for dst, g in zip(out, grads):
@@ -420,11 +488,19 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
         raise ValueError("prefill_attention_bwd: o and do must be "
                          f"{tuple(q.shape)}, 16-byte aligned, lse "
                          f"{(b, h, t)}")
+    if dropout is not None and (mask_bits is None) == (
+            q.dtype == torch.bfloat16):
+        raise ValueError(
+            "prefill_attention_bwd: with dropout the bf16 instance takes "
+            "K1's keep bits (mask_bits from prefill_attention_lse) and the "
+            "fp32 instance draws the mask again (no mask_bits)")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk_, dv = out
     drop = _drop_args(dropout)
+    if drop and mask_bits is not None:
+        drop = (1.0 - dropout.p, mask_bits.data_ptr())
     rc = getattr(build.build(), "ev_prefill_attention_bwd_"
                  + ("dropout_" if drop else "") + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -456,24 +532,28 @@ def _split_heads(qkv: torch.Tensor, n_heads: int):
 class _SelfAttention(torch.autograd.Function):
     """K1 forward (with its row logsumexp) and K5 backward; d(qkv) is one
     (B, T, 3 * D) tensor whose three slices K5 writes in place.  K5 takes
-    K1's dropout, and so draws K1's mask."""
+    K1's dropout: in fp32 it draws K1's mask again, in bf16 it reads the
+    keep bits K1 wrote, saved here for it."""
 
     @staticmethod
     def forward(ctx, qkv, n_heads, x_len, x_lens, y_lens, dropout):
         q, k, v = _split_heads(qkv, n_heads)
-        o, lse = _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout)
-        ctx.save_for_backward(qkv, o, lse, x_lens, y_lens)
+        bits = (new_mask_bits(q, x_len) if dropout is not None
+                and qkv.dtype == torch.bfloat16 else None)
+        o, lse = _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout,
+                               bits)
+        ctx.save_for_backward(qkv, o, lse, x_lens, y_lens, bits)
         ctx.n_heads, ctx.x_len, ctx.dropout = n_heads, x_len, dropout
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, o, lse, x_lens, y_lens = ctx.saved_tensors
+        qkv, o, lse, x_lens, y_lens, bits = ctx.saved_tensors
         q, k, v = _split_heads(qkv, ctx.n_heads)
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         prefill_attention_bwd(q, k, v, o, lse, do, ctx.x_len, x_lens, y_lens,
                               out=_split_heads(dqkv, ctx.n_heads),
-                              dropout=ctx.dropout)
+                              dropout=ctx.dropout, mask_bits=bits)
         return dqkv, None, None, None, None, None
 
 

@@ -56,12 +56,16 @@ SIGNATURES["ev_mrf_conv_bwd_weight_max_clusters_bf16"] = [_I] * 7
 # K1 and K5 with dropout (the s1 fine-tune): the arguments of the instance
 # without, then the Philox seed, the layer, the keep threshold, 1 - p, the
 # global batch row of batch row 0 and the layer's head of head 0, before the
-# stream
+# stream; K1's bf16 instance then the keep bits it writes (or null)
+_DRAW = [ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _I]
 for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd"):
-    for _dt in ("f32", "bf16"):
-        _base = SIGNATURES[f"{_name}_{_dt}"]
-        SIGNATURES[f"{_name}_dropout_{_dt}"] = _base[:-1] + [
-            ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _I, _P]
+    SIGNATURES[f"{_name}_dropout_f32"] = \
+        SIGNATURES[f"{_name}_f32"][:-1] + _DRAW + [_P]
+SIGNATURES["ev_prefill_attention_dropout_bf16"] = \
+    SIGNATURES["ev_prefill_attention_bf16"][:-1] + _DRAW + [_P, _P]
+# K5's bf16 instance with dropout reads K1's bits: 1 - p and the bits
+SIGNATURES["ev_prefill_attention_bwd_dropout_bf16"] = \
+    SIGNATURES["ev_prefill_attention_bwd_bf16"][:-1] + [_F, _P, _P]
 
 
 class KernelLibrary:

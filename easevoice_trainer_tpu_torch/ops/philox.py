@@ -37,6 +37,16 @@ a tensor-parallel step that holds heads ``h0 ..`` of the layer passes that
 So a keep bit is a function of (seed, layer, row0 + b, h0 + h, row, key)
 and the text / audio split alone: no tile, warp or launch enters it, and
 the fp32 and bf16 kernels, K1 and K5, and this twin all draw the same bit.
+
+The mask as bits (K1's bf16 instance writes it, K5's bf16 instance reads
+it instead of drawing it again): an int32 tensor (..., T, W) with
+``W = mask_words(T, x_len) = ceil(x_len / 32) + ceil((T - x_len) / 32)``,
+a query row's text words and then its audio words; bit ``j`` of word ``w``
+of a segment is key ``32 w + j`` of that segment.  K1 writes the keep
+mask AND-ed with the pairs' visibility (hidden pairs read 0), one bit a
+pair where the JAX package's ``jax.value_and_grad`` keeps the boolean mask,
+a byte a pair, as a residual of the forward.  :func:`pack_keep_mask` and
+:func:`unpack_keep_mask` are the twins of that layout.
 """
 from __future__ import annotations
 
@@ -120,3 +130,44 @@ def attention_keep_mask(seed: int, layer: int, b: int, h: int, t: int,
             words.append(torch.stack(w, dim=-1).flatten(-2)[..., :n] < thr)
         parts.append(torch.stack(words))
     return torch.cat(parts, dim=-1)
+
+
+def mask_words(t: int, x_len: int) -> int:
+    """W, the 32-key words of one query row of the mask as bits: the text
+    segment's, then the audio segment's, each rounded up."""
+    return -(-x_len // 32) + -(-(t - x_len) // 32)
+
+
+def pack_keep_mask(mask: torch.Tensor, x_len: int) -> torch.Tensor:
+    """The mask as bits: ``mask`` (..., T) bool over the keys of each row
+    (text keys ``[0, x_len)``, then audio keys) -> int32 (..., W), bit j
+    of word w of a segment key 32 w + j of that segment, the keys past a
+    segment's end 0."""
+    t = mask.shape[-1]
+    if not 0 <= x_len <= t:
+        raise ValueError(f"pack_keep_mask: x_len {x_len} outside [0, {t}]")
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=mask.device),
+        torch.arange(32, device=mask.device))
+    words = []
+    for seg in (mask[..., :x_len], mask[..., x_len:]):
+        n = seg.shape[-1]
+        pad = -n % 32
+        seg = torch.nn.functional.pad(seg.to(torch.int64), (0, pad))
+        w = (seg.unflatten(-1, ((n + pad) // 32, 32)) * weights).sum(-1)
+        words.append(torch.where(w >= 2 ** 31, w - 2 ** 32, w))
+    return torch.cat(words, dim=-1).to(torch.int32)
+
+
+def unpack_keep_mask(bits: torch.Tensor, t: int, x_len: int) -> torch.Tensor:
+    """The inverse of :func:`pack_keep_mask`: int32 (..., W) -> bool
+    (..., T) over the keys of each row."""
+    n_text = -(-x_len // 32)
+    if not 0 <= x_len <= t or bits.shape[-1] != mask_words(t, x_len):
+        raise ValueError(f"unpack_keep_mask: {bits.shape[-1]} words for "
+                         f"T = {t}, x_len = {x_len}")
+    shifts = torch.arange(32, device=bits.device)
+    keys = (bits.to(torch.int64)[..., None] >> shifts) & 1
+    keys = keys.flatten(-2).bool()
+    return torch.cat([keys[..., :x_len],
+                      keys[..., 32 * n_text:32 * n_text + t - x_len]], -1)

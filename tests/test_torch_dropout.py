@@ -217,6 +217,114 @@ def test_keep_mask_h0_is_the_layer_head():
     assert not torch.equal(whole[:, :8], whole[:, 8:])
 
 
+# the lengths of the mask-as-bits cases: (x_len, x_lens, y_len, y_lens,
+# row0, h0): text only, audio only, ragged lengths off the 32-key words,
+# words on the edges, a data-parallel rank's rows and a tensor-parallel
+# rank's heads
+BITS_CASES = [
+    (45, [45, 13, 1], 0, [0, 0, 0], 0, 0),           # text only
+    (0, [0, 0], 70, [70, 33], 0, 0),                 # audio only
+    (37, [37, 20, 5], 90, [90, 71, 2], 0, 0),        # ragged
+    (64, [64, 32], 64, [64, 31], 3, 0),              # words on the edges
+    (33, [1, 33], 31, [31, 0], 5, 8),                # row0 and h0
+]
+
+
+def _bits_case(x_len, x_lens, y_len, y_lens, row0, h0):
+    drop = att.AttentionDropout(P, 2 ** 35 + 11, 4, row0, h0)
+    b, t = len(x_lens), x_len + y_len
+    xl, yl = torch.tensor(x_lens), torch.tensor(y_lens)
+    vis = att.build_hybrid_mask_bias(x_len, y_len, xl, yl) == 0
+    return drop, b, t, xl, yl, drop.keep_mask(b, 2, t, x_len, "cpu") & vis
+
+
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens,row0,h0", BITS_CASES)
+def test_keep_mask_packs_into_bits_and_back(x_len, x_lens, y_len, y_lens,
+                                            row0, h0):
+    """``pack_keep_mask`` of the visible keep mask is (B, H, T, W) int32
+    with W = ceil(x_len / 32) + ceil(y_len / 32), bit j of word w of a
+    segment being key 32 w + j of it (checked on every pair), and
+    ``unpack_keep_mask`` gives the mask back."""
+    _, b, t, _, _, mask = _bits_case(x_len, x_lens, y_len, y_lens, row0, h0)
+    bits = philox.pack_keep_mask(mask, x_len)
+    n_text = -(-x_len // 32)
+    assert bits.dtype == torch.int32 and bits.shape == (
+        b, 2, t, n_text + -(-y_len // 32)) and \
+        bits.shape[-1] == philox.mask_words(t, x_len)
+    assert torch.equal(philox.unpack_keep_mask(bits, t, x_len), mask)
+    keys = torch.arange(t)
+    word = torch.where(keys < x_len, keys // 32,
+                       n_text + (keys - x_len) // 32)
+    bit = torch.where(keys < x_len, keys % 32, (keys - x_len) % 32)
+    got = (bits.long()[..., word] >> bit) & 1
+    assert torch.equal(got.bool(), mask)
+
+
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens,row0,h0", BITS_CASES)
+def test_k1_bf16_twin_writes_the_mask_it_applies(x_len, x_lens, y_len,
+                                                 y_lens, row0, h0):
+    """K1's bf16 dropout twin (``prefill_attention_lse`` on the CPU with
+    ``mask_bits``) fills exactly ``pack_keep_mask`` of the mask it applies,
+    AND-ed with the visible pairs (``keep_bits_reference``), and its o is
+    the twin's with the mask read back from those bits."""
+    drop, b, t, xl, yl, mask = _bits_case(x_len, x_lens, y_len, y_lens, row0,
+                                          h0)
+    rng = np.random.default_rng(row0 + h0 + t)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, t, 2, 32))).to(BF)
+               for _ in range(3))
+    bits = torch.full_like(att.new_mask_bits(q, x_len), -1)
+    o, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
+                                     mask_bits=bits)
+    assert torch.equal(bits, philox.pack_keep_mask(mask, x_len))
+    assert torch.equal(bits, att.keep_bits_reference(
+        drop.keep_mask(b, 2, t, x_len, "cpu"), x_len, xl, yl))
+    again = att.prefill_attention_reference(
+        q, k, v, x_len, xl, yl, philox.unpack_keep_mask(bits, t, x_len), P)
+    assert torch.equal(torch.nan_to_num(o), torch.nan_to_num(again))
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens,row0,h0",
+                         BITS_CASES[2:])
+def test_k5_twin_given_the_bits_is_the_twin_given_the_mask(
+        dtype, x_len, x_lens, y_len, y_lens, row0, h0):
+    """K5's dropout twin (``prefill_attention_bwd`` on the CPU) given the
+    bits K1's twin wrote gives, bit for bit, what it gives drawing the
+    boolean mask: the hidden pairs the bits leave out have P = 0."""
+    drop, b, t, xl, yl, _ = _bits_case(x_len, x_lens, y_len, y_lens, row0,
+                                       h0)
+    rng = np.random.default_rng(7 * t)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, t, 2, 32))).to(dtype)
+                   for _ in range(4))
+    bits = att.new_mask_bits(q, x_len)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
+                                       mask_bits=bits)
+    o = torch.nan_to_num(o)
+    got = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                    dropout=drop, mask_bits=bits)
+    want = att.prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
+                                     dropout=drop)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_mask_bits_are_checked():
+    """The wrappers refuse bits without dropout and bits of another shape
+    or dtype than ``new_mask_bits`` makes."""
+    drop, b, t, xl, yl, _ = _bits_case(*BITS_CASES[2])
+    q = torch.zeros((b, t, 2, 32))
+    bits = att.new_mask_bits(q, 37)
+    assert bits.shape == (b, 2, t, philox.mask_words(t, 37))
+    for bad, d in ((bits, None), (bits[..., 1:].contiguous(), drop),
+                   (bits.long(), drop)):
+        with pytest.raises(ValueError, match="mask_bits"):
+            att.prefill_attention_lse(q, q, q, 37, xl, yl, d, mask_bits=bad)
+        with pytest.raises(ValueError, match="mask_bits"):
+            att.prefill_attention_bwd(q, q, q, q, q[..., 0].transpose(1, 2),
+                                      q, 37, xl, yl, dropout=d,
+                                      mask_bits=bad)
+
+
 # ---- (c) the twins with a mask ----------------------------------------------
 
 

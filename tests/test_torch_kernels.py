@@ -956,6 +956,50 @@ def test_k1_variants_undo_one_choice_each():
         assert changed[0][0].startswith("constexpr "), name
 
 
+def test_k1_variants_dropout_undo_one_choice_each():
+    """``bench/k1_variants.py --dropout`` writes variants of the tree's K1
+    bf16 source that each differ from it in one constant of the instance
+    with dropout: ``DROP_MT`` the other of 1 and 2, ``DROP_MIN_BLOCKS`` one
+    lower."""
+    import os
+
+    from easevoice_trainer_tpu_torch.bench import k1_variants
+    from easevoice_trainer_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, "prefill_attention_bf16.cu")) as f:
+        src = f.read()
+    got = k1_variants.variants_dropout(src)
+    names = sorted(got)
+    assert len(names) == 2 and names[0].startswith("drop_cap") and \
+        names[1].startswith("drop_mt")
+    for name, text in got.items():
+        changed = [(a, b) for a, b in zip(src.splitlines(),
+                                          text.splitlines()) if a != b]
+        assert len(changed) == 1, name
+        assert changed[0][0].startswith("constexpr int DROP_"), name
+
+
+def test_k5_variants_bf16_undo_one_choice_each():
+    """``bench/k5_variants.py`` writes variants of the tree's K5 bf16
+    source, each undoing one choice: a constant at its top, or the
+    blocks-an-SM cap of both walks (``no_cap``)."""
+    import os
+    import re
+
+    from easevoice_trainer_tpu_torch.bench import k5_variants
+    from easevoice_trainer_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, "prefill_attention_bwd_bf16.cu")) as f:
+        src = f.read()
+    got = k5_variants.variants_bf16(src)
+    assert {"terms3", "sync", "q8", "no_cap"} < set(got)
+    assert any(re.fullmatch(r"cap\d", n) for n in got) and len(got) == 5
+    for name, text in got.items():
+        changed = [(a, b) for a, b in zip(src.splitlines(),
+                                          text.splitlines()) if a != b]
+        assert len(changed) == (2 if name == "no_cap" else 1), name
+
+
 # K5's bf16 kernels at the edges of their own tiles: 16-row MMA fragments,
 # 64-key dkdv blocks, 64-row query tiles and 32-key dq tiles (x_len and T
 # one off each), T < 16 with a batch row that is all pads, text rows that
@@ -1526,6 +1570,15 @@ def _dropout_heads(gen, dtype, x_len, x_lens, y_len, y_lens, h=16):
     return (*att._split_heads(qkv, h), do, xl, yl)
 
 
+def _k1_dropout(q, k, v, x_len, xl, yl, drop):
+    """K1's dropout instance with its lse: (o, lse, the keep bits it wrote
+    in bf16, or None in fp32, whose K5 draws the mask again)."""
+    bits = att.new_mask_bits(q, x_len) if q.dtype == torch.bfloat16 else None
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
+                                       mask_bits=bits)
+    return o, lse, bits
+
+
 def _close(got, want, dtype, rel):
     if dtype == torch.bfloat16:
         _close_bf16(got, want)
@@ -1585,12 +1638,12 @@ def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
     q, k, v, do, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
                                          y_lens)
     drop = att.AttentionDropout(0.1, 99, 23, row0)
-    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    o, lse, bits = _k1_dropout(q, k, v, x_len, xl, yl, drop)
     counts = ("launches", "launches_bf16", "launches_dropout",
               "launches_dropout_bf16")
     before = [getattr(prefill_attention_bwd, c) for c in counts]
     got = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
-                                dropout=drop)
+                                dropout=drop, mask_bits=bits)
     ran = "launches_dropout" + ("_bf16" if dtype == torch.bfloat16 else "")
     assert [getattr(prefill_attention_bwd, c) for c in counts] == [
         n + 3 * (c == ran) for n, c in zip(before, counts)]
@@ -1602,8 +1655,62 @@ def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
         assert torch.isfinite(g.float()).all(), name
         _close(g, w, dtype, rel=True)
     again = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
-                                  dropout=drop)
+                                  dropout=drop, mask_bits=bits)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
+                         K5_CASES + K1_BF16_EDGES + K5_BF16_EDGES)
+def test_prefill_attention_dropout_bf16_writes_the_bits(x_len, x_lens, y_len,
+                                                        y_lens):
+    """K1 bf16's dropout instance writes the keep mask as bits
+    (``ops/philox.py pack_keep_mask`` of ``attention_keep_mask`` AND-ed
+    with the visible pairs), bit for bit over the whole (B, H, T, W)
+    tensor, set to all ones before the launch so that the words of keys it
+    never walks must be written too, at ``row0`` 5 and ``h0`` 8; repeated
+    launches write the same bits and o, and a launch without the tensor
+    gives the same o."""
+    gen = _card()
+    q, k, v, _, xl, yl = _dropout_heads(gen, torch.bfloat16, x_len, x_lens,
+                                        y_len, y_lens, h=8)
+    drop = att.AttentionDropout(0.1, 0x5EED_0022, 17, 5, 8)
+    bits = torch.full_like(att.new_mask_bits(q, x_len), -1)
+    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
+                                       mask_bits=bits)
+    b, t, h, _ = q.shape
+    want = att.keep_bits_reference(drop.keep_mask(b, h, t, x_len, "cuda"),
+                                   x_len, xl, yl)
+    assert torch.equal(bits, want)
+    again = torch.zeros_like(bits)
+    o2, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
+                                      mask_bits=again)
+    o3, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    assert torch.equal(again, bits)
+    assert torch.equal(o2, o) and torch.equal(o3, o)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_bwd_dropout_bits_by_dtype():
+    """On the card the bf16 K5 with dropout reads K1's bits and raises
+    without them (it never draws the mask again); the fp32 K5 draws it
+    and refuses bits; K1's fp32 instance writes none."""
+    gen = _card()
+    drop = att.AttentionDropout(0.1, 7, 1)
+    for dtype in DROPOUT_DTYPES:
+        q, k, v, do, xl, yl = _dropout_heads(gen, dtype, 40, [1, 40],
+                                             95, [95, 60])
+        o, lse = att.prefill_attention_lse(q, k, v, 40, xl, yl, drop)
+        bits = att.new_mask_bits(q, 40)
+        with pytest.raises(ValueError, match="mask_bits"):
+            prefill_attention_bwd(q, k, v, o, lse, do, 40, xl, yl,
+                                  dropout=drop,
+                                  mask_bits=None if dtype == torch.bfloat16
+                                  else bits)
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="mask_bits"):
+                att.prefill_attention_lse(q, k, v, 40, xl, yl, drop,
+                                          mask_bits=bits)
 
 
 @pytest.mark.cuda
@@ -1651,14 +1758,16 @@ def test_dropout_h0_is_the_layer_head(dtype, x_len, x_lens, y_len, y_lens,
     part = att.AttentionDropout(0.1, whole.seed, 11, 3, h0)
     heads = slice(h0, h0 + 8)
     q8, k8, v8, do8 = (z[:, :, heads] for z in (q, k, v, do))
-    o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, whole)
+    o, lse, bits = _k1_dropout(q, k, v, x_len, xl, yl, whole)
     grads = prefill_attention_bwd(q, k, v, o, lse, do, x_len, xl, yl,
-                                  dropout=whole)
-    o8, lse8 = att.prefill_attention_lse(q8, k8, v8, x_len, xl, yl, part)
+                                  dropout=whole, mask_bits=bits)
+    o8, lse8, bits8 = _k1_dropout(q8, k8, v8, x_len, xl, yl, part)
     grads8 = prefill_attention_bwd(q8, k8, v8, o8, lse8, do8, x_len, xl, yl,
-                                   dropout=part)
+                                   dropout=part, mask_bits=bits8)
     assert torch.equal(o8, o[:, :, heads])
     assert torch.equal(lse8, lse[:, heads])
+    if bits is not None:
+        assert torch.equal(bits8, bits[:, heads])
     for g8, g in zip(grads8, grads):
         assert torch.equal(g8, g[:, :, heads])
     b, t = q.shape[:2]
@@ -1679,9 +1788,10 @@ def test_dropout_h0_is_the_layer_head(dtype, x_len, x_lens, y_len, y_lens,
 @pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 def test_self_attention_dropout_autograd_on_the_card(dtype):
     """The training attention with dropout through the autograd Function
-    (K1 and K5's dropout instances, K5 drawing K1's mask again) against
-    autograd of the dense twin with the same mask; p = 0 launches the
-    instances without dropout, p = 1 gives zeros."""
+    (K1 and K5's dropout instances; in fp32 K5 draws K1's mask again, in
+    bf16 it reads the keep bits K1 wrote, which the Function saves)
+    against autograd of the dense twin with the same mask; p = 0 launches
+    the instances without dropout, p = 1 gives zeros."""
     gen = _card()
     b, h, dk, x_len, y_len = 3, 16, 32, 37, 90
     xl = torch.tensor([37, 20, 5], dtype=torch.int32, device="cuda")
