@@ -12,9 +12,11 @@ output, K3 and K4-dx also compared bit for bit, K3 and K4-dx by SASS, K4-dW
 per Generator stage, K5 over the two s1 shapes, its fp32 gradients bit for
 bit and its bf16 instance held to the twin beside the parent's; the bf16
 K1 over the two s1 shapes, held to the twin and to the parent's, also as
-CUDA graphs; the bf16 K4-dW per stage held to the parent's); then
+CUDA graphs; the bf16 K4-dW per stage held to the parent's; the fp32
+dropout K1 and K5 over the two s1 shapes, K1's o and lse and K5's
+gradients bit for bit, and the fp32 s1 window with dropout); then
 ``bench/sass_diff.py`` must find every kernel body of the parent's library
-in this tree's.
+in this tree's, but the fp32 dropout bodies this tree replaces.
 
 Phases, one summary line each; any failure exits non-zero:
 
@@ -62,8 +64,10 @@ Phases, one summary line each; any failure exits non-zero:
    alone).  Then the dropout instances of K1 and K5 (``check_dropout``,
    the s1 fine-tune with dropout 0.1), fp32 and bf16, at the two s1 shapes
    against their twins given the same Philox keep mask, the keep rate,
-   the mask read back bit for bit from K1, K5's dkdv and K5's dq at
-   T = 1776, each timed beside the instance without dropout, the twin and
+   the keep bits K1 writes equal to ``keep_bits_reference`` bit for bit
+   (K5 reads them), the mask read back bit for bit from K1, K5's dkdv and
+   K5's dq at T = 1776, each timed beside the instance without dropout,
+   the twin and
    SDPA with dropout_p = 0.1 under the same boolean mask, with its bound
    and the RNG's own floor from the Philox instructions in its SASS;
 4. serving: ``VoiceCloneService.clone`` at full model width (random weights
@@ -1933,16 +1937,15 @@ INT_OPS = ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT",
 # immediate (unsigned or signed)
 PHILOX_M = ("0xd2511f53", "-0x2daee0ad", "0xcd9e8d57", "-0x326172a9")
 # the Philox calls in one pass of each dropout body's unrolled tile loop,
-# from the sources: K1 fp32 4 n8 key tiles (one call a lane pair and row
-# pair each), K1 bf16 MT x NS = 2 x 8 (a call a lane, row tile and n8 key
-# tile), dkdv BQ / 16 x 2 query tiles, dq 4 key tiles; K5 bf16 reads K1
-# bf16's bits and makes none
-PHILOX_CALLS = {"prefill_attention": 4, "prefill_attention_bf16": 16,
-                "dkdv": 8, "dq": 4, "dkdv_bf16": 0, "dq_bf16": 0}
-# a K5 bf16 that draws the mask again (a --parent tree from before K1
-# wrote the bits): QT / QSTEP x NQ = 4 x 2 calls a pass of dkdv, BKT / 8 =
-# 4 of dq
-PHILOX_CALLS_DRAWING = {**PHILOX_CALLS, "dkdv_bf16": 8, "dq_bf16": 4}
+# from the sources: K1 fp32 4 n8 key tiles (one call a lane each), K1 bf16
+# DROP_MT x NS = 1 x 8 (a call a lane, row tile and n8 key tile); K5 reads
+# K1's bits in both dtypes and makes none
+PHILOX_CALLS = {"prefill_attention": 4, "prefill_attention_bf16": 8,
+                "dkdv": 0, "dq": 0, "dkdv_bf16": 0, "dq_bf16": 0}
+# a K5 fp32 that draws the mask again (a --parent tree from before K1's
+# fp32 instance wrote the bits): BQ / 16 x 2 query tiles a pass of dkdv, 4
+# key tiles of dq
+PHILOX_CALLS_DRAWING = {**PHILOX_CALLS, "dkdv": 8, "dq": 4}
 
 
 def philox_cost(lib_path: str, calls_by_body=PHILOX_CALLS) -> dict:
@@ -1950,10 +1953,10 @@ def philox_cost(lib_path: str, calls_by_body=PHILOX_CALLS) -> dict:
     dtype): the integer-pipe instructions its SASS body adds over its
     instance without dropout, per Philox call of the body (PHILOX_CALLS):
     "instructions a call", the lane exchanges, the threshold tests and
-    K1 bf16's words of the mask included; beside it the multiplies by the
+    K1's words of the mask included; beside it the multiplies by the
     round constants found in the body (20 a call where each is an IMAD
-    with an immediate).  A body with no call (K5 bf16, which reads K1's
-    bits) must hold no such multiply; its instructions a call read 0."""
+    with an immediate).  A body with no call (K5, which reads K1's bits)
+    must hold no such multiply; its instructions a call read 0."""
     pairs = (("prefill_attention_kernelILi32ELb", "prefill_attention"),
              ("prefill_attention_bf16_kernelILb", "prefill_attention_bf16"),
              ("dkdv_kernelILb", "dkdv"), ("dq_kernelILb", "dq"),
@@ -2004,9 +2007,9 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
       dq: o = 0 (so D = 0), dO[:, :, 0] = v[:, :, 0] = 1 (so dP~ = 1) and k
           one-hot on a block of keys give dQ[row, :, j] = P M(row, k0 + j) /
           (keep sqrt(dk)).
-    Each is positive exactly where the pair is kept.  In bf16 K5 reads the
-    bits K1's bf16 instance wrote (``mask_bits``), which are read too: "K1
-    bits", unpacked (``ops/philox.py unpack_keep_mask``).  Returns
+    Each is positive exactly where the pair is kept.  K5 reads the bits K1
+    wrote (``mask_bits``), which are read too: "K1 bits", unpacked
+    (``ops/philox.py unpack_keep_mask``).  Returns
     {kernel: (pairs read that disagree, visible pairs read)}; hidden pairs
     must read 0 too (counted as disagreeing otherwise)."""
     from easevoice_trainer_tpu_torch.ops import philox
@@ -2021,10 +2024,9 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
     eye = torch.eye(block, dk, dtype=dtype, device=dev)
     q = zeros()
     found = {"K1": [0, 0], "K5 dkdv": [0, 0], "K5 dq": [0, 0]}
-    bf = dtype == torch.bfloat16
 
     def k1(k, v):
-        bits = att.new_mask_bits(q, x_len) if bf else None
+        bits = att.new_mask_bits(q, x_len)
         o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, dropout,
                                            mask_bits=bits)
         return o, lse, bits
@@ -2046,7 +2048,7 @@ def dropout_readout(torch, att, dtype, dropout, x_len, xl, yl, t, h=16,
         v[:, k0:k0 + n] = eye[:n, None, :]
         o, lse, bits = k1(q, v)
         tally("K1", (o.float() > 0).permute(0, 2, 1, 3)[..., :n], k0, False)
-        if bf and k0 == 0:
+        if k0 == 0:
             found["K1 bits"] = [0, 0]
             tally("K1 bits", philox.unpack_keep_mask(bits, t, x_len), 0,
                   False)
@@ -2083,7 +2085,7 @@ def check_dropout(torch, results, parent=None):
     K5 1e-4 x max(1, max|twin|); bf16: BF16_TOL / BF16_SHARE), K1's lse
     bit-equal to the instance without dropout's (the undropped softmax),
     repeated launches bit-identical, the keep rate over the visible pairs
-    within 6 sigma of 1 - p; in bf16 the keep bits K1 writes equal
+    within 6 sigma of 1 - p; the keep bits K1 writes equal
     ``keep_bits_reference`` (``pack_keep_mask`` of the mask AND-ed with the
     visible pairs) bit for bit, and K5 reads them; the mask read back from
     K1, K5's dkdv and K5's dq at T = 1776 (``dropout_readout``), bit for
@@ -2094,15 +2096,15 @@ def check_dropout(torch, results, parent=None):
     same boolean mask (forward; its backward through autograd; between CUDA
     events, ``event_ms``: a profiler session may lose a library call's
     records unnoticed), which the port never calls; the bound as for the
-    instances without dropout plus, in bf16, the bits' bytes (written once
-    by K1, read once by K5), and beside it the RNG's own floor: the Philox
-    calls these inputs need (one a four visible pairs a pass; K5 fp32
-    draws twice, K5 bf16 never) x the integer instructions a call costs in
-    the SASS (``philox_cost``) / (132 SMs x 64 INT32 lanes x the card's
-    maximum SM clock).  With ``parent`` (the parent's ops.attention), the
-    bf16 instances are timed in turns with the parent's on the same inputs
-    and their outputs and K5's gradients compared with the parent's bit for
-    bit."""
+    instances without dropout plus the bits' bytes (written once by K1,
+    read once by K5), and beside it the RNG's own floor: the Philox calls
+    these inputs need (one a four visible pairs; K1 draws, K5 never) x the
+    integer instructions a call costs in the SASS (``philox_cost``) / (132
+    SMs x 64 INT32 lanes x the card's maximum SM clock).  With ``parent``
+    (the parent's ops.attention, whose fp32 K5 draws the mask again), the
+    fp32 instances are timed in turns with the parent's on the same inputs
+    and K1's o and lse and K5's gradients compared with the parent's bit
+    for bit."""
     import torch.nn.functional as F
 
     from easevoice_trainer_tpu_torch.ops import attention as att
@@ -2119,7 +2121,7 @@ def check_dropout(torch, results, parent=None):
         log("[a/b] Philox in the parent's SASS: " + ", ".join(
             f"{n} {c['int_added']} integer instructions added for "
             f"{c['calls']} calls, {c['per_call']:.1f} a call"
-            for n, c in old_cost.items() if n.endswith("bf16")))
+            for n, c in old_cost.items() if not n.endswith("bf16")))
     for key in ("prefill_attention_kernelILi32ELb1E",
                 "prefill_attention_bf16_kernelILb1E", "dkdv_kernelILb1E",
                 "dq_kernelILb1E", "dkdv_bf16_kernelILb1E",
@@ -2135,7 +2137,7 @@ def check_dropout(torch, results, parent=None):
         sfx = "_bf16" if bf else ""
         ops_rate = BF16_OPS_PER_S if bf else FP32_OPS_PER_S
         sums = {key: [0.0] * 4 for key in ("k1", "k5")}  # drop, off, twin, lib
-        olds = {"k1": 0.0, "k5": 0.0}   # the parent's, in turns (bf16)
+        olds = {"k1": 0.0, "k5": 0.0}   # the parent's, in turns (fp32)
         bounds = {key: Bound(ops_rate) for key in ("k1", "k5")}
         floors = {"k1": 0.0, "k5": 0.0}
         worst = {"k1": _Worst(), "k5": _Worst()} if bf else \
@@ -2161,7 +2163,7 @@ def check_dropout(torch, results, parent=None):
             rates.append((rate, sigma))
             assert abs(rate - (1 - p)) <= 6 * sigma, (rate, sigma)
             k1_args = (q, k, v, x_len, xl, yl)
-            bits = att.new_mask_bits(q, x_len) if bf else None
+            bits = att.new_mask_bits(q, x_len)
             o, lse = att.prefill_attention_lse(*k1_args, drop,
                                                mask_bits=bits)
             _, lse_off = att.prefill_attention_lse(*k1_args)
@@ -2170,10 +2172,9 @@ def check_dropout(torch, results, parent=None):
             for _ in range(2):
                 again = att.prefill_attention_lse(*k1_args, drop)
                 assert torch.equal(o, again[0]), "K1 dropout does not repeat"
-            if bf:
-                bits_off = int((bits != att.keep_bits_reference(
-                    mask, x_len, xl, yl)).sum())
-                assert bits_off == 0, f"K1 bf16's bits: {bits_off} words off"
+            bits_off = int((bits != att.keep_bits_reference(
+                mask, x_len, xl, yl)).sum())
+            assert bits_off == 0, f"K1's bits: {bits_off} words off"
             want_o = torch.nan_to_num(att.prefill_attention_reference(
                 *k1_args, mask, p), nan=0.0)
             k5_args = (q, k, v, o, lse, do, x_len, xl, yl)
@@ -2185,12 +2186,12 @@ def check_dropout(torch, results, parent=None):
                 assert all(torch.equal(a, c) for a, c in zip(got, again)), \
                     "K5 dropout does not repeat"
             old = {}
-            if bf and parent is not None:   # the parent's, on these inputs
+            if not bf and parent is not None:   # the parent's, same inputs
                 old_o, old_lse = parent.prefill_attention_lse(*k1_args, drop)
                 old_g = parent.prefill_attention_bwd(*k5_args, dropout=drop)
                 same = (torch.equal(old_o, o) and torch.equal(old_lse, lse),
                         all(torch.equal(a, c) for a, c in zip(old_g, got)))
-                log(f"[a/b] dropout bf16 T={t}: this tree's K1 o / lse "
+                log(f"[a/b] dropout fp32 T={t}: this tree's K1 o / lse "
                     f"bit-identical to the parent's: {same[0]}; K5's "
                     f"gradients from K1's bits bit-identical to the "
                     f"parent's, which draws the mask again: {same[1]}")
@@ -2253,14 +2254,14 @@ def check_dropout(torch, results, parent=None):
             pairs = n_vis
             elems = b * t * h * dk
             size = 2 if bf else 4
-            # bf16: the bits, written by K1 and read by K5
-            nbits = bits.numel() * 4 if bf else 0
+            # the bits, written by K1 and read by K5
+            nbits = bits.numel() * 4
             bounds["k1"].add(size * 4 * elems + 4 * b * h * t + nbits,
                              4 * dk * pairs)
             bounds["k5"].add(size * 8 * elems + 4 * b * h * t + nbits,
                              10 * dk * pairs)
-            # one Philox call a four visible pairs a pass: K1 draws once,
-            # K5 fp32 twice (dkdv and dq), K5 bf16 never
+            # one Philox call a four visible pairs: K1 draws once, K5
+            # never
             calls = math.ceil(pairs / 4)
             floors["k1"] += calls * cost["prefill_attention" + sfx][
                 "per_call"] / int_rate * 1e3
@@ -2272,8 +2273,8 @@ def check_dropout(torch, results, parent=None):
                 f"B={b} H={h} x_len={x_len} y_len={y_len} (T={t}): "
                 f"{n_vis} visible (row, key, head) triples, keep rate "
                 f"{rate:.6f} (1 - p = {1 - p}, sigma {sigma:.2g})"
-                + (f"; K1's keep bits {tuple(bits.shape)} ({nbits / 1e6:.2f} "
-                   f"MB) equal keep_bits_reference bit for bit" if bf else "")
+                + f"; K1's keep bits {tuple(bits.shape)} ({nbits / 1e6:.2f} "
+                f"MB) equal keep_bits_reference bit for bit"
                 + (f"; in turns with the parent's: K1 {k1_old:.4f} -> "
                    f"{k1_ms:.4f}, K5 {k5_old:.4f} -> {k5_ms:.4f}"
                    if old else "") + "; device ms "
@@ -2549,9 +2550,9 @@ def ab_mrf(torch, parent):
     assert worst.ok(), f"K4-dW bf16 disagrees with the parent's: {worst}"
 
 
-# the parent's kernel bodies this tree replaces by design: K1 bf16's and
-# K5 bf16's dropout instances (K1 writes the keep bits, K5 reads them)
-AB_SASS_REPLACED = r"(prefill_attention|dkdv|dq)_bf16_kernelILb1E"
+# the parent's kernel bodies this tree replaces by design: K1 fp32's and
+# K5 fp32's dropout instances (K1 writes the keep bits, K5 reads them)
+AB_SASS_REPLACED = r"(prefill_attention_kernelILi32E|(dkdv|dq)_kernelI)Lb1E"
 
 
 def ab_sass(parent_root: str) -> None:
@@ -5265,7 +5266,7 @@ def train_s1_dropout(torch, tmp: str, results, parent=None) -> None:
     and K5's 24 times (72 launches), of the run's dtype, and no instance
     without dropout; the counts go to the dropout instances' entries.  s a
     micro-batch and the run's torch.cuda.max_memory_allocated are logged;
-    with ``parent`` (the parent's package) its bf16 window runs first on
+    with ``parent`` (the parent's package) its fp32 window runs first on
     the same data, its s a micro-batch and peak beside this tree's."""
     from easevoice_trainer_tpu_torch import ops
     from easevoice_trainer_tpu_torch.train import gpt as gpt_train
@@ -5286,7 +5287,7 @@ def train_s1_dropout(torch, tmp: str, results, parent=None) -> None:
     if parent is not None:
         import importlib
 
-        runs.insert(0, ("parent bf16", None,
+        runs.insert(0, ("parent fp32", "False",
                         importlib.import_module("ev_parent.train.gpt"),
                         parent.ops))
     try:

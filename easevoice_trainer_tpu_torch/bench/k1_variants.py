@@ -1,7 +1,7 @@
-"""K1 bf16's design choices, each taken back in turn, timed on the card.
+"""K1's design choices, each taken back in turn, timed on the card.
 
     python3 -m easevoice_trainer_tpu_torch.bench.k1_variants [--dropout] \
-        [--parent DIR]
+        [--dtype bf16|fp32] [--parent DIR]
 
 Writes variants of ``csrc/prefill_attention_bf16.cu`` under
 ``build/k1_variants/`` (git-ignored), each with one of the constants at its
@@ -37,6 +37,11 @@ and the tree's instance once more without writing the bits
 older commit unpacked with ``git archive``) whose entry point takes no bits
 (``parent``).
 
+``--dtype fp32`` (with ``--dropout``) times the fp32 instance with dropout
+(``csrc/prefill_attention.cu``; o within 1e-4 of the twin, as chip_smoke
+holds it) the same way, beside ``tree_no_bits`` and ``parent``; it has no
+constant to undo.
+
 Needs a CUDA card; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -48,9 +53,14 @@ import sys
 
 from .k5_variants import _build, _const, _entry, _kernel_ms, _swap, bf16_err
 
-KERNEL = "prefill_attention_bf16_kernel"
-ENTRY = "ev_prefill_attention_bf16"
-DROPOUT_ENTRY = "ev_prefill_attention_dropout_bf16"
+# by dtype: the source, its kernel's name and its entry point without
+# dropout (the one with dropout adds "dropout_")
+SOURCES = {
+    "bf16": ("prefill_attention_bf16.cu", "prefill_attention_bf16_kernel",
+             "ev_prefill_attention_bf16"),
+    "fp32": ("prefill_attention.cu", "prefill_attention_kernel",
+             "ev_prefill_attention_f32"),
+}
 
 
 def variants(src: str) -> dict:
@@ -89,13 +99,13 @@ def variants_dropout(src: str) -> dict:
             f"drop_cap{blocks}": const("DROP_MIN_BLOCKS", blocks)}
 
 
-def build_all(srcs: dict, out: str, entry: str = ENTRY,
-              parent: str = None) -> dict:
+def build_all(srcs: dict, out: str, entry: str, parent: str = None,
+              source: str = SOURCES["bf16"][0]) -> dict:
     """The tree's entry point and one built from each source of ``srcs``
     (name -> CUDA source, written and built under ``out``), by name; the
     ptxas register and spill lines of each are printed.  ``parent``: the
     root of another tree, whose instance with dropout (an entry point
-    without the bits) is built too, as "parent"."""
+    without the bits, from its ``source``) is built too, as "parent"."""
     from ..ops import build
 
     procs = {}
@@ -107,9 +117,8 @@ def build_all(srcs: dict, out: str, entry: str = ENTRY,
     if parent is not None:
         csrc = os.path.join(os.path.abspath(parent),
                             "easevoice_trainer_tpu_torch", "csrc")
-        procs["parent"] = _build(
-            os.path.join(csrc, "prefill_attention_bf16.cu"),
-            os.path.join(out, "parent.so"), csrc)
+        procs["parent"] = _build(os.path.join(csrc, source),
+                                 os.path.join(out, "parent.so"), csrc)
     fns = {"tree": getattr(build.build(), entry)}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -126,15 +135,20 @@ def build_all(srcs: dict, out: str, entry: str = ENTRY,
     return fns
 
 
-def time_all(torch, fns: dict, dropout: bool = False) -> dict:
+def time_all(torch, fns: dict, dropout: bool = False,
+             dtype: str = "bf16") -> dict:
     """Device ms of each build over the two s1 shapes, the tree's timed
     first and last, each held to the twin; prints a line a shape and build,
     and the sums.  ``dropout``: the builds' dropout entry points (p = 0.1),
     each held to the twin with the same mask and its bits to
-    ``keep_bits_reference``."""
+    ``keep_bits_reference``.  ``dtype``: bf16 or fp32 (o within 1e-4 of the
+    twin)."""
     from ..ops import attention as att
     from ..ops.philox import keep_threshold
 
+    kernel = SOURCES[dtype][1]
+    bf = dtype == "bf16"
+    label = f"K1 {dtype}{' dropout' if dropout else ''}"
     order = ["tree", *(n for n in fns if n != "tree"), "tree"]
     if dropout:   # the tree's instance writing no bits
         fns = {**fns, "tree_no_bits": fns["tree"]}
@@ -151,7 +165,8 @@ def time_all(torch, fns: dict, dropout: bool = False) -> dict:
                                device="cuda").to(torch.int32)
         x_lens[0], y_lens[-1] = x_len, y_len
         qkv = torch.randn((b, t, 3 * h * dk), generator=gen,
-                          device="cuda").to(torch.bfloat16)
+                          device="cuda").to(torch.bfloat16 if bf
+                                            else torch.float32)
         q, k, v = att._split_heads(qkv, h)
         drop = att.AttentionDropout(0.1, 0x1801, 9) if dropout else None
         mask = drop.keep_mask(b, h, t, x_len, "cuda") if dropout else None
@@ -192,25 +207,30 @@ def time_all(torch, fns: dict, dropout: bool = False) -> dict:
             assert not dropout or name in ("tree_no_bits", "parent") or \
                 torch.equal(bits, want_bits), \
                 f"{name}: the keep bits are not keep_bits_reference's"
-            rel, share = bf16_err(o, want)
+            if bf:
+                rel, share = bf16_err(o, want)
+                ok = rel <= 2.0 ** -6 and share <= 0.02
+            else:
+                rel, share = float((o - want).abs().max()), 0.0
+                ok = rel <= 1e-4
             lse_err = float((lse[seen] - want_lse[seen]).abs().max())
             assert torch.equal(torch.isfinite(lse), seen), name
-            assert rel <= 2.0 ** -6 and share <= 0.02 and lse_err <= 1e-4, \
+            assert ok and lse_err <= 1e-4, \
                 f"{name} disagrees with the twin: {rel}, {share}, {lse_err}"
             worst[name] = [max(a, c) for a, c in
                            zip(worst[name], (rel, share, lse_err))]
-            runs.setdefault(name, []).append(_kernel_ms(torch, run, KERNEL))
+            runs.setdefault(name, []).append(_kernel_ms(torch, run, kernel))
         for name, ms in runs.items():
             totals[name] += sum(ms) / len(ms)
-            print(f"T={t} {name}: K1 bf16{' dropout' if dropout else ''} "
-                  f"{sum(ms) / len(ms):.4f} ms", flush=True)
+            print(f"T={t} {name}: {label} {sum(ms) / len(ms):.4f} ms",
+                  flush=True)
     for name, ms in totals.items():
-        print(f"two s1 shapes, {name}: K1 bf16"
-              f"{' dropout' if dropout else ''} {ms:.4f} ms "
+        print(f"two s1 shapes, {name}: {label} {ms:.4f} ms "
               f"({ms / totals['tree']:.3f} x the tree); against the twin: "
-              f"relative {worst[name][0]:.3g}, share off by more than a step "
-              f"{worst[name][1]:.3g}, lse max|d| {worst[name][2]:.3g}",
-              flush=True)
+              + (f"relative {worst[name][0]:.3g}, share off by more than a "
+                 f"step {worst[name][1]:.3g}" if bf else
+                 f"max|d| {worst[name][0]:.3g}")
+              + f", lse max|d| {worst[name][2]:.3g}", flush=True)
     return totals
 
 
@@ -224,9 +244,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dropout", action="store_true",
                     help="the instance with dropout and its own choices")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                    help="the instance's dtype (fp32 with --dropout only)")
     ap.add_argument("--parent", metavar="DIR",
                     help="with --dropout: another tree's instance too")
     args = ap.parse_args(argv)
+    if args.dtype == "fp32" and not args.dropout:
+        ap.error("--dtype fp32 times the instance with dropout: add "
+                 "--dropout")
     if not torch.cuda.is_available():
         print("k1_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -234,15 +259,20 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
-    out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k1_variants")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 twin
+    out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k1_variants",
+                       args.dtype)
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(build.CSRC, "prefill_attention_bf16.cu")) as f:
+    source, _, entry = SOURCES[args.dtype]
+    with open(os.path.join(build.CSRC, source)) as f:
         src = f.read()
     if args.dropout:
-        time_all(torch, build_all(variants_dropout(src), out, DROPOUT_ENTRY,
-                                  args.parent), dropout=True)
+        srcs = variants_dropout(src) if args.dtype == "bf16" else {}
+        entry = entry.replace("attention_", "attention_dropout_")
+        time_all(torch, build_all(srcs, out, entry, args.parent, source),
+                 dropout=True, dtype=args.dtype)
     else:
-        time_all(torch, build_all(variants(src), out))
+        time_all(torch, build_all(variants(src), out, entry))
     return 0
 
 

@@ -18,7 +18,7 @@ max(1, max|twin|) each):
 - ``q8``: dkdv through a query tile 8 queries (one accumulator tile per
   product) a step, not 16;
 - ``exp2f``: libm's ``exp2f`` in place of ``ex2.approx.ftz``;
-- ``no_cap``: launch bounds of 128 threads alone, no 3-blocks-an-SM cap;
+- ``no_cap``: launch bounds of 128 threads alone, no blocks-an-SM cap;
 - ``cvt``: the TF32 rounding of the split by ``cvt.rna.tf32.f32``.
 
 bf16 (``csrc/prefill_attention_bwd_bf16.cu``, whose choices are the
@@ -32,9 +32,14 @@ by more than one bf16 step, both printed):
 - ``q8``: dkdv 8 queries a step (m16n8k8), not 16 (m16n8k16);
 - ``no_cap`` / ``cap<n>``: no blocks-an-SM cap, or one block fewer.
 
-``--dropout`` times the bf16 instances with dropout (p = 0.1) instead,
-reading the keep bits K1's bf16 dropout instance wrote, against the twin
-with the same mask.
+``--dropout`` times the instances with dropout (p = 0.1) instead, reading
+the keep bits K1's dropout instance wrote, against the twin with the same
+mask: in bf16 with the choices above, in fp32 with those of its dropout
+instances (``variants_dropout``):
+
+- ``drop_cap<n>``: one block an SM fewer asked of the dropout instances'
+  launch bounds (2: the cap they had while they drew the mask);
+- ``no_cap``: as above.
 
 Needs a CUDA card; prints the card's name and power limit first.
 """
@@ -108,10 +113,24 @@ def variants(src: str) -> dict:
     return {
         "q8": src[:begin] + _Q8 + src[end:],
         "exp2f": _swap(src, "? ex2(fmaf(", "? exp2f(fmaf(", 2),
-        "no_cap": _swap(src, "__launch_bounds__(NT, DROP ? 2 : 3)",
-                        "__launch_bounds__(NT)", 2),
+        "no_cap": _no_cap(src),
         "cvt": _swap(src, _SPLIT, _CVT),
     }
+
+
+def _no_cap(src: str) -> str:
+    return _swap(src, "__launch_bounds__(NT, DROP ? DROP_MIN_BLOCKS : "
+                 "MIN_BLOCKS)", "__launch_bounds__(NT)", 2)
+
+
+def variants_dropout(src: str) -> dict:
+    """The tree's fp32 K5 source with each design choice of the instances
+    with dropout undone, by name."""
+    line = _const(src, "DROP_MIN_BLOCKS")
+    blocks = int(line.rsplit("=", 1)[1].strip(" ;")) - 1
+    return {f"drop_cap{blocks}": _swap(
+                src, line, line.rsplit("=", 1)[0] + f"= {blocks};"),
+            "no_cap": _no_cap(src)}
 
 
 def _const(src: str, name: str) -> str:
@@ -157,21 +176,36 @@ def _entry(so_path: str, name: str, argtypes=None):
 
 
 def _kernel_ms(torch, run, name: str, reps: int = 20) -> float:
+    """Device ms of the one kernel named *name* that a call of ``run``
+    launches: the mean over the records of a torch.profiler session of
+    ``reps`` calls.  A session now and then loses records, so one short of
+    ``reps`` is taken again, up to three in all, and the mean is taken
+    over what the fullest one recorded (the sum over ``reps`` would read
+    low)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profiler session now and then records nothing
+    best = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and name in e.name]
-        if us:
-            return sum(us) / 1000.0 / reps
-    raise RuntimeError(f"torch.profiler recorded no kernel named *{name}*")
+        if len(us) > len(best):
+            best = us
+        if len(best) >= reps:
+            break
+    if not best:
+        raise RuntimeError(f"torch.profiler recorded no kernel named "
+                           f"*{name}*")
+    if len(best) < reps:
+        print(f"[timer] {name}: {len(best)} of {reps} launches recorded; "
+              f"the mean of those", flush=True)
+    return sum(best) / 1000.0 / len(best)
 
 
 def bf16_err(got, want):
@@ -185,8 +219,8 @@ def bf16_err(got, want):
 
 def run_set(torch, dtype, out: str, dropout: bool = False) -> None:
     """Build and time one instance's variants (``dtype`` torch.float32 or
-    torch.bfloat16; with ``dropout`` the bf16 instance with dropout, on
-    K1's keep bits) beside the tree's library."""
+    torch.bfloat16; with ``dropout`` the instance with dropout, on K1's keep
+    bits) beside the tree's library."""
     from ..ops import attention as att
     from ..ops import build
 
@@ -199,7 +233,8 @@ def run_set(torch, dtype, out: str, dropout: bool = False) -> None:
     kernels = tuple(f"{k}{'_bf16' if bf16 else ''}_kernel"
                     for k in ("dsum", "dkdv", "dq"))
     with open(os.path.join(build.CSRC, source)) as f:
-        srcs = (variants_bf16 if bf16 else variants)(f.read())
+        srcs = (variants_bf16 if bf16 else variants_dropout if dropout
+                else variants)(f.read())
     procs = {}
     for name, src in srcs.items():
         path = os.path.join(out, f"{name}{tag}.cu")
@@ -298,8 +333,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("fp32", "bf16", "both"),
                     default="both")
     ap.add_argument("--dropout", action="store_true",
-                    help="the bf16 instances with dropout (implies --dtype "
-                         "bf16)")
+                    help="the instances with dropout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k5_variants: no CUDA device", file=sys.stderr)
@@ -311,12 +345,9 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     out = os.path.join(os.path.dirname(build.BUILD_ROOT), "k5_variants")
     os.makedirs(out, exist_ok=True)
-    if args.dropout:
-        run_set(torch, torch.bfloat16, out, dropout=True)
-        return 0
     for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         if args.dtype in (name, "both"):
-            run_set(torch, dtype, out)
+            run_set(torch, dtype, out, args.dropout)
     return 0
 
 

@@ -1,8 +1,8 @@
 // Philox4x32-10 and the keep mask of the s1 attention's dropout, which K1
-// (prefill_attention.cu, prefill_attention_bf16.cu) draws.  K5's fp32
-// instance (prefill_attention_bwd.cu) draws it again; K5's bf16 instance
-// (prefill_attention_bwd_bf16.cu) reads the bits K1's bf16 instance wrote
-// (below).  Its twin, bit for bit, is ops/philox.py.
+// (prefill_attention.cu, prefill_attention_bf16.cu) draws once and writes
+// as bits (below); K5 (prefill_attention_bwd.cu,
+// prefill_attention_bwd_bf16.cu) reads those bits in both dtypes, so no
+// kernel draws the mask twice.  Its twin, bit for bit, is ops/philox.py.
 //
 // Philox4x32-10 (Salmon, Moraes, Dror and Shaw, "Parallel random numbers:
 // as easy as 1, 2, 3", SC 2011; Random123's philox4x32 with 10 rounds): a
@@ -30,16 +30,16 @@
 // So the bit depends on (seed, l, row0 + b, h0 + h, row, key) and the text
 // / audio split alone, never on a tile, a warp or the launch.  Every
 // kernel's key tiles start at a multiple of 32 keys into their segment, so
-// the four keys of a call sit in one tile; the kernels share each call's
-// four bits among the lanes that hold those pairs by shuffles.
+// the four keys of a call sit in one tile; K1 gathers each call's four bits
+// into 32-key words by shuffles.
 //
-// The mask as bits (K1's bf16 instance writes it, K5's bf16 instance reads
-// it; ops/philox.py pack_keep_mask / unpack_keep_mask): a (B, H, T, W)
-// int32 tensor, W = ceil(x_len / 32) + ceil((T - x_len) / 32), a query
-// row's text words and then its audio words.  Bit j of word w of a segment
-// is the keep bit of key 32 w + j of that segment AND-ed with the pair's
-// visibility under the hybrid mask: hidden pairs, and the keys past a
-// segment's end in its last word, read 0.  Since key tiles start at
+// The mask as bits (K1's dropout instances write it, K5's read it, in fp32
+// and bf16 alike; ops/philox.py pack_keep_mask / unpack_keep_mask): a
+// (B, H, T, W) int32 tensor, W = ceil(x_len / 32) + ceil((T - x_len) / 32),
+// a query row's text words and then its audio words.  Bit j of word w of
+// a segment is the keep bit of key 32 w + j of that segment AND-ed with
+// the pair's visibility under the hybrid mask: hidden pairs, and the keys
+// past a segment's end in its last word, read 0.  Since key tiles start at
 // multiples of 32 keys into their segment, a tile of 32 n keys is n whole
 // words of each row.
 #pragma once
@@ -64,9 +64,9 @@ __host__ __device__ __forceinline__ int mask_words(int T, int x_len) {
   return (x_len + 31) / 32 + (T - x_len + 31) / 32;
 }
 
-// The dropout argument of the bf16 instances (by value, the last kernel
-// argument; the instances without dropout take it and never read it):
-// Dropout's fields and the mask as bits
+// The dropout argument of K1 and K5 (by value, the last kernel argument;
+// the instances without dropout take it and never read it): Dropout's
+// fields and the mask as bits
 struct DropoutBits : Dropout {
   uint32_t* bits;  // (B, H, T, W): K1 writes them (not when null), K5 reads
                    // them
@@ -117,42 +117,6 @@ __device__ __forceinline__ uint32_t keep4(const Dropout& d, int b, int h,
       d.k0, d.k1);
   return (uint32_t)(w.x < d.thr) | (uint32_t)(w.y < d.thr) << 1 |
          (uint32_t)(w.z < d.thr) << 2 | (uint32_t)(w.w < d.thr) << 3;
-}
-
-// The keep bits of an m16n8 accumulator tile whose element e is row
-// rows[e >> 1], key 2t + (e & 1) of its 8 keys (K1, K5's dq): lanes t and
-// t ^ 1 share the Philox call of keys 4 (t / 2) .. + 3; the even lane
-// draws row rows[0]'s bits and the odd one rows[1]'s, and they trade.
-// `group` is the call of the tile's first four keys, counted in their
-// segment.  Bit e of the result is element e's.
-__device__ __forceinline__ uint32_t keep_rows(const Dropout& d, int b, int h,
-                                              const int (&rows)[2], int group,
-                                              bool audio, int t) {
-  const int odd = t & 1;
-  const uint32_t own = keep4(d, b, h, rows[odd], group + (t >> 1), audio);
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
-  const uint32_t top = odd ? other : own, bottom = odd ? own : other;
-  return (top >> 2 * odd & 3u) | (bottom >> 2 * odd & 3u) << 2;
-}
-
-// The keep bits of an m16n8 tile transposed (K5's dkdv): element e is key
-// kw + g + 8 (e >> 1), query q0 + 2t + (e & 1), the warp's 16 keys starting
-// at index 4 * group of their segment.  Lane (g, t) draws query
-// q0 + 2t + (g & 1) for keys 4 (group + g / 2) .. + 3 and each lane gathers
-// its four bits from the lanes that drew them.  Bit e of the result is
-// element e's.
-__device__ __forceinline__ uint32_t keep_cols(const Dropout& d, int b, int h,
-                                              int q0, int group, bool audio,
-                                              int g, int t) {
-  const uint32_t own =
-      keep4(d, b, h, q0 + 2 * t + (g & 1), group + (g >> 1), audio);
-  uint32_t bits = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int src = 4 * (2 * (g >> 2) + 4 * (e >> 1) + (e & 1)) + t;
-    bits |= (__shfl_sync(0xffffffffu, own, src) >> (g & 3) & 1u) << e;
-  }
-  return bits;
 }
 
 }  // namespace ev

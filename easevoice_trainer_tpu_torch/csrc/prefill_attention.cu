@@ -59,15 +59,24 @@
 //
 // Dropout (the s1 fine-tune with T2SConfig.dropout > 0; JAX drops the
 // probabilities after the softmax, models/gpt/t2s.py:128): the instance
-// with DROP draws each visible pair's keep bit M from Philox (philox.cuh)
-// right after the exponent and zeroes the dropped P elements before they
-// enter P V, ahead of the 3xTF32 split; the row max m, the row sum l and
-// the lse stay the undropped softmax's, and 1 / (1 - p) is folded into the
-// final 1 / l, so o = (P o M / (1 - p)) V with P normalised by the undropped
-// sum.  Lanes t and t ^ 1 share one Philox call of four keys: each draws the
-// bits of one of its two rows and they trade them by a shuffle.  K5 draws
-// the same bits again.  The instances without DROP are the code above,
-// unchanged.
+// with DROP draws each pair's keep bit M from Philox (philox.cuh) once,
+// zeroes the dropped P elements before they enter P V, ahead of the 3xTF32
+// split, and writes M as bits (philox.cuh's layout), which K5
+// (prefill_attention_bwd.cu) reads instead of drawing them again; the row
+// max m, the row sum l and the lse stay the undropped softmax's, and
+// 1 / (1 - p) is folded into the final 1 / l, so o = (P o M / (1 - p)) V
+// with P normalised by the undropped sum.  A 32-key tile is one word of
+// each row: lane t draws row rows[t & 1] for keys 8n + 4 (t >> 1) .. + 3 of
+// each n8 tile n (one call), lanes t and t ^ 2 OR their halves into the
+// row's word and lanes t and t ^ 1 trade rows, 2 shuffles a tile
+// (draw_tile); lanes t = 0 and 1 store the words of rows g and g + 8,
+// AND-ed with the keys each row sees.  A warp stores zero words for the
+// tiles hidden from it and, after its walk, for the keys no row of the
+// block sees, so every word of every row < T is written (no memset).  The
+// draw sits before S = Q K^T, in the basic block of its tensor-core
+// products, and two registers hold the words until P takes them (drawn
+// after the online softmax instead, beside their use, it timed the same;
+// PERF.md).  The instances without DROP are the code above, unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -86,11 +95,44 @@ constexpr int BKT = 32;         // keys per staged tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+static_assert(BKT == 32, "a staged key tile is one word of the mask a row");
+
 __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
   float h, l;
   split_tf32(v, h, l);
   hi = __float_as_uint(h);
   lo = __float_as_uint(l);
+}
+
+// DROP: word[r], the keep bits of row rows[r] for the 32-key tile whose
+// first key is `seg` into its segment (bit j: key seg + j), hidden pairs
+// not cleared.  Lane t draws row rows[t & 1] for keys 8n + 4 (t >> 1) .. + 3
+// of each n8 tile n; lanes t and t ^ 2 OR their halves, lanes t and t ^ 1
+// trade rows.  Then lane t < 2 stores row rows[t]'s word (word w_tile of
+// the row in `bits`, W a row; none when null) AND-ed with the keys the row
+// sees: the tile's first `lim` (the lane's row rows[t & 1]).
+__device__ __forceinline__ void draw_tile(uint32_t (&word)[2],
+                                          const DropoutBits& drop, int b,
+                                          int h, const int (&rows)[2],
+                                          int seg, bool audio, int t,
+                                          uint32_t* bits, int W, int w_tile,
+                                          int T, int lim) {
+  const int odd = t & 1, half = t >> 1;
+  uint32_t mine = 0;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    mine |= keep4(drop, b, h, rows[odd], seg / 4 + 2 * n + half, audio)
+            << 8 * n;
+  mine <<= 4 * half;
+  mine |= __shfl_xor_sync(0xffffffffu, mine, 2);
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  word[0] = odd ? other : mine;
+  word[1] = odd ? mine : other;
+  if (bits != nullptr && t < 2 && rows[t] < T) {
+    const uint32_t seen =
+        lim >= 32 ? 0xffffffffu : lim <= 0 ? 0u : (1u << lim) - 1u;
+    bits[(long long)rows[t] * W + w_tile] = (t ? word[1] : word[0]) & seen;
+  }
 }
 
 // DK: 32 (the 512/16 GPT) or 64 (the encoders: 1024/16, 768/12); DROP:
@@ -102,7 +144,7 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     float* __restrict__ lse, long long q_sb, long long q_st, long long k_sb,
     long long k_st, long long v_sb, long long v_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale, const Dropout drop) {
+    int H, int x_len, float scale, const DropoutBits drop) {
   static_assert(DK == 32 || DK == 64, "K1 is written for dk 32 and 64");
   static_assert(!DROP || DK == 32, "dropout is the GPT's alone");
   constexpr int LDS = DK + 4;   // shared row stride in floats, 4 mod 32
@@ -195,6 +237,22 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
   const int rows[2] = {r0 + g, r0 + g + 8};
   const int r_hi = r0 + 15;
 
+  // DROP: the mask's words of this (b, h) (nw_text text words, then the
+  // audio ones, W a row); zero_words(w0, w1) stores 0 in words [w0, w1) of
+  // the warp's rows below T
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] uint32_t* const bits =
+      DROP && drop.bits != nullptr
+          ? drop.bits + ((long long)b * H + h) * T * W : nullptr;
+  [[maybe_unused]] auto zero_words = [&](int w0, int w1) {
+    const int n = w1 - w0;  // consecutive lanes: consecutive words of a row
+    for (int x = lane; x < 16 * n; x += 32) {
+      const int rl = x / n, row = r0 + rl;
+      if (row < T) bits[(long long)row * W + w0 + x - rl * n] = 0u;
+    }
+  };
+
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
     __syncthreads();
@@ -204,10 +262,29 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     // hidden from every row of the warp: audio keys for text rows, or keys
     // past the last row's causal reach
     const bool hidden = !text && (r_hi < x_len || k0 > r_hi);
+    // DROP: the tile's word of the mask in a row (its first key k0 is
+    // 32 w into its segment)
+    [[maybe_unused]] const int w_tile =
+        text ? k0 / 32 : nw_text + (k0 - x_len) / 32;
+    if constexpr (DROP)
+      if (hidden && bits != nullptr) zero_words(w_tile, w_tile + 1);
     if (!hidden) {
       const bool full = text ? k0 + BKT <= xv
                              : (r0 >= x_len && k0 + BKT - 1 <= r0 &&
                                 k0 + BKT <= x_len + yv);
+      // DROP: the tile's keep bits of rows g and g + 8 (bit j: key k0 + j),
+      // drawn and stored before S's products, beside which the integer
+      // pipe runs; row rows[t & 1] sees the keys below k0 + lim
+      [[maybe_unused]] uint32_t word[2];
+      if constexpr (DROP) {
+        const int row = rows[t & 1];
+        const int lim =
+            full   ? BKT
+            : text ? xv - k0
+                   : (row >= x_len ? min(row + 1, x_len + yv) - k0 : 0);
+        draw_tile(word, drop, b, h, rows, text ? k0 : k0 - x_len, !text, t,
+                  bits, W, w_tile, T, lim);
+      }
       // S = Q K^T: key tile n holds keys k0 + 8n + g (B column g); K is
       // read one 32-dim half at a time
       float sacc[4][4];
@@ -294,15 +371,14 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
         oacc[n][3] *= alpha[1];
       }
       if constexpr (DROP) {  // P o M, after the row sums took P
-        const int group = (text ? k0 : k0 - x_len) / 4;
+        // element e of score tile n: bit 8n + 2t + (e & 1) of word e >> 1
+        const uint32_t kw[2] = {word[0] >> 2 * t, word[1] >> 2 * t};
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const uint32_t keep =
-              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            sacc[n][e] = keep >> e & 1u ? sacc[n][e] : 0.f;
-        }
+            sacc[n][e] =
+                kw[e >> 1] >> (8 * n + (e & 1)) & 1u ? sacc[n][e] : 0.f;
       }
       // O += P V: k-step j is score tile j (slot t = key 8j+2t, slot t+4 =
       // key 8j+2t+1), n8 tile 4f+u column g is dim 32f+4g+u
@@ -341,6 +417,12 @@ __global__ void __launch_bounds__(NTHREADS) prefill_attention_kernel(
     }
     __syncthreads();  // both warps are done with this slot
     issue(i + 2, slot);
+  }
+  if constexpr (DROP) {  // the words of keys no row of the block sees
+    if (bits != nullptr) {
+      zero_words(n_text, nw_text);
+      zero_words(nw_text + n_tiles - n_text, W);
+    }
   }
 
 #pragma unroll
@@ -388,26 +470,27 @@ extern "C" int ev_prefill_attention_f32(
   prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
       (float*)lse, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)x_lens,
-      (const int*)y_lens, T, H, x_len, scale, Dropout{});
+      (const int*)y_lens, T, H, x_len, scale, DropoutBits{});
   return (int)cudaGetLastError();
 }
 
 // K1 with dropout on P: the arguments above, then the Philox seed, the
 // layer index, the keep threshold (a pair is kept iff its word < thr),
-// keep = 1 - p, the global batch row of batch row 0 and the layer's head of
-// head 0 (philox.cuh); lse is written as above
+// keep = 1 - p, the global batch row of batch row 0, the layer's head of
+// head 0 and the (B, H, T, W) int32 words it writes the keep bits to, or
+// null for none (philox.cuh); lse is written as above
 extern "C" int ev_prefill_attention_dropout_f32(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, const void* x_lens, const void* y_lens,
     int B, int T, int H, int x_len, float scale, unsigned long long seed,
-    int layer, unsigned thr, float keep, int row0, int h0, void* stream) {
+    int layer, unsigned thr, float keep, int row0, int h0, void* bits,
+    void* stream) {
   if (T <= 0 || x_len < 0 || x_len > T || layer < 0 || layer >= (1 << 15) ||
       h0 < 0 || H + h0 >= (1 << 15) || !(keep > 0.f) || row0 < 0)
     return (int)cudaErrorInvalidValue;
-  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
-                     (uint32_t)h0};
+  const DropoutBits drop = dropout_bits(seed, thr, (uint32_t)layer, keep,
+                                        (uint32_t)row0, (uint32_t)h0, bits);
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   prefill_attention_kernel<32, true>
       <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
@@ -433,11 +516,11 @@ extern "C" int ev_encoder_attention_f32(
     prefill_attention_kernel<32><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
-        (const int*)valid_lens, T, H, T, scale, Dropout{});
+        (const int*)valid_lens, T, H, T, scale, DropoutBits{});
   else
     prefill_attention_kernel<64><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         nullptr, q_sb, q_st, k_sb, k_st, v_sb, v_st, (const int*)valid_lens,
-        (const int*)valid_lens, T, H, T, scale, Dropout{});
+        (const int*)valid_lens, T, H, T, scale, DropoutBits{});
   return (int)cudaGetLastError();
 }

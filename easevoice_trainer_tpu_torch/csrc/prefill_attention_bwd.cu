@@ -41,8 +41,9 @@
 //   dS^T with each lane's two query columns' lse and D per tile, then
 //   dV += P^T dO and dK += dS^T Q with each tile of P^T and dS^T as the A
 //   fragment of one k-step.
-// - Both kernels are held to 3 blocks (12 warps) an SM by their launch
-//   bounds (about 160 registers), and take 2^x from the MUFU unit alone.
+// - Both kernels are held to MIN_BLOCKS = 3 blocks (12 warps) an SM by
+//   their launch bounds (about 160 registers), and take 2^x from the MUFU
+//   unit alone.
 // - K1's numbering makes every A fragment an accumulator and every
 //   fragment two 16-byte row loads: in a product over keys (or queries),
 //   k-step j's slot t is key 8j+2t and slot t+4 key 8j+2t+1, so c0/c1 of
@@ -80,19 +81,25 @@
 //
 // Dropout (the s1 fine-tune with T2SConfig.dropout > 0): K1's instance with
 // dropout computed O = P~ V with P~ = P o M / keep, P the undropped softmax,
-// M the keep bits of philox.cuh and keep = 1 - p.  The dkdv and dq kernels
-// with DROP draw M again (no mask is stored) and take, with
-// dP~ = dO V^T:
+// M the keep bits of philox.cuh and keep = 1 - p, and wrote M as bits
+// (philox.cuh's layout, one bit a pair: 1/8 of the bool residual
+// jax.value_and_grad keeps).  The dkdv and dq kernels with DROP read those
+// bits, draw nothing, and take, with dP~ = dO V^T:
 //   dV = P~^T dO = (P o M)^T dO / keep,
 //   dS = P o (dP~ o M / keep - D),
 //   D  = rowsum(dO o O), unchanged: rowsum(P o dP~ o M / keep)
 //      = rowsum(dO o (P~ V)) = rowsum(dO o O),
 // so dsum_kernel is the same, dK = dS^T Q / sqrt(dk) and dQ = dS K / sqrt(dk)
-// as before.  dq draws M as K1 does (lanes t and t ^ 1 share a Philox call);
-// dkdv holds a tile transposed and each lane gathers its four bits by
-// shuffles from the lanes that drew them (philox.cuh keep_cols).  These
-// instances are held to 2 blocks an SM instead of 3, for the generator's
-// registers.  The instances without DROP are the code above, unchanged.
+// as before.  The dkdv walk stages the query tile's two words a row (the
+// block's 64 keys) by 4-byte cp.async beside lse and D, and lane (g, t)
+// shifts out the bits of its keys kw + g (+ 8) at queries qc + 2t (+ 1);
+// the dq walk stages the block's 64 rows' word of each 32-key tile beside
+// K and V.  The arithmetic is that of drawing M, in the same order, so the
+// gradients are the drawing instance's bit for bit.  Free of the
+// generator's registers, these instances take DROP_MIN_BLOCKS = 3 blocks
+// an SM, as the others do (held to 2 while they drew the mask;
+// bench/k5_variants.py --dtype fp32 --dropout times the cap undone).  The
+// instances without DROP are the code above, unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -112,6 +119,8 @@ constexpr int BK = 16 * WARPS;  // keys of a dkdv block
 constexpr int BKT = 32;         // keys of a staged dq key tile
 constexpr int LDS = DK + 4;     // shared row stride in floats, 4 mod 32
 constexpr int DSUM_NT = 256;
+constexpr int MIN_BLOCKS = 3;       // blocks an SM asked of the launch bounds
+constexpr int DROP_MIN_BLOCKS = 3;  // and of those of the instances with DROP
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void split2(float v, uint32_t& hi, uint32_t& lo) {
@@ -268,14 +277,15 @@ __global__ void __launch_bounds__(DSUM_NT) dsum_kernel(
 }
 
 template <bool DROP = false>
-__global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
+__global__ void
+__launch_bounds__(NT, DROP ? DROP_MIN_BLOCKS : MIN_BLOCKS) dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     float* __restrict__ dk, float* __restrict__ dv, long long in_sb,
     long long in_st, long long out_sb, long long out_st,
     const int* __restrict__ x_lens, const int* __restrict__ y_lens, int T,
-    int H, int x_len, float scale, const Dropout drop) {
+    int H, int x_len, float scale, const DropoutBits drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -295,11 +305,21 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
   __shared__ __align__(16) float sdo[2][BQ][LDS];
   __shared__ __align__(16) float slse[2][BQ];
   __shared__ __align__(16) float sd[2][BQ];
+  // DROP: the staged query rows' words of the block's keys, [slot][word][row]
+  __shared__ __align__(16) uint32_t sbits[DROP ? 2 : 1][BK / 32][BQ];
 
   const long long head = (long long)b * in_sb + h * DK;
   const float* qb = q + head;
   const float* gb = dout + (long long)b * T * H * DK + h * DK;
   const long long lrow = ((long long)b * H + h) * T;
+  // DROP: the block's first word of the mask in a row, the end of its
+  // segment's words, and this (b, h)'s words
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] const int w_blk =
+      text ? k0 / 32 : nw_text + (k0 - x_len) / 32;
+  [[maybe_unused]] const int w_seg = text ? nw_text : W;
+  [[maybe_unused]] const uint32_t* bits = drop.bits + lrow * W;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int q0 = q_begin + i * BQ;
@@ -315,6 +335,14 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
         const bool ok = row < T;
         cp_async4(&slse[slot][tid], lse + (ok ? lrow + row : 0), ok);
         cp_async4(&sd[slot][tid], dsum + (ok ? lrow + row : 0), ok);
+      }
+      if constexpr (DROP) {
+        for (int p = tid; p < BK / 32 * BQ; p += NT) {
+          const int w = p / BQ, r = p % BQ, row = q0 + r;
+          const bool ok = row < T && w_blk + w < w_seg;
+          cp_async4(&sbits[slot][w][r],
+                    bits + (ok ? (long long)row * W + w_blk + w : 0), ok);
+        }
       }
     }
     cp_async_commit();
@@ -337,6 +365,8 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
   const bool live = kw < kend;  // some key of the warp is seen
   const int keys[2] = {kw + g, kw + g + 8};
   const int y_end = x_len + yv;
+  // DROP: the warp's keys are bits 16 (warp & 1) + g (+ 8) of word warp / 2
+  [[maybe_unused]] const int bit0 = 16 * (warp & 1) + g;
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
@@ -362,9 +392,12 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         if constexpr (DROP) {  // dP~ o M / keep
-          const uint32_t keep =
-              keep_cols(drop, b, h, qc + 8 * n,
-                        (text ? kw : kw - x_len) / 4, !text, g, t);
+          // bit e: key keys[e >> 1], query qc + 8n + 2t + (e & 1)
+          const uint2 w2 = *reinterpret_cast<const uint2*>(
+              &sbits[slot][warp >> 1][16 * j + 8 * n + 2 * t]);
+          const uint32_t x = w2.x >> bit0, y = w2.y >> bit0;
+          const uint32_t keep = (x & 1u) | (y & 1u) << 1 |
+                                (x >> 8 & 1u) << 2 | (y >> 8 & 1u) << 3;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             dpt[n][e] = keep >> e & 1u ? dpt[n][e] * drop.inv_keep : 0.f;
@@ -409,14 +442,15 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dkdv_kernel(
 }
 
 template <bool DROP = false>
-__global__ void __launch_bounds__(NT, DROP ? 2 : 3) dq_kernel(
+__global__ void
+__launch_bounds__(NT, DROP ? DROP_MIN_BLOCKS : MIN_BLOCKS) dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dsum,
     float* __restrict__ dq, long long in_sb, long long in_st,
     long long out_sb, long long out_st, const int* __restrict__ x_lens,
     const int* __restrict__ y_lens, int T, int H, int x_len, float scale,
-    const Dropout drop) {
+    const DropoutBits drop) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -434,10 +468,18 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dq_kernel(
 
   __shared__ __align__(16) float sk[2][BKT][LDS];
   __shared__ __align__(16) float sv[2][BKT][LDS];
+  // DROP: the block's rows' word of the staged key tile, [slot][row]
+  __shared__ __align__(16) uint32_t sbits[DROP ? 2 : 1][BQ];
+  static_assert(BKT == 32, "a dq key tile is one word of the mask");
 
   const long long head = (long long)b * in_sb + h * DK;
   const float* kb = k + head;
   const float* vb = v + head;
+  // DROP: this (b, h)'s words of the mask, W a row, text words first
+  [[maybe_unused]] const int nw_text = (x_len + 31) / 32;
+  [[maybe_unused]] const int W = mask_words(T, x_len);
+  [[maybe_unused]] const uint32_t* bits =
+      drop.bits + ((long long)b * H + h) * T * W;
   auto issue = [&](int i, int slot) {
     if (i < n_tiles) {
       const int k0 = i < n_text ? i * BKT : x_len + (i - n_text) * BKT;
@@ -448,6 +490,15 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dq_kernel(
         const bool ok = key < kend;
         cp_async16(&sk[slot][r][c], ok ? kb + key * in_st + c : kb, ok);
         cp_async16(&sv[slot][r][c], ok ? vb + key * in_st + c : vb, ok);
+      }
+      if constexpr (DROP) {  // text tile i is word i, audio tile i - n_text
+        const int w = i < n_text ? i : nw_text + i - n_text;
+        for (int r = tid; r < BQ; r += NT) {
+          const int row = q0 + r;
+          const bool ok = row < T;
+          cp_async4(&sbits[slot][r],
+                    bits + (ok ? (long long)row * W + w : 0), ok);
+        }
       }
     }
     cp_async_commit();
@@ -497,15 +548,18 @@ __global__ void __launch_bounds__(NT, DROP ? 2 : 3) dq_kernel(
       mma_dims<4>(s, qh, ql, &sk[slot][0][0], g, t);
       mma_dims<4>(dp, gh, gl, &sv[slot][0][0], g, t);
       if constexpr (DROP) {  // dP~ o M / keep
-        const int group = (text ? k0 : k0 - x_len) / 4;
+        // the rows' words of the tile: bit 8n + 2t + (e & 1) for element e
+        // of score tile n
+        uint32_t word[2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const uint32_t keep =
-              keep_rows(drop, b, h, rows, group + 2 * n, !text, t);
+        for (int r = 0; r < 2; ++r)
+          word[r] = sbits[slot][16 * warp + g + 8 * r] >> 2 * t;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            dp[n][e] = keep >> e & 1u ? dp[n][e] * drop.inv_keep : 0.f;
-        }
+            dp[n][e] = word[e >> 1] >> (8 * n + (e & 1)) & 1u
+                           ? dp[n][e] * drop.inv_keep : 0.f;
       }
       // dS = P (dP - D) in place of S
 #pragma unroll
@@ -543,7 +597,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                float* dsum, float* dq, float* dk, float* dv,
                long long in_sb, long long in_st, long long out_sb,
                long long out_st, const int* x_lens, const int* y_lens, int B,
-               int T, int H, int x_len, float scale, const Dropout& drop,
+               int T, int H, int x_len, float scale, const DropoutBits& drop,
                cudaStream_t s) {
   if (B < 1 || T < 1 || H < 1 || x_len < 0 || x_len > T)
     return (int)cudaErrorInvalidValue;
@@ -579,25 +633,22 @@ extern "C" int ev_prefill_attention_bwd_f32(
       (const float*)dout, (const float*)lse, (float*)dsum, (float*)dq,
       (float*)dk, (float*)dv, in_sb, in_st, out_sb, out_st,
       (const int*)x_lens, (const int*)y_lens, B, T, H, x_len, scale,
-      Dropout{}, (cudaStream_t)stream);
+      DropoutBits{}, (cudaStream_t)stream);
 }
 
-// The gradient of K1 with dropout: the arguments above, then K1's Philox
-// seed, layer index, keep threshold, keep = 1 - p, global row of batch
-// row 0 and head of head 0 (philox.cuh), which draw its mask again.
+// The gradient of K1 with dropout: the arguments above, then keep = 1 - p
+// and the (B, H, T, W) int32 keep bits that K1's dropout instance wrote
+// (philox.cuh), which it reads in both walks.
 extern "C" int ev_prefill_attention_bwd_dropout_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, long long in_sb, long long in_st, long long out_sb,
     long long out_st, const void* x_lens, const void* y_lens, int B, int T,
-    int H, int x_len, float scale, unsigned long long seed, int layer,
-    unsigned thr, float keep, int row0, int h0, void* stream) {
-  if (layer < 0 || layer >= (1 << 15) || h0 < 0 || H + h0 >= (1 << 15) ||
-      !(keep > 0.f) || row0 < 0)
-    return (int)cudaErrorInvalidValue;
-  const Dropout drop{(uint32_t)seed, (uint32_t)(seed >> 32), thr,
-                     (uint32_t)layer, 1.f / keep, (uint32_t)row0,
-                     (uint32_t)h0};
+    int H, int x_len, float scale, float keep, const void* bits,
+    void* stream) {
+  if (!(keep > 0.f) || bits == nullptr) return (int)cudaErrorInvalidValue;
+  const DropoutBits drop =
+      dropout_bits(0, 0, 0, keep, 0, 0, const_cast<void*>(bits));
   return launch_bwd<true>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o,
       (const float*)dout, (const float*)lse, (float*)dsum, (float*)dq,

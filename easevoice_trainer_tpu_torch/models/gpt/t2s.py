@@ -18,9 +18,9 @@ parity tests hold the port to.
 With ``T2SConfig.dropout > 0`` (``configs/gpt.yaml`` ships 0) a module in
 training mode drops where the JAX layer does with ``deterministic=False``
 (t2s.py:128, :155, :160, :162), in its order: the attention probabilities
-inside K1 (K5 draws the same mask again; the twins on the CPU), then the
-attention output, the FFN's hidden layer and the FFN output through
-``nn.layers.dropout``.  One host integer ``seed`` a forward draws them
+inside K1 (which writes the mask as bits for K5 to read; the twins on the
+CPU), then the attention output, the FFN's hidden layer and the FFN output
+through ``nn.layers.dropout``.  One host integer ``seed`` a forward draws them
 all: the probabilities' masks are Philox of (seed ^ ATTENTION_KEY, layer,
 batch row, head, query, key) (``ops/philox.py``), the other three sites'
 come from a ``torch.Generator`` on the model's device seeded with

@@ -35,13 +35,13 @@ row, key) (``ops/philox.py``, ``csrc/philox.cuh``): on the card K1's
 dropout instances draw it inside their loops (counted in
 ``launches_dropout`` / ``launches_dropout_bf16``), on the CPU the twins
 take it from ``attention_keep_mask`` and apply ``where(M, P / (1 - p), 0)``
-in fp32.  K5's fp32 instance draws the bits again.  K1's bf16 instance
-also writes them, AND-ed with the pairs' visibility, as ``mask_bits`` (one
-bit a pair, ``ops/philox.py pack_keep_mask``; :func:`new_mask_bits` makes
-the tensor), and K5's bf16 instance reads them and draws nothing: on the
-card a bf16 K5 with dropout raises without them, and the autograd Function
-saves them for its backward.  On the CPU the twins fill and take the same
-bits.  The row max, row sum and lse stay the undropped softmax's.
+in fp32.  K1 also writes the bits, AND-ed with the pairs' visibility, as
+``mask_bits`` (one bit a pair, ``ops/philox.py pack_keep_mask``;
+:func:`new_mask_bits` makes the tensor), and K5 reads them and draws
+nothing, in fp32 and bf16 alike: on the card K5 with dropout raises
+without them, and the autograd Function saves them for its backward.  On
+the CPU the twins fill and take the same bits.  The row max, row sum and
+lse stay the undropped softmax's.
 ``dropout`` None or p = 0 launches the instances without dropout; p = 1
 gives zeros, as flax does.
 """
@@ -267,8 +267,8 @@ def _suffix(dtype: torch.dtype) -> str:
 
 
 def _drop_args(dropout: Optional[AttentionDropout]):
-    """The dropout entry points' trailing arguments (seed, layer, keep
-    threshold, 1 - p, row0, h0); none without dropout."""
+    """K1's dropout entry points' arguments before the bits (seed, layer,
+    keep threshold, 1 - p, row0, h0); none without dropout."""
     if dropout is None:
         return ()
     return (int(dropout.seed) & 0xFFFFFFFFFFFFFFFF, int(dropout.layer),
@@ -288,24 +288,21 @@ def _prefill_cuda(q, k, v, x_len: int, x_lens, y_lens, with_lse: bool,
                   mask_bits: Optional[torch.Tensor] = None):
     """K1 on the card: o (B, T, H, dk), and the row logsumexp (B, H, T)
     when ``with_lse`` (else None, and K1 writes no lse); with ``dropout``
-    (0 < p < 1) its dropout instance, whose bf16 instance writes the keep
-    bits into ``mask_bits`` (new_mask_bits) when given."""
+    (0 < p < 1) its dropout instance, which writes the keep bits into
+    ``mask_bits`` (new_mask_bits) when given."""
     _check_cuda("prefill_attention", q, k, v, x_lens, y_lens)
     _check_heads("prefill_attention", q, k, v, dtypes=GPT_DTYPES)
     b, t, h, dk = q.shape
     if not 0 <= x_len <= t:
         raise ValueError(f"prefill_attention: x_len {x_len} outside [0, {t}]")
     _check_bits("prefill_attention", mask_bits, dropout, q, x_len)
-    if mask_bits is not None and q.dtype != torch.bfloat16:
-        raise ValueError("prefill_attention: only the bf16 instance writes "
-                         "mask_bits (the fp32 K5 draws the mask again)")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     o = torch.empty((b, t, h, dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     drop = _drop_args(dropout)
-    if drop and q.dtype == torch.bfloat16:
+    if drop:
         drop += (None if mask_bits is None else mask_bits.data_ptr(),)
     lib = build.build()
     rc = getattr(lib, "ev_prefill_attention_" + ("dropout_" if drop else "")
@@ -340,9 +337,8 @@ def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 writing its row logsumexp too: (o (B, T, H, dk), lse (B, H, T));
     the twins on the CPU.  ``dropout`` (0 <= p < 1) drops the
     probabilities; the lse is the undropped softmax's.  ``mask_bits``
-    (:func:`new_mask_bits`; bf16 only on the card): filled with the keep
-    bits AND-ed with the pairs' visibility, which K5's bf16 instance
-    takes."""
+    (:func:`new_mask_bits`): filled with the keep bits AND-ed with the
+    pairs' visibility, which K5 with dropout takes."""
     dropout = _dropping(dropout)
     if q.device.type == "cpu":
         _check_bits("prefill_attention_lse", mask_bits, dropout, q, x_len)
@@ -358,7 +354,7 @@ def prefill_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def keep_bits_reference(mask: torch.Tensor, x_len: int, x_lens: torch.Tensor,
                         y_lens: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the bits K1's bf16 dropout instance writes: the keep
+    """Plain twin of the bits K1's dropout instances write: the keep
     mask (B, H, T, T) AND-ed with the hybrid mask's visible pairs, packed
     (``pack_keep_mask``) to (B, H, T, W) int32."""
     t = mask.shape[-1]
@@ -443,10 +439,10 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
     dQ), and counts three.  fp32 or bf16 (then o, do and the outputs are
     bf16, lse fp32; ``launches_bf16`` counts them).  ``dropout``: the one K1
     ran with (0 <= p < 1); its instances count in ``launches_dropout`` /
-    ``launches_dropout_bf16``.  The fp32 instance draws K1's mask again;
-    the bf16 one reads ``mask_bits``, the bits K1's bf16 instance wrote
-    (:func:`prefill_attention_lse`), and raises without them.  On the CPU
-    the twin reads ``mask_bits`` when given, else draws the mask."""
+    ``launches_dropout_bf16``.  On the card they read ``mask_bits``, the
+    bits K1 wrote (:func:`prefill_attention_lse`), in either dtype, and
+    raise without them.  On the CPU the twin reads ``mask_bits`` when
+    given, else draws the mask."""
     dropout = _dropping(dropout)
     _check_bits("prefill_attention_bwd", mask_bits, dropout, q, x_len)
     if q.device.type == "cpu":
@@ -488,19 +484,16 @@ def prefill_attention_bwd(q, k, v, o, lse, do, x_len: int, x_lens, y_lens,
         raise ValueError("prefill_attention_bwd: o and do must be "
                          f"{tuple(q.shape)}, 16-byte aligned, lse "
                          f"{(b, h, t)}")
-    if dropout is not None and (mask_bits is None) == (
-            q.dtype == torch.bfloat16):
+    if dropout is not None and mask_bits is None:
         raise ValueError(
-            "prefill_attention_bwd: with dropout the bf16 instance takes "
-            "K1's keep bits (mask_bits from prefill_attention_lse) and the "
-            "fp32 instance draws the mask again (no mask_bits)")
+            "prefill_attention_bwd: with dropout K5 takes K1's keep bits "
+            "(mask_bits from prefill_attention_lse)")
     x_lens = x_lens.to(torch.int32).contiguous()
     y_lens = y_lens.to(torch.int32).contiguous()
     dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq, dk_, dv = out
-    drop = _drop_args(dropout)
-    if drop and mask_bits is not None:
-        drop = (1.0 - dropout.p, mask_bits.data_ptr())
+    drop = () if dropout is None else (1.0 - dropout.p,
+                                       mask_bits.data_ptr())
     rc = getattr(build.build(), "ev_prefill_attention_bwd_"
                  + ("dropout_" if drop else "") + _suffix(q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -532,14 +525,12 @@ def _split_heads(qkv: torch.Tensor, n_heads: int):
 class _SelfAttention(torch.autograd.Function):
     """K1 forward (with its row logsumexp) and K5 backward; d(qkv) is one
     (B, T, 3 * D) tensor whose three slices K5 writes in place.  K5 takes
-    K1's dropout: in fp32 it draws K1's mask again, in bf16 it reads the
-    keep bits K1 wrote, saved here for it."""
+    K1's dropout: it reads the keep bits K1 wrote, saved here for it."""
 
     @staticmethod
     def forward(ctx, qkv, n_heads, x_len, x_lens, y_lens, dropout):
         q, k, v = _split_heads(qkv, n_heads)
-        bits = (new_mask_bits(q, x_len) if dropout is not None
-                and qkv.dtype == torch.bfloat16 else None)
+        bits = new_mask_bits(q, x_len) if dropout is not None else None
         o, lse = _prefill_cuda(q, k, v, x_len, x_lens, y_lens, True, dropout,
                                bits)
         ctx.save_for_backward(qkv, o, lse, x_lens, y_lens, bits)

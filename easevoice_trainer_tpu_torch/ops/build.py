@@ -53,19 +53,17 @@ for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd", "ev_mrf_conv",
               "ev_mrf_conv_bwd_data", "ev_mrf_conv_bwd_weight"):
     SIGNATURES[_name + "_bf16"] = SIGNATURES[_name + "_f32"]
 SIGNATURES["ev_mrf_conv_bwd_weight_max_clusters_bf16"] = [_I] * 7
-# K1 and K5 with dropout (the s1 fine-tune): the arguments of the instance
-# without, then the Philox seed, the layer, the keep threshold, 1 - p, the
-# global batch row of batch row 0 and the layer's head of head 0, before the
-# stream; K1's bf16 instance then the keep bits it writes (or null)
-_DRAW = [ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _I]
-for _name in ("ev_prefill_attention", "ev_prefill_attention_bwd"):
-    SIGNATURES[f"{_name}_dropout_f32"] = \
-        SIGNATURES[f"{_name}_f32"][:-1] + _DRAW + [_P]
-SIGNATURES["ev_prefill_attention_dropout_bf16"] = \
-    SIGNATURES["ev_prefill_attention_bf16"][:-1] + _DRAW + [_P, _P]
-# K5's bf16 instance with dropout reads K1's bits: 1 - p and the bits
-SIGNATURES["ev_prefill_attention_bwd_dropout_bf16"] = \
-    SIGNATURES["ev_prefill_attention_bwd_bf16"][:-1] + [_F, _P, _P]
+# K1 and K5 with dropout (the s1 fine-tune), in each dtype: K1 takes the
+# arguments of the instance without, then the Philox seed, the layer, the
+# keep threshold, 1 - p, the global batch row of batch row 0, the layer's
+# head of head 0 and the keep bits it writes (or null), before the stream;
+# K5 reads K1's bits: 1 - p and the bits
+for _dt in ("f32", "bf16"):
+    SIGNATURES[f"ev_prefill_attention_dropout_{_dt}"] = \
+        SIGNATURES[f"ev_prefill_attention_{_dt}"][:-1] + [
+            ctypes.c_ulonglong, _I, ctypes.c_uint, _F, _I, _I, _P, _P]
+    SIGNATURES[f"ev_prefill_attention_bwd_dropout_{_dt}"] = \
+        SIGNATURES[f"ev_prefill_attention_bwd_{_dt}"][:-1] + [_F, _P, _P]
 
 
 class KernelLibrary:

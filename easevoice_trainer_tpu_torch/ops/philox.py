@@ -38,8 +38,8 @@ So a keep bit is a function of (seed, layer, row0 + b, h0 + h, row, key)
 and the text / audio split alone: no tile, warp or launch enters it, and
 the fp32 and bf16 kernels, K1 and K5, and this twin all draw the same bit.
 
-The mask as bits (K1's bf16 instance writes it, K5's bf16 instance reads
-it instead of drawing it again): an int32 tensor (..., T, W) with
+The mask as bits (K1's dropout instances write it, K5's read it instead of
+drawing it again, in fp32 and bf16 alike): an int32 tensor (..., T, W) with
 ``W = mask_words(T, x_len) = ceil(x_len / 32) + ceil((T - x_len) / 32)``,
 a query row's text words and then its audio words; bit ``j`` of word ``w``
 of a segment is key ``32 w + j`` of that segment.  K1 writes the keep

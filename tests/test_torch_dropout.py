@@ -260,17 +260,19 @@ def test_keep_mask_packs_into_bits_and_back(x_len, x_lens, y_len, y_lens,
     assert torch.equal(got.bool(), mask)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
 @pytest.mark.parametrize("x_len,x_lens,y_len,y_lens,row0,h0", BITS_CASES)
-def test_k1_bf16_twin_writes_the_mask_it_applies(x_len, x_lens, y_len,
-                                                 y_lens, row0, h0):
-    """K1's bf16 dropout twin (``prefill_attention_lse`` on the CPU with
-    ``mask_bits``) fills exactly ``pack_keep_mask`` of the mask it applies,
-    AND-ed with the visible pairs (``keep_bits_reference``), and its o is
-    the twin's with the mask read back from those bits."""
+def test_k1_twin_writes_the_mask_it_applies(dtype, x_len, x_lens, y_len,
+                                            y_lens, row0, h0):
+    """K1's dropout twin (``prefill_attention_lse`` on the CPU with
+    ``mask_bits``), fp32 and bf16, fills exactly ``pack_keep_mask`` of the
+    mask it applies, AND-ed with the visible pairs
+    (``keep_bits_reference``), and its o is the twin's with the mask read
+    back from those bits."""
     drop, b, t, xl, yl, mask = _bits_case(x_len, x_lens, y_len, y_lens, row0,
                                           h0)
     rng = np.random.default_rng(row0 + h0 + t)
-    q, k, v = (torch.from_numpy(rng.normal(size=(b, t, 2, 32))).to(BF)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, t, 2, 32))).to(dtype)
                for _ in range(3))
     bits = torch.full_like(att.new_mask_bits(q, x_len), -1)
     o, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
@@ -306,6 +308,54 @@ def test_k5_twin_given_the_bits_is_the_twin_given_the_mask(
                                      dropout=drop)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_k5_fp32_twin_from_the_bits_matches_jax(flax_masks):
+    """K5's fp32 dropout twin (``prefill_attention_bwd`` on the CPU), given
+    the bits K1's fp32 twin wrote, against JAX's gradient of
+    ``TransformerLayer.attention`` in its q, k and v (the fused projection's
+    output, which a flax method interceptor hands the layer in place of
+    ``qkv(x)``; ``out`` passed through), flax dropping the probabilities
+    with the port's keep mask: dq, dk, dv within 1e-5 relative to the
+    largest magnitude (fp32 against fp32), and K1's o within the same."""
+    rng = np.random.default_rng(23)
+    b, h, dk, t = len(X_LENS), 2, 32, X_LEN + Y_LEN
+    d = h * dk
+    qkv = rng.normal(size=(b, t, 3 * d)).astype(np.float32)
+    do = rng.normal(size=(b, t, h, dk)).astype(np.float32)
+    xl, yl = torch.tensor(X_LENS), torch.tensor(Y_LENS)
+    drop = att.AttentionDropout(P, 2 ** 34 + 5, 1)
+    q, k, v = att._split_heads(torch.from_numpy(qkv), h)
+    bits = att.new_mask_bits(q, X_LEN)
+    o, lse = att.prefill_attention_lse(q, k, v, X_LEN, xl, yl, drop,
+                                       mask_bits=bits)
+    got = att.prefill_attention_bwd(q, k, v, o, lse, torch.from_numpy(do),
+                                    X_LEN, xl, yl, dropout=drop,
+                                    mask_bits=bits)
+    flax_masks.append(drop.keep_mask(b, h, t, X_LEN, "cpu").numpy())
+    layer = jt2s.TransformerLayer(d, h, 128, dropout=P)
+    bias = jt2s.build_hybrid_mask_bias(X_LEN, Y_LEN, jnp.asarray(X_LENS),
+                                       jnp.asarray(Y_LENS))
+
+    def jloss(z):
+        def inject(call, args, kwargs, context):
+            name = context.module.name
+            if context.method_name != "__call__" or name not in ("qkv",
+                                                                 "out"):
+                return call(*args, **kwargs)
+            return z if name == "qkv" else args[0]
+
+        with flax_nn.intercept_methods(inject):
+            y, _ = layer.apply({"params": {}}, jnp.zeros((b, t, d)), bias,
+                               False, method=jt2s.TransformerLayer.attention)
+        return jnp.sum(y * do.reshape(b, t, d)), y
+
+    (_, jo), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(qkv))
+    assert not flax_masks
+    assert_close(o.reshape(b, t, d).numpy(), _f32(jo), 1e-5, "o")
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          np.split(_f32(jg), 3, axis=-1)):
+        assert_close(g.numpy(), w.reshape(b, t, h, dk), 1e-5, name)
 
 
 def test_mask_bits_are_checked():

@@ -960,12 +960,18 @@ def test_k1_variants_dropout_undo_one_choice_each():
     """``bench/k1_variants.py --dropout`` writes variants of the tree's K1
     bf16 source that each differ from it in one constant of the instance
     with dropout: ``DROP_MT`` the other of 1 and 2, ``DROP_MIN_BLOCKS`` one
-    lower."""
+    lower; its sources by dtype are the tree's K1 sources."""
     import os
 
     from easevoice_trainer_tpu_torch.bench import k1_variants
     from easevoice_trainer_tpu_torch.ops import build
 
+    for source, kernel, entry in k1_variants.SOURCES.values():
+        with open(os.path.join(build.CSRC, source)) as f:
+            text = f.read()
+        dropout = entry.replace("attention_", "attention_dropout_")
+        for name in (kernel, f'"C" int {entry}', f'"C" int {dropout}'):
+            assert f"{name}(" in text, (source, name)
     with open(os.path.join(build.CSRC, "prefill_attention_bf16.cu")) as f:
         src = f.read()
     got = k1_variants.variants_dropout(src)
@@ -998,6 +1004,31 @@ def test_k5_variants_bf16_undo_one_choice_each():
         changed = [(a, b) for a, b in zip(src.splitlines(),
                                           text.splitlines()) if a != b]
         assert len(changed) == (2 if name == "no_cap" else 1), name
+
+
+def test_k5_variants_fp32_undo_one_choice_each():
+    """``bench/k5_variants.py`` writes variants of the tree's K5 fp32
+    source, each undoing one choice: with ``--dropout`` the dropout
+    instances' blocks-an-SM cap one lower (``drop_cap2``, the cap they had
+    while they drew the mask) or no cap on either walk (``no_cap``);
+    without, the four choices of the instances without dropout."""
+    import os
+
+    from easevoice_trainer_tpu_torch.bench import k5_variants
+    from easevoice_trainer_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, "prefill_attention_bwd.cu")) as f:
+        src = f.read()
+    got = k5_variants.variants_dropout(src)
+    assert sorted(got) == ["drop_cap2", "no_cap"]
+    assert set(k5_variants.variants(src)) == {"q8", "exp2f", "no_cap", "cvt"}
+    for name, text in got.items():
+        changed = [(a, b) for a, b in zip(src.splitlines(),
+                                          text.splitlines()) if a != b]
+        assert len(changed) == (2 if name == "no_cap" else 1), name
+        if name == "drop_cap2":
+            assert changed[0][1].startswith(
+                "constexpr int DROP_MIN_BLOCKS = 2;"), changed
 
 
 # K5's bf16 kernels at the edges of their own tiles: 16-row MMA fragments,
@@ -1571,9 +1602,9 @@ def _dropout_heads(gen, dtype, x_len, x_lens, y_len, y_lens, h=16):
 
 
 def _k1_dropout(q, k, v, x_len, xl, yl, drop):
-    """K1's dropout instance with its lse: (o, lse, the keep bits it wrote
-    in bf16, or None in fp32, whose K5 draws the mask again)."""
-    bits = att.new_mask_bits(q, x_len) if q.dtype == torch.bfloat16 else None
+    """K1's dropout instance with its lse: (o, lse, the keep bits it wrote,
+    which K5 reads)."""
+    bits = att.new_mask_bits(q, x_len)
     o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
                                        mask_bits=bits)
     return o, lse, bits
@@ -1660,20 +1691,21 @@ def test_prefill_attention_bwd_dropout_matches_twin(dtype, x_len, x_lens,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 @pytest.mark.parametrize("x_len,x_lens,y_len,y_lens",
                          K5_CASES + K1_BF16_EDGES + K5_BF16_EDGES)
-def test_prefill_attention_dropout_bf16_writes_the_bits(x_len, x_lens, y_len,
-                                                        y_lens):
-    """K1 bf16's dropout instance writes the keep mask as bits
+def test_prefill_attention_dropout_writes_the_bits(dtype, x_len, x_lens,
+                                                   y_len, y_lens):
+    """K1's dropout instance, fp32 and bf16, writes the keep mask as bits
     (``ops/philox.py pack_keep_mask`` of ``attention_keep_mask`` AND-ed
     with the visible pairs), bit for bit over the whole (B, H, T, W)
     tensor, set to all ones before the launch so that the words of keys it
     never walks must be written too, at ``row0`` 5 and ``h0`` 8; repeated
     launches write the same bits and o, and a launch without the tensor
-    gives the same o."""
+    gives the same o and lse."""
     gen = _card()
-    q, k, v, _, xl, yl = _dropout_heads(gen, torch.bfloat16, x_len, x_lens,
-                                        y_len, y_lens, h=8)
+    q, k, v, _, xl, yl = _dropout_heads(gen, dtype, x_len, x_lens, y_len,
+                                        y_lens, h=8)
     drop = att.AttentionDropout(0.1, 0x5EED_0022, 17, 5, 8)
     bits = torch.full_like(att.new_mask_bits(q, x_len), -1)
     o, lse = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
@@ -1685,32 +1717,39 @@ def test_prefill_attention_dropout_bf16_writes_the_bits(x_len, x_lens, y_len,
     again = torch.zeros_like(bits)
     o2, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop,
                                       mask_bits=again)
-    o3, _ = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
+    o3, lse3 = att.prefill_attention_lse(q, k, v, x_len, xl, yl, drop)
     assert torch.equal(again, bits)
     assert torch.equal(o2, o) and torch.equal(o3, o)
+    assert torch.equal(lse3, lse)
 
 
 @pytest.mark.cuda
 def test_prefill_attention_bwd_dropout_bits_by_dtype():
-    """On the card the bf16 K5 with dropout reads K1's bits and raises
-    without them (it never draws the mask again); the fp32 K5 draws it
-    and refuses bits; K1's fp32 instance writes none."""
+    """On the card K5 with dropout reads K1's bits in both dtypes and
+    raises without them (it never draws the mask again), before launching
+    anything; given them, its gradients equal the twin's within the
+    dtype's tolerance."""
     gen = _card()
     drop = att.AttentionDropout(0.1, 7, 1)
     for dtype in DROPOUT_DTYPES:
         q, k, v, do, xl, yl = _dropout_heads(gen, dtype, 40, [1, 40],
                                              95, [95, 60])
-        o, lse = att.prefill_attention_lse(q, k, v, 40, xl, yl, drop)
-        bits = att.new_mask_bits(q, 40)
+        o, lse, bits = _k1_dropout(q, k, v, 40, xl, yl, drop)
+        before = prefill_attention_bwd.launches_dropout + \
+            prefill_attention_bwd.launches_dropout_bf16
         with pytest.raises(ValueError, match="mask_bits"):
             prefill_attention_bwd(q, k, v, o, lse, do, 40, xl, yl,
-                                  dropout=drop,
-                                  mask_bits=None if dtype == torch.bfloat16
-                                  else bits)
-        if dtype == torch.float32:
-            with pytest.raises(ValueError, match="mask_bits"):
-                att.prefill_attention_lse(q, k, v, 40, xl, yl, drop,
-                                          mask_bits=bits)
+                                  dropout=drop)
+        assert before == prefill_attention_bwd.launches_dropout + \
+            prefill_attention_bwd.launches_dropout_bf16
+        got = prefill_attention_bwd(q, k, v, o, lse, do, 40, xl, yl,
+                                    dropout=drop, mask_bits=bits)
+        b, t, h, _ = q.shape
+        want = att.prefill_attention_bwd_reference(
+            q, k, v, o, lse, do, 40, xl, yl,
+            drop.keep_mask(b, h, t, 40, "cuda"), 0.1)
+        for g, w in zip(got, want):
+            _close(g, w, dtype, rel=True)
 
 
 @pytest.mark.cuda
@@ -1766,8 +1805,7 @@ def test_dropout_h0_is_the_layer_head(dtype, x_len, x_lens, y_len, y_lens,
                                    dropout=part, mask_bits=bits8)
     assert torch.equal(o8, o[:, :, heads])
     assert torch.equal(lse8, lse[:, heads])
-    if bits is not None:
-        assert torch.equal(bits8, bits[:, heads])
+    assert torch.equal(bits8, bits[:, heads])
     for g8, g in zip(grads8, grads):
         assert torch.equal(g8, g[:, :, heads])
     b, t = q.shape[:2]
@@ -1788,8 +1826,8 @@ def test_dropout_h0_is_the_layer_head(dtype, x_len, x_lens, y_len, y_lens,
 @pytest.mark.parametrize("dtype", DROPOUT_DTYPES)
 def test_self_attention_dropout_autograd_on_the_card(dtype):
     """The training attention with dropout through the autograd Function
-    (K1 and K5's dropout instances; in fp32 K5 draws K1's mask again, in
-    bf16 it reads the keep bits K1 wrote, which the Function saves)
+    (K1 and K5's dropout instances; K5 reads the keep bits K1 wrote, which
+    the Function saves)
     against autograd of the dense twin with the same mask; p = 0 launches
     the instances without dropout, p = 1 gives zeros."""
     gen = _card()
